@@ -1,0 +1,351 @@
+"""GBDT boosting loop, main-path subset.
+
+The port of the JAX package's boosting/gbdt.py for the path
+``train({"objective": "binary"}, Dataset(X, label=y))`` runs: init,
+boost-from-average (reference gbdt.cpp:312), the persistent
+one-tree-per-iteration loop (GBDT::TrainOneIter, gbdt.cpp:337), metric
+evaluation, prediction, and the model text (gbdt_model_text.cpp:306
+SaveModelToString / :410 LoadModelFromString).
+
+Each iteration hands the learner's tree arrays to the host right away
+(one read per tree), so ``models`` holds plain host Trees. DART, GOSS,
+RF, bagging, rollback and refit are not ported yet (ROADMAP A10).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..io.binning import BIN_CATEGORICAL
+from ..io.dataset import BinnedDataset
+from ..metric.metrics import Metric
+from ..models.tree import Tree
+from ..objective.functions import ObjectiveFunction, create_objective
+from ..utils import log
+
+K_EPSILON = 1e-15
+K_MODEL_VERSION = "v3"
+
+
+def parse_tree_blocks(text: str) -> List[Tree]:
+    """The Tree= blocks of a model text as host Trees."""
+    body = text[text.index("tree_sizes="):]
+    out = []
+    for blk in body.split("Tree=")[1:]:
+        blk = blk.split("end of trees")[0]
+        out.append(Tree.from_string(blk.partition("\n")[2]))
+    return out
+
+
+class _ScoreState:
+    """Per-dataset score accumulator on the device (reference
+    score_updater.hpp:21); validation sets also keep their bin codes
+    there for the per-tree bin-space traversal."""
+
+    def __init__(self, dataset: BinnedDataset, num_trees_per_iter: int,
+                 device, with_bins: bool = False) -> None:
+        self.dataset = dataset
+        init = np.zeros((num_trees_per_iter, dataset.num_data),
+                        dtype=np.float32)
+        self.has_init_score = dataset.metadata.init_score is not None
+        if self.has_init_score:
+            init += np.asarray(dataset.metadata.init_score, np.float32
+                               ).reshape(num_trees_per_iter, -1)
+        self.score = torch.as_tensor(init, device=device)
+        self.bins = (torch.as_tensor(dataset.bins, device=device)
+                     if with_bins else None)
+
+    def add_constant(self, val: float, class_id: int) -> None:
+        self.score[class_id] += torch.tensor(val, dtype=torch.float32)
+
+
+class GBDT:
+    """The boosting loop (reference gbdt.h:34)."""
+
+    def __init__(self, device="cpu") -> None:
+        self.device = torch.device(device)
+        self.models: List[Tree] = []
+        self.iter = 0
+        self.config: Optional[Config] = None
+        self.train_data: Optional[BinnedDataset] = None
+        self.objective: Optional[ObjectiveFunction] = None
+        self.metrics: List[Metric] = []
+        self.valid_metrics: List[List[Metric]] = []
+        self.valid_score: List[_ScoreState] = []
+        self.num_tree_per_iteration = 1
+        self.loaded_parameter = ""
+        self.feature_names_: List[str] = []
+        self.label_idx = 0
+        self.max_feature_idx = 0
+        self._fused = None
+
+    # ------------------------------------------------------------------
+    def init(self, config: Config, train_data: BinnedDataset,
+             objective: Optional[ObjectiveFunction],
+             metrics: Sequence[Metric]) -> None:
+        """reference GBDT::Init (gbdt.cpp:42)."""
+        from ..treelearner.fused import (FusedSerialGrower,
+                                         fused_reject_reason,
+                                         port_reject_reason)
+        self.config = config
+        self.train_data = train_data
+        self.objective = objective
+        self.num_data = train_data.num_data
+        self.num_tree_per_iteration = (
+            objective.num_tree_per_iteration if objective is not None
+            else max(config.num_class, 1))
+        self.shrinkage_rate = config.learning_rate
+        self.metrics = list(metrics)
+        self.max_feature_idx = train_data.num_total_features - 1
+        self.feature_names_ = list(train_data.feature_names)
+        if objective is not None:
+            objective.init(train_data.metadata, self.num_data)
+        for m in self.metrics:
+            m.init(train_data.metadata, self.num_data)
+        reason = fused_reject_reason(config, train_data, objective)
+        if reason is not None:
+            log.fatal("Config option [%s] needs the host-loop grower, which "
+                      "is not ported yet (ROADMAP A8)", reason)
+        reason = port_reject_reason(config, train_data, objective)
+        if reason is not None:
+            raise NotImplementedError(f"not ported yet: {reason}")
+        self._fused = FusedSerialGrower(train_data, config, objective,
+                                        self.device)
+        self._fused_state = None     # persistent planar state (device)
+        self._score_dirty = False    # train_score stale vs _fused_state
+        self.train_score = _ScoreState(train_data, 1, self.device)
+
+    def add_valid_data(self, valid_data: BinnedDataset,
+                       metrics: Sequence[Metric]) -> None:
+        for m in metrics:
+            m.init(valid_data.metadata, valid_data.num_data)
+        self.valid_metrics.append(list(metrics))
+        self.valid_score.append(_ScoreState(
+            valid_data, self.num_tree_per_iteration, self.device,
+            with_bins=True))
+
+    # ------------------------------------------------------------------
+    def _boost_from_average(self) -> float:
+        """reference GBDT::BoostFromAverage (gbdt.cpp:312)."""
+        if self.models or self.train_score.has_init_score \
+                or self.objective is None:
+            return 0.0
+        if self.config.boost_from_average \
+                or self.train_data.num_features == 0:
+            init_score = self.objective.boost_from_score(0)
+            if abs(init_score) > K_EPSILON:
+                self.train_score.add_constant(init_score, 0)
+                for vs in self.valid_score:
+                    vs.add_constant(init_score, 0)
+                log.info("Start training from score %f", init_score)
+                return init_score
+        return 0.0
+
+    def get_training_score(self) -> torch.Tensor:
+        """[1, N] raw training scores in row order, on the device."""
+        if self._score_dirty and self._fused_state is not None:
+            self.train_score.score = \
+                self._fused.sync_scores(self._fused_state)[None, :]
+            self._score_dirty = False
+        return self.train_score.score
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration (reference GBDT::TrainOneIter,
+        gbdt.cpp:337). Returns True when training should stop."""
+        init_score = self._boost_from_average()
+        if self._fused_state is None:
+            # built AFTER _boost_from_average, so the state's score
+            # already carries the init constant
+            self._fused_state = self._fused.init_persistent_state(
+                self.get_training_score()[0])
+        ta = self._fused.train_iter(self._fused_state, self.shrinkage_rate)
+        self._score_dirty = True
+        tree = self._fused.materialize_tree(ta)
+        if tree.num_leaves <= 1:
+            # constant-tree path (reference gbdt.cpp:389-407): the first
+            # tree keeps the init score; later ones end training
+            if not self.models:
+                tree.set_leaf_value(0, init_score)
+                self.models.append(tree)
+            log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            return True
+        if self.valid_score:
+            vals = torch.as_tensor(
+                np.asarray(ta["leaf_value"], np.float32),
+                device=self.device) * torch.tensor(self.shrinkage_rate,
+                                                   dtype=torch.float32)
+            for vs in self.valid_score:
+                leaf = self._fused.leaf_index_binned(tree, vs.bins)
+                vs.score[0] += vals[leaf]
+        tree.apply_shrinkage(self.shrinkage_rate)
+        if abs(init_score) > K_EPSILON:
+            tree.add_bias(init_score)
+        self.models.append(tree)
+        self.iter += 1
+        return False
+
+    # ------------------------------------------------------------------
+    def eval_at_iter(self) -> List[Tuple[str, str, float, bool]]:
+        """All metric values: (dataset_name, metric_name, value,
+        bigger_is_better), reduced on the device with ONE host read."""
+        rows, vals = [], []
+
+        def eval_set(ds_name, metrics, score):
+            for m in metrics:
+                for name, val in m.eval_device(score[0], self.objective):
+                    rows.append((ds_name, name, m.bigger_is_better))
+                    vals.append(val.to(torch.float64))
+
+        if self.metrics:
+            eval_set("training", self.metrics, self.get_training_score())
+        for i, ms in enumerate(self.valid_metrics):
+            eval_set(f"valid_{i}", ms, self.valid_score[i].score)
+        if not vals:
+            return []
+        host = torch.stack(vals).tolist()
+        return [(d, n, float(v), b) for (d, n, b), v in zip(rows, host)]
+
+    # ------------------------------------------------------------------
+    # prediction
+    # ------------------------------------------------------------------
+    def _used_models(self, start_iteration: int, num_iteration: int):
+        k = self.num_tree_per_iteration
+        total = len(self.models) // k
+        start = max(0, min(start_iteration, total))
+        end = min(start + num_iteration, total) if num_iteration > 0 \
+            else total
+        return self.models[start * k:end * k]
+
+    def predict(self, x: np.ndarray, start_iteration: int = 0,
+                num_iteration: int = -1, raw_score: bool = False
+                ) -> np.ndarray:
+        """Scores [N] (or [N, k]) as float64, computed on the device."""
+        from ..models.pathforest import PathForest, build_path_tables
+        models = self._used_models(start_iteration, num_iteration)
+        k = self.num_tree_per_iteration
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        if not models:
+            score = torch.zeros((k, xt.shape[0]), dtype=torch.float32,
+                                device=self.device)
+        else:
+            tabs = build_path_tables(models)
+            if tabs is None:
+                raise NotImplementedError(
+                    "prediction of categorical models is not ported yet "
+                    "(ROADMAP A7: models/forest.py walker)")
+            score = PathForest(models, k, self.device, tabs).raw_scores(xt)
+        if not raw_score and self.objective is not None:
+            score = self.objective.convert_output(score)
+        out = score.to(torch.float64).cpu().numpy()
+        return out[0] if k == 1 else out.T
+
+    # ------------------------------------------------------------------
+    # model IO (reference gbdt_model_text.cpp)
+    # ------------------------------------------------------------------
+    def _feature_infos(self) -> List[str]:
+        ds = self.train_data
+        infos = ["none"] * (self.max_feature_idx + 1)
+        if ds is None:
+            return getattr(self, "_loaded_feature_infos", infos)
+        for i, f in enumerate(ds.real_feature_index):
+            m = ds.bin_mappers[i]
+            if m.bin_type == BIN_CATEGORICAL:
+                infos[f] = ":".join(str(c) for c in m.bin_2_categorical)
+            else:
+                infos[f] = f"[{m.min_val}:{m.max_val}]"
+        return infos
+
+    def feature_importance(self, importance_type: int = 0,
+                           num_iteration: int = -1) -> np.ndarray:
+        """0 = split count, 1 = total gain (reference
+        GBDT::FeatureImportance, gbdt.cpp:756)."""
+        out = np.zeros(self.max_feature_idx + 1)
+        for tree in self._used_models(0, num_iteration):
+            for i in range(tree.num_leaves - 1):
+                f = int(tree.split_feature[i])
+                if importance_type == 0:
+                    if tree.split_gain[i] > 0:
+                        out[f] += 1.0
+                else:
+                    out[f] += max(float(tree.split_gain[i]), 0.0)
+        return out
+
+    def save_model_to_string(self, start_iteration: int = 0,
+                             num_iteration: int = -1,
+                             importance_type: int = 0) -> str:
+        num_class = (self.config.num_class if self.config
+                     else self.num_tree_per_iteration)
+        lines = ["tree", f"version={K_MODEL_VERSION}",
+                 f"num_class={num_class}",
+                 f"num_tree_per_iteration={self.num_tree_per_iteration}",
+                 f"label_index={self.label_idx}",
+                 f"max_feature_idx={self.max_feature_idx}"]
+        if self.objective is not None:
+            lines.append(f"objective={self.objective.to_string()}")
+        elif getattr(self, "_loaded_objective", ""):
+            lines.append(f"objective={self._loaded_objective}")
+        lines.append("feature_names=" + " ".join(self.feature_names_))
+        lines.append("feature_infos=" + " ".join(self._feature_infos()))
+        models = self._used_models(start_iteration, num_iteration)
+        tree_strs = [f"Tree={i}\n" + t.to_string()
+                     for i, t in enumerate(models)]
+        lines.append("tree_sizes=" + " ".join(str(len(s) + 1)
+                                              for s in tree_strs))
+        lines.append("")
+        body = "\n".join(tree_strs)
+        tail = ["end of trees", ""]
+        imp = self.feature_importance(importance_type, num_iteration)
+        pairs = [(int(v), self.feature_names_[i])
+                 for i, v in enumerate(imp) if v > 0]
+        pairs.sort(key=lambda p: -p[0])
+        tail.append("feature_importances:")
+        tail.extend(f"{nm}={v}" for v, nm in pairs)
+        tail.append("")
+        tail.append("parameters:")
+        tail.append(self.config.to_params_string() if self.config
+                    else self.loaded_parameter)
+        tail.append("end of parameters")
+        return "\n".join(lines) + "\n" + body + "\n" + "\n".join(tail) + "\n"
+
+    def load_model_from_string(self, text: str) -> None:
+        """reference GBDT::LoadModelFromString (gbdt_model_text.cpp:410)."""
+        head, _, _ = text.partition("\ntree_sizes=")
+        kv: Dict[str, str] = {}
+        for line in head.splitlines():
+            if "=" in line:
+                key, val = line.split("=", 1)
+                kv[key.strip()] = val
+            elif line.strip() == "average_output":
+                raise NotImplementedError(
+                    "averaged-output (RF) models are not ported yet "
+                    "(ROADMAP A10)")
+        self.num_tree_per_iteration = int(kv.get("num_tree_per_iteration",
+                                                 "1"))
+        self._loaded_num_class = int(kv.get("num_class", "1"))
+        self.label_idx = int(kv.get("label_index", "0"))
+        self.max_feature_idx = int(kv.get("max_feature_idx", "0"))
+        self.feature_names_ = kv.get("feature_names", "").split()
+        self._loaded_feature_infos = kv.get("feature_infos", "").split()
+        self._loaded_objective = kv.get("objective", "")
+        self.objective = None
+        if self._loaded_objective:
+            name = self._loaded_objective.split()[0]
+            params: Dict[str, object] = {"objective": name, "verbosity": -1,
+                                         "device_type": self.device.type}
+            for tok in self._loaded_objective.split()[1:]:
+                if ":" in tok:
+                    pk, pv = tok.split(":", 1)
+                    params[pk] = pv
+            # an objective the port does not train raises (ROADMAP A9):
+            # predict() would otherwise return untransformed raw scores
+            self.objective = create_objective(Config.from_params(params))
+        self.models = parse_tree_blocks(text)
+        self.iter = len(self.models) // max(self.num_tree_per_iteration, 1)
+        pstart = text.find("\nparameters:")
+        if pstart >= 0:
+            self.loaded_parameter = text[pstart + len("\nparameters:"):]\
+                .split("end of parameters")[0].strip()

@@ -1,0 +1,316 @@
+"""Planar training-row layout and the stable window partition.
+
+The port of the JAX package's ops/plane.py. The training state is ONE
+``[P, R]`` int32 tensor, lane-major (row r = lane r): bin-code planes
+(4, 8 or 16-bit codes packed little-endian into int32 words), then
+grad / hess / row-id / label / score / weight planes as f32 or i32 bit
+patterns. The layout is byte-identical to the JAX package's, so the
+same state can be fed to both.
+
+Unlike the JAX package, which keeps the state immutable and donates it,
+the port updates the state IN PLACE: ``partition_cuda`` permutes the
+window's lanes in the given tensor, and ``set_f32`` / ``set_gh`` write
+planes of it.
+
+DataPartition::Split (reference data_partition.hpp:72) is
+``partition_cuda``: the hand-written CUDA kernel in csrc/partition.cu
+for a tensor on the card, or its plain PyTorch version
+(``partition_plain``, a stable argsort of the window) for a tensor on
+the CPU. The routing decision per lane is ``route_from_col32``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Union
+
+import torch
+
+from . import cuda as K
+
+DEF_TILE = 4096
+# ceiling of the lane-padding tile: R carries one max_tile of window
+# headroom, exactly as in the JAX package, so layouts stay identical
+MAX_TILE = 32768
+
+ROUTE_SCALARS = 19      # routing vector length (see route_scalars)
+CAT_WORDS = 8           # bitset words -> categorical bins <= 256
+
+
+class PlaneLayout(NamedTuple):
+    """Plane indices of the [P, R] int32 training-state tensor."""
+    num_cols: int        # G bundle columns
+    code_bits: int       # bits per bin code (4, 8 or 16)
+    code_planes: int     # ceil(G*bits / 32)
+    grad: int
+    hess: int
+    rowid: int
+    label: int           # -1 when absent
+    score: int           # -1 when absent
+    weight: int          # -1 when absent
+    num_planes: int      # P, padded to a multiple of 8
+    num_rows: int        # true row count n
+    num_lanes: int       # R, n padded to a multiple of max_tile
+                         # (+ 1 max_tile of window headroom)
+    tile: int
+    max_tile: int
+    mv_start: int = -1   # multi-value planes (not ported; always absent)
+    mv_planes: int = 0
+
+
+def make_layout(num_cols: int, code_bits: int, n: int,
+                with_label: bool = False, with_score: bool = False,
+                with_weight: bool = False, tile: int = DEF_TILE
+                ) -> PlaneLayout:
+    assert code_bits in (4, 8, 16)
+    cp = -(-num_cols * code_bits // 32)
+    p = cp
+    if p % 8 == 7:
+        # grad % 8 <= 6: keeps the layout identical to the JAX package's
+        # (its TPU histogram reads grad+hess as one aligned 8-plane block)
+        p += 1
+    grad, hess = p, p + 1
+    p += 2
+    rowid = p
+    p += 1
+    label = score = weight = -1
+    if with_label:
+        label = p
+        p += 1
+    if with_score:
+        score = p
+        p += 1
+    if with_weight:
+        weight = p
+        p += 1
+    num_planes = -(-p // 8) * 8
+    max_tile = tile
+    while max_tile * 2 <= min(MAX_TILE, max(tile, n // 8)):
+        max_tile *= 2
+    num_lanes = (-(-n // max_tile) + 1) * max_tile
+    return PlaneLayout(num_cols, code_bits, cp, grad, hess, rowid,
+                       label, score, weight, num_planes, n, num_lanes,
+                       tile, max_tile)
+
+
+def f32_as_i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous().view(torch.int32)
+
+
+def _pack_codes(codes: torch.Tensor, layout: PlaneLayout,
+                lanes: int) -> torch.Tensor:
+    """[n, G] bin codes -> [code_planes, lanes] int32 (little-endian
+    packing: column j occupies bits [j*bits % 32, ...) of plane
+    j*bits // 32; 4-bit mode packs two columns per byte)."""
+    n, g = codes.shape
+    bits = layout.code_bits
+    c = codes.to(torch.int32)
+    if bits == 4:
+        if g % 2:
+            c = torch.nn.functional.pad(c, (0, 1))
+        b = (c[:, 0::2] & 15) | ((c[:, 1::2] & 15) << 4)
+    elif bits == 8:
+        b = c & 255
+    else:
+        b = torch.stack([c & 255, (c >> 8) & 255], dim=2).reshape(n, 2 * g)
+    width = layout.code_planes * 4
+    b = torch.nn.functional.pad(b, (0, width - b.shape[1], 0, lanes - n))
+    planes = b.to(torch.uint8).contiguous().view(torch.int32)  # [lanes, C]
+    return planes.t().contiguous()
+
+
+def build_codes_planes(codes: torch.Tensor, layout: PlaneLayout
+                       ) -> torch.Tensor:
+    """[n, G] bin codes -> [code_planes, R] int32."""
+    return _pack_codes(codes, layout, layout.num_lanes)
+
+
+def build_data(layout: PlaneLayout, codes_planes: torch.Tensor,
+               grad: torch.Tensor, hess: torch.Tensor,
+               rowid: Optional[torch.Tensor] = None,
+               label: Optional[torch.Tensor] = None,
+               score: Optional[torch.Tensor] = None,
+               weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Assemble the [P, R] planar state on the device of
+    ``codes_planes``. grad/hess/... are [n] f32 in lane order."""
+    R = layout.num_lanes
+    dev = codes_planes.device
+    n = grad.shape[0]
+    data = torch.zeros((layout.num_planes, R), dtype=torch.int32, device=dev)
+    data[:layout.code_planes] = codes_planes
+    set_gh(data, layout, grad.to(dev), hess.to(dev))
+    if rowid is None:
+        rowid = torch.arange(n, dtype=torch.int32, device=dev)
+    data[layout.rowid, :rowid.shape[0]] = rowid.to(dev, torch.int32)
+    # pad lanes get row ids CONTINUING past the real rows (never 0), as
+    # in the JAX package
+    data[layout.rowid, rowid.shape[0]:] = torch.arange(
+        rowid.shape[0], R, dtype=torch.int32, device=dev)
+    for idx, val in ((layout.label, label), (layout.score, score),
+                     (layout.weight, weight)):
+        if idx >= 0 and val is not None:
+            set_f32(data, idx, val.to(dev))
+    return data
+
+
+def get_f32(data: torch.Tensor, plane: int, n: Optional[int] = None
+            ) -> torch.Tensor:
+    """A float32 VIEW of one plane (writes through to ``data``)."""
+    v = data[plane].view(torch.float32)
+    return v if n is None else v[:n]
+
+
+def set_f32(data: torch.Tensor, plane: int, values: torch.Tensor) -> None:
+    """Write ``values`` (f32, length <= R) into a plane, in place."""
+    v = f32_as_i32(values)
+    data[plane, :v.shape[0]] = v
+
+
+def set_gh(data: torch.Tensor, layout: PlaneLayout, grad: torch.Tensor,
+           hess: torch.Tensor) -> None:
+    """Write the gradient and hessian planes, in place."""
+    set_f32(data, layout.grad, grad)
+    set_f32(data, layout.hess, hess)
+
+
+# ---------------------------------------------------------------------------
+# routing scalars
+# ---------------------------------------------------------------------------
+
+Scalar = Union[int, bool, torch.Tensor]
+
+
+def route_scalars(layout: PlaneLayout, feature: Scalar, threshold: Scalar,
+                  default_left: Scalar, miss_bin: Scalar, efb_dev=None,
+                  is_cat: Optional[Scalar] = None,
+                  cat_bitset: Optional[Union[Sequence[int],
+                                             torch.Tensor]] = None,
+                  device=None) -> torch.Tensor:
+    """[19] int32 routing vector of one split, on ``device`` (default:
+    the device of a tensor argument, else the CPU). Layout:
+    [plane, shift, mask, thr, dl, miss, efb_use, efb_off, efb_nsl,
+     efb_skip, is_cat, bitset_w0..w7]. Scalars may be host ints or 0-d
+    device tensors; device tensors never leave the device."""
+    if device is None:
+        device = next((a.device for a in (feature, threshold, default_left,
+                                          miss_bin) if torch.is_tensor(a)),
+                      torch.device("cpu"))
+
+    def t(x):
+        if torch.is_tensor(x):
+            return x.to(device=device, dtype=torch.int32).reshape(())
+        return torch.full((), int(x), dtype=torch.int32, device=device)
+
+    feature = t(feature)
+    bits = layout.code_bits
+    if efb_dev is not None:
+        group_of, offset_of, nslots_of, skip_of = efb_dev
+        gidx = group_of[feature]
+        efb = [t(1), offset_of[feature], nslots_of[feature], skip_of[feature]]
+    else:
+        gidx = feature
+        efb = [t(0), t(0), t(0), t(0)]
+    bitpos = gidx * bits
+    head = torch.stack([t(bitpos // 32), t(bitpos % 32), t((1 << bits) - 1),
+                        t(threshold), t(default_left), t(miss_bin),
+                        *[t(e) for e in efb],
+                        t(0 if is_cat is None else is_cat)])
+    words = torch.zeros(CAT_WORDS, dtype=torch.int32, device=device)
+    if cat_bitset is not None:
+        cb = torch.as_tensor(cat_bitset).to(device=device, dtype=torch.int32)
+        words[:cb.shape[0]] = cb
+    return torch.cat([head, words])
+
+
+def route_from_col32(col32: torch.Tensor, rs: Sequence[int]) -> torch.Tensor:
+    """Shared routing math (JAX plane.py _route_from_col32): packed
+    plane words [W] int32 -> go_left [W] bool, for the routing vector
+    ``rs`` given as host ints. Shifts are logical: the words are widened
+    to int64 and masked to their unsigned 32-bit value first."""
+    u = col32.to(torch.int64) & 0xFFFFFFFF
+    code = (u >> rs[1]) & rs[2]
+    rel = code - rs[7]
+    inband = (rel >= 0) & (rel < rs[8])
+    dec = rel + (rel >= rs[9]).to(torch.int64)
+    efb_bin = torch.where(inband, dec, torch.full_like(dec, rs[9]))
+    binval = efb_bin if rs[6] == 1 else code
+    if rs[10] == 1:
+        words = torch.tensor([w & 0xFFFFFFFF for w in rs[11:11 + CAT_WORDS]]
+                             + [0], dtype=torch.int64, device=col32.device)
+        widx = torch.clamp(binval >> 5, max=CAT_WORDS)
+        return ((words[widx] >> (binval & 31)) & 1) == 1
+    go_left = binval <= rs[3]
+    if rs[5] >= 0:
+        go_left = torch.where(binval == rs[5], bool(rs[4]), go_left)
+    return go_left
+
+
+# ---------------------------------------------------------------------------
+# the partition: plain version + CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+def partition_plain(data: torch.Tensor, layout: PlaneLayout, start: int,
+                    count: int, rscal: torch.Tensor):
+    """Stable window partition in plain PyTorch (the port's oracle):
+    the stable argsort of the JAX package's partition_ref over the
+    dynamic window [start, start+count). Updates ``data`` in place and
+    returns (data, nleft) with nleft a 0-d int32 tensor."""
+    rs = [int(v) for v in rscal.tolist()]
+    win = data[:, start:start + count]
+    go_left = route_from_col32(win[rs[0]], rs)
+    order = torch.argsort((~go_left).to(torch.int32), stable=True)
+    data[:, start:start + count] = win[:, order]
+    return data, go_left.sum().to(torch.int32)
+
+
+def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
+                   count: int, rscal: torch.Tensor):
+    """Stable in-place partition of the lane window [start, start+count)
+    of ALL P planes by the split in ``rscal`` (route_scalars): lefts
+    first, then rights, order kept on both sides, lanes outside the
+    window untouched. Returns (data, nleft); ``data`` is the SAME tensor
+    updated in place and nleft a 0-d int32 tensor on its device.
+
+    A tensor on the card launches the CUDA kernel (csrc/partition.cu,
+    the counterpart of the JAX package's partition_pallas2 and
+    partition_pallas); a CPU tensor takes ``partition_plain``."""
+    start, count = int(start), int(count)
+    P, R = data.shape
+    if not 0 <= start <= start + count <= R:
+        raise ValueError(f"window [{start}, {start + count}) outside [0, {R})")
+    if not data.is_cuda:
+        return partition_plain(data, layout, start, count, rscal)
+    if data.dtype != torch.int32 or not data.is_contiguous():
+        raise ValueError("partition_cuda needs a contiguous int32 state")
+    if (rscal.device != data.device or rscal.dtype != torch.int32
+            or rscal.shape != (ROUTE_SCALARS,) or not rscal.is_contiguous()):
+        raise ValueError("rscal must be a contiguous [19] int32 tensor on "
+                         "the state's device")
+    lib = K.lib("partition")
+    tile = lib.lgbt_partition_tile()
+    ntiles = -(-count // tile)
+    dev = data.device
+    flags = torch.empty(count, dtype=torch.uint8, device=dev)
+    tile_left = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    tile_off = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    scratch = torch.empty((P, count), dtype=torch.int32, device=dev)
+    nleft = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    K.check(lib.lgbt_partition(
+        data.data_ptr(), R, P, start, count, rscal.data_ptr(),
+        flags.data_ptr(), tile_left.data_ptr(), tile_off.data_ptr(),
+        scratch.data_ptr(), nleft.data_ptr(), stream), "partition_cuda")
+    K.LAUNCHES["partition"] += 1
+    return data, nleft[0]
+
+
+def partition_window(data, layout, start, count, rscal, *,
+                     method: str = "pallas2"):
+    """The JAX package's entry point: both kernel generations
+    ("pallas" = v1, "pallas2" = v2) are backed by ONE CUDA kernel.
+
+    ``method`` selects nothing; it is kept only so that callers written
+    against the JAX signature pass unchanged. Like ``partition_cuda``
+    (whose name follows the kernel it launches), this serves CPU
+    tensors too, through the plain version."""
+    if method not in ("pallas", "pallas2"):
+        raise ValueError(f"unknown partition method {method!r}")
+    return partition_cuda(data, layout, start, count, rscal)

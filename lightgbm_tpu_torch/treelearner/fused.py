@@ -1,0 +1,608 @@
+"""Leaf-wise tree growth over the planar state, on one device.
+
+The port of the JAX package's treelearner/fused.py FusedSerialGrower,
+persistent path. Training rows live in the planar ``[P, R]`` int32
+state of ops/plane.py (bin-code planes + grad / hess / row-id / label /
+score planes). Across iterations the label, score and row id ride
+inside the state in leaf-permuted lane order: gradients, tree growth
+and the score update all work on the state, and scores go back to row
+order only when a host consumer asks (``sync_scores``).
+
+Per split, as in the reference (serial_tree_learner.cpp:152-202): the
+best leaf's window is partitioned in place (``plane.partition_cuda``,
+the CUDA kernel on the card), the smaller child is histogrammed from its
+now contiguous window (``histogram.hist_planar_cuda``), the larger child
+is the parent minus the smaller (histogram pool, reference
+feature_histogram.hpp:1061), and both children are scanned in one
+batched split scan (ops/split.py).
+
+Where the JAX package runs the whole split loop inside one
+``lax.while_loop`` program, the port runs a Python loop over splits.
+Each split takes ONE blocking host read: the argmax leaf, its window
+start and count (which size the partition and histogram launches), and
+whether any leaf still has a positive gain. The smaller child's window
+stays on the device; its histogram launch is sized by the parent's
+count. Each iteration adds one more read for the finished tree.
+``syncs`` counts these reads. Getting to one read per iteration is later
+work (ROADMAP).
+
+The state is updated IN PLACE (partition, grad/hess and score writes);
+the JAX package keeps it immutable and donates it instead.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..io.binning import BIN_CATEGORICAL
+from ..io.dataset import BinnedDataset
+from ..io.efb import per_feature_hist
+from ..models.tree import Tree
+from ..ops import histogram as H
+from ..ops import plane
+from ..ops import split as S
+
+NEG_INF = float("-inf")
+
+
+def bag_active(config: Config) -> bool:
+    """Whether row sampling re-permutes rows away from score order."""
+    return ((config.bagging_freq > 0
+             and (config.bagging_fraction < 1.0
+                  or config.pos_bagging_fraction < 1.0
+                  or config.neg_bagging_fraction < 1.0))
+            or config.boosting in ("goss", "rf"))
+
+
+def fused_reject_reason(config: Config, dataset: BinnedDataset,
+                        objective) -> Optional[str]:
+    """Why a config cannot run the fused path (None = eligible) — the
+    JAX package's rule, verbatim. There these configs fall back to the
+    host-loop grower; the port does not have it yet (ROADMAP A8)."""
+    if not config.tpu_fused:
+        return "tpu_fused=false"
+    if config.tree_learner != "serial":
+        return f"tree_learner={config.tree_learner}"
+    if max((m.num_bin for m in dataset.bin_mappers
+            if m.bin_type == BIN_CATEGORICAL), default=0) > 256:
+        return "a categorical feature with > 256 bins (max_bin)"
+    if config.forcedsplits_filename:
+        pool_mb = config.histogram_pool_size
+        need = (max(config.num_leaves, 2) * dataset.num_features
+                * max((m.num_bin for m in dataset.bin_mappers), default=2)
+                * 2 * 4)
+        if not (pool_mb <= 0 or need <= pool_mb * 1024 * 1024):
+            return ("forcedsplits_filename with a histogram_pool_size "
+                    "too small for the dense pool")
+    if config.interaction_constraints:
+        return "interaction_constraints"
+    if config.extra_trees:
+        return "extra_trees"
+    if (config.cegb_tradeoff != 1.0 or config.cegb_penalty_split > 0
+            or config.cegb_penalty_feature_coupled
+            or config.cegb_penalty_feature_lazy):
+        return "cegb_* (cost-effective gradient boosting)"
+    if config.monotone_constraints and (
+            config.monotone_constraints_method != "basic"
+            or config.monotone_penalty > 0):
+        return ("monotone_constraints_method=intermediate or "
+                "monotone_penalty > 0")
+    if config.use_quantized_grad:
+        persist = (objective is not None
+                   and getattr(objective, "persistent_aux", None) is not None
+                   and objective.persistent_aux() is not None
+                   and objective.num_tree_per_iteration == 1)
+        if not persist or config.boosting != "gbdt" or bag_active(config):
+            return ("use_quantized_grad outside the persistent path "
+                    "(bagging/GOSS/RF/DART or a non-pointwise objective)")
+    if objective is not None and objective.is_renew_tree_output:
+        if (objective.persistent_renew_spec() is None
+                or config.boosting != "gbdt" or bag_active(config)):
+            return (f"objective={objective.name} (renew-tree-output leaf "
+                    "refit outside the persistent path)")
+    if dataset.num_features == 0:
+        return "dataset has no usable features"
+    return None
+
+
+def port_reject_reason(config: Config, dataset: BinnedDataset,
+                       objective) -> Optional[str]:
+    """What the JAX package's fused path runs but this slice of the port
+    does not, each with the ROADMAP item that brings it."""
+    if config.use_quantized_grad:
+        return "use_quantized_grad (quantized gradients, ROADMAP A10)"
+    if config.boosting != "gbdt" or bag_active(config):
+        return (f"boosting={config.boosting} / bagging (ROADMAP A10)")
+    if objective is None or objective.persistent_aux() is None:
+        return "a custom objective (the per-tree fused path, ROADMAP A5)"
+    if objective.num_tree_per_iteration != 1:
+        return "multiclass (ROADMAP A9)"
+    if config.forcedsplits_filename:
+        return "forcedsplits_filename (forced splits, ROADMAP A5)"
+    if any(m.bin_type == BIN_CATEGORICAL for m in dataset.bin_mappers):
+        return "categorical features (categorical split scan, ROADMAP A3)"
+    return None
+
+
+class FusedSerialGrower:
+    """Owns the planar state's layout and grows one tree per iteration
+    on ``device``."""
+
+    def __init__(self, dataset: BinnedDataset, config: Config, objective,
+                 device) -> None:
+        self.dataset = dataset
+        self.config = config
+        self.objective = objective
+        self.device = torch.device(device)
+        dev = self.device
+        self.num_features = dataset.num_features
+        mappers = dataset.bin_mappers
+        self.max_num_bin = max((m.num_bin for m in mappers), default=2)
+        self.num_leaves = max(config.num_leaves, 2)
+        monotone = [dataset.monotone_constraint(i)
+                    for i in range(self.num_features)]
+        self.use_monotone = any(m != 0 for m in monotone)
+        penalty = list(config.feature_contri) + \
+            [1.0] * (self.num_features - len(config.feature_contri))
+        self.meta = S.FeatureMeta.build(
+            num_bin=[m.num_bin for m in mappers],
+            missing_type=[m.missing_type for m in mappers],
+            default_bin=[m.default_bin for m in mappers],
+            is_categorical=[m.bin_type == BIN_CATEGORICAL for m in mappers],
+            monotone=monotone,
+            penalty=[float(p) for p in penalty[:self.num_features]],
+            device=dev)
+        self.split_cfg = S.SplitConfig(
+            lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
+            min_data_in_leaf=config.min_data_in_leaf,
+            min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
+            min_gain_to_split=config.min_gain_to_split,
+            max_delta_step=config.max_delta_step,
+            path_smooth=config.path_smooth,
+            use_monotone=self.use_monotone,
+            max_cat_threshold=config.max_cat_threshold,
+            cat_l2=config.cat_l2, cat_smooth=config.cat_smooth,
+            max_cat_to_onehot=config.max_cat_to_onehot,
+            min_data_per_group=config.min_data_per_group)
+        self.miss_bin_np = np.asarray([
+            (m.num_bin - 1 if m.missing_type == 2 else
+             (m.default_bin if m.missing_type == 1 else -1))
+            for m in mappers], dtype=np.int32)
+        self.feature_miss_bin = torch.as_tensor(self.miss_bin_np, device=dev)
+        # EFB bundle views (None on dense/trivial datasets)
+        self._efb_dev = dataset.device_bundle_tables(dev)
+        self._efb_hist = dataset.device_hist_tables(dev)
+        self.group_max_bin = dataset.group_max_bins
+        # the ONE precision dispatch (ops/histogram.py hist_method): None
+        # = exact f32 CPU path, else the kernel's input dtype
+        self._hist_dtype = H.hist_method(config, dataset)
+
+        # planar layout: label/score/weight planes for the persistent
+        # in-state loop; 4-bit codes when every column fits 16 bins
+        self._num_cols = int(dataset.bins.shape[1])
+        group_bins = (dataset.group_max_bins if self._efb_hist is not None
+                      else self.max_num_bin)
+        if group_bins <= 16:
+            self._code_bits = 4
+        else:
+            self._code_bits = 8 * int(np.dtype(dataset.bins.dtype).itemsize)
+        self.actual_rows = dataset.num_data
+        persist = (objective is not None
+                   and objective.persistent_aux() is not None
+                   and objective.num_tree_per_iteration == 1)
+        has_w = persist and objective.persistent_aux()[1] is not None
+        self.layout = plane.make_layout(
+            self._num_cols, self._code_bits, self.actual_rows,
+            with_label=persist, with_score=persist, with_weight=has_w)
+        self.persistent_capable = persist
+
+        # histogram_pool_size (MB; <= 0 unlimited): pool-less mode
+        # computes both children directly, no subtraction
+        pool_mb = config.histogram_pool_size
+        need = (self.num_leaves * self.num_features
+                * self.max_num_bin * 2 * 4)
+        self._use_hist_pool = pool_mb <= 0 or need <= pool_mb * 1024 * 1024
+        self._col_rng = np.random.RandomState(config.feature_fraction_seed)
+        self._mask_ones = None
+        # blocking host reads (device -> host) taken by the learner
+        self.syncs = 0
+
+    # ------------------------------------------------------------------
+    def _read(self, t: torch.Tensor) -> list:
+        """One blocking device -> host read (counted)."""
+        self.syncs += 1
+        return t.tolist()
+
+    def _hist_from_groups(self, ghist: torch.Tensor) -> torch.Tensor:
+        """Group-level [G, Bg, 2] -> per-feature [F, B, 2] (EFB
+        FixHistogram most-frequent-bin reconstruction), or identity."""
+        if self._efb_hist is None:
+            return ghist
+        total = ghist[0].sum(dim=0)
+        return per_feature_hist(ghist, self._efb_hist, total[0], total[1])
+
+    def _leaf_hist(self, data, start, count, max_count=None):
+        """Histogram [F, B, 2] of one lane window straight off the
+        planar state: the CUDA kernel on the card, the exact plain path
+        on the CPU. ``start``/``count`` may be device scalars, bounded by
+        ``max_count``."""
+        Ly = self.layout
+        nbins = (self.group_max_bin if self._efb_hist is not None
+                 else self.max_num_bin)
+        ghist = H.hist_planar_cuda(
+            data, start, count, num_bins=nbins, num_cols=Ly.num_cols,
+            code_bits=Ly.code_bits, grad_plane=Ly.grad,
+            dtype=self._hist_dtype or torch.float32, max_count=max_count)
+        return self._hist_from_groups(ghist)
+
+    def _scan(self, hist, sum_g, sum_h, count, output, cmin, cmax, mask):
+        """Best split of K leaves at once (JAX _scan_leaf /
+        _scan_two_leaves). All arguments have a leading [K] axis; returns
+        (rec_f [7, K] f32: gain, lg, lh, lout, rg, rh, rout;
+        rec_i [3, K] i32: feature, threshold bin, default_left)."""
+        res = S.numerical_split_scan(hist, self.meta, self.split_cfg,
+                                     sum_g, sum_h, count, output, cmin, cmax)
+        gains = torch.where(mask, res["gain"], S.K_MIN_SCORE)
+        f = torch.argmax(gains, dim=-1, keepdim=True)            # [K, 1]
+
+        def at(x):
+            return torch.gather(x, -1, f)[:, 0]
+
+        g = at(gains)
+        ok = (torch.isfinite(g) & (g > 0.0)
+              & (count >= 2 * self.split_cfg.min_data_in_leaf))
+        rec_f = torch.stack([
+            torch.where(ok, g, NEG_INF),
+            at(res["left_sum_gradient"]), at(res["left_sum_hessian"]),
+            at(res["left_output"]),
+            at(res["right_sum_gradient"]), at(res["right_sum_hessian"]),
+            at(res["right_output"])])
+        rec_i = torch.stack([f[:, 0].to(torch.int32), at(res["threshold"]),
+                             at(res["default_left"]).to(torch.int32)])
+        return rec_f, rec_i
+
+    # ------------------------------------------------------------------
+    def _grow_tree(self, data: torch.Tensor, n: int,
+                   feature_mask: torch.Tensor) -> Dict:
+        """Grow one tree over the planar state (partitioned in place).
+        Returns the tree arrays as host numpy plus the device leaf
+        windows and outputs the score update needs."""
+        L = self.num_leaves
+        F, B = self.num_features, self.max_num_bin
+        dev = self.device
+        f32, i32 = torch.float32, torch.int32
+        max_depth = self.config.max_depth
+        bynode = feature_mask.dim() == 2
+        root_mask = feature_mask[0] if bynode else feature_mask
+
+        root_hist = self._leaf_hist(data, 0, n)
+        # leaf totals from feature 0's bins (float64 sum rounded to
+        # float32: the same on the card and the CPU)
+        sum_g = root_hist[0, :, 0].to(torch.float64).sum().to(f32)
+        sum_h = root_hist[0, :, 1].to(torch.float64).sum().to(f32)
+        one = torch.ones(1, dtype=f32, device=dev)
+        rf, ri = self._scan(root_hist[None], sum_g[None], sum_h[None],
+                            torch.full((1,), n, dtype=i32, device=dev),
+                            0.0 * one, NEG_INF * one, -NEG_INF * one,
+                            root_mask[None])
+
+        best_f = torch.zeros((7, L), dtype=f32, device=dev)
+        best_f[0] = NEG_INF
+        best_f[:, 0] = rf[:, 0]
+        best_i = torch.zeros((3, L), dtype=i32, device=dev)
+        best_i[:, 0] = ri[:, 0]
+        # per-leaf rows: sum_g, sum_h, output, cmin, cmax
+        leaf_f = torch.zeros((5, L), dtype=f32, device=dev)
+        leaf_f[0, 0] = sum_g
+        leaf_f[1, 0] = sum_h
+        leaf_f[3] = NEG_INF
+        leaf_f[4] = -NEG_INF
+        # per-leaf rows: window start, window count
+        leaf_i = torch.zeros((2, L), dtype=i32, device=dev)
+        leaf_i[1, 0] = n
+        pool = None
+        if self._use_hist_pool:
+            pool = torch.zeros((L, F, B, 2), dtype=f32, device=dev)
+            pool[0] = root_hist
+        depth_ok = (torch.ones(L, dtype=torch.bool, device=dev)
+                    if max_depth > 0 else None)
+        # internal nodes: rows gain, value, weight / feature, thr, dl, count
+        t_f = torch.zeros((3, max(L - 1, 1)), dtype=f32, device=dev)
+        t_i = torch.zeros((4, max(L - 1, 1)), dtype=i32, device=dev)
+        # tree STRUCTURE depends only on the leaf ids the host reads, so
+        # it is kept on the host (Tree::Split semantics, tree.h:61)
+        t_left = np.zeros(max(L - 1, 1), np.int32)
+        t_right = np.zeros(max(L - 1, 1), np.int32)
+        leaf_parent = np.full(L, -1, np.int32)
+        leaf_depth = np.zeros(L, np.int32)
+
+        n_leaves = 1
+        while n_leaves < L:
+            gains = best_f[0]
+            if depth_ok is not None:
+                gains = torch.where(depth_ok, gains, NEG_INF)
+            best = torch.argmax(gains)
+            probe = torch.stack([best, (gains[best] > 0.0).to(torch.int64),
+                                 leaf_i[0, best].to(torch.int64),
+                                 leaf_i[1, best].to(torch.int64)])
+            leaf, cont, start, count = self._read(probe)
+            if not cont:
+                break
+            node, new = n_leaves - 1, n_leaves
+
+            parent = leaf_parent[leaf]
+            if parent >= 0:
+                if t_left[parent] == ~leaf:
+                    t_left[parent] = node
+                else:
+                    t_right[parent] = node
+            t_left[node] = ~leaf
+            t_right[node] = ~new
+            t_i[0:3, node] = best_i[:, leaf]
+            t_i[3, node] = leaf_i[1, leaf]
+            t_f[0, node] = best_f[0, leaf]
+            t_f[1, node] = leaf_f[2, leaf]
+            t_f[2, node] = leaf_f[1, leaf]
+
+            # --- partition the leaf's window in place ---
+            feat = best_i[0, leaf]
+            rscal = plane.route_scalars(
+                self.layout, feat, best_i[1, leaf], best_i[2, leaf],
+                self.feature_miss_bin[feat], self._efb_dev, device=dev)
+            data, nleft = plane.partition_window(
+                data, self.layout, start, count, rscal,
+                method="pallas2")
+            nright = count - nleft
+            left_smaller = nleft <= nright
+            s_start = start + torch.where(left_smaller, 0, nleft)
+            s_count = torch.where(left_smaller, nleft, nright)
+            hist_small = self._leaf_hist(data, s_start, s_count,
+                                         max_count=count)
+
+            # --- children bookkeeping ---
+            rec = best_f[:, leaf]
+            leaf_i[0, new] = start + nleft
+            leaf_i[1, leaf] = nleft
+            leaf_i[1, new] = nright
+            leaf_f[0:3, new] = rec[4:7]
+            leaf_f[0:3, leaf] = rec[1:4]
+            if self.use_monotone:
+                monof = self.meta.monotone[feat]
+                mid = (rec[3] + rec[6]) / 2.0
+                cmin, cmax = leaf_f[3, leaf].clone(), leaf_f[4, leaf].clone()
+                leaf_f[4, leaf] = torch.where(monof > 0,
+                                              torch.minimum(cmax, mid), cmax)
+                leaf_f[3, new] = torch.where(monof > 0,
+                                             torch.maximum(cmin, mid), cmin)
+                leaf_f[3, leaf] = torch.where(monof < 0,
+                                              torch.maximum(cmin, mid), cmin)
+                leaf_f[4, new] = torch.where(monof < 0,
+                                             torch.minimum(cmax, mid), cmax)
+            else:
+                leaf_f[3:5, new] = leaf_f[3:5, leaf]
+            depth = int(leaf_depth[leaf]) + 1
+            leaf_depth[leaf] = leaf_depth[new] = depth
+            leaf_parent[leaf] = leaf_parent[new] = node
+            if depth_ok is not None and depth >= max_depth:
+                depth_ok[leaf] = False
+                depth_ok[new] = False
+
+            # --- larger child: subtraction from the pooled parent ---
+            if pool is not None:
+                hist_large = pool[leaf] - hist_small
+            else:
+                hist_large = self._leaf_hist(
+                    data, start + torch.where(left_smaller, nleft, 0),
+                    torch.where(left_smaller, nright, nleft),
+                    max_count=count)
+            hist_left = torch.where(left_smaller, hist_small, hist_large)
+            hist_right = torch.where(left_smaller, hist_large, hist_small)
+            if pool is not None:
+                pool[leaf] = hist_left
+                pool[new] = hist_right
+
+            # --- best splits of both children (one batched scan) ---
+            mask2 = (feature_mask[2 * new - 1:2 * new + 1] if bynode
+                     else feature_mask[None].expand(2, F))
+            rf, ri = self._scan(
+                torch.stack([hist_left, hist_right]),
+                torch.stack([leaf_f[0, leaf], leaf_f[0, new]]),
+                torch.stack([leaf_f[1, leaf], leaf_f[1, new]]),
+                torch.stack([nleft, nright]),
+                torch.stack([leaf_f[2, leaf], leaf_f[2, new]]),
+                torch.stack([leaf_f[3, leaf], leaf_f[3, new]]),
+                torch.stack([leaf_f[4, leaf], leaf_f[4, new]]), mask2)
+            best_f[:, leaf] = rf[:, 0]
+            best_f[:, new] = rf[:, 1]
+            best_i[:, leaf] = ri[:, 0]
+            best_i[:, new] = ri[:, 1]
+            n_leaves += 1
+
+        k, ni = n_leaves, n_leaves - 1
+        # ONE read for the finished tree: every value array as float64
+        # (int32 and float32 values are exact in it)
+        flat = torch.cat([t_f[:, :ni].reshape(-1).to(torch.float64),
+                          t_i[:, :ni].reshape(-1).to(torch.float64),
+                          leaf_f[:3, :k].reshape(-1).to(torch.float64),
+                          leaf_i[1, :k].to(torch.float64)])
+        host = np.asarray(self._read(flat), dtype=np.float64)
+        tf = host[:3 * ni].reshape(3, ni)
+        ti = host[3 * ni:7 * ni].reshape(4, ni).astype(np.int64)
+        lf = host[7 * ni:7 * ni + 3 * k].reshape(3, k)
+        lcnt = host[7 * ni + 3 * k:].astype(np.int64)
+        ta = dict(
+            n_leaves=k,
+            split_feature=ti[0], threshold_bin=ti[1],
+            default_left=ti[2].astype(bool), internal_count=ti[3],
+            split_gain=tf[0], internal_value=tf[1], internal_weight=tf[2],
+            left_child=t_left[:ni].copy(), right_child=t_right[:ni].copy(),
+            leaf_value=lf[2], leaf_weight=lf[1], leaf_count=lcnt,
+            leaf_depth=leaf_depth[:k].copy())
+        return ta, (leaf_i[:, :k], leaf_f[2, :k])
+
+    # -- persistent mode -----------------------------------------------
+    def init_persistent_state(self, score_vec: np.ndarray) -> torch.Tensor:
+        """Planar state carrying label/score/row-id across iterations.
+        score_vec: [n] current raw scores in ORIGINAL row order."""
+        assert self.persistent_capable
+        dev = self.device
+        aux_label, aux_weight = self.objective.persistent_aux()
+        n = self.actual_rows
+        codes = torch.as_tensor(np.ascontiguousarray(self.dataset.bins),
+                                device=dev)
+        cp = plane.build_codes_planes(codes, self.layout)
+        zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+
+        def up(a):
+            if a is None or torch.is_tensor(a):
+                return None if a is None else a.to(dev, torch.float32)
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return plane.build_data(self.layout, cp, zeros, zeros,
+                                label=up(aux_label),
+                                score=up(score_vec), weight=up(aux_weight))
+
+    def train_iter(self, data: torch.Tensor, shrinkage: float,
+                   bias: float = 0.0) -> Dict:
+        """One boosting iteration on the persistent state, in place:
+        gradients from the in-state score, tree growth, score update
+        (GBDT::TrainOneIter, gbdt.cpp:337). Returns the tree arrays
+        (host numpy, leaf values before shrinkage)."""
+        Ly = self.layout
+        n = self.actual_rows
+        score = plane.get_f32(data, Ly.score)
+        label = plane.get_f32(data, Ly.label)
+        weight = plane.get_f32(data, Ly.weight) if Ly.weight >= 0 else None
+        g, h = self.objective.persistent_grads(score, label, weight)
+        realm = torch.arange(Ly.num_lanes, device=self.device) < n
+        plane.set_gh(data, Ly, torch.where(realm, g, 0.0),
+                     torch.where(realm, h, 0.0))
+
+        ta, (win, leaf_out) = self._grow_tree(
+            data, n, self.feature_masks_for_tree())
+
+        # score update by window: every lane of leaf l's window gets
+        # leaf l's value — no gather, no scatter
+        vals = leaf_out * torch.tensor(shrinkage, dtype=torch.float32)
+        order = torch.argsort(win[0])
+        add = torch.repeat_interleave(vals[order], win[1][order].long(),
+                                      output_size=n)
+        s = score[:n]
+        s.add_(add)
+        if bias != 0.0:
+            s.add_(torch.tensor(bias, dtype=torch.float32))
+        return ta
+
+    def sync_scores(self, data: torch.Tensor) -> torch.Tensor:
+        """[n] f32 raw scores in original row order (one scatter)."""
+        n = self.actual_rows
+        rowids = data[self.layout.rowid, :n].long()
+        out = torch.empty(n, dtype=torch.float32, device=self.device)
+        out[rowids] = plane.get_f32(data, self.layout.score, n)
+        return out
+
+    # ------------------------------------------------------------------
+    def leaf_index_binned(self, tree: Tree, bins: torch.Tensor
+                          ) -> torch.Tensor:
+        """Leaf index of every row of ``bins`` ([N, G] bin codes on the
+        device) by bin-space traversal of a freshly grown tree — the
+        validation-set score update. One pass per tree level; no host
+        reads."""
+        n = bins.shape[0]
+        dev = self.device
+        if tree.num_leaves <= 1:
+            return torch.zeros(n, dtype=torch.int64, device=dev)
+        ni = tree.num_leaves - 1
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a[:ni], np.int64), device=dev)
+        feat, thr = t(tree.split_feature_inner), t(tree.threshold_in_bin)
+        left, right = t(tree.left_child), t(tree.right_child)
+        dl = t((tree.decision_type & 2) != 0).bool()
+        miss = self.feature_miss_bin.long()
+        rows = torch.arange(n, device=dev)
+        node = torch.zeros(n, dtype=torch.int64, device=dev)
+        for _ in range(int(tree.leaf_depth[:tree.num_leaves].max())):
+            nid = torch.clamp(node, min=0)
+            f = feat[nid]
+            if self._efb_dev is None:
+                b = bins[rows, f].long()
+            else:
+                group_of, offset_of, nslots_of, skip_of = (
+                    x.long() for x in self._efb_dev)
+                rel = bins[rows, group_of[f]].long() - offset_of[f]
+                inband = (rel >= 0) & (rel < nslots_of[f])
+                b = torch.where(inband, rel + (rel >= skip_of[f]).long(),
+                                skip_of[f])
+            mb = miss[f]
+            go_left = torch.where((b == mb) & (mb >= 0), dl[nid], b <= thr[nid])
+            nxt = torch.where(go_left, left[nid], right[nid])
+            node = torch.where(node < 0, node, nxt)
+        return -node - 1
+
+    # ------------------------------------------------------------------
+    def _tree_mask_np(self) -> np.ndarray:
+        f = self.num_features
+        mask = np.ones(f, dtype=bool)
+        frac = self.config.feature_fraction
+        if frac < 1.0:
+            k = max(1, int(np.ceil(frac * f)))
+            chosen = self._col_rng.choice(f, size=k, replace=False)
+            mask[:] = False
+            mask[chosen] = True
+        return mask
+
+    def feature_masks_for_tree(self) -> torch.Tensor:
+        """[F] per-tree mask, or [2L, F] per-scan-event masks when
+        feature_fraction_bynode < 1 (event 0 = root scan, events
+        2*new_leaf-1 / 2*new_leaf = the two children of the split that
+        created leaf slot new_leaf) — the JAX package's rule and RNG."""
+        frac = self.config.feature_fraction_bynode
+        if frac >= 1.0:
+            if self.config.feature_fraction >= 1.0:
+                if self._mask_ones is None:
+                    self._mask_ones = torch.ones(
+                        self.num_features, dtype=torch.bool,
+                        device=self.device)
+                return self._mask_ones
+            return torch.as_tensor(self._tree_mask_np(), device=self.device)
+        tm = self._tree_mask_np()
+        idx = np.flatnonzero(tm)
+        k = max(1, int(np.ceil(frac * len(idx))))
+        E = 2 * self.num_leaves
+        masks = np.zeros((E, self.num_features), dtype=bool)
+        for e in range(E):
+            masks[e, self._col_rng.choice(idx, size=k, replace=False)] = True
+        return torch.as_tensor(masks, device=self.device)
+
+    def materialize_tree(self, ta: Dict) -> Tree:
+        """Host tree arrays -> Tree (real feature ids, real thresholds,
+        decision_type bits)."""
+        k = int(ta["n_leaves"])
+        tree = Tree(self.num_leaves)
+        tree.num_leaves = k
+        ni = max(k - 1, 0)
+        mappers = self.dataset.bin_mappers
+        real_idx = self.dataset.real_feature_index
+        inner_feat = ta["split_feature"][:ni]
+        tree.split_feature_inner[:ni] = inner_feat
+        tree.split_feature[:ni] = [real_idx[f] for f in inner_feat]
+        tree.threshold_in_bin[:ni] = ta["threshold_bin"][:ni]
+        tree.threshold[:ni] = [mappers[f].bin_to_value(int(tb)) for f, tb in
+                               zip(inner_feat, ta["threshold_bin"][:ni])]
+        tree.decision_type[:ni] = [
+            (2 if dl else 0) | ((mappers[f].missing_type & 3) << 2)
+            for f, dl in zip(inner_feat, ta["default_left"][:ni])]
+        tree.left_child[:ni] = ta["left_child"][:ni]
+        tree.right_child[:ni] = ta["right_child"][:ni]
+        tree.split_gain[:ni] = ta["split_gain"][:ni]
+        tree.internal_value[:ni] = ta["internal_value"][:ni]
+        tree.internal_weight[:ni] = ta["internal_weight"][:ni]
+        tree.internal_count[:ni] = ta["internal_count"][:ni]
+        tree.leaf_value[:k] = ta["leaf_value"][:k]
+        tree.leaf_weight[:k] = ta["leaf_weight"][:k]
+        tree.leaf_count[:k] = ta["leaf_count"][:k]
+        tree.leaf_depth[:k] = ta["leaf_depth"][:k]
+        return tree

@@ -1,0 +1,225 @@
+"""The slice as a whole: the same data and params through
+``lightgbm_tpu.train`` (CPU: scatter histograms + partition_ref) and
+``lightgbm_tpu_torch.train(device_type="cpu")`` (the plain versions of
+the port's kernels). Trees must be structurally equal, leaf values and
+predictions within 1e-5, AUC within 1e-6; a model carried across from
+the JAX package predicts within 1e-6."""
+import ast
+import os
+
+import numpy as np
+import pytest
+
+import torch
+
+import lightgbm_tpu as jlgb
+import lightgbm_tpu_torch as tlgb
+from lightgbm_tpu_torch.convert import booster_from_jax_arrays
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PARAMS = {"objective": "binary", "num_leaves": 15, "metric": "auc",
+          "verbose": -1, "device_type": "cpu"}
+TREE_FIELDS = ("split_feature", "split_gain", "threshold", "decision_type",
+               "left_child", "right_child", "leaf_value", "leaf_weight",
+               "leaf_count", "internal_value", "internal_weight",
+               "internal_count")
+
+
+def _data(seed=0, n=2000):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 6)
+    X[rng.rand(n) < 0.05, 2] = np.nan
+    X[:, 5] = np.where(rng.rand(n) < 0.4, 0.0, X[:, 5])
+    y = (X[:, 0] + 0.5 * X[:, 1] - 0.3 * np.nan_to_num(X[:, 2]) * X[:, 3]
+         + rng.randn(n) * 0.5 > 0).astype(np.float64)
+    return X, y
+
+
+@pytest.fixture(scope="module")
+def trained():
+    X, y = _data()
+    Xv, yv = _data(seed=1, n=600)
+    out = {}
+    for name, lib in (("jax", jlgb), ("torch", tlgb)):
+        ds = lib.Dataset(X, label=y)
+        vs = lib.Dataset(Xv, label=yv, reference=ds)
+        ev = {}
+        b = lib.train(dict(PARAMS), ds, num_boost_round=3,
+                      valid_sets=[ds, vs], valid_names=["train", "valid"],
+                      evals_result=ev, verbose_eval=False)
+        out[name] = (b, ev, ds)
+    return out, X, Xv
+
+
+def _jax_trees(b):
+    return b._gbdt._used_models(0, -1)
+
+
+def test_trees_structurally_equal(trained):
+    out, _, _ = trained
+    jt = _jax_trees(out["jax"][0])
+    tt = out["torch"][0]._gbdt.models
+    assert len(jt) == len(tt) == 3
+    for a, b in zip(jt, tt):
+        k = a.num_leaves
+        assert k == b.num_leaves and k > 2
+        for f in ("split_feature", "threshold", "decision_type",
+                  "left_child", "right_child", "internal_count"):
+            np.testing.assert_array_equal(getattr(a, f)[:k - 1],
+                                          getattr(b, f)[:k - 1], err_msg=f)
+        np.testing.assert_array_equal(a.leaf_count[:k], b.leaf_count[:k])
+        np.testing.assert_allclose(a.leaf_value[:k], b.leaf_value[:k],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a.split_gain[:k - 1], b.split_gain[:k - 1],
+                                   rtol=1e-5)
+
+
+def test_predictions_and_auc_match(trained):
+    out, X, Xv = trained
+    jb, jev, _ = out["jax"]
+    tb, tev, _ = out["torch"]
+    for x in (X, Xv):
+        np.testing.assert_allclose(tb.predict(x), jb.predict(x), atol=1e-5)
+        np.testing.assert_allclose(tb.predict(x, raw_score=True),
+                                   jb.predict(x, raw_score=True), atol=1e-5)
+    for ds in ("train", "valid"):
+        np.testing.assert_allclose(tev[ds]["auc"], jev[ds]["auc"],
+                                   rtol=0, atol=1e-6)
+    assert tev["valid"]["auc"][-1] > 0.75
+
+
+def test_bin_mappers_byte_identical(trained):
+    out, _, _ = trained
+    jm = out["jax"][2].construct().handle.bin_mappers
+    tm = out["torch"][2].construct().handle.bin_mappers
+    for a, b in zip(jm, tm):
+        da, db = a.to_dict(), b.to_dict()
+        np.testing.assert_array_equal(np.asarray(da.pop("bin_upper_bound")),
+                                      np.asarray(db.pop("bin_upper_bound")))
+        assert da == db
+
+
+def test_model_text(trained):
+    """The port's model text matches the JAX package's line by line
+    (values within float noise, parameters equal but device_type), and
+    loading the JAX text round-trips byte-identically in both."""
+    out, X, _ = trained
+    jtext = out["jax"][0].model_to_string()
+    ttext = out["torch"][0].model_to_string()
+    jl, tl = jtext.splitlines(), ttext.splitlines()
+    assert len(jl) == len(tl)
+    for a, b in zip(jl, tl):
+        key = a.split("=", 1)[0]
+        if key in ("split_gain", "leaf_value", "leaf_weight",
+                   "internal_value", "internal_weight"):
+            np.testing.assert_allclose(
+                np.asarray(b.split("=")[1].split(), float),
+                np.asarray(a.split("=")[1].split(), float),
+                rtol=1e-5, atol=1e-6)
+        elif key == "tree_sizes" or a.startswith("[device_type"):
+            continue
+        else:
+            assert a == b
+    loaded = tlgb.Booster(params={"device_type": "cpu"}, model_str=jtext)
+    assert loaded.model_to_string() == \
+        jlgb.Booster(model_str=jtext).model_to_string()
+    np.testing.assert_allclose(loaded.predict(X), out["jax"][0].predict(X),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("objective", [
+    "regression", "multiclass num_class:3", "poisson max_delta_step:0.7",
+    "cross_entropy"])
+def test_loading_an_untrained_objective_raises(trained, objective):
+    """JAX model text whose objective the port does not train raises and
+    names its ROADMAP item, rather than predicting untransformed raw
+    scores."""
+    jtext = trained[0]["jax"][0].model_to_string()
+    head, sep, rest = jtext.partition("\nobjective=")
+    assert sep
+    text = head + sep + objective + "\n" + rest.split("\n", 1)[1]
+    with pytest.raises(NotImplementedError, match="A9"):
+        tlgb.Booster(params={"device_type": "cpu"}, model_str=text)
+
+
+def test_booster_from_jax_arrays(trained):
+    out, X, Xv = trained
+    jb = out["jax"][0]
+    trees = [{f: getattr(t, f)[:t.num_leaves if f.startswith("leaf_")
+                                else t.num_leaves - 1]
+              for f in TREE_FIELDS} | {"num_leaves": t.num_leaves}
+             for t in _jax_trees(jb)]
+    b = booster_from_jax_arrays(trees, max_feature_idx=5,
+                                params={"device_type": "cpu"})
+    for x in (X, Xv):
+        np.testing.assert_allclose(b.predict(x), jb.predict(x), atol=1e-6)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "lightgbm_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    for path in files:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for m in mods:
+                top = m.split(".")[0]
+                assert top not in ("jax", "jaxlib", "lightgbm_tpu"), \
+                    f"{path} imports {m}"
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    X, y = _data(n=200)
+    with pytest.raises(tlgb.LightGBMError, match="no CUDA device"):
+        tlgb.train({"objective": "binary", "verbose": -1},
+                   tlgb.Dataset(X, label=y), num_boost_round=1)
+
+
+@pytest.mark.parametrize("extra,err,match", [
+    ({"bagging_freq": 1, "bagging_fraction": 0.5}, NotImplementedError,
+     "A10"),
+    ({"use_quantized_grad": True}, NotImplementedError, "A10"),
+    ({"tpu_fused": False}, tlgb.LightGBMError, "A8"),
+    ({"extra_trees": True}, tlgb.LightGBMError, "A8"),
+    ({"objective": "regression"}, NotImplementedError, "A9"),
+    ({"categorical_feature": [3]}, NotImplementedError, "A3"),
+])
+def test_left_out_options_raise(extra, err, match):
+    X, y = _data(n=300)
+    X[:, 3] = np.abs(np.round(X[:, 3]))
+    with pytest.raises(err, match=match):
+        tlgb.train({**PARAMS, **extra}, tlgb.Dataset(X, label=y),
+                   num_boost_round=1, verbose_eval=False)
+
+
+def test_early_stopping_and_options():
+    """Early stopping on a validation set, max_depth, feature fraction,
+    monotone constraints and the pool-less mode run and respect their
+    limits."""
+    X, y = _data(n=800)
+    Xv, yv = _data(seed=5, n=300)
+    ds = tlgb.Dataset(X, label=y)
+    b = tlgb.train({**PARAMS, "max_depth": 3, "feature_fraction": 0.7,
+                    "feature_fraction_bynode": 0.8,
+                    "monotone_constraints": [1, 0, 0, 0, 0, 0],
+                    "histogram_pool_size": 0.001, "learning_rate": 0.3},
+                   ds, num_boost_round=40,
+                   valid_sets=[tlgb.Dataset(Xv, label=yv, reference=ds)],
+                   early_stopping_rounds=3, verbose_eval=False)
+    assert b.best_iteration >= 1
+    for t in b._gbdt.models:
+        assert t.leaf_depth[:t.num_leaves].max() <= 3
+    # monotone in feature 0: raising it never lowers the score
+    lo, hi = X.copy(), X.copy()
+    hi[:, 0] = lo[:, 0] + 1.0
+    assert (b.predict(hi, raw_score=True)
+            >= b.predict(lo, raw_score=True) - 1e-6).all()
