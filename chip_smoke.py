@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (lightgbm_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--rows 2000000] [--iters 10]
+    python3 chip_smoke.py [--rows 2000000] [--iters 10] [--profile]
 
 Phases, each of which fails the run (no exception is caught):
 
-1. build  — compile every CUDA kernel of the main path from csrc/ (one
-   nvcc per source, in parallel); print the build seconds and the card.
-2. kernels — every kernel against its plain PyTorch version on the card,
-   at the main path's shapes and at edge cases; time each at the root
-   window beside its bound, the plain version and a library yardstick.
-3. main path — lightgbm_tpu_torch.train on a HIGGS-shaped synthetic
-   (28 features, 255 leaves, 255 bins), launch counts of every kernel
-   read around the run, AUC on held-out rows.
+1. build  — compile every CUDA kernel from csrc/ (one nvcc per source,
+   in parallel); print the build seconds and the card.
+2. kernels — every kernel (B1-B7) against its plain PyTorch version on
+   the card, at the paths' shapes and at edge cases; time each at its
+   path's root window beside its bound, the plain version and a library
+   yardstick.
+3. paths — lightgbm_tpu_torch.train through each path the port runs,
+   the launch counts of every kernel read around each run, AUC on
+   held-out rows and seconds per iteration:
+   - HIGGS fused: HIGGS-shaped synthetic (28 features, 255 leaves, 255
+     bins) on the fused learner (B1 + B2);
+   - (a) wide-sparse fused: the bench.py wide sidecar's one-hot CSR
+     shape (72 variables x 8 categories, 1,048,576 rows) with the
+     default config, which must pick the multi-value layout (B5 + B2);
+   - (b) dense host loop: the HIGGS shape with extra_trees (B4);
+   - (c) wide-sparse host loop: shape (a) with tpu_fused=false (B6).
 4. card vs CPU — the same small training on cuda and on cpu (the plain
-   versions): trees, leaf values and predictions must agree.
+   versions), on the fused and on the host-loop learner: trees, leaf
+   values and predictions must agree.
+
+``--profile`` instead profiles one iteration of each path.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -54,6 +65,31 @@ def make_higgs_like(n, f, seed=0, scale=2.4):
     s = (s - s.mean()) / s.std() * scale
     y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-s))).astype(np.float32)
     return X, y
+
+
+def make_wide_like(rows, nvars=72, ncats=8, seed=7):
+    """Wide-sparse one-hot CSR (a copy of bench.py run_wide_sidecar's
+    data): ``nvars`` categorical variables of ``ncats`` levels, the
+    dominant level at ~93%, every row storing its ``nvars`` one-hot
+    entries; labels from a random linear logit plus noise."""
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    w = rng.randn(nvars, ncats).astype(np.float32) * 0.8
+    cols_t = np.empty((nvars, rows), dtype=np.int32)
+    logit = np.zeros(rows, np.float32)
+    for v in range(nvars):
+        rare = rng.rand(rows) >= 0.93
+        cat_v = np.where(rare, rng.randint(1, ncats, size=rows),
+                         0).astype(np.int32)
+        logit += w[v][cat_v]
+        cols_t[v] = cat_v + v * ncats
+    y = (logit + rng.randn(rows).astype(np.float32) * 0.5 > 0)
+    cols = np.ascontiguousarray(cols_t.T).reshape(-1)
+    X = sp.csr_matrix(
+        (np.ones(rows * nvars, np.int8), cols,
+         np.arange(rows + 1, dtype=np.int64) * nvars),
+        shape=(rows, nvars * ncats))
+    return X, y.astype(np.float32)
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -253,16 +289,215 @@ def check_partition(dev, report):
     log(f"B2 partition root window {n} lanes x P={P}: {ms:.3f} ms (bound "
         f"{bound_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
         f"argsort+index_select {lib_ms:.3f} ms)")
+    # B3 (partition_pallas, the JAX package's v1 entry) is the same CUDA
+    # kernel; its entry point is partition_window
+    v1_ms = time_ms(lambda: plane.partition_window(work, layout, 0, n, rscal))
+    report.append(dict(
+        name="partition_window", route="cuda",
+        source="lightgbm_tpu_torch/csrc/partition.cu",
+        replaces="lightgbm_tpu/ops/plane.py:643",
+        launches=0, max_abs_err=0.0, ms=v1_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms))
+    log(f"B3 partition_window (v1 entry, same kernel): {v1_ms:.3f} ms")
+
+
+def _dyadic_gh(rng, n, dev):
+    """grad/hess on a dyadic grid: every partial sum is exact, so a
+    kernel and its plain version agree bit for bit in any order."""
+    # 7 fractional bits: the multival sentinel cell sums every row, and
+    # 1M rows of hess <= 1/8 keep |sum| * 2^7 below 2^24
+    g = (rng.randint(-64, 65, n) / 128.0).astype(np.float32)
+    h = (rng.randint(0, 17, n) / 128.0).astype(np.float32)
+    return torch.as_tensor(g, device=dev), torch.as_tensor(h, device=dev)
+
+
+def check_rowmajor(dev, report, rows):
+    """B4 (hist_radix_cuda, float32 and bfloat16) and B7
+    (hist_masked_cuda) against their plain versions; timed at path (b)'s
+    root: ``rows`` x 28 uint8 codes, 255 bins."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    rng = np.random.RandomState(11)
+    worst = 0.0
+    cases = [(rows, 28, 255, torch.uint8), (300_001, 28, 64, torch.uint8),
+             (200_000, 9, 16, torch.int32), (100_000, 5, 1000, torch.int32),
+             (2_049, 28, 255, torch.uint8), (1, 28, 255, torch.uint8),
+             (0, 28, 255, torch.uint8)]
+    for c, f, nb, cdt in cases:
+        bins = torch.as_tensor(rng.randint(0, nb, size=(c, f))).to(cdt)
+        bins = bins.to(dev)
+        g, h = _dyadic_gh(rng, c, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            got = H.hist_radix_cuda(bins, g, h, nb, dtype=dt)
+            again = H.hist_radix_cuda(bins, g, h, nb, dtype=dt)
+            want = H.histogram_radix_plain(bins, g, h, nb, dt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), f"B4 {c}x{f}/{nb}: launches differ"
+            assert torch.equal(got, want), f"B4 {c}x{f}/{nb} {dt}: differs"
+            worst = max(worst, float((got - want).abs().max()))
+        got7 = H.hist_masked_cuda(bins, g, h, nb)
+        assert torch.equal(got7, H.histogram_masked_plain(bins, g, h, nb)), \
+            f"B7 {c}x{f}/{nb}: differs"
+    log(f"B4 hist_radix / B7 hist_masked: {len(cases)} shapes x (f32, bf16)"
+        " bit-exact against the plain versions (dyadic grad/hess), "
+        "run-to-run identical")
+    f, nb = 28, 255
+    bins = torch.as_tensor(rng.randint(0, nb, size=(rows, f)).astype(
+        np.uint8), device=dev)
+    g, h = _dyadic_gh(rng, rows, dev)
+    idx = (torch.arange(f, device=dev)[None, :] * nb
+           + bins.long()).reshape(-1)
+    vals = torch.stack([g, h], -1)[:, None, :].expand(rows, f, 2) \
+        .reshape(-1, 2).contiguous()
+    acc = torch.zeros(f * nb, 2, device=dev)
+    lib_ms = time_ms(lambda: acc.index_add_(0, idx, vals))
+    nbytes = rows * (f + 8) + f * nb * 2 * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    for name, fn, plain, line in (
+            ("hist_radix",
+             lambda: H.hist_radix_cuda(bins, g, h, nb, dtype=torch.bfloat16),
+             lambda: H.histogram_radix_plain(bins, g, h, nb, torch.bfloat16),
+             "lightgbm_tpu/ops/histogram.py:404"),
+            ("hist_masked", lambda: H.hist_masked_cuda(bins, g, h, nb),
+             lambda: H.histogram_masked_plain(bins, g, h, nb),
+             "lightgbm_tpu/ops/histogram.py:125")):
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, reps=3)
+        report.append(dict(
+            name=name, route="cuda",
+            source="lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
+            replaces=line, launches=0, max_abs_err=worst, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            library_ms=lib_ms))
+        log(f"{name} root window {rows}x{f}x{nb}: {ms:.3f} ms (bound "
+            f"{bound_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
+            f"index_add_ {lib_ms:.3f} ms)")
+
+
+def _synthetic_mv_codes(n, groups, k, seed, dev):
+    """[n, k] row-wise flat codes over ``groups`` groups of 2-8 bins
+    each: slot 0 the sentinel T, then a random number of present codes
+    in DISTINCT groups (as real rows have), -1 pads. Returns (codes, T)."""
+    rng = np.random.RandomState(seed)
+    gnb = rng.randint(2, 9, size=groups)
+    off = np.concatenate([[0], np.cumsum(gnb)[:-1]])
+    total = int(gnb.sum())
+    base = rng.randint(0, groups, size=n)
+    grp = (base[:, None] + 7 * np.arange(k - 1)[None, :]) % groups
+    cell = off[grp] + rng.randint(0, 1 << 20, size=grp.shape) % gnb[grp]
+    present = np.arange(k - 1)[None, :] < rng.randint(0, k, size=n)[:, None]
+    codes = np.full((n, k), -1, np.int32)
+    codes[:, 0] = total
+    codes[:, 1:] = np.where(present, cell, -1)
+    return torch.as_tensor(codes, device=dev), total
+
+
+def check_multival(dev, report, codes, total_bins):
+    """B5 (hist_multival_planar_cuda) and B6 (hist_multival_cuda)
+    against their plain versions, f32 and bf16, at path (a)'s real
+    row-wise codes (full, unaligned, 1-row and empty windows, host and
+    device windows) and at a synthetic T beyond the kernel's shared
+    memory; timed at path (a)'s root window."""
+    from lightgbm_tpu_torch.ops import cuda as K
+    from lightgbm_tpu_torch.ops import multival as MV
+    from lightgbm_tpu_torch.ops import plane
+    n, k = codes.shape
+    rng = np.random.RandomState(12)
+    smem_cells = K.lib("hist_multival").lgbt_mv_smem_cells()
+    big, big_t = _synthetic_mv_codes(200_000, 3000, 24, 5, dev)
+    assert big_t + 1 > smem_cells > total_bins + 1, (big_t, smem_cells)
+    worst = 0.0
+    states = {}
+    for tag, cds, t in (("shape_a", codes, total_bins),
+                        ("T_beyond_smem", big, big_t)):
+        m = cds.shape[0]
+        sm = MV.slot_major(cds)
+        g, h = _dyadic_gh(rng, m, dev)
+        layout = plane.make_layout(1, 8, m, with_label=True, with_score=True,
+                                   mv_planes=sm.shape[0])
+        data = plane.build_data(
+            layout, plane.build_codes_planes(
+                torch.zeros((m, 1), dtype=torch.int32, device=dev), layout),
+            g, h, mv=sm)
+        states[tag] = (layout, data, sm, g, h, t)
+        kw = dict(mv_start=layout.mv_start, mv_planes=layout.mv_planes,
+                  total_bins=t, grad_plane=layout.grad)
+        for dt in (torch.float32, torch.bfloat16):
+            for start, count in ((0, m), (m // 5 + 3, m // 3), (m - 5, 1),
+                                 (17, 0)):
+                got = MV.hist_multival_planar_cuda(data, start, count,
+                                                   dtype=dt, **kw)
+                dwin = MV.hist_multival_planar_cuda(
+                    data, torch.tensor(start, dtype=torch.int32, device=dev),
+                    torch.tensor(count, dtype=torch.int32, device=dev),
+                    max_count=m, dtype=dt, **kw)
+                want = MV.histogram_multival_planar_plain(
+                    data, start, count, dtype=dt, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, dwin), f"B5 {tag} {start}+{count}"
+                assert torch.equal(got, want), f"B5 {tag} {start}+{count} {dt}"
+                worst = max(worst, float((got - want).abs().max()))
+            gh = MV.gh_planes(g, h)
+            for lo, hi in ((0, m), (1_001, 1_001 + m // 4), (5, 6)):
+                got = MV.hist_multival_cuda(sm[:, lo:hi], gh[:, lo:hi],
+                                            total_bins=t, dtype=dt)
+                again = MV.hist_multival_cuda(sm[:, lo:hi], gh[:, lo:hi],
+                                              total_bins=t, dtype=dt)
+                want = MV.histogram_multival_plain(
+                    sm[:, lo:hi], gh[:, lo:hi], total_bins=t, dtype=dt)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), f"B6 {tag}: launches differ"
+                assert torch.equal(got, want), f"B6 {tag} {lo}:{hi} {dt}"
+        log(f"B5/B6 multival {tag} (T={t}, K={sm.shape[0]}, {m} rows): "
+            "windows x (f32, bf16) bit-exact against the plain versions, "
+            "host and device windows identical")
+    layout, data, sm, g, h, t = states["shape_a"]
+    kp = sm.shape[0]
+    live = sm.t().reshape(-1).long()
+    keep = live >= 0
+    idx = live[keep]
+    vals = torch.stack([g, h], -1)[:, None, :].expand(n, kp, 2) \
+        .reshape(-1, 2)[keep].contiguous()
+    acc = torch.zeros(t + 1, 2, device=dev)
+    lib_ms = time_ms(lambda: acc.index_add_(0, idx, vals))
+    kw = dict(mv_start=layout.mv_start, mv_planes=layout.mv_planes,
+              total_bins=t, grad_plane=layout.grad, dtype=torch.bfloat16)
+    gh = MV.gh_planes(g, h)
+    out_b = (t + 1) * 2 * 4
+    for name, fn, plain, nbytes, line in (
+            ("hist_multival_planar",
+             lambda: MV.hist_multival_planar_cuda(data, 0, n, **kw),
+             lambda: MV.histogram_multival_planar_plain(data, 0, n, **kw),
+             n * (layout.mv_planes + 2) * 4 + out_b,
+             "lightgbm_tpu/ops/multival.py:450"),
+            ("hist_multival",
+             lambda: MV.hist_multival_cuda(sm, gh, total_bins=t,
+                                           dtype=torch.bfloat16),
+             lambda: MV.histogram_multival_plain(sm, gh, total_bins=t,
+                                                 dtype=torch.bfloat16),
+             n * (kp * 4 + 8) + out_b, "lightgbm_tpu/ops/multival.py:377")):
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, reps=3)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        report.append(dict(
+            name=name, route="cuda",
+            source="lightgbm_tpu_torch/csrc/hist_multival.cu",
+            replaces=line, launches=0, max_abs_err=worst, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            library_ms=lib_ms))
+        log(f"{name} root window {n} rows, K={kp}, T={t}: {ms:.3f} ms "
+            f"(bound {bound_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
+            f"index_add_ over live codes {lib_ms:.3f} ms)")
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the paths
 # ---------------------------------------------------------------------------
 
 def window_rows(tree):
-    """Rows the main path's kernels must touch to grow ``tree``: B1 reads
-    the root window and, at every split, the smaller child's window (the
-    larger child is the parent minus it); B2 moves the parent's window."""
+    """Rows a path's kernels must touch to grow ``tree``: the histogram
+    reads the root window and, at every split, the smaller child's
+    window (the larger child is the parent minus it); the partition
+    moves the parent's window."""
     if tree.num_leaves < 2:
         return 0, 0
 
@@ -277,81 +512,174 @@ def window_rows(tree):
     return hist, part
 
 
-def iteration_bounds_ms(grower, trees):
-    """Mean per-tree bytes bound of B1 and B2 over ``trees`` at HBM rate:
-    B1 reads (code_planes + 2) words per row of its windows and writes one
-    [F, B, 2] f32 histogram per launch; B2 reads and writes P words per
-    row of its windows."""
-    Ly = grower.layout
-    nbins = (grower.group_max_bin if grower._efb_hist is not None
-             else grower.max_num_bin)
+def iteration_bounds_ms(gbdt, trees):
+    """Mean per-tree bytes bound at HBM rate of the path's histogram
+    kernel and (fused learner) of B2: the histogram reads its bytes per
+    row over the windows of ``window_rows`` and writes one histogram per
+    launch; B2 reads and writes P words per row of its windows.
+    Histogram bytes per row: B1 (code_planes + 2) x 4, B5
+    (mv_planes + 2) x 4, B4 F code bytes + 8, B6 Kp x 4 + 8."""
+    from lightgbm_tpu_torch.ops.multival import MV_SK
+    fl, tl = gbdt._fused, gbdt.tree_learner
+    if fl is not None:
+        Ly = fl.layout
+        if Ly.mv_planes:
+            per_row, out = (Ly.mv_planes + 2) * 4, fl._mv_total_bins + 1
+        else:
+            nbins = (fl.group_max_bin if fl._efb_hist is not None
+                     else fl.max_num_bin)
+            per_row, out = (Ly.code_planes + 2) * 4, Ly.num_cols * nbins
+        part_row = 2 * Ly.num_planes * 4
+    else:
+        if tl._mv_state is not None:
+            codes, total, _ = tl._mv_state
+            kp = -(-codes.shape[1] // MV_SK) * MV_SK
+            per_row, out = kp * 4 + 8, total + 1
+        else:
+            b = tl.bins
+            nbins = (tl.group_max_bin if tl._efb_hist is not None
+                     else tl.max_num_bin)
+            per_row = b.shape[1] * b.element_size() + 8
+            out = b.shape[1] * nbins
+        part_row = 0
     hist_b = part_b = 0
     for t in trees:
         h, p = window_rows(t)
-        hist_b += (h * (Ly.code_planes + 2) * 4
-                   + t.num_leaves * Ly.num_cols * nbins * 2 * 4)
-        part_b += p * 2 * Ly.num_planes * 4
+        hist_b += h * per_row + t.num_leaves * out * 2 * 4
+        part_b += p * part_row
     n = max(len(trees), 1)
     return (hist_b / n / HBM_BYTES_PER_S * 1e3,
             part_b / n / HBM_BYTES_PER_S * 1e3)
 
-def main_path(rows, iters, report, device="cuda"):
-    import lightgbm_tpu_torch as lgt
+
+def held_out_auc(booster, X, y, device):
     from lightgbm_tpu_torch.metric.metrics import AUCMetric
-    from lightgbm_tpu_torch.ops import cuda as K
-    hold = 200_000
-    X, y = make_higgs_like(rows + hold, 28, seed=0)
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-              "verbose": -1, "device_type": device}
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    ds = lgt.Dataset(X[:rows], label=y[:rows], params=params)
-    t0 = time.perf_counter()
-    ds.construct()
-    log(f"main path: dataset {rows} x 28 binned in "
-        f"{time.perf_counter() - t0:.2f} s (host)")
-    marks = []
-
-    def timer(env):
-        sync()
-        marks.append((time.perf_counter(), env.model._gbdt._fused.syncs))
-
-    K.reset_launches()
-    marks.append((time.perf_counter(), 0))
-    booster = lgt.train(params, ds, num_boost_round=iters, callbacks=[timer],
-                        verbose_eval=False)
-    sync()
-    launches = dict(K.LAUNCHES)
-    trees = booster._gbdt.models
-    leaves = [t.num_leaves for t in trees]
-    for i in range(1, len(marks)):
-        log(f"main path: iteration {i}: {marks[i][0] - marks[i - 1][0]:.4f} s,"
-            f" {marks[i][1] - marks[i - 1][1]} host syncs, "
-            f"{leaves[i - 1]} leaves")
-    log(f"main path: kernel launches {json.dumps(launches)}; "
-        f"trees {len(trees)}, leaves per tree {leaves}")
-    win = [window_rows(t) for t in trees]
-    hb, pb = iteration_bounds_ms(booster._gbdt._fused, trees)
-    log(f"main path: rows per tree read by B1 {[w[0] for w in win]}, "
-        f"moved by B2 {[w[1] for w in win]}; per-iteration bytes bound "
-        f"B1 {hb:.4f} ms, B2 {pb:.4f} ms")
-    assert len(trees) == iters, (len(trees), iters)
-    if device == "cuda":
-        assert launches["hist_planar"] == sum(leaves) > 0, launches
-        assert launches["partition"] == sum(k - 1 for k in leaves) > 0, \
-            launches
-    for r in report:
-        r["launches"] = launches[r["name"]]
-    pred = booster.predict(X[rows:], raw_score=True)
-    assert pred.shape == (hold,) and np.isfinite(pred).all()
+    pred = booster.predict(X, raw_score=True)
+    assert pred.shape == (len(y),) and np.isfinite(pred).all()
     metric = AUCMetric(booster.config)
 
     class _Meta:
-        label, weights = y[rows:], None
-    metric.init(_Meta, hold)
-    auc = float(metric.eval_device(torch.as_tensor(pred, device=device))[0][1])
-    log(f"main path: held-out AUC {auc:.6f} on {hold} rows "
-        f"({iters} iterations)")
-    assert 0.70 < auc <= 1.0, auc
+        label, weights = y, None
+    metric.init(_Meta, len(y))
+    return float(metric.eval_device(torch.as_tensor(pred,
+                                                    device=device))[0][1])
+
+
+def run_path(name, params, ds, iters, X_hold, y_hold, expect,
+             device="cuda", min_auc=0.70):
+    """Train ``iters`` iterations through lightgbm_tpu_torch.train with
+    every launch counter set to 0 just before and read just after; fail
+    unless each kernel of ``expect`` was launched. Prints seconds and
+    host syncs per iteration, launches, the per-iteration bytes bounds
+    and held-out AUC; returns (launches, booster)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda as K
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    marks = []
+
+    def learner_syncs(gbdt):
+        return (gbdt._fused if gbdt._fused is not None
+                else gbdt.tree_learner).syncs
+
+    def timer(env):
+        sync()
+        marks.append((time.perf_counter(), learner_syncs(env.model._gbdt)))
+
+    K.reset_launches()
+    marks.append((time.perf_counter(), 0))
+    booster = lgt.train({**params, "device_type": device}, ds,
+                        num_boost_round=iters, callbacks=[timer],
+                        verbose_eval=False)
+    sync()
+    launches = dict(K.LAUNCHES)
+    gbdt = booster._gbdt
+    trees = gbdt.models
+    leaves = [t.num_leaves for t in trees]
+    secs = [marks[i][0] - marks[i - 1][0] for i in range(1, len(marks))]
+    for i, sec in enumerate(secs, 1):
+        log(f"{name}: iteration {i}: {sec:.4f} s, "
+            f"{marks[i][1] - marks[i - 1][1]} host syncs, "
+            f"{leaves[i - 1]} leaves")
+    assert len(trees) == iters, (name, len(trees), iters)
+    if device == "cuda":
+        for k in expect:
+            assert launches[k] > 0, f"{name}: kernel {k} never launched"
+    hb, pb = iteration_bounds_ms(gbdt, trees)
+    auc = held_out_auc(booster, X_hold, y_hold, device)
+    log(f"{name}: launches {json.dumps(launches)}; leaves per tree "
+        f"{leaves}; histogram rows per tree "
+        f"{[window_rows(t)[0] for t in trees]}; per-iteration bytes bound "
+        f"histogram {hb:.4f} ms, partition {pb:.4f} ms")
+    log(f"{name}: held-out AUC {auc:.6f} on {len(y_hold)} rows after "
+        f"{iters} iterations; mean {np.mean(secs):.4f} s/iteration")
+    assert min_auc < auc <= 1.0, (name, auc)
+    return launches, booster
+
+
+def wide_data(rows, hold, device):
+    """Shape (a): the wide-sparse CSR and its constructed Dataset (the
+    default config), plus held-out rows."""
+    import lightgbm_tpu_torch as lgt
+    X, y = make_wide_like(rows + hold)
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:rows], label=y[:rows],
+                     params={**WIDE_PARAMS, "device_type": device})
+    ds.construct()
+    occ = ds.handle.occupancy
+    log(f"shape (a): {rows} x {X.shape[1]} CSR binned in "
+        f"{time.perf_counter() - t0:.2f} s (host): {occ.num_groups} groups, "
+        f"{occ.row_nnz_mean:.2f} present codes per row (max "
+        f"{occ.row_nnz_max})")
+    return ds, X[rows:], y[rows:]
+
+
+HIGGS_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+                "verbose": -1}
+WIDE_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
+
+
+def paths(args, report, wide, device="cuda"):
+    """Phase 3: the HIGGS fused path and paths (a)-(c). Each kernel's
+    ``launches`` in the report is the count from its own path."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import histogram as H
+    hold = 200_000
+    X, y = make_higgs_like(args.rows + hold, 28, seed=0)
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:args.rows], label=y[:args.rows],
+                     params={**HIGGS_PARAMS, "device_type": device})
+    ds.construct()
+    log(f"HIGGS: dataset {args.rows} x 28 binned in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    got = {}
+    got["higgs"], _ = run_path("HIGGS fused", HIGGS_PARAMS, ds, args.iters,
+                               X[args.rows:], y[args.rows:],
+                               ("hist_planar", "partition"), device)
+    wds, wX, wy = wide
+    cfg = Config.from_params(WIDE_PARAMS)
+    assert H.hist_layout(cfg, wds.handle) == "multival", "(a) not multival"
+    got["a"], ba = run_path("(a) wide-sparse fused", WIDE_PARAMS, wds,
+                            args.wide_iters, wX, wy,
+                            ("hist_multival_planar", "partition"), device)
+    if device == "cuda":
+        assert ba._gbdt._fused._hist_method == "multival_pallas", \
+            "(a): the dispatcher did not pick the multi-value layout"
+    got["b"], _ = run_path("(b) dense host loop",
+                           {**HIGGS_PARAMS, "extra_trees": True}, ds,
+                           args.host_iters, X[args.rows:], y[args.rows:],
+                           ("hist_radix",), device, min_auc=0.65)
+    got["c"], _ = run_path("(c) wide-sparse host loop",
+                           {**WIDE_PARAMS, "tpu_fused": False}, wds,
+                           args.wide_host_iters, wX, wy, ("hist_multival",),
+                           device)
+    path_of = {"hist_planar": ["higgs"], "partition": ["higgs", "a"],
+               "hist_radix": ["b"], "hist_multival_planar": ["a"],
+               "hist_multival": ["c"], "hist_masked": [],
+               "partition_window": []}
+    for r in report:
+        r["launches"] = sum(got[p][r["name"]] for p in path_of[r["name"]])
 
 
 # ---------------------------------------------------------------------------
@@ -362,88 +690,111 @@ def card_vs_cpu():
     import lightgbm_tpu_torch as lgt
     n = 100_000
     X, y = make_higgs_like(n, 28, seed=3)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        params = {"objective": "binary", "tpu_hist_dtype": "float32",
-                  "verbose": -1, "device_type": dev}
-        b = lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=3,
-                      verbose_eval=False)
-        out[dev] = (b._gbdt.models, b.predict(X[:20_000]))
-    (tg, pg), (tc, pc) = out["cuda"], out["cpu"]
-    assert len(tg) == len(tc) == 3
-    for a, b in zip(tg, tc):
-        k = a.num_leaves
-        assert k == b.num_leaves, (k, b.num_leaves)
-        for f in ("split_feature", "threshold", "decision_type",
-                  "left_child", "right_child"):
-            assert np.array_equal(getattr(a, f)[:k - 1],
-                                  getattr(b, f)[:k - 1]), f
-        np.testing.assert_allclose(a.leaf_value[:k], b.leaf_value[:k],
-                                   rtol=1e-5, atol=1e-7)
-    np.testing.assert_allclose(pg, pc, rtol=0, atol=1e-5)
-    log(f"card vs CPU: {n} rows, 3 iterations, float32 histograms: trees "
-        f"equal ({[t.num_leaves for t in tg]} leaves), predictions max "
-        f"|diff| {float(np.abs(pg - pc).max()):.3g}")
+    for learner, extra in (("fused", {}), ("host loop", {"tpu_fused": False})):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = {"objective": "binary", "tpu_hist_dtype": "float32",
+                      "verbose": -1, "device_type": dev, **extra}
+            b = lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=3,
+                          verbose_eval=False)
+            out[dev] = (b._gbdt.models, b.predict(X[:20_000]))
+        (tg, pg), (tc, pc) = out["cuda"], out["cpu"]
+        assert len(tg) == len(tc) == 3
+        for a, b in zip(tg, tc):
+            k = a.num_leaves
+            assert k == b.num_leaves, (learner, k, b.num_leaves)
+            for f in ("split_feature", "threshold", "decision_type",
+                      "left_child", "right_child"):
+                assert np.array_equal(getattr(a, f)[:k - 1],
+                                      getattr(b, f)[:k - 1]), (learner, f)
+            np.testing.assert_allclose(a.leaf_value[:k], b.leaf_value[:k],
+                                       rtol=0, atol=1e-6)
+        np.testing.assert_allclose(pg, pc, rtol=0, atol=1e-6)
+        log(f"card vs CPU ({learner}): {n} rows, 3 iterations, float32 "
+            f"histograms: trees equal ({[t.num_leaves for t in tg]} leaves), "
+            f"predictions max |diff| {float(np.abs(pg - pc).max()):.3g}")
 
 
-def profile_iteration(rows):
-    """One steady-state training iteration of the main path under
-    torch.profiler: device time by kernel, kernel count, and the
-    device's busy share of the iteration's wall time."""
+def profile_paths(args, wide):
+    """One steady-state iteration of each path under torch.profiler:
+    device time by kernel family, kernel count, and the device's busy
+    share of the iteration's wall time, beside the bytes bound of the
+    path's histogram kernel for the profiled tree."""
     import lightgbm_tpu_torch as lgt
-    X, y = make_higgs_like(rows, 28, seed=0)
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-              "verbose": -1}
-    booster = lgt.Booster(params, lgt.Dataset(X, label=y, params=params))
-    booster.update()                       # warm: state built, first tree
-    torch.cuda.synchronize()
+    X, y = make_higgs_like(args.rows, 28, seed=0)
+    dense = lgt.Dataset(X, label=y, params=HIGGS_PARAMS).construct()
+    wds = wide[0]
+    cases = [("HIGGS fused", HIGGS_PARAMS, dense),
+             ("(a) wide-sparse fused", WIDE_PARAMS, wds),
+             ("(b) dense host loop", {**HIGGS_PARAMS, "extra_trees": True},
+              dense),
+             ("(c) wide-sparse host loop",
+              {**WIDE_PARAMS, "tpu_fused": False}, wds)]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        booster.update()
+    for name, params, ds in cases:
+        booster = lgt.Booster(params, ds)
+        booster.update()                   # warm: state built, first tree
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows_ = []
-    for evt in prof.key_averages():
-        # device-side rows only (kernels, memcpy, memset): operator rows
-        # repeat their kernels' time
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows_.append((dev_us, evt.count, evt.key))
-    rows_.sort(reverse=True)
-    busy = sum(r[0] for r in rows_) / 1e6
-    log(f"profile: one iteration {rows} x 28, 255 leaves: wall "
-        f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
-        f"({100 * busy / wall:.1f}%), {sum(r[1] for r in rows_)} kernels")
-    fam = {"hist_planar": 0.0, "partition": 0.0, "other": 0.0}
-    for dev_us, _, key in rows_:
-        f = ("hist_planar" if "hist_" in key else
-             "partition" if "part_" in key else "other")
-        fam[f] += dev_us / 1e3
-    log("profile: device ms by family " + json.dumps(
-        {k: round(v, 3) for k, v in fam.items()}))
-    tree = booster._gbdt.models[-1]
-    hb, pb = iteration_bounds_ms(booster._gbdt._fused, [tree])
-    log(f"profile: this iteration's tree: B1 reads {window_rows(tree)[0]} "
-        f"rows (bytes bound {hb:.4f} ms, measured "
-        f"{fam['hist_planar']:.3f} ms = {fam['hist_planar'] / hb:.0f}x), "
-        f"B2 moves {window_rows(tree)[1]} rows (bound {pb:.4f} ms, measured "
-        f"{fam['partition']:.3f} ms = {fam['partition'] / pb:.0f}x)")
-    for dev_us, count, key in rows_[:15]:
-        log(f"profile: {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+        gbdt = booster._gbdt
+        learner = gbdt._fused if gbdt._fused is not None \
+            else gbdt.tree_learner
+        syncs0 = learner.syncs
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            booster.update()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows_ = []
+        for evt in prof.key_averages():
+            # device-side rows only (kernels, memcpy, memset): operator
+            # rows repeat their kernels' time
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0))
+            if dev_us > 0:
+                rows_.append((dev_us, evt.count, evt.key))
+        rows_.sort(reverse=True)
+        busy = sum(r[0] for r in rows_) / 1e6
+        fam = {"hist": 0.0, "partition": 0.0, "other": 0.0}
+        for dev_us, _, key in rows_:
+            f = ("hist" if ("hist_" in key or "rm_" in key or "mv_" in key)
+                 else "partition" if "part_" in key else "other")
+            fam[f] += dev_us / 1e3
+        tree = gbdt.models[-1]
+        hb, pb = iteration_bounds_ms(gbdt, [tree])
+        log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy "
+            f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
+            f"{sum(r[1] for r in rows_)} kernels, "
+            f"{learner.syncs - syncs0} host syncs, {tree.num_leaves} leaves")
+        log(f"profile {name}: device ms by family " + json.dumps(
+            {k: round(v, 3) for k, v in fam.items()}) + f"; histogram "
+            f"kernel {fam['hist']:.3f} ms vs bytes bound {hb:.4f} ms "
+            f"({fam['hist'] / max(hb, 1e-9):.0f}x), partition kernel "
+            f"{fam['partition']:.3f} ms vs {pb:.4f} ms")
+        for dev_us, count, key in rows_[:8]:
+            log(f"profile {name}: {dev_us / 1e3:9.3f} ms  {count:6d}x  "
+                f"{key[:80]}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
-                    help="training rows of the main path (HIGGS has 10.5M)")
-    ap.add_argument("--iters", type=int, default=10)
+                    help="training rows of the HIGGS-shaped paths (HIGGS "
+                    "has 10.5M)")
+    ap.add_argument("--iters", type=int, default=10,
+                    help="iterations of the HIGGS fused path")
+    ap.add_argument("--wide-rows", type=int, default=1_048_576,
+                    help="training rows of shape (a) (the bench.py wide "
+                    "sidecar's own default)")
+    ap.add_argument("--wide-iters", type=int, default=5)
+    ap.add_argument("--host-iters", type=int, default=3,
+                    help="iterations of path (b)")
+    ap.add_argument("--wide-host-iters", type=int, default=2,
+                    help="iterations of path (c)")
     ap.add_argument("--profile", action="store_true",
-                    help="only profile one main-path iteration and exit")
+                    help="only profile one iteration of each path and exit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -455,13 +806,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, here)
     from lightgbm_tpu_torch.ops import cuda as K
+    from lightgbm_tpu_torch.ops import multival as MV
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda}; {smi}")
+    t_start = time.perf_counter()
     K.build_all()
     log(f"build: {K.BUILD_INFO['seconds']:.1f} s for "
         f"{K.BUILD_INFO['built'] or 'nothing (cached)'}")
@@ -470,14 +823,27 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"build {name}: {line.strip()}")
 
+    dev = torch.device("cuda")
+    wide = wide_data(args.wide_rows, 100_000, "cuda")
     if args.profile:
-        profile_iteration(args.rows)
+        profile_paths(args, wide)
         return 0     # a profile prints no smoke result
     report: list = []
-    check_hist(torch.device("cuda"), report)
-    check_partition(torch.device("cuda"), report)
-    main_path(args.rows, args.iters, report)
+    check_hist(dev, report)
+    check_partition(dev, report)
+    check_rowmajor(dev, report, args.rows)
+    h = wide[0].handle
+    gnb = (h.bundles.group_num_bins if h.bundles is not None
+           else [m.num_bin for m in h.bin_mappers])
+    codes, lay = MV.build_rowwise_codes(h.bins, gnb, h.occupancy.default_code)
+    check_multival(dev, report, torch.as_tensor(codes, device=dev),
+                   lay.total_bins)
+    del codes
+    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
+    paths(args, report, wide)
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     card_vs_cpu()
+    log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
     print(json.dumps({"kernels": report}))

@@ -15,14 +15,18 @@ import numpy as np
 
 from .boosting.gbdt import GBDT
 from .config import Config
-from .io.dataset import BinnedDataset
+from .io.dataset import BinnedDataset, _is_sparse
 from .metric.metrics import create_metric
 from .objective.functions import create_objective
 from .utils.device import resolve_device
 from .utils.log import LightGBMError
 
 
-def _to_2d_numpy(data) -> np.ndarray:
+def _to_2d_numpy(data):
+    """Dense input as a 2-D numpy array; scipy sparse input unchanged
+    (the dataset consumes it column-wise without densifying)."""
+    if _is_sparse(data):
+        return data
     arr = np.asarray(data)
     if arr.ndim == 1:
         arr = arr.reshape(-1, 1)
@@ -32,8 +36,8 @@ def _to_2d_numpy(data) -> np.ndarray:
 
 
 class Dataset:
-    """Training data container (reference basic.py:909); dense numpy
-    input."""
+    """Training data container (reference basic.py:909): a dense numpy
+    matrix or a scipy CSR/CSC matrix."""
 
     def __init__(self, data, label=None,
                  reference: Optional["Dataset"] = None, weight=None,
@@ -158,8 +162,19 @@ class Booster:
                 raw_score: bool = False) -> np.ndarray:
         if num_iteration is None:
             num_iteration = -1
-        return self._gbdt.predict(_to_2d_numpy(data), start_iteration,
-                                  num_iteration, raw_score=raw_score)
+        mat = _to_2d_numpy(data)
+        if _is_sparse(mat):
+            # prediction walks raw feature values: densify sparse input
+            # in bounded row chunks
+            csr = mat.tocsr()
+            chunk = 1 << 16
+            parts = [self._gbdt.predict(
+                np.asarray(csr[i:i + chunk].todense(), dtype=np.float64),
+                start_iteration, num_iteration, raw_score=raw_score)
+                for i in range(0, max(csr.shape[0], 1), chunk)]
+            return np.concatenate(parts, axis=0)
+        return self._gbdt.predict(mat, start_iteration, num_iteration,
+                                  raw_score=raw_score)
 
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0,

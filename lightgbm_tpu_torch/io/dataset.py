@@ -16,8 +16,9 @@ packed into shared bundle columns (io/efb.py; reference
 dataset.cpp:50-302), so the device matrix is [N, num_groups] with
 num_groups << num_features on sparse data.
 
-This slice takes dense row-major matrices; scipy sparse input and
-distributed bin finding are not ported yet (ROADMAP A1).
+scipy CSR/CSC inputs are consumed without densifying the raw floats:
+only the bundled bin-code matrix is materialized. Distributed bin
+finding is not ported yet (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -29,6 +30,22 @@ from ..config import Config
 from ..utils import log
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, K_ZERO_THRESHOLD, BinMapper
 from .efb import BundleTables, build_bundles, bundle_eligible
+
+
+def _is_sparse(data) -> bool:
+    try:
+        import scipy.sparse as sp
+    except ImportError:
+        return False
+    return sp.issparse(data)
+
+
+def _csc_col(data, f: int):
+    """(row_indices, values) of column ``f`` of a CSC matrix — the only
+    sparse access pattern the data plane needs (reference sparse_bin.hpp
+    iterates per-feature nonzeros the same way)."""
+    start, end = data.indptr[f], data.indptr[f + 1]
+    return data.indices[start:end], data.data[start:end]
 
 
 def _reject_inf_feature(vals: np.ndarray, names, f: int) -> None:
@@ -171,7 +188,8 @@ class BinnedDataset:
                     categorical_feature: Optional[Sequence[int]] = None,
                     reference: Optional["BinnedDataset"] = None
                     ) -> "BinnedDataset":
-        """Construct from a raw dense row-major matrix.
+        """Construct from a raw row-major matrix: dense, or scipy CSR /
+        CSC.
 
         Mirrors LGBM_DatasetCreateFromMat ->
         DatasetLoader::ConstructFromSampleData: sample rows, find bins per
@@ -179,13 +197,19 @@ class BinnedDataset:
         aligns bin mappers (and bundles) with a previously constructed
         dataset (validation data; reference Dataset::CreateValid).
         """
-        if hasattr(data, "tocsr"):
-            raise NotImplementedError(
-                "sparse input is not ported yet (ROADMAP A1); pass a dense "
-                "matrix")
-        data = np.asarray(data)
-        if data.ndim != 2:
-            log.fatal("Data must be 2-dimensional")
+        sparse_input = _is_sparse(data)
+        data_csr = None
+        if sparse_input:
+            import scipy.sparse as sp
+            # keep the CSR form (when that is what arrived) for the
+            # row-sampling step below
+            if sp.isspmatrix_csr(data):
+                data_csr = data
+            data = data.tocsc() if not sp.isspmatrix_csc(data) else data
+        else:
+            data = np.asarray(data)
+            if data.ndim != 2:
+                log.fatal("Data must be 2-dimensional")
         n, total_features = data.shape
         ds = cls()
         ds.num_data = n
@@ -224,15 +248,28 @@ class BinnedDataset:
         rng = np.random.RandomState(config.data_random_seed)
         if sample_cnt < n:
             sample_idx = np.sort(rng.choice(n, size=sample_cnt, replace=False))
-            sample = data[sample_idx]
+            if sparse_input:
+                rows = data_csr if data_csr is not None else data.tocsr()
+                sample = rows[sample_idx].tocsc()
+            else:
+                sample = data[sample_idx]
         else:
             sample = data
-        sample = np.asarray(sample, dtype=np.float64)
+        if not sparse_input:
+            sample = np.asarray(sample, dtype=np.float64)
+
+        def sample_col_nonzeros(f):
+            """(row_indices, values) of the sample column's stored
+            entries — the full column for dense input."""
+            if sparse_input:
+                idx, vals = _csc_col(sample, f)
+                return idx, np.asarray(vals, dtype=np.float64)
+            return np.arange(sample_cnt), sample[:, f]
 
         # --- per-feature bin finding (DatasetLoader::ConstructBinMappers) ---
         mappers: List[BinMapper] = []
         for f in range(total_features):
-            col = sample[:, f]
+            _, col = sample_col_nonzeros(f)
             nonzero = col[(np.abs(col) > K_ZERO_THRESHOLD) | np.isnan(col)]
             m = BinMapper()
             if config.max_bin_by_feature and f < len(config.max_bin_by_feature):
@@ -274,8 +311,9 @@ class BinnedDataset:
                 if not ok:
                     nonzero_rows.append(empty)
                     continue
-                b = m.values_to_bins(sample[:, f])
-                nonzero_rows.append(np.arange(sample_cnt)[b != m.most_freq_bin])
+                idx, vals = sample_col_nonzeros(f)
+                b = m.values_to_bins(vals)
+                nonzero_rows.append(np.asarray(idx)[b != m.most_freq_bin])
             ds.bundles = build_bundles(
                 nonzero_rows, ds.bin_mappers, sample_cnt, True,
                 bundle_ok=bundle_ok,
@@ -286,20 +324,37 @@ class BinnedDataset:
         ds._apply_mappers(data)
         return ds
 
-    def _apply_mappers(self, data: np.ndarray) -> None:
+    def _apply_mappers(self, data) -> None:
         """Push every row through the mappers into the packed bin-code
         matrix: [N, F_used] per-feature codes when bundling is trivial,
         [N, num_groups] bundle codes otherwise (reference
-        FeatureGroup::PushData / Bin::Push)."""
+        FeatureGroup::PushData / Bin::Push; sparse inputs touch only
+        their stored entries)."""
         n = data.shape[0]
+        sparse = _is_sparse(data)
         mappers = self.bin_mappers
         bt = self.bundles
 
-        def col_bins(i: int) -> np.ndarray:
+        def col_bins(i: int):
+            """(row_indices_or_None, codes) for used feature i; None row
+            indices mean 'all rows, in order'."""
             f = self.real_feature_index[i]
+            if sparse:
+                idx, vals = _csc_col(data, f)
+                vals = np.asarray(vals, dtype=np.float64)
+                _reject_inf_feature(vals, self.feature_names, f)
+                return idx, mappers[i].values_to_bins(vals)
             col = np.asarray(data[:, f], dtype=np.float64)
             _reject_inf_feature(col, self.feature_names, f)
-            return mappers[i].values_to_bins(col)
+            return None, mappers[i].values_to_bins(col)
+
+        def put(bins, g: int, i: int) -> None:
+            idx, codes = col_bins(i)
+            if idx is None:
+                bins[:, g] = codes.astype(bins.dtype)
+            else:
+                bins[:, g] = bins.dtype.type(mappers[i].value_to_bin(0.0))
+                bins[idx, g] = codes.astype(bins.dtype)
 
         if bt is None or bt.is_trivial:
             f_used = len(mappers)
@@ -307,24 +362,25 @@ class BinnedDataset:
                 else np.uint16
             bins = np.empty((n, f_used), dtype=dtype)
             for i in range(f_used):
-                bins[:, i] = col_bins(i).astype(dtype)
+                put(bins, i, i)
         else:
             dtype = np.uint8 if int(bt.group_num_bins.max()) <= 256 \
                 else np.uint16
             bins = np.empty((n, bt.num_groups), dtype=dtype)
             for g, members in enumerate(bt.groups):
                 if len(members) == 1:
-                    bins[:, g] = col_bins(members[0]).astype(dtype)
+                    put(bins, g, members[0])
                 else:
                     # shared column: code 0 = every member at its
                     # most-frequent bin; later members overwrite on the
                     # (conflict-budgeted) overlapping rows
                     code = np.zeros(n, dtype=dtype)
                     for i in members:
-                        codes = col_bins(i)
+                        idx, codes = col_bins(i)
                         mfb = bt.skip_of[i]
                         keep = codes != mfb
-                        rows = np.flatnonzero(keep)
+                        rows = np.flatnonzero(keep) if idx is None \
+                            else idx[keep]
                         b = codes[keep]
                         slot = b - (b > mfb)
                         code[rows] = (bt.offset_of[i] + slot).astype(dtype)
@@ -343,7 +399,7 @@ class BinnedDataset:
         self.occupancy = measure_occupancy(self.bins)
 
     # ------------------------------------------------------------------
-    def create_valid(self, data: np.ndarray, label=None, weight=None,
+    def create_valid(self, data, label=None, weight=None,
                      init_score=None) -> "BinnedDataset":
         return BinnedDataset.from_matrix(
             data, Config(), label=label, weight=weight,

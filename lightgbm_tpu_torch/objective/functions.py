@@ -20,6 +20,15 @@ from ..config import Config
 from ..utils import log
 
 
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp evaluated in float64 and rounded: the card's and the
+    CPU's float32 exp differ in the last bit, which would make their
+    gradients, and so their trees, drift apart; the rounded float64
+    result is the same on both (but for a double-rounding case about
+    once in 2^29 values)."""
+    return torch.exp(x.to(torch.float64)).to(torch.float32)
+
+
 class ObjectiveFunction:
     name = "custom"
     num_tree_per_iteration = 1
@@ -52,6 +61,11 @@ class ObjectiveFunction:
 
     def persistent_renew_spec(self):
         return None
+
+    def get_gradients(self, score: torch.Tensor):
+        """(grad, hess) [N] float32 from raw scores [N] in row order
+        (the host-loop learner's path)."""
+        raise NotImplementedError
 
     def boost_from_score(self, class_id: int) -> float:
         return 0.0
@@ -94,6 +108,7 @@ class BinaryLogloss(ObjectiveFunction):
         w_pos *= self.scale_pos_weight
         self._sign = np.where(is_pos, 1.0, -1.0).astype(np.float32)
         self._lw = np.where(is_pos, w_pos, w_neg).astype(np.float32)
+        self._row_consts = None     # (device, sign, lw, weights) tensors
 
     def persistent_aux(self):
         # one aux plane: signed per-row weight sign*lw*w (sign in {+-1},
@@ -103,11 +118,30 @@ class BinaryLogloss(ObjectiveFunction):
             aux = aux * self.weights
         return aux, None
 
+    def get_gradients(self, score):
+        # the JAX package's BinaryLogloss.get_gradients: sign and label
+        # weight as float32 constants, the row weights applied last
+        dev = score.device
+        if self._row_consts is None or self._row_consts[0] != dev:
+            self._row_consts = (dev, *(
+                None if a is None else torch.as_tensor(a, device=dev)
+                for a in (self._sign, self._lw, self.weights)))
+        _, sign, lw, w = self._row_consts
+        s = score.to(torch.float32)
+        response = -sign * self.sigmoid / \
+            (1.0 + _exp_f32(sign * self.sigmoid * s))
+        abs_resp = torch.abs(response)
+        g = response * lw
+        h = abs_resp * (self.sigmoid - abs_resp) * lw
+        if w is not None:
+            g, h = g * w, h * w
+        return g, h
+
     def persistent_grads(self, score, label, weight):
         sign = torch.sign(label)
         lw = torch.abs(label)
         response = -sign * self.sigmoid / \
-            (1.0 + torch.exp(sign * self.sigmoid * score))
+            (1.0 + _exp_f32(sign * self.sigmoid * score))
         abs_resp = torch.abs(response)
         g = response * lw
         h = abs_resp * (self.sigmoid - abs_resp) * lw

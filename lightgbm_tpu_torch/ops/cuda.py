@@ -27,11 +27,13 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("hist_planar", "partition")
+SOURCES = ("hist_planar", "partition", "hist_rowmajor", "hist_multival")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"hist_planar": 0, "partition": 0}
+LAUNCHES: Dict[str, int] = {"hist_planar": 0, "partition": 0,
+                             "hist_radix": 0, "hist_masked": 0,
+                             "hist_multival_planar": 0, "hist_multival": 0}
 BUILD_INFO: Dict[str, object] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -51,6 +53,20 @@ _SIGNATURES = {
         "lgbt_partition_tile": ([], _I),
         "lgbt_partition": ([_P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                             _P], _I),
+    },
+    "hist_rowmajor": {
+        "lgbt_rm_tile": ([], _I),
+        "lgbt_hist_radix": ([_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+                            _I),
+        "lgbt_hist_masked": ([_P, _I, _I, _I, _P, _P, _I, _P, _P, _P], _I),
+    },
+    "hist_multival": {
+        "lgbt_mv_tile": ([], _I),
+        "lgbt_mv_max_slots": ([], _I),
+        "lgbt_mv_smem_cells": ([], _I),
+        "lgbt_hist_multival_planar": ([_P, _L, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _P, _P, _P], _I),
+        "lgbt_hist_multival": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
     },
 }
 

@@ -1,19 +1,28 @@
 """Gradient/hessian histograms.
 
-The port of the JAX package's ops/histogram.py, as far as the training
-main path needs it. Histograms hold (sum_gradient, sum_hessian) per
-(feature, bin) as ``[F, B, 2]`` float32; bin counts are recovered at
-split-scan time as ``round(hess * num_data / sum_hess)``, like the
-reference (feature_histogram.hpp cnt_factor).
+The port of the JAX package's ops/histogram.py. Histograms hold
+(sum_gradient, sum_hessian) per (feature, bin) as ``[F, B, 2]``
+float32; bin counts are recovered at split-scan time as
+``round(hess * num_data / sum_hess)``, like the reference
+(feature_histogram.hpp cnt_factor).
 
-- ``histogram_scatter``: the row-major oracle (``index_add_``).
-- ``histogram_planar_plain``: the leaf-window histogram straight off the
-  planar state in plain PyTorch — unpack, mask, ``index_add_``.
-- ``hist_planar_cuda``: the same function as a hand-written CUDA kernel
-  (csrc/hist_planar.cu), the counterpart of the JAX package's
-  histogram_planar_pallas; a CPU tensor takes the plain version.
-- ``hist_layout`` / ``hist_method``: the one layout and precision
-  dispatch shared by the learner.
+Every kernel comes as three functions: ``*_plain`` (plain PyTorch, the
+port's oracle), ``*_cuda`` (launches the hand-written CUDA kernel and
+raises for a tensor that is not on the card) and a dispatcher chosen by
+the tensor's device:
+
+- ``hist_planar``: the leaf-window histogram straight off the planar
+  state (csrc/hist_planar.cu; the JAX package's
+  histogram_planar_pallas).
+- ``hist_radix``: the row-major ``[C, F]`` histogram of the serial
+  learner, float32 or bfloat16 inputs (csrc/hist_rowmajor.cu; the JAX
+  package's histogram_radix_pallas).
+- ``hist_masked``: the same row-major contract, float32 only (the second
+  entry of csrc/hist_rowmajor.cu; the JAX package's histogram_pallas).
+
+``histogram`` is the JAX package's row-major method dispatch,
+``leaf_histogram`` its leaf gather, and ``hist_layout`` / ``hist_method``
+the one layout and precision dispatch shared by the learners.
 """
 from __future__ import annotations
 
@@ -24,6 +33,11 @@ import torch
 from . import cuda as K
 
 Window = Union[int, torch.Tensor]
+
+# rows per tile of the CUDA kernels' first pass (csrc/hist_planar.cu and
+# csrc/hist_rowmajor.cu kTile); the plain versions sum in the same
+# association
+HIST_TILE = 2048
 
 
 def histogram_scatter(bins: torch.Tensor, grad: torch.Tensor,
@@ -41,6 +55,36 @@ def histogram_scatter(bins: torch.Tensor, grad: torch.Tensor,
     return hist.reshape(f, num_bins, 2)
 
 
+def tiled_scatter(codes: torch.Tensor, grad: torch.Tensor,
+                  hess: torch.Tensor, num_bins: int,
+                  tile: int = HIST_TILE) -> torch.Tensor:
+    """[C, F] codes -> [F, B, 2] float32 in the CUDA kernels'
+    association: one histogram per tile of ``tile`` rows (each cell
+    summed in row order), then the tiles added in order. A code outside
+    [0, num_bins) adds nothing. On the CPU, where ``index_add_`` runs in
+    index order, the result is bit-identical to the kernels'."""
+    c, f = codes.shape
+    dev = codes.device
+    out = torch.zeros((f, num_bins, 2), dtype=torch.float32, device=dev)
+    if c == 0:
+        return out
+    ntiles = -(-c // tile)
+    codes = codes.to(torch.int64)
+    ok = (codes >= 0) & (codes < num_bins)
+    tile_of = torch.arange(c, device=dev) // tile
+    idx = ((tile_of[:, None] * f + torch.arange(f, device=dev)[None, :])
+           * num_bins + torch.where(ok, codes, 0))
+    vals = torch.stack([grad, hess], dim=-1).to(torch.float32)
+    vals = torch.where(ok[..., None], vals[:, None, :], 0.0)
+    parts = torch.zeros((ntiles * f * num_bins, 2), dtype=torch.float32,
+                        device=dev)
+    parts.index_add_(0, idx.reshape(-1), vals.reshape(-1, 2))
+    parts = parts.reshape(ntiles, f, num_bins, 2)
+    for t in range(ntiles):
+        out = out + parts[t]
+    return out
+
+
 def unpack_codes(words: torch.Tensor, num_cols: int, code_bits: int
                  ) -> torch.Tensor:
     """[code_planes, W] int32 packed planes -> [W, num_cols] int64 codes
@@ -53,14 +97,29 @@ def unpack_codes(words: torch.Tensor, num_cols: int, code_bits: int
     return codes.t()
 
 
-def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to bfloat16 (nearest even) and back."""
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-# rows per tile of the CUDA kernel's first pass (csrc/hist_planar.cu
-# kTile); the plain version sums in the same association
-HIST_TILE = 2048
+def _check_dtype(dtype: torch.dtype, quant: bool) -> None:
+    if quant:
+        raise NotImplementedError(
+            "quantized histograms are not ported yet (ROADMAP A10)")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
 
+
+def _need_cuda(t: torch.Tensor, name: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} launches a CUDA kernel: its tensors must "
+                         "be on the card (the dispatcher without the "
+                         "_cuda suffix takes the plain version on the CPU)")
+
+
+# ---------------------------------------------------------------------------
+# B1: planar leaf-window histogram
+# ---------------------------------------------------------------------------
 
 def histogram_planar_plain(data: torch.Tensor, start: Window, count: Window,
                            *, num_bins: int, num_cols: int, code_bits: int,
@@ -68,27 +127,17 @@ def histogram_planar_plain(data: torch.Tensor, start: Window, count: Window,
                            dtype: torch.dtype = torch.float32
                            ) -> torch.Tensor:
     """Leaf-window histogram of the planar state in plain PyTorch:
-    unpack, mask, ``index_add_``. ``dtype=torch.bfloat16`` rounds
-    grad/hess to bfloat16 (round to nearest even) before the float32
-    accumulation.
-
-    Sums are taken in the CUDA kernel's association: a histogram per
-    tile of HIST_TILE rows (rows in order), then the tiles added in
-    order. On the CPU, where ``index_add_`` runs in index order, the
-    result is bit-identical to the kernel's."""
+    unpack, then ``tiled_scatter`` in the CUDA kernel's association.
+    ``dtype=torch.bfloat16`` rounds grad/hess to bfloat16 (round to
+    nearest even) before the float32 accumulation."""
     start, count = int(start), int(count)
     win = data[:, start:start + count]
     codes = unpack_codes(win, num_cols, code_bits)
     g = win[grad_plane].view(torch.float32)
     h = win[grad_plane + 1].view(torch.float32)
     if dtype == torch.bfloat16:
-        g, h = _round_bf16(g), _round_bf16(h)
-    out = torch.zeros((num_cols, num_bins, 2), dtype=torch.float32,
-                      device=data.device)
-    for t0 in range(0, count, HIST_TILE):
-        sl = slice(t0, t0 + HIST_TILE)
-        out = out + histogram_scatter(codes[sl], g[sl], h[sl], num_bins)
-    return out
+        g, h = round_bf16(g), round_bf16(h)
+    return tiled_scatter(codes, g, h, num_bins)
 
 
 def hist_planar_cuda(data: torch.Tensor, start: Window, count: Window, *,
@@ -97,27 +146,18 @@ def hist_planar_cuda(data: torch.Tensor, start: Window, count: Window, *,
                      max_count: Optional[int] = None,
                      quant: bool = False) -> torch.Tensor:
     """Histogram [num_cols, num_bins, 2] float32 of the lane window
-    [start, start+count) of the planar state ``data`` [P, R] int32.
+    [start, start+count) of the planar state ``data`` [P, R] int32, by
+    the CUDA kernel csrc/hist_planar.cu.
 
     ``start``/``count`` are host ints, or 0-d int32 tensors on the card
     that the kernel reads itself — then ``max_count`` (a host int) must
     bound the count; it sizes the launch. ``dtype`` is float32 or
-    bfloat16 (grad/hess rounded before the float32 accumulation).
-
-    A tensor on the card launches the CUDA kernel
-    (csrc/hist_planar.cu); a CPU tensor takes histogram_planar_plain.
-    The packed-integer ``quant`` mode is not ported yet (ROADMAP A10)."""
-    if quant:
-        raise NotImplementedError(
-            "quantized histograms are not ported yet (ROADMAP A10)")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+    bfloat16 (grad/hess rounded before the float32 accumulation). The
+    packed-integer ``quant`` mode is not ported yet (ROADMAP A10)."""
+    _check_dtype(dtype, quant)
+    _need_cuda(data, "hist_planar_cuda")
     if code_bits not in (4, 8, 16):
         raise ValueError(f"code_bits must be 4, 8 or 16, got {code_bits}")
-    if not data.is_cuda:
-        return histogram_planar_plain(
-            data, start, count, num_bins=num_bins, num_cols=num_cols,
-            code_bits=code_bits, grad_plane=grad_plane, dtype=dtype)
     if data.dtype != torch.int32 or data.dim() != 2 \
             or not data.is_contiguous():
         raise ValueError("hist_planar_cuda needs a contiguous [P, R] int32 "
@@ -126,25 +166,7 @@ def hist_planar_cuda(data: torch.Tensor, start: Window, count: Window, *,
     if grad_plane + 1 >= P or -(-num_cols * code_bits // 32) > grad_plane:
         raise ValueError("grad/hess planes must follow the code planes")
     dev = data.device
-    on_device = torch.is_tensor(start)
-    if on_device != torch.is_tensor(count):
-        raise ValueError("start and count must both be ints or both tensors")
-    if on_device:
-        for t in (start, count):
-            if t.device != dev or t.dtype != torch.int32 or t.numel() != 1:
-                raise ValueError("window tensors must be int32 scalars on "
-                                 "the state's device")
-        if max_count is None:
-            raise ValueError("max_count must bound a device-side count")
-        start_t, count_t = start.contiguous(), count.contiguous()
-        sp, cp, sh, ch = start_t.data_ptr(), count_t.data_ptr(), 0, 0
-    else:
-        sh, ch = int(start), int(count)
-        if not 0 <= sh <= sh + ch <= R:
-            raise ValueError(f"window [{sh}, {sh + ch}) outside [0, {R})")
-        sp = cp = None
-        max_count = ch if max_count is None else max_count
-    max_count = min(int(max_count), R)
+    sp, cp, sh, ch, max_count = _window_args(start, count, max_count, R, dev)
     lib = K.lib("hist_planar")
     tile = lib.lgbt_hist_tile()
     grid_tiles = max(1, -(-max_count // tile))
@@ -160,6 +182,228 @@ def hist_planar_cuda(data: torch.Tensor, start: Window, count: Window, *,
     K.LAUNCHES["hist_planar"] += 1
     return out
 
+
+def hist_planar(data: torch.Tensor, start: Window, count: Window, *,
+                num_bins: int, num_cols: int, code_bits: int,
+                grad_plane: int, dtype: torch.dtype = torch.float32,
+                max_count: Optional[int] = None,
+                quant: bool = False) -> torch.Tensor:
+    """The planar histogram (the JAX package's histogram_planar_pallas):
+    ``hist_planar_cuda`` for a state on the card, its plain version for
+    a state on the CPU."""
+    _check_dtype(dtype, quant)
+    if data.is_cuda:
+        return hist_planar_cuda(
+            data, start, count, num_bins=num_bins, num_cols=num_cols,
+            code_bits=code_bits, grad_plane=grad_plane, dtype=dtype,
+            max_count=max_count)
+    return histogram_planar_plain(
+        data, start, count, num_bins=num_bins, num_cols=num_cols,
+        code_bits=code_bits, grad_plane=grad_plane, dtype=dtype)
+
+
+def _window_args(start: Window, count: Window, max_count: Optional[int],
+                 R: int, dev):
+    """(start_ptr, count_ptr, start_h, count_h, max_count) of a lane
+    window given as host ints or as int32 scalars on the card."""
+    on_device = torch.is_tensor(start)
+    if on_device != torch.is_tensor(count):
+        raise ValueError("start and count must both be ints or both tensors")
+    if on_device:
+        for t in (start, count):
+            if t.device != dev or t.dtype != torch.int32 or t.numel() != 1:
+                raise ValueError("window tensors must be int32 scalars on "
+                                 "the state's device")
+        if max_count is None:
+            raise ValueError("max_count must bound a device-side count")
+        return (start.contiguous().data_ptr(), count.contiguous().data_ptr(),
+                0, 0, min(int(max_count), R))
+    sh, ch = int(start), int(count)
+    if not 0 <= sh <= sh + ch <= R:
+        raise ValueError(f"window [{sh}, {sh + ch}) outside [0, {R})")
+    max_count = ch if max_count is None else max_count
+    return None, None, sh, ch, min(int(max_count), R)
+
+
+# ---------------------------------------------------------------------------
+# B4 / B7: row-major [C, F] histograms
+# ---------------------------------------------------------------------------
+
+def histogram_radix_plain(bins: torch.Tensor, grad: torch.Tensor,
+                          hess: torch.Tensor, num_bins: int,
+                          dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """Row-major histogram in plain PyTorch: grad/hess rounded to
+    bfloat16 when ``dtype`` says so, then ``tiled_scatter``."""
+    grad, hess = grad.to(torch.float32), hess.to(torch.float32)
+    if dtype == torch.bfloat16:
+        grad, hess = round_bf16(grad), round_bf16(hess)
+    return tiled_scatter(bins, grad, hess, num_bins)
+
+
+def histogram_masked_plain(bins: torch.Tensor, grad: torch.Tensor,
+                           hess: torch.Tensor, num_bins: int
+                           ) -> torch.Tensor:
+    """The masked multiply-accumulate histogram in plain PyTorch."""
+    return tiled_scatter(bins, grad.to(torch.float32),
+                         hess.to(torch.float32), num_bins)
+
+
+def _rowmajor_launch(entry: str, bins, grad, hess, num_bins, bf16: bool):
+    _need_cuda(bins, entry)
+    if bins.dim() != 2:
+        raise ValueError(f"{entry} needs [C, F] bins")
+    c, f = bins.shape
+    dev = bins.device
+    if grad.shape != (c,) or hess.shape != (c,) or grad.device != dev \
+            or hess.device != dev:
+        raise ValueError("grad/hess must be [C] tensors on the bins' device")
+    if not 1 <= num_bins < 0xFFFF or f < 1:
+        raise ValueError(f"num_bins {num_bins} / columns {f} out of range")
+    codes = bins.contiguous() if bins.dtype == torch.uint8 \
+        else bins.to(torch.int32).contiguous()
+    g = grad.to(torch.float32).contiguous()
+    h = hess.to(torch.float32).contiguous()
+    lib = K.lib("hist_rowmajor")
+    ntiles = max(1, -(-c // lib.lgbt_rm_tile()))
+    partials = torch.empty(ntiles * f * num_bins * 2, dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((f, num_bins, 2), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [codes.data_ptr(), codes.element_size(), c, f, g.data_ptr(),
+            h.data_ptr(), num_bins]
+    if entry == "hist_radix_cuda":
+        err = lib.lgbt_hist_radix(*args, int(bf16), partials.data_ptr(),
+                                  out.data_ptr(), stream)
+        K.check(err, entry)
+        K.LAUNCHES["hist_radix"] += 1
+    else:
+        err = lib.lgbt_hist_masked(*args, partials.data_ptr(),
+                                   out.data_ptr(), stream)
+        K.check(err, entry)
+        K.LAUNCHES["hist_masked"] += 1
+    return out
+
+
+def hist_radix_cuda(bins: torch.Tensor, grad: torch.Tensor,
+                    hess: torch.Tensor, num_bins: int,
+                    dtype: torch.dtype = torch.float32,
+                    quant: bool = False) -> torch.Tensor:
+    """[F, B, 2] float32 histogram of [C, F] codes (uint8, or any integer
+    type, widened to int32) and [C] grad/hess, by the CUDA kernel
+    csrc/hist_rowmajor.cu (entry lgbt_hist_radix). ``dtype`` bfloat16
+    rounds grad/hess before the float32 accumulation."""
+    _check_dtype(dtype, quant)
+    return _rowmajor_launch("hist_radix_cuda", bins, grad, hess, num_bins,
+                            dtype == torch.bfloat16)
+
+
+def hist_radix(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+               num_bins: int, dtype: torch.dtype = torch.float32,
+               quant: bool = False) -> torch.Tensor:
+    """The row-major histogram (the JAX package's
+    histogram_radix_pallas): the CUDA kernel for tensors on the card,
+    the plain version for tensors on the CPU."""
+    _check_dtype(dtype, quant)
+    if bins.is_cuda:
+        return hist_radix_cuda(bins, grad, hess, num_bins, dtype)
+    return histogram_radix_plain(bins, grad, hess, num_bins, dtype)
+
+
+def hist_masked_cuda(bins: torch.Tensor, grad: torch.Tensor,
+                     hess: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """The float32 row-major histogram by the CUDA kernel
+    csrc/hist_rowmajor.cu (entry lgbt_hist_masked)."""
+    return _rowmajor_launch("hist_masked_cuda", bins, grad, hess, num_bins,
+                            False)
+
+
+def hist_masked(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+                num_bins: int) -> torch.Tensor:
+    """The masked multiply-accumulate histogram (the JAX package's
+    histogram_pallas): the CUDA kernel for tensors on the card, the
+    plain version for tensors on the CPU."""
+    if bins.is_cuda:
+        return hist_masked_cuda(bins, grad, hess, num_bins)
+    return histogram_masked_plain(bins, grad, hess, num_bins)
+
+
+def histogram(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+              num_bins: int, method: Optional[str] = None) -> torch.Tensor:
+    """Method-dispatched row-major histogram [F, B, 2] (the JAX
+    package's ``histogram``). ``None`` and "radix_pallas" take
+    ``hist_radix`` in float32 — on the CPU its plain version, which sums
+    in the kernel's association, so card and CPU runs agree;
+    "radix_pallas_bf16" rounds grad/hess to bfloat16; "pallas" takes
+    ``hist_masked``; "scatter" the oracle."""
+    if method == "multival_pallas":
+        raise ValueError(
+            "multival_pallas is not a column-major histogram method; "
+            "use ops.multival.leaf_histogram_multival")
+    if method in (None, "radix_pallas"):
+        return hist_radix(bins, grad, hess, num_bins)
+    if method == "radix_pallas_bf16":
+        return hist_radix(bins, grad, hess, num_bins, dtype=torch.bfloat16)
+    if method == "pallas":
+        return hist_masked(bins, grad, hess, num_bins)
+    if method == "scatter":
+        return histogram_scatter(bins, grad, hess, num_bins)
+    raise ValueError(f"unknown histogram method {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# leaf gathers (the serial learner's ordered rows of one leaf)
+# ---------------------------------------------------------------------------
+
+def leaf_window(perm: torch.Tensor, start: int, count: int, capacity: int):
+    """Capacity-padded window of the permutation covering a leaf (the
+    JAX package's leaf_window): when the window would run past the end
+    of ``perm`` the read start is clamped left. Returns (rows_raw,
+    valid, read_start)."""
+    start, count = int(start), int(count)
+    n = perm.shape[0]
+    read_start = min(start, max(n - capacity, 0))
+    rows = perm[read_start:read_start + min(capacity, n)]
+    if capacity > n:
+        rows = torch.nn.functional.pad(rows, (0, capacity - n))
+    off = start - read_start
+    pos = torch.arange(capacity, device=perm.device)
+    valid = (pos >= off) & (pos < off + count)
+    return rows, valid, read_start
+
+
+def gather_leaf_rows(perm: torch.Tensor, start: int, count: int,
+                     capacity: Optional[int] = None):
+    """Leaf row ids and their validity mask. With a ``capacity`` the
+    JAX package's padded form (non-leaf positions clamped to row 0 and
+    flagged invalid); without one, exactly the leaf's rows."""
+    if capacity is None:
+        start, count = int(start), int(count)
+        rows = perm[start:start + count]
+        return rows, torch.ones(rows.shape[0], dtype=torch.bool,
+                                device=perm.device)
+    rows, valid, _ = leaf_window(perm, start, count, capacity)
+    return torch.where(valid, rows, 0), valid
+
+
+def leaf_histogram(bins_full: torch.Tensor, perm: torch.Tensor, start: int,
+                   count: int, grad: torch.Tensor, hess: torch.Tensor,
+                   capacity: Optional[int], num_bins: int,
+                   method: Optional[str] = None) -> torch.Tensor:
+    """Histogram of one leaf's rows (reference ConstructHistograms for
+    the smaller leaf, serial_tree_learner.cpp:333): gather the bin rows
+    and the ordered grad/hess by the leaf's index range, then
+    ``histogram``. The gather is plain PyTorch glue."""
+    rows, valid = gather_leaf_rows(perm, start, count, capacity)
+    b = bins_full[rows]
+    g = torch.where(valid, grad[rows], 0.0)
+    h = torch.where(valid, hess[rows], 0.0)
+    return histogram(b, g, h, num_bins, method=method)
+
+
+# ---------------------------------------------------------------------------
+# layout and precision dispatch
+# ---------------------------------------------------------------------------
 
 def hist_layout(config, dataset=None) -> str:
     """Occupancy-driven histogram LAYOUT decision: "planar" or
@@ -178,19 +422,33 @@ def hist_layout(config, dataset=None) -> str:
     return "planar"
 
 
-def hist_method(config, dataset=None) -> Optional[torch.dtype]:
-    """The ONE histogram precision dispatch of the learner. On the card
-    the planar kernel runs in ``tpu_hist_dtype`` (bfloat16 by default,
-    as on the TPU); the multi-value layout is not ported yet. On the
-    CPU the exact float32 plain path runs regardless — the rule the JAX
-    package applies off-TPU (its hist_method returns None there), so the
-    CPU gate compares like with like. Returns the histogram input dtype,
-    or None for the exact CPU path."""
+def hist_method(config, dataset=None) -> Optional[str]:
+    """The ONE histogram dispatch of the learners, named as in the JAX
+    package. On the card: "multival_pallas" when ``hist_layout`` picks
+    the row-wise multi-value layout for this dataset (wide-sparse
+    shapes), else the planar / row-major kernels in ``tpu_hist_dtype``
+    ("radix_pallas_bf16" by default, "radix_pallas" for float32). On the
+    CPU: None — the exact float32 plain path, the rule the JAX package
+    applies off-TPU, so the CPU gate compares like with like."""
     if config.device_type == "cpu":
         return None
-    if hist_layout(config, dataset) == "multival":
-        raise NotImplementedError(
-            "the multi-value histogram layout is not ported to the card "
-            "yet (ROADMAP A11); set tpu_hist_layout='planar'")
-    return (torch.float32 if config.tpu_hist_dtype == "float32"
-            else torch.bfloat16)
+    occ = getattr(dataset, "occupancy", None) if dataset is not None \
+        else None
+    if hist_layout(config, dataset) == "multival" and occ is not None:
+        return "multival_pallas"
+    return ("radix_pallas" if config.tpu_hist_dtype == "float32"
+            else "radix_pallas_bf16")
+
+
+def hist_dtype(method: Optional[str], config) -> torch.dtype:
+    """Input precision of the histogram kernels for a ``hist_method``
+    result: the multival kernels read ``tpu_hist_dtype`` directly, as in
+    the JAX package; on the CPU it is float32 whatever the method (the
+    JAX package's CPU paths are its exact float32 oracles)."""
+    if config.device_type == "cpu":
+        return torch.float32
+    if method == "radix_pallas_bf16" or (
+            method == "multival_pallas"
+            and config.tpu_hist_dtype == "bfloat16"):
+        return torch.bfloat16
+    return torch.float32

@@ -8,15 +8,20 @@ patterns. The layout is byte-identical to the JAX package's, so the
 same state can be fed to both.
 
 Unlike the JAX package, which keeps the state immutable and donates it,
-the port updates the state IN PLACE: ``partition_cuda`` permutes the
+the port updates the state IN PLACE: ``partition`` permutes the
 window's lanes in the given tensor, and ``set_f32`` / ``set_gh`` write
 planes of it.
 
 DataPartition::Split (reference data_partition.hpp:72) is
-``partition_cuda``: the hand-written CUDA kernel in csrc/partition.cu
-for a tensor on the card, or its plain PyTorch version
-(``partition_plain``, a stable argsort of the window) for a tensor on
-the CPU. The routing decision per lane is ``route_from_col32``.
+``partition``: ``partition_cuda`` (the hand-written CUDA kernel in
+csrc/partition.cu) for a tensor on the card, or its plain PyTorch
+version (``partition_plain``, a stable argsort of the window) for a
+tensor on the CPU. The routing decision per lane is
+``route_from_col32``.
+
+The wide-sparse layout adds ``mv_planes`` slot planes of row-wise flat
+codes (ops/multival.py) after the scalar planes; the partition moves
+them with every other plane, so they stay row-aligned.
 """
 from __future__ import annotations
 
@@ -52,15 +57,17 @@ class PlaneLayout(NamedTuple):
                          # (+ 1 max_tile of window headroom)
     tile: int
     max_tile: int
-    mv_start: int = -1   # multi-value planes (not ported; always absent)
-    mv_planes: int = 0
+    mv_start: int = -1   # first multi-value slot plane (8-aligned), -1
+                         # when absent
+    mv_planes: int = 0   # slot planes (row capacity, a multiple of 8)
 
 
 def make_layout(num_cols: int, code_bits: int, n: int,
                 with_label: bool = False, with_score: bool = False,
-                with_weight: bool = False, tile: int = DEF_TILE
-                ) -> PlaneLayout:
-    assert code_bits in (4, 8, 16)
+                with_weight: bool = False, tile: int = DEF_TILE,
+                mv_planes: int = 0) -> PlaneLayout:
+    if code_bits not in (4, 8, 16) or mv_planes % 8:
+        raise ValueError(f"code_bits {code_bits} / mv_planes {mv_planes}")
     cp = -(-num_cols * code_bits // 32)
     p = cp
     if p % 8 == 7:
@@ -81,6 +88,13 @@ def make_layout(num_cols: int, code_bits: int, n: int,
     if with_weight:
         weight = p
         p += 1
+    mv_start = -1
+    if mv_planes:
+        # slot planes start 8-aligned, as in the JAX package (its
+        # multival kernel reads them as (8, Rb) tile-aligned blocks)
+        p = -(-p // 8) * 8
+        mv_start = p
+        p += mv_planes
     num_planes = -(-p // 8) * 8
     max_tile = tile
     while max_tile * 2 <= min(MAX_TILE, max(tile, n // 8)):
@@ -88,7 +102,7 @@ def make_layout(num_cols: int, code_bits: int, n: int,
     num_lanes = (-(-n // max_tile) + 1) * max_tile
     return PlaneLayout(num_cols, code_bits, cp, grad, hess, rowid,
                        label, score, weight, num_planes, n, num_lanes,
-                       tile, max_tile)
+                       tile, max_tile, mv_start, mv_planes)
 
 
 def f32_as_i32(x: torch.Tensor) -> torch.Tensor:
@@ -128,9 +142,12 @@ def build_data(layout: PlaneLayout, codes_planes: torch.Tensor,
                rowid: Optional[torch.Tensor] = None,
                label: Optional[torch.Tensor] = None,
                score: Optional[torch.Tensor] = None,
-               weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+               weight: Optional[torch.Tensor] = None,
+               mv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Assemble the [P, R] planar state on the device of
-    ``codes_planes``. grad/hess/... are [n] f32 in lane order."""
+    ``codes_planes``. grad/hess/... are [n] f32 in lane order. ``mv``:
+    [mv_planes, n] int32 slot-major row-wise codes when the layout
+    reserves slot planes; pad lanes get the -1 no-contribution code."""
     R = layout.num_lanes
     dev = codes_planes.device
     n = grad.shape[0]
@@ -148,6 +165,12 @@ def build_data(layout: PlaneLayout, codes_planes: torch.Tensor,
                      (layout.weight, weight)):
         if idx >= 0 and val is not None:
             set_f32(data, idx, val.to(dev))
+    if layout.mv_planes:
+        if mv is None or mv.shape[0] != layout.mv_planes:
+            raise ValueError(f"layout needs {layout.mv_planes} slot planes")
+        sl = slice(layout.mv_start, layout.mv_start + layout.mv_planes)
+        data[sl] = -1
+        data[sl, :mv.shape[1]] = mv.to(dev, torch.int32)
     return data
 
 
@@ -264,20 +287,21 @@ def partition_plain(data: torch.Tensor, layout: PlaneLayout, start: int,
 def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
                    count: int, rscal: torch.Tensor):
     """Stable in-place partition of the lane window [start, start+count)
-    of ALL P planes by the split in ``rscal`` (route_scalars): lefts
-    first, then rights, order kept on both sides, lanes outside the
-    window untouched. Returns (data, nleft); ``data`` is the SAME tensor
-    updated in place and nleft a 0-d int32 tensor on its device.
-
-    A tensor on the card launches the CUDA kernel (csrc/partition.cu,
-    the counterpart of the JAX package's partition_pallas2 and
-    partition_pallas); a CPU tensor takes ``partition_plain``."""
+    of ALL P planes by the split in ``rscal`` (route_scalars), by the
+    CUDA kernel csrc/partition.cu (the counterpart of the JAX package's
+    partition_pallas2 and partition_pallas): lefts first, then rights,
+    order kept on both sides, lanes outside the window untouched.
+    Returns (data, nleft); ``data`` is the SAME tensor updated in place
+    and nleft a 0-d int32 tensor on its device. Raises for a state that
+    is not on the card."""
     start, count = int(start), int(count)
     P, R = data.shape
     if not 0 <= start <= start + count <= R:
         raise ValueError(f"window [{start}, {start + count}) outside [0, {R})")
     if not data.is_cuda:
-        return partition_plain(data, layout, start, count, rscal)
+        raise ValueError("partition_cuda launches a CUDA kernel: the state "
+                         "must be on the card (partition takes the plain "
+                         "version on the CPU)")
     if data.dtype != torch.int32 or not data.is_contiguous():
         raise ValueError("partition_cuda needs a contiguous int32 state")
     if (rscal.device != data.device or rscal.dtype != torch.int32
@@ -302,15 +326,21 @@ def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
     return data, nleft[0]
 
 
-def partition_window(data, layout, start, count, rscal, *,
-                     method: str = "pallas2"):
-    """The JAX package's entry point: both kernel generations
-    ("pallas" = v1, "pallas2" = v2) are backed by ONE CUDA kernel.
+def partition(data: torch.Tensor, layout: PlaneLayout, start: int,
+              count: int, rscal: torch.Tensor):
+    """The stable window partition: ``partition_cuda`` for a state on
+    the card, ``partition_plain`` for a state on the CPU."""
+    if data.is_cuda:
+        return partition_cuda(data, layout, start, count, rscal)
+    start, count = int(start), int(count)
+    if not 0 <= start <= start + count <= data.shape[1]:
+        raise ValueError(f"window [{start}, {start + count}) outside "
+                         f"[0, {data.shape[1]})")
+    return partition_plain(data, layout, start, count, rscal)
 
-    ``method`` selects nothing; it is kept only so that callers written
-    against the JAX signature pass unchanged. Like ``partition_cuda``
-    (whose name follows the kernel it launches), this serves CPU
-    tensors too, through the plain version."""
-    if method not in ("pallas", "pallas2"):
-        raise ValueError(f"unknown partition method {method!r}")
-    return partition_cuda(data, layout, start, count, rscal)
+
+def partition_window(data, layout, start, count, rscal):
+    """The JAX package's entry point: both of its kernel generations
+    (partition_pallas2 and partition_pallas) are backed by ONE CUDA
+    kernel, so this is ``partition``."""
+    return partition(data, layout, start, count, rscal)

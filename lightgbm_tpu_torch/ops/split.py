@@ -19,8 +19,8 @@ max_delta_step, path smoothing and monotone clamps; two scans when
 num_bin > 2 and the feature has a missing type; candidate order reverse
 scan first (descending threshold), then forward, for argmax ties.
 
-The categorical scan is not ported yet (ROADMAP A3): the learner
-rejects datasets with categorical features.
+The categorical scan is not ported yet (ROADMAP A3): the learners
+reject datasets with categorical features.
 """
 from __future__ import annotations
 
@@ -115,11 +115,30 @@ def leaf_gain(g, h, cnt, cfg: SplitConfig, parent_output):
     return _gain_given_output(g, h, cfg, out)
 
 
+# block length of XLA's CPU cumsum (its reduce-window rewriter)
+_SCAN_BLOCK = 16
+
+
 def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
-    """float32 prefix sum over the bin axis, as a float64 running sum
-    rounded to float32 — what PyTorch's CPU cumsum computes, made the
-    same on the card (whose float32 cumsum accumulates in float32)."""
-    return torch.cumsum(x.to(torch.float64), dim=-1).to(torch.float32)
+    """float32 inclusive prefix sum over the last axis in the exact
+    association of the JAX package's ``jnp.cumsum`` on the CPU: XLA
+    rewrites the cumulative reduce-window into blocks of 16 summed in
+    order, the block totals scanned the same way (recursively), then
+    each block's exclusive carry added. Only float32 additions, so the
+    card and the CPU give the same bits, and both the JAX package's."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        out = x.clone()
+        for i in range(1, n):
+            out[..., i] += out[..., i - 1]
+        return out
+    nb = -(-n // _SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n))
+    within = _prefix_sum(xp.reshape(*x.shape[:-1], nb, _SCAN_BLOCK))
+    totals = _prefix_sum(within[..., -1])
+    carry = torch.nn.functional.pad(totals[..., :-1], (1, 0))
+    out = within + carry[..., None]
+    return out.reshape(*x.shape[:-1], nb * _SCAN_BLOCK)[..., :n]
 
 
 def _round_int(x):
@@ -128,12 +147,14 @@ def _round_int(x):
 
 def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
                          cfg: SplitConfig, sum_g, sum_h, num_data,
-                         parent_output, cmin, cmax):
+                         parent_output, cmin, cmax, rand_thresholds=None):
     """Best numerical split per feature.
 
     hist: [..., F, B, 2]; sum_g / sum_h (WITHOUT the epsilon bias) /
     num_data (int32) / parent_output / cmin / cmax: leaf scalars of
-    shape [...]. Returns a dict of [..., F] tensors.
+    shape [...]. ``rand_thresholds`` ([F] int32): with
+    ``cfg.extra_trees`` the one threshold bin each feature may split at
+    (reference USE_RAND). Returns a dict of [..., F] tensors.
     """
     b_dim = hist.shape[-2]
     dev = hist.device
@@ -159,14 +180,16 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
                     torch.full_like(meta.num_bin, -1)))[:, None]
     excl = two_scan & (bin_ar == miss_bin)
 
-    cl_g = _prefix_sum(torch.where(excl, 0.0, g))
-    cl_h = _prefix_sum(torch.where(excl, 0.0, h))
+    cl_g, cl_h = _prefix_sum(torch.stack([torch.where(excl, 0.0, g),
+                                          torch.where(excl, 0.0, h)]))
     cl_cnt = torch.cumsum(torch.where(excl, 0, cnt), dim=-1,
                           dtype=torch.int32)
     tot_g, tot_h, tot_cnt = cl_g[..., -1:], cl_h[..., -1:], cl_cnt[..., -1:]
 
     zero_mode = two_scan & (mt == MISSING_ZERO)
     thr_ok = bin_ar <= nb - 2
+    if cfg.extra_trees and rand_thresholds is not None:
+        thr_ok = thr_ok & (bin_ar == rand_thresholds.to(dev)[:, None])
 
     gain_shift = leaf_gain(sum_g2, sh2, num2, cfg, po2)
     min_gain_shift = gain_shift + cfg.min_gain_to_split          # [...,1,1]
@@ -247,15 +270,27 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
 
 def best_split(hist: torch.Tensor, meta: FeatureMeta, cfg: SplitConfig,
                sum_g, sum_h, num_data, parent_output, cmin, cmax,
-               feature_mask=None):
+               feature_mask=None, rand_thresholds=None, cegb_delta=None,
+               gain_scale=None):
     """Per-feature scan + argmax over features. Returns the per-feature
-    dict plus ``best_feature`` and ``best_gain`` (shape [...])."""
+    dict plus ``best_feature`` and ``best_gain`` (shape [...]).
+    ``gain_scale`` ([F]) multiplies finite gains (the monotone split
+    penalty, reference serial_tree_learner.cpp:728-732); ``cegb_delta``
+    ([F]) is then subtracted from them (cost-effective gradient
+    boosting, reference cost_effective_gradient_boosting.hpp:66)."""
     if bool(meta.is_categorical.any()):
         raise NotImplementedError(
             "the categorical split scan is not ported yet (ROADMAP A3)")
     res = numerical_split_scan(hist, meta, cfg, sum_g, sum_h, num_data,
-                               parent_output, cmin, cmax)
+                               parent_output, cmin, cmax, rand_thresholds)
     gains = res["gain"]
+    finite = torch.isfinite(gains)
+    if gain_scale is not None:
+        gains = torch.where(finite, gains * gain_scale, gains)
+        res["gain"] = gains
+    if cegb_delta is not None:
+        gains = torch.where(finite, gains - cegb_delta, gains)
+        res["gain"] = gains
     if feature_mask is not None:
         gains = torch.where(feature_mask, gains, K_MIN_SCORE)
     best_f = torch.argmax(gains, dim=-1)

@@ -9,10 +9,11 @@ and the score update all work on the state, and scores go back to row
 order only when a host consumer asks (``sync_scores``).
 
 Per split, as in the reference (serial_tree_learner.cpp:152-202): the
-best leaf's window is partitioned in place (``plane.partition_cuda``,
-the CUDA kernel on the card), the smaller child is histogrammed from its
-now contiguous window (``histogram.hist_planar_cuda``), the larger child
-is the parent minus the smaller (histogram pool, reference
+best leaf's window is partitioned in place (``plane.partition``, the
+CUDA kernel on the card), the smaller child is histogrammed from its
+now contiguous window (``histogram.hist_planar``, or
+``multival.hist_multival_planar`` on the wide-sparse layout), the
+larger child is the parent minus the smaller (histogram pool, reference
 feature_histogram.hpp:1061), and both children are scanned in one
 batched split scan (ops/split.py).
 
@@ -42,6 +43,7 @@ from ..io.dataset import BinnedDataset
 from ..io.efb import per_feature_hist
 from ..models.tree import Tree
 from ..ops import histogram as H
+from ..ops import multival as MV
 from ..ops import plane
 from ..ops import split as S
 
@@ -60,8 +62,8 @@ def bag_active(config: Config) -> bool:
 def fused_reject_reason(config: Config, dataset: BinnedDataset,
                         objective) -> Optional[str]:
     """Why a config cannot run the fused path (None = eligible) — the
-    JAX package's rule, verbatim. There these configs fall back to the
-    host-loop grower; the port does not have it yet (ROADMAP A8)."""
+    JAX package's rule, verbatim. Such configs run on the host-loop
+    grower (treelearner/serial.py)."""
     if not config.tpu_fused:
         return "tpu_fused=false"
     if config.tree_learner != "serial":
@@ -110,8 +112,8 @@ def fused_reject_reason(config: Config, dataset: BinnedDataset,
 
 def port_reject_reason(config: Config, dataset: BinnedDataset,
                        objective) -> Optional[str]:
-    """What the JAX package's fused path runs but this slice of the port
-    does not, each with the ROADMAP item that brings it."""
+    """What the JAX package trains (on either learner) but the port does
+    not yet, each with the ROADMAP item that brings it."""
     if config.use_quantized_grad:
         return "use_quantized_grad (quantized gradients, ROADMAP A10)"
     if config.boosting != "gbdt" or bag_active(config):
@@ -125,6 +127,48 @@ def port_reject_reason(config: Config, dataset: BinnedDataset,
     if any(m.bin_type == BIN_CATEGORICAL for m in dataset.bin_mappers):
         return "categorical features (categorical split scan, ROADMAP A3)"
     return None
+
+
+def leaf_index_binned(tree: Tree, bins: torch.Tensor,
+                      feature_miss_bin: torch.Tensor, efb_dev=None
+                      ) -> torch.Tensor:
+    """Leaf index [N] int64 of every row of ``bins`` ([N, G] bin codes on
+    the device) by bin-space traversal of ``tree`` (the JAX package's
+    Tree.leaf_index_binned): one pass per tree level, no host reads.
+    ``feature_miss_bin`` [F] routes each feature's missing bin by the
+    node's default_left (-1: no missing bin); ``efb_dev`` decodes bundle
+    codes."""
+    n = bins.shape[0]
+    dev = bins.device
+    if tree.num_leaves <= 1:
+        return torch.zeros(n, dtype=torch.int64, device=dev)
+    ni = tree.num_leaves - 1
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a[:ni], np.int64), device=dev)
+    feat, thr = t(tree.split_feature_inner), t(tree.threshold_in_bin)
+    left, right = t(tree.left_child), t(tree.right_child)
+    dl = t((tree.decision_type & 2) != 0).bool()
+    miss = torch.as_tensor(feature_miss_bin, device=dev).long()
+    rows = torch.arange(n, device=dev)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    for _ in range(int(tree.leaf_depth[:tree.num_leaves].max())):
+        nid = torch.clamp(node, min=0)
+        f = feat[nid]
+        if efb_dev is None:
+            b = bins[rows, f].long()
+        else:
+            group_of, offset_of, nslots_of, skip_of = (
+                x.long() for x in efb_dev)
+            rel = bins[rows, group_of[f]].long() - offset_of[f]
+            inband = (rel >= 0) & (rel < nslots_of[f])
+            b = torch.where(inband, rel + (rel >= skip_of[f]).long(),
+                            skip_of[f])
+        mb = miss[f]
+        go_left = torch.where((b == mb) & (mb >= 0), dl[nid], b <= thr[nid])
+        nxt = torch.where(go_left, left[nid], right[nid])
+        node = torch.where(node < 0, node, nxt)
+    return -node - 1
 
 
 class FusedSerialGrower:
@@ -176,9 +220,10 @@ class FusedSerialGrower:
         self._efb_dev = dataset.device_bundle_tables(dev)
         self._efb_hist = dataset.device_hist_tables(dev)
         self.group_max_bin = dataset.group_max_bins
-        # the ONE precision dispatch (ops/histogram.py hist_method): None
-        # = exact f32 CPU path, else the kernel's input dtype
-        self._hist_dtype = H.hist_method(config, dataset)
+        # the ONE histogram dispatch (ops/histogram.py hist_method): None
+        # = the exact float32 plain path on the CPU
+        self._hist_method = H.hist_method(config, dataset)
+        self._hist_dtype = H.hist_dtype(self._hist_method, config)
 
         # planar layout: label/score/weight planes for the persistent
         # in-state loop; 4-bit codes when every column fits 16 bins
@@ -194,9 +239,29 @@ class FusedSerialGrower:
                    and objective.persistent_aux() is not None
                    and objective.num_tree_per_iteration == 1)
         has_w = persist and objective.persistent_aux()[1] is not None
+        # row-wise multi-value layout (ops/multival.py): the present
+        # (group, bin) codes of every row are packed once into K slot
+        # planes that ride the planar state, so the partition keeps
+        # them row-aligned and the histogram reads K words per row
+        # instead of every group's code
+        self._mv_codes = None
+        self._mv_total_bins = 0
+        self._mv_tables = None
+        mv_planes = 0
+        if self._hist_method == "multival_pallas":
+            occ = dataset.occupancy
+            gnb = (dataset.bundles.group_num_bins
+                   if dataset.bundles is not None
+                   else np.asarray([m.num_bin for m in mappers], np.int32))
+            self._mv_codes, mv_layout = MV.build_rowwise_codes(
+                dataset.bins, gnb, occ.default_code)
+            self._mv_total_bins = mv_layout.total_bins
+            self._mv_tables = MV.group_tables(gnb, occ.default_code, dev)
+            mv_planes = mv_layout.row_capacity        # a multiple of 8
         self.layout = plane.make_layout(
             self._num_cols, self._code_bits, self.actual_rows,
-            with_label=persist, with_score=persist, with_weight=has_w)
+            with_label=persist, with_score=persist, with_weight=has_w,
+            mv_planes=mv_planes)
         self.persistent_capable = persist
 
         # histogram_pool_size (MB; <= 0 unlimited): pool-less mode
@@ -230,13 +295,32 @@ class FusedSerialGrower:
         on the CPU. ``start``/``count`` may be device scalars, bounded by
         ``max_count``."""
         Ly = self.layout
+        if self._hist_method == "multival_pallas":
+            return self._leaf_hist_multival(data, start, count, max_count)
         nbins = (self.group_max_bin if self._efb_hist is not None
                  else self.max_num_bin)
-        ghist = H.hist_planar_cuda(
+        ghist = H.hist_planar(
             data, start, count, num_bins=nbins, num_cols=Ly.num_cols,
             code_bits=Ly.code_bits, grad_plane=Ly.grad,
-            dtype=self._hist_dtype or torch.float32, max_count=max_count)
+            dtype=self._hist_dtype, max_count=max_count)
         return self._hist_from_groups(ghist)
+
+    def _leaf_hist_multival(self, data, start, count, max_count=None):
+        """Leaf histogram off the multi-value slot planes (wide-sparse
+        shape): the kernel accumulates a flat [T+1, 2] vector over the
+        present codes only; then the group rows are gathered back and
+        each group's absent default cell is rebuilt from the sentinel
+        leaf totals (flat cell T)."""
+        Ly = self.layout
+        flat = MV.hist_multival_planar(
+            data, start, count, mv_start=Ly.mv_start, mv_planes=Ly.mv_planes,
+            total_bins=self._mv_total_bins, grad_plane=Ly.grad,
+            dtype=self._hist_dtype, max_count=max_count)
+        ghist = MV.group_hist_from_flat(flat, self._mv_tables)
+        if self._efb_hist is None:
+            return ghist
+        return per_feature_hist(ghist, self._efb_hist, flat[-1, 0],
+                                flat[-1, 1])
 
     def _scan(self, hist, sum_g, sum_h, count, output, cmin, cmax, mask):
         """Best split of K leaves at once (JAX _scan_leaf /
@@ -352,9 +436,8 @@ class FusedSerialGrower:
             rscal = plane.route_scalars(
                 self.layout, feat, best_i[1, leaf], best_i[2, leaf],
                 self.feature_miss_bin[feat], self._efb_dev, device=dev)
-            data, nleft = plane.partition_window(
-                data, self.layout, start, count, rscal,
-                method="pallas2")
+            data, nleft = plane.partition(data, self.layout, start, count,
+                                          rscal)
             nright = count - nleft
             left_smaller = nleft <= nright
             s_start = start + torch.where(left_smaller, 0, nleft)
@@ -460,9 +543,14 @@ class FusedSerialGrower:
             if a is None or torch.is_tensor(a):
                 return None if a is None else a.to(dev, torch.float32)
             return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        mv = None
+        if self._mv_codes is not None:
+            mv = torch.as_tensor(np.ascontiguousarray(self._mv_codes.T),
+                                 device=dev)
         return plane.build_data(self.layout, cp, zeros, zeros,
                                 label=up(aux_label),
-                                score=up(score_vec), weight=up(aux_weight))
+                                score=up(score_vec), weight=up(aux_weight),
+                                mv=mv)
 
     def train_iter(self, data: torch.Tensor, shrinkage: float,
                    bias: float = 0.0) -> Dict:
@@ -504,44 +592,6 @@ class FusedSerialGrower:
         return out
 
     # ------------------------------------------------------------------
-    def leaf_index_binned(self, tree: Tree, bins: torch.Tensor
-                          ) -> torch.Tensor:
-        """Leaf index of every row of ``bins`` ([N, G] bin codes on the
-        device) by bin-space traversal of a freshly grown tree — the
-        validation-set score update. One pass per tree level; no host
-        reads."""
-        n = bins.shape[0]
-        dev = self.device
-        if tree.num_leaves <= 1:
-            return torch.zeros(n, dtype=torch.int64, device=dev)
-        ni = tree.num_leaves - 1
-
-        def t(a):
-            return torch.as_tensor(np.asarray(a[:ni], np.int64), device=dev)
-        feat, thr = t(tree.split_feature_inner), t(tree.threshold_in_bin)
-        left, right = t(tree.left_child), t(tree.right_child)
-        dl = t((tree.decision_type & 2) != 0).bool()
-        miss = self.feature_miss_bin.long()
-        rows = torch.arange(n, device=dev)
-        node = torch.zeros(n, dtype=torch.int64, device=dev)
-        for _ in range(int(tree.leaf_depth[:tree.num_leaves].max())):
-            nid = torch.clamp(node, min=0)
-            f = feat[nid]
-            if self._efb_dev is None:
-                b = bins[rows, f].long()
-            else:
-                group_of, offset_of, nslots_of, skip_of = (
-                    x.long() for x in self._efb_dev)
-                rel = bins[rows, group_of[f]].long() - offset_of[f]
-                inband = (rel >= 0) & (rel < nslots_of[f])
-                b = torch.where(inband, rel + (rel >= skip_of[f]).long(),
-                                skip_of[f])
-            mb = miss[f]
-            go_left = torch.where((b == mb) & (mb >= 0), dl[nid], b <= thr[nid])
-            nxt = torch.where(go_left, left[nid], right[nid])
-            node = torch.where(node < 0, node, nxt)
-        return -node - 1
-
     # ------------------------------------------------------------------
     def _tree_mask_np(self) -> np.ndarray:
         f = self.num_features

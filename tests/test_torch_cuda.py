@@ -3,13 +3,19 @@
 CUDA kernels have no CPU mode, so these tests skip without a CUDA
 device; on a machine with one (which need not have JAX) run them with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. chip_smoke.py
-runs the same comparisons at the main path's full shapes."""
+runs the same comparisons at the main paths' full shapes."""
 import numpy as np
 import pytest
 import torch
 
 from lightgbm_tpu_torch.ops import histogram as TH
+from lightgbm_tpu_torch.ops import multival as TM
 from lightgbm_tpu_torch.ops import plane as tplane
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
 
 
 def _state(n, g, seed):
@@ -24,11 +30,18 @@ def _state(n, g, seed):
     return lay, data
 
 
+def _dyadic(rng, n):
+    """grad/hess on a dyadic grid: every partial sum is exact, so the
+    kernel and the plain version agree bit for bit in any order."""
+    g = (rng.randint(-1024, 1025, n) / 2048.0).astype(np.float32)
+    h = (rng.randint(0, 1025, n) / 4096.0).astype(np.float32)
+    return torch.as_tensor(g), torch.as_tensor(h)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernels_match_plain(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    _need_card()
     lay, data = _state(50_000, 28, seed=4)
     dev = data.cuda()
     kw = dict(num_bins=255, num_cols=28, code_bits=8, grad_plane=lay.grad,
@@ -48,18 +61,114 @@ def test_cuda_kernels_match_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("num_bins,code_dtype", [
+    (255, torch.uint8), (64, torch.uint8), (16, torch.int32),
+    (1000, torch.int32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rowmajor_kernels_match_plain(num_bins, code_dtype, dtype):
+    """B4 (hist_radix_cuda) and B7 (hist_masked_cuda) against their plain
+    versions: bit-exact on dyadic grad/hess, launch to launch identical,
+    codes outside [0, num_bins) ignored."""
+    _need_card()
+    rng = np.random.RandomState(num_bins)
+    for c in (9_000, 2_048, 1, 0):
+        codes = rng.randint(0, num_bins, size=(c, 7))
+        if c > 10:
+            codes[5, 2] = num_bins + 3      # out of range: adds nothing
+        bins = torch.as_tensor(codes).to(code_dtype)
+        g, h = _dyadic(rng, c)
+        got = TH.hist_radix_cuda(bins.cuda(), g.cuda(), h.cuda(), num_bins,
+                                 dtype=dtype)
+        again = TH.hist_radix_cuda(bins.cuda(), g.cuda(), h.cuda(), num_bins,
+                                   dtype=dtype)
+        want = TH.histogram_radix_plain(bins, g, h, num_bins, dtype)
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), want), (c, num_bins)
+        if dtype == torch.float32:
+            got7 = TH.hist_masked_cuda(bins.cuda(), g.cuda(), h.cuda(),
+                                       num_bins)
+            assert torch.equal(got7.cpu(),
+                               TH.histogram_masked_plain(bins, g, h,
+                                                         num_bins))
+
+
+def _mv_state(n, groups, seed, k=16):
+    """A random row-wise code matrix: each row has up to k-1 present
+    groups (distinct), sentinel in slot 0, -1 pads."""
+    rng = np.random.RandomState(seed)
+    gnb = rng.randint(2, 9, size=groups).astype(np.int32)
+    bins = np.zeros((n, groups), np.int32)
+    for i in range(n):
+        present = rng.choice(groups, size=rng.randint(0, k), replace=False)
+        bins[i, present] = [rng.randint(1, gnb[p]) for p in present]
+    codes, lay = TM.build_rowwise_codes(bins, gnb, np.zeros(groups,
+                                                            np.int32))
+    return codes, lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [40, 3000])     # T in / beyond smem
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multival_kernels_match_plain(groups, dtype):
+    """B5 (planar state, host and device windows) and B6 (slot-major
+    codes) against their plain versions, bit-exact on dyadic grad/hess;
+    3000 groups put [T+1, 2] beyond the kernel's shared memory."""
+    _need_card()
+    n = 5_000
+    codes, lay = _mv_state(n, groups, seed=groups)
+    T = lay.total_bins
+    from lightgbm_tpu_torch.ops import cuda as K
+    smem_cells = K.lib("hist_multival").lgbt_mv_smem_cells()
+    assert (T + 1 > smem_cells) == (groups > 100), (T, smem_cells)
+    rng = np.random.RandomState(1)
+    g, h = _dyadic(rng, n)
+    sm = TM.slot_major(torch.as_tensor(codes))
+    gh = TM.gh_planes(g, h)
+    got = TM.hist_multival_cuda(sm.cuda(), gh.cuda(), total_bins=T,
+                                dtype=dtype)
+    want = TM.histogram_multival_plain(sm, gh, total_bins=T, dtype=dtype)
+    assert torch.equal(got.cpu(), want)
+    tl = tplane.make_layout(4, 8, n, with_label=True, with_score=True,
+                            mv_planes=sm.shape[0])
+    data = tplane.build_data(
+        tl, tplane.build_codes_planes(torch.zeros((n, 4), dtype=torch.int32),
+                                      tl), g, h, mv=sm)
+    dd = data.cuda()
+    kw = dict(mv_start=tl.mv_start, mv_planes=tl.mv_planes, total_bins=T,
+              grad_plane=tl.grad, dtype=dtype)
+    for start, count in ((0, n), (777, 3001), (4_000, 1), (10, 0)):
+        a = TM.hist_multival_planar_cuda(dd, start, count, **kw)
+        b = TM.hist_multival_planar_cuda(
+            dd, torch.tensor(start, dtype=torch.int32, device="cuda"),
+            torch.tensor(count, dtype=torch.int32, device="cuda"),
+            max_count=n, **kw)
+        want = TM.histogram_multival_planar_plain(data, start, count, **kw)
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), want), (start, count)
+
+
+@pytest.mark.cuda
 def test_cuda_training_matches_cpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+    _need_card()
     import lightgbm_tpu_torch as lgt
     rng = np.random.RandomState(0)
     X = rng.randn(5000, 8)
     y = (X[:, 0] - X[:, 1] * X[:, 2] + rng.randn(5000) > 0).astype(float)
-    preds = []
-    for dev in ("cuda", "cpu"):
-        b = lgt.train({"objective": "binary", "device_type": dev,
-                       "tpu_hist_dtype": "float32", "verbose": -1},
-                      lgt.Dataset(X, label=y), num_boost_round=3,
-                      verbose_eval=False)
-        preds.append(b.predict(X))
-    np.testing.assert_allclose(preds[0], preds[1], atol=1e-5)
+    for extra in ({}, {"tpu_fused": False, "extra_trees": True}):
+        preds, trees = [], []
+        for dev in ("cuda", "cpu"):
+            b = lgt.train({"objective": "binary", "device_type": dev,
+                           "tpu_hist_dtype": "float32", "verbose": -1,
+                           **extra},
+                          lgt.Dataset(X, label=y), num_boost_round=3,
+                          verbose_eval=False)
+            preds.append(b.predict(X))
+            trees.append(b._gbdt.models)
+        np.testing.assert_allclose(preds[0], preds[1], atol=1e-6)
+        for a, c in zip(*trees):
+            k = a.num_leaves
+            assert k == c.num_leaves
+            for f in ("split_feature", "threshold", "decision_type",
+                      "left_child", "right_child"):
+                np.testing.assert_array_equal(getattr(a, f)[:k - 1],
+                                              getattr(c, f)[:k - 1])

@@ -126,7 +126,7 @@ def test_partition_matches_pallas2_and_ref(start, count, feat, thr, dl):
     pal, nl_pal = jplane.partition_pallas2(jdata, jl, start, count, jr,
                                            cap=cap, interpret=True)
     tr = tplane.route_scalars(tl, feat, thr, dl, miss_bin=249)
-    got, nl_got = tplane.partition_cuda(tdata, tl, start, count, tr)
+    got, nl_got = tplane.partition(tdata, tl, start, count, tr)
     assert int(nl_got) == int(nl_ref) == int(nl_pal)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
@@ -145,7 +145,7 @@ def test_partition_categorical_bitset_matches_pallas():
                                           interpret=True)
     tr = tplane.route_scalars(tl, 2, 0, 0, miss_bin=-1, is_cat=1,
                               cat_bitset=bits)
-    got, nl_got = tplane.partition_cuda(tdata, tl, 0, 2048, tr)
+    got, nl_got = tplane.partition(tdata, tl, 0, 2048, tr)
     assert int(nl_got) == int(nl_pal)
     np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
 
@@ -157,7 +157,7 @@ def test_partition_4bit_packing_matches_pallas():
     jr = jplane.route_scalars(jl, 3, 7, 1, miss_bin=15)    # shift 12
     pal, nl_pal = jplane.partition_pallas(jdata, jl, 300, 1500, jr, cap=cap,
                                           interpret=True)
-    got, nl_got = tplane.partition_cuda(
+    got, nl_got = tplane.partition(
         tdata, tl, 300, 1500, tplane.route_scalars(tl, 3, 7, 1, miss_bin=15))
     assert int(nl_got) == int(nl_pal)
     np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
@@ -172,7 +172,7 @@ def test_partition_stable_and_routes_by_code(efb):
               torch.tensor([250, 250, 7, 250], dtype=torch.int32))
     rs = tplane.route_scalars(tl, 2, 30, 0, miss_bin=-1,
                               efb_dev=tables if efb else None)
-    got, nl = tplane.partition_cuda(tdata, tl, 0, 1024, rs)
+    got, nl = tplane.partition(tdata, tl, 0, 1024, rs)
     rowids = got[tl.rowid, :1024].numpy()
     nl = int(nl)
     # stable: each side's rowids strictly increasing (input was iota)
@@ -209,7 +209,7 @@ def test_histogram_planar_matches_pallas(code_bits, num_bins, dtype):
         jdata, start, count, num_bins=num_bins, num_cols=g,
         code_bits=code_bits, grad_plane=jl.grad, cap=_cap_for(jl, count),
         dtype=jdt, rows_per_block=256, interpret=True))
-    got = TH.hist_planar_cuda(
+    got = TH.hist_planar(
         tdata, start, count, num_bins=num_bins, num_cols=g,
         code_bits=code_bits, grad_plane=tl.grad,
         dtype=getattr(torch, dtype)).numpy()
@@ -238,7 +238,7 @@ def test_histogram_planar_edge_windows():
     n, g = 6000, 5
     jl, jdata, tl, tdata, codes = _make_states(n, g, seed=2)
     kw = dict(num_bins=250, num_cols=g, code_bits=8, grad_plane=tl.grad)
-    assert float(TH.hist_planar_cuda(tdata, 10, 0, **kw).abs().sum()) == 0
+    assert float(TH.hist_planar(tdata, 10, 0, **kw).abs().sum()) == 0
     grad = tplane.get_f32(tdata, tl.grad, n)
     hess = tplane.get_f32(tdata, tl.hess, n)
     for start, count in ((17, 3), (5, 5000)):
@@ -246,13 +246,16 @@ def test_histogram_planar_edge_windows():
         want = TH.histogram_scatter(
             torch.as_tensor(codes[sel].astype(np.int64)), grad[sel],
             hess[sel], 250)
-        got = TH.hist_planar_cuda(
+        got = TH.hist_planar(
             tdata, torch.tensor(start, dtype=torch.int32),
             torch.tensor(count, dtype=torch.int32), max_count=n, **kw)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 def test_hist_method_rule():
+    """The port's dispatch names the JAX package's methods: None on the
+    CPU, the planar/row-major kernels in tpu_hist_dtype on the card, and
+    the multi-value layout for wide-sparse occupancy."""
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.ops.multival import OccupancyStats
 
@@ -262,14 +265,27 @@ def test_hist_method_rule():
 
     cpu = Config.from_params({"device_type": "cpu"})
     assert TH.hist_method(cpu, _DS()) is None
+    assert TH.hist_dtype(None, cpu) == torch.float32
     cuda = Config.from_params({"device": "gpu"})
     assert cuda.device_type == "cuda"
-    assert TH.hist_method(Config.from_params(
-        {"tpu_hist_layout": "planar"}), _DS()) == torch.bfloat16
-    assert TH.hist_method(Config.from_params(
-        {"tpu_hist_dtype": "float32"})) == torch.float32
-    with pytest.raises(NotImplementedError, match="A11"):
-        TH.hist_method(cuda, _DS())
+    planar = Config.from_params({"tpu_hist_layout": "planar"})
+    assert TH.hist_method(planar, _DS()) == "radix_pallas_bf16"
+    assert TH.hist_dtype("radix_pallas_bf16", planar) == torch.bfloat16
+    f32 = Config.from_params({"tpu_hist_dtype": "float32"})
+    assert TH.hist_method(f32) == "radix_pallas"
+    assert TH.hist_dtype("radix_pallas", f32) == torch.float32
+    assert TH.hist_method(cuda, _DS()) == "multival_pallas"
+    assert TH.hist_dtype("multival_pallas", cuda) == torch.bfloat16
+    assert TH.hist_dtype("multival_pallas", f32) == torch.float32
+    assert TH.hist_dtype("multival_pallas", cpu) == torch.float32
+    with pytest.raises(ValueError, match="partition_cuda"):
+        tplane.partition_cuda(torch.zeros((8, 64), dtype=torch.int32),
+                              tplane.make_layout(2, 8, 32), 0, 8,
+                              torch.zeros(19, dtype=torch.int32))
+    with pytest.raises(ValueError, match="hist_planar_cuda"):
+        TH.hist_planar_cuda(torch.zeros((8, 64), dtype=torch.int32), 0, 8,
+                            num_bins=4, num_cols=2, code_bits=8,
+                            grad_plane=1)
     from lightgbm_tpu.config import Config as JConfig
     from lightgbm_tpu.ops.histogram import hist_layout as jlayout
     for p in ({}, {"tpu_hist_layout": "planar"}):

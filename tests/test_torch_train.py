@@ -17,6 +17,18 @@ import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu_torch.convert import booster_from_jax_arrays
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_aot_store():
+    """Keep the JAX package's on-disk AOT executable store out of these
+    tests, as tests/test_multival.py does: the live manager snapshots
+    the environment at construction, so patch both."""
+    from lightgbm_tpu.compile.manager import get_manager
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LGBM_TPU_AOT", "0")
+        mp.setattr(get_manager(), "aot_enabled", False)
+        yield
 PARAMS = {"objective": "binary", "num_leaves": 15, "metric": "auc",
           "verbose": -1, "device_type": "cpu"}
 TREE_FIELDS = ("split_feature", "split_gain", "threshold", "decision_type",
@@ -159,7 +171,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "lightgbm_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 15
+    assert len(files) > 20
+    names = {os.path.relpath(f, REPO) for f in files}
+    for mod in ("treelearner/serial.py", "treelearner/monotone.py",
+                "ops/partition.py", "ops/multival.py", "ops/cuda.py"):
+        assert os.path.join("lightgbm_tpu_torch", mod) in names, mod
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -188,8 +204,12 @@ def test_cuda_without_a_card_raises():
     ({"bagging_freq": 1, "bagging_fraction": 0.5}, NotImplementedError,
      "A10"),
     ({"use_quantized_grad": True}, NotImplementedError, "A10"),
-    ({"tpu_fused": False}, tlgb.LightGBMError, "A8"),
-    ({"extra_trees": True}, tlgb.LightGBMError, "A8"),
+    ({"forcedsplits_filename": "forced_splits.json"}, NotImplementedError,
+     "A5"),
+    ({"tpu_fused": False, "use_quantized_grad": True}, NotImplementedError,
+     "A10"),
+    ({"tree_learner": "voting", "num_machines": 2}, NotImplementedError,
+     "A13"),
     ({"objective": "regression"}, NotImplementedError, "A9"),
     ({"categorical_feature": [3]}, NotImplementedError, "A3"),
 ])
