@@ -7,10 +7,10 @@ Phases, each of which fails the run (no exception is caught):
 
 1. build  — compile every CUDA kernel from csrc/ (one nvcc per source,
    in parallel); print the build seconds and the card.
-2. kernels — every kernel (B1-B7) against its plain PyTorch version on
-   the card, at the paths' shapes and at edge cases; time each at its
-   path's root window beside its bound, the plain version and a library
-   yardstick.
+2. kernels — every kernel (B1-B7), and the int32 (quantized) mode of
+   B1, B4, B5, B6 and B7, against its plain PyTorch version on the card,
+   at the paths' shapes and at edge cases; time each at its path's root
+   window beside its bound, the plain version and a library yardstick.
 3. paths — lightgbm_tpu_torch.train through each path the port runs,
    the launch counts of every kernel read around each run, AUC on
    held-out rows and seconds per iteration:
@@ -20,10 +20,15 @@ Phases, each of which fails the run (no exception is caught):
      shape (72 variables x 8 categories, 1,048,576 rows) with the
      default config, which must pick the multi-value layout (B5 + B2);
    - (b) dense host loop: the HIGGS shape with extra_trees (B4);
-   - (c) wide-sparse host loop: shape (a) with tpu_fused=false (B6).
+   - (c) wide-sparse host loop: shape (a) with tpu_fused=false (B6);
+   - (d)-(g): the same four with quantized gradients (use_quantized_grad,
+     4 levels, stochastic rounding, renewed leaves): B1q + B2, B5q + B2,
+     B4q, B6q; each path's held-out AUC must stay within 0.02 of its
+     float twin's.
 4. card vs CPU — the same small training on cuda and on cpu (the plain
-   versions), on the fused and on the host-loop learner: trees, leaf
-   values and predictions must agree.
+   versions), on the fused and on the host-loop learner, with float32
+   and with quantized gradients: trees, leaf values and predictions must
+   agree.
 
 ``--profile`` instead profiles one iteration of each path.
 
@@ -489,6 +494,221 @@ def check_multival(dev, report, codes, total_bins):
             f"index_add_ over live codes {lib_ms:.3f} ms)")
 
 
+def _levels(rng, n, num_bins, dev):
+    """int32 quantized levels for ``num_bins`` levels, qg at its negative
+    extreme every 7th row (the sign-carrying unpack) and qh at its top
+    every 5th."""
+    qmax_g, qmax_h = num_bins // 2 - 1, num_bins - 1
+    qg = rng.randint(-qmax_g, qmax_g + 1, n).astype(np.int32)
+    qh = rng.randint(0, qmax_h + 1, n).astype(np.int32)
+    qg[::7] = -qmax_g
+    qh[::5] = qmax_h
+    return torch.as_tensor(qg, device=dev), torch.as_tensor(qh, device=dev)
+
+
+def _quant_entry(report, name, source, line, ms, plain_ms, nbytes, lib_ms,
+                 what):
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    report.append(dict(
+        name=name, route="cuda", source=source, replaces=line, launches=0,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", library_ms=lib_ms))
+    log(f"{name} root window {what}: {ms:.3f} ms (bound {bound_ms:.4f} ms "
+        f"by bytes, plain {plain_ms:.3f} ms, int32 index_add_ "
+        f"{lib_ms:.3f} ms)")
+
+
+def _int_index_add_ms(idx, vals, cells):
+    acc = torch.zeros(cells, 2, dtype=torch.int32, device=idx.device)
+    return time_ms(lambda: acc.index_add_(0, idx, vals))
+
+
+def check_quant_planar(dev, report, rows):
+    """B1q (hist_planar_cuda(quant=True): packed levels in the grad
+    plane) and B4q / B7q (int32 levels) bit for bit against their plain
+    int32 versions, with 4 and 64 levels; windows full, unaligned, at
+    the end of the lanes, 1 row and empty, host and device windows.
+    Timed at paths (d) and (f)'s root windows."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import plane
+    from lightgbm_tpu_torch.ops import quantize as Q
+    rng = np.random.RandomState(21)
+    for name, n, g, bits, nb in (("higgs_8bit", 2_000_000, 28, 8, 255),
+                                 ("4bit_16bins", 200_000, 9, 4, 16)):
+        layout, data, _ = make_state(n, g, bits, nb, seed=n + 1, dev=dev)
+        R = layout.num_lanes
+        kw = dict(num_bins=nb, num_cols=g, code_bits=bits,
+                  grad_plane=layout.grad, quant=True)
+        for levels in (4, 64):
+            qg, qh = _levels(rng, R, levels, dev)
+            plane.set_gh_packed(data, layout,
+                                plane.i32_as_f32(Q.pack_gh(qg, qh)))
+            for start, count in ((0, n), (n // 3 + 1, n // 2 + 1),
+                                 (R - 12_345, 12_345), (n - 1, 1), (17, 0)):
+                got = H.hist_planar_cuda(data, start, count, **kw)
+                dwin = H.hist_planar_cuda(
+                    data, torch.tensor(start, dtype=torch.int32, device=dev),
+                    torch.tensor(count, dtype=torch.int32, device=dev),
+                    max_count=R, **kw)
+                want = H.histogram_planar_plain(data, start, count, **kw)
+                torch.cuda.synchronize()
+                assert got.dtype == torch.int32
+                assert torch.equal(got, dwin), f"B1q {name} {start}+{count}"
+                assert torch.equal(got, want), \
+                    f"B1q {name} {start}+{count} levels {levels}: differs"
+        log(f"B1q hist_planar quant {name}: 5 windows x (4, 64 levels) "
+            "bit-exact against the plain int32 version, host and device "
+            "windows identical")
+    layout, data, codes = make_state(2_000_000, 28, 8, 255, seed=1, dev=dev)
+    n = 2_000_000
+    qg, qh = _levels(rng, layout.num_lanes, 4, dev)
+    plane.set_gh_packed(data, layout, plane.i32_as_f32(Q.pack_gh(qg, qh)))
+    kw = dict(num_bins=255, num_cols=28, code_bits=8, grad_plane=layout.grad,
+              quant=True)
+    idx = (torch.arange(28, device=dev)[None, :] * 255
+           + torch.as_tensor(codes, device=dev).long()).reshape(-1)
+    vals = torch.stack([qg[:n], qh[:n]], -1)[:, None, :].expand(n, 28, 2) \
+        .reshape(-1, 2).contiguous()
+    _quant_entry(
+        report, "hist_planar_q", "lightgbm_tpu_torch/csrc/hist_planar.cu",
+        "lightgbm_tpu/ops/histogram.py:702",
+        time_ms(lambda: H.hist_planar_cuda(data, 0, n, **kw)),
+        time_ms(lambda: H.histogram_planar_plain(data, 0, n, **kw), reps=3),
+        (layout.code_planes + 1) * 4 * n + 28 * 255 * 2 * 4,
+        _int_index_add_ms(idx, vals, 28 * 255), f"{n}x28x255, 4 levels")
+    del data, idx, vals
+
+    cases = [(rows, 28, 255, torch.uint8), (300_001, 28, 64, torch.uint8),
+             (100_000, 5, 1000, torch.int32), (2_049, 28, 255, torch.uint8),
+             (1, 28, 255, torch.uint8), (0, 28, 255, torch.uint8)]
+    for c, f, nb, cdt in cases:
+        bins = torch.as_tensor(rng.randint(0, nb, size=(c, f))).to(cdt)
+        bins = bins.to(dev)
+        for levels in (4, 64):
+            g, h = _levels(rng, c, levels, dev)
+            want = H.histogram_radix_plain(bins, g, h, nb)
+            for fn, tag in ((H.hist_radix_cuda, "B4q"),
+                            (H.hist_masked_cuda, "B7q")):
+                got = fn(bins, g, h, nb)
+                torch.cuda.synchronize()
+                assert got.dtype == torch.int32
+                assert torch.equal(got, want), \
+                    f"{tag} {c}x{f}/{nb} levels {levels}: differs"
+    log(f"B4q hist_radix / B7q hist_masked quant: {len(cases)} shapes x "
+        "(4, 64 levels) bit-exact against the plain int32 version")
+    f, nb = 28, 255
+    bins = torch.as_tensor(rng.randint(0, nb, size=(rows, f)).astype(
+        np.uint8), device=dev)
+    g, h = _levels(rng, rows, 4, dev)
+    idx = (torch.arange(f, device=dev)[None, :] * nb
+           + bins.long()).reshape(-1)
+    vals = torch.stack([g, h], -1)[:, None, :].expand(rows, f, 2) \
+        .reshape(-1, 2).contiguous()
+    lib_ms = _int_index_add_ms(idx, vals, f * nb)
+    for name, fn, line in (
+            ("hist_radix_q", H.hist_radix_cuda,
+             "lightgbm_tpu/ops/histogram.py:404"),
+            ("hist_masked_q", H.hist_masked_cuda,
+             "lightgbm_tpu/ops/histogram.py:125")):
+        _quant_entry(
+            report, name, "lightgbm_tpu_torch/csrc/hist_rowmajor.cu", line,
+            time_ms(lambda: fn(bins, g, h, nb)),
+            time_ms(lambda: H.histogram_radix_plain(bins, g, h, nb), reps=3),
+            rows * (f + 8) + f * nb * 2 * 4, lib_ms,
+            f"{rows}x{f}x{nb}, 4 levels")
+
+
+def check_quant_multival(dev, report, codes, total_bins):
+    """B5q (packed levels in the grad plane) and B6q (packed levels in
+    lane row 0) bit for bit against their plain int32 versions, with 4
+    and 64 levels, at path (e)'s real row-wise codes and at a synthetic
+    T beyond the kernel's shared memory; windows full, unaligned, at the
+    end of the lanes, 1 row and empty. Timed at paths (e) and (g)'s root
+    windows."""
+    from lightgbm_tpu_torch.ops import cuda as K
+    from lightgbm_tpu_torch.ops import multival as MV
+    from lightgbm_tpu_torch.ops import plane
+    from lightgbm_tpu_torch.ops import quantize as Q
+    rng = np.random.RandomState(22)
+    smem_cells = K.lib("hist_multival").lgbt_mv_smem_cells()
+    big, big_t = _synthetic_mv_codes(200_000, 3000, 24, 5, dev)
+    assert big_t + 1 > smem_cells > total_bins + 1, (big_t, smem_cells)
+    timing = None
+    for tag, cds, t in (("shape_e", codes, total_bins),
+                        ("T_beyond_smem", big, big_t)):
+        m = cds.shape[0]
+        sm = MV.slot_major(cds)
+        zero = torch.zeros(m, device=dev)
+        layout = plane.make_layout(1, 8, m, with_label=True, with_score=True,
+                                   mv_planes=sm.shape[0])
+        data = plane.build_data(
+            layout, plane.build_codes_planes(
+                torch.zeros((m, 1), dtype=torch.int32, device=dev), layout),
+            zero, zero, mv=sm)
+        R = layout.num_lanes
+        kw = dict(mv_start=layout.mv_start, mv_planes=layout.mv_planes,
+                  total_bins=t, grad_plane=layout.grad, quant=True)
+        for levels in (4, 64):
+            qg, qh = _levels(rng, m, levels, dev)
+            plane.set_gh_packed(data, layout,
+                                plane.i32_as_f32(Q.pack_gh(qg, qh)))
+            for start, count in ((0, m), (m // 5 + 3, m // 3), (R - 5, 5),
+                                 (m - 1, 1), (17, 0)):
+                got = MV.hist_multival_planar_cuda(data, start, count, **kw)
+                dwin = MV.hist_multival_planar_cuda(
+                    data, torch.tensor(start, dtype=torch.int32, device=dev),
+                    torch.tensor(count, dtype=torch.int32, device=dev),
+                    max_count=R, **kw)
+                want = MV.histogram_multival_planar_plain(data, start, count,
+                                                          **kw)
+                torch.cuda.synchronize()
+                assert got.dtype == torch.int32
+                assert torch.equal(got, dwin), f"B5q {tag} {start}+{count}"
+                assert torch.equal(got, want), f"B5q {tag} {start}+{count}"
+            gh = MV.gh_planes(qg, qh, quant=True)
+            for lo, hi in ((0, m), (1_001, 1_001 + m // 4), (m - 1, m),
+                           (5, 5)):
+                got = MV.hist_multival_cuda(sm[:, lo:hi], gh[:, lo:hi],
+                                            total_bins=t, quant=True)
+                want = MV.histogram_multival_plain(
+                    sm[:, lo:hi], gh[:, lo:hi], total_bins=t, quant=True)
+                torch.cuda.synchronize()
+                assert got.dtype == torch.int32
+                assert torch.equal(got, want), f"B6q {tag} {lo}:{hi}"
+            if tag == "shape_e" and levels == 4:
+                timing = (layout, data, sm, gh, qg, qh, t)
+        log(f"B5q/B6q multival quant {tag} (T={t}, K={sm.shape[0]}, {m} "
+            "rows): windows x (4, 64 levels) bit-exact against the plain "
+            "int32 versions, host and device windows identical")
+    layout, data, sm, gh, qg, qh, t = timing
+    kp, n = sm.shape
+    live = sm.t().reshape(-1).long()
+    keep = live >= 0
+    vals = torch.stack([qg, qh], -1)[:, None, :].expand(n, kp, 2) \
+        .reshape(-1, 2)[keep].contiguous()
+    lib_ms = _int_index_add_ms(live[keep], vals, t + 1)
+    kw = dict(mv_start=layout.mv_start, mv_planes=layout.mv_planes,
+              total_bins=t, grad_plane=layout.grad, quant=True)
+    out_b = (t + 1) * 2 * 4
+    what = f"{n} rows, K={kp}, T={t}, 4 levels"
+    _quant_entry(
+        report, "hist_multival_planar_q",
+        "lightgbm_tpu_torch/csrc/hist_multival.cu",
+        "lightgbm_tpu/ops/multival.py:450",
+        time_ms(lambda: MV.hist_multival_planar_cuda(data, 0, n, **kw)),
+        time_ms(lambda: MV.histogram_multival_planar_plain(data, 0, n, **kw),
+                reps=3),
+        n * (layout.mv_planes + 1) * 4 + out_b, lib_ms, what)
+    _quant_entry(
+        report, "hist_multival_q", "lightgbm_tpu_torch/csrc/hist_multival.cu",
+        "lightgbm_tpu/ops/multival.py:377",
+        time_ms(lambda: MV.hist_multival_cuda(sm, gh, total_bins=t,
+                                              quant=True)),
+        time_ms(lambda: MV.histogram_multival_plain(sm, gh, total_bins=t,
+                                                    quant=True), reps=3),
+        n * (kp * 4 + 4) + out_b, lib_ms, what)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the paths
 # ---------------------------------------------------------------------------
@@ -518,23 +738,27 @@ def iteration_bounds_ms(gbdt, trees):
     row over the windows of ``window_rows`` and writes one histogram per
     launch; B2 reads and writes P words per row of its windows.
     Histogram bytes per row: B1 (code_planes + 2) x 4, B5
-    (mv_planes + 2) x 4, B4 F code bytes + 8, B6 Kp x 4 + 8."""
+    (mv_planes + 2) x 4, B4 F code bytes + 8, B6 Kp x 4 + 8; the int32
+    modes of B1, B5 and B6 read one packed gh word instead of two."""
     from lightgbm_tpu_torch.ops.multival import MV_SK
     fl, tl = gbdt._fused, gbdt.tree_learner
+    gh_words = 1 if (fl or tl)._quant else 2
     if fl is not None:
         Ly = fl.layout
         if Ly.mv_planes:
-            per_row, out = (Ly.mv_planes + 2) * 4, fl._mv_total_bins + 1
+            per_row = (Ly.mv_planes + gh_words) * 4
+            out = fl._mv_total_bins + 1
         else:
             nbins = (fl.group_max_bin if fl._efb_hist is not None
                      else fl.max_num_bin)
-            per_row, out = (Ly.code_planes + 2) * 4, Ly.num_cols * nbins
+            per_row = (Ly.code_planes + gh_words) * 4
+            out = Ly.num_cols * nbins
         part_row = 2 * Ly.num_planes * 4
     else:
         if tl._mv_state is not None:
             codes, total, _ = tl._mv_state
             kp = -(-codes.shape[1] // MV_SK) * MV_SK
-            per_row, out = kp * 4 + 8, total + 1
+            per_row, out = kp * 4 + gh_words * 4, total + 1
         else:
             b = tl.bins
             nbins = (tl.group_max_bin if tl._efb_hist is not None
@@ -571,7 +795,7 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
     every launch counter set to 0 just before and read just after; fail
     unless each kernel of ``expect`` was launched. Prints seconds and
     host syncs per iteration, launches, the per-iteration bytes bounds
-    and held-out AUC; returns (launches, booster)."""
+    and held-out AUC; returns (launches, booster, auc)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import cuda as K
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -613,7 +837,7 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
     log(f"{name}: held-out AUC {auc:.6f} on {len(y_hold)} rows after "
         f"{iters} iterations; mean {np.mean(secs):.4f} s/iteration")
     assert min_auc < auc <= 1.0, (name, auc)
-    return launches, booster
+    return launches, booster, auc
 
 
 def wide_data(rows, hold, device):
@@ -637,11 +861,18 @@ HIGGS_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "verbose": -1}
 WIDE_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
+# the default quantized config (docs/QUANTIZED_GRADIENTS.md)
+QUANT_PARAMS = {"use_quantized_grad": True, "num_grad_quant_bins": 4,
+                "stochastic_rounding": True, "quant_train_renew_leaf": True}
+# a quantized path's held-out AUC may trail its float twin's by this
+# much (a sanity floor: parity is the CPU tests' job)
+QUANT_AUC_SLACK = 0.02
 
 
 def paths(args, report, wide, device="cuda"):
-    """Phase 3: the HIGGS fused path and paths (a)-(c). Each kernel's
-    ``launches`` in the report is the count from its own path."""
+    """Phase 3: the HIGGS fused path and paths (a)-(c), then their
+    quantized twins (d)-(g). Each kernel's ``launches`` in the report is
+    the count from its own path(s)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.ops import histogram as H
@@ -653,31 +884,56 @@ def paths(args, report, wide, device="cuda"):
     ds.construct()
     log(f"HIGGS: dataset {args.rows} x 28 binned in "
         f"{time.perf_counter() - t0:.2f} s (host)")
-    got = {}
-    got["higgs"], _ = run_path("HIGGS fused", HIGGS_PARAMS, ds, args.iters,
-                               X[args.rows:], y[args.rows:],
-                               ("hist_planar", "partition"), device)
     wds, wX, wy = wide
     cfg = Config.from_params(WIDE_PARAMS)
     assert H.hist_layout(cfg, wds.handle) == "multival", "(a) not multival"
-    got["a"], ba = run_path("(a) wide-sparse fused", WIDE_PARAMS, wds,
-                            args.wide_iters, wX, wy,
-                            ("hist_multival_planar", "partition"), device)
-    if device == "cuda":
-        assert ba._gbdt._fused._hist_method == "multival_pallas", \
-            "(a): the dispatcher did not pick the multi-value layout"
-    got["b"], _ = run_path("(b) dense host loop",
-                           {**HIGGS_PARAMS, "extra_trees": True}, ds,
-                           args.host_iters, X[args.rows:], y[args.rows:],
-                           ("hist_radix",), device, min_auc=0.65)
-    got["c"], _ = run_path("(c) wide-sparse host loop",
-                           {**WIDE_PARAMS, "tpu_fused": False}, wds,
-                           args.wide_host_iters, wX, wy, ("hist_multival",),
-                           device)
-    path_of = {"hist_planar": ["higgs"], "partition": ["higgs", "a"],
+    hX, hy = X[args.rows:], y[args.rows:]
+    # (key, name, params, dataset, iterations, held-out rows, kernels,
+    #  AUC floor, float twin)
+    plan = [
+        ("higgs", "HIGGS fused", HIGGS_PARAMS, ds, args.iters, hX, hy,
+         ("hist_planar", "partition"), 0.70, None),
+        ("a", "(a) wide-sparse fused", WIDE_PARAMS, wds, args.wide_iters,
+         wX, wy, ("hist_multival_planar", "partition"), 0.70, None),
+        ("b", "(b) dense host loop", {**HIGGS_PARAMS, "extra_trees": True},
+         ds, args.host_iters, hX, hy, ("hist_radix",), 0.65, None),
+        ("c", "(c) wide-sparse host loop", {**WIDE_PARAMS, "tpu_fused": False},
+         wds, args.wide_host_iters, wX, wy, ("hist_multival",), 0.70, None),
+        ("d", "(d) HIGGS fused quantized", {**HIGGS_PARAMS, **QUANT_PARAMS},
+         ds, args.iters, hX, hy, ("hist_planar_q", "partition"), 0.0,
+         "higgs"),
+        ("e", "(e) wide-sparse fused quantized",
+         {**WIDE_PARAMS, **QUANT_PARAMS}, wds, args.wide_iters, wX, wy,
+         ("hist_multival_planar_q", "partition"), 0.0, "a"),
+        ("f", "(f) dense host loop quantized",
+         {**HIGGS_PARAMS, "extra_trees": True, **QUANT_PARAMS}, ds,
+         args.host_iters, hX, hy, ("hist_radix_q",), 0.0, "b"),
+        ("g", "(g) wide-sparse host loop quantized",
+         {**WIDE_PARAMS, "tpu_fused": False, **QUANT_PARAMS}, wds,
+         args.wide_host_iters, wX, wy, ("hist_multival_q",), 0.0, "c"),
+    ]
+    got, aucs = {}, {}
+    for key, name, params, dset, iters, Xh, yh, expect, floor, twin in plan:
+        if twin is not None:
+            floor = aucs[twin] - QUANT_AUC_SLACK
+        got[key], booster, aucs[key] = run_path(
+            name, params, dset, iters, Xh, yh, expect, device, min_auc=floor)
+        gb = booster._gbdt
+        learner = gb._fused if gb._fused is not None else gb.tree_learner
+        assert learner._quant == (twin is not None), name
+        if key in ("a", "e") and device == "cuda":
+            assert gb._fused._hist_method == "multival_pallas", \
+                f"{name}: the dispatcher did not pick the multi-value layout"
+        if twin is not None:
+            log(f"{name}: held-out AUC {aucs[key]:.6f} beside its float "
+                f"twin's {aucs[twin]:.6f} (diff "
+                f"{aucs[key] - aucs[twin]:+.6f})")
+    path_of = {"hist_planar": ["higgs"], "partition": ["higgs", "a", "d", "e"],
                "hist_radix": ["b"], "hist_multival_planar": ["a"],
                "hist_multival": ["c"], "hist_masked": [],
-               "partition_window": []}
+               "partition_window": [], "hist_planar_q": ["d"],
+               "hist_radix_q": ["f"], "hist_masked_q": [],
+               "hist_multival_planar_q": ["e"], "hist_multival_q": ["g"]}
     for r in report:
         r["launches"] = sum(got[p][r["name"]] for p in path_of[r["name"]])
 
@@ -690,7 +946,10 @@ def card_vs_cpu():
     import lightgbm_tpu_torch as lgt
     n = 100_000
     X, y = make_higgs_like(n, 28, seed=3)
-    for learner, extra in (("fused", {}), ("host loop", {"tpu_fused": False})):
+    for learner, extra in (
+            ("fused", {}), ("host loop", {"tpu_fused": False}),
+            ("fused quantized", QUANT_PARAMS),
+            ("host loop quantized", {"tpu_fused": False, **QUANT_PARAMS})):
         out = {}
         for dev in ("cuda", "cpu"):
             params = {"objective": "binary", "tpu_hist_dtype": "float32",
@@ -710,9 +969,12 @@ def card_vs_cpu():
             np.testing.assert_allclose(a.leaf_value[:k], b.leaf_value[:k],
                                        rtol=0, atol=1e-6)
         np.testing.assert_allclose(pg, pc, rtol=0, atol=1e-6)
-        log(f"card vs CPU ({learner}): {n} rows, 3 iterations, float32 "
-            f"histograms: trees equal ({[t.num_leaves for t in tg]} leaves), "
-            f"predictions max |diff| {float(np.abs(pg - pc).max()):.3g}")
+        leaf_diff = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+                        for a, b in zip(tg, tc))
+        log(f"card vs CPU ({learner}): {n} rows, 3 iterations: trees "
+            f"equal ({[t.num_leaves for t in tg]} leaves), leaf values max "
+            f"|diff| {leaf_diff:.3g}, predictions max |diff| "
+            f"{float(np.abs(pg - pc).max()):.3g}")
 
 
 def profile_paths(args, wide):
@@ -730,6 +992,8 @@ def profile_paths(args, wide):
               dense),
              ("(c) wide-sparse host loop",
               {**WIDE_PARAMS, "tpu_fused": False}, wds)]
+    cases += [(f"({k}) quantized twin of {name}", {**params, **QUANT_PARAMS},
+               d) for k, (name, params, d) in zip("defg", cases)]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for name, params, ds in cases:
@@ -836,8 +1100,10 @@ def main() -> int:
     gnb = (h.bundles.group_num_bins if h.bundles is not None
            else [m.num_bin for m in h.bin_mappers])
     codes, lay = MV.build_rowwise_codes(h.bins, gnb, h.occupancy.default_code)
-    check_multival(dev, report, torch.as_tensor(codes, device=dev),
-                   lay.total_bins)
+    codes = torch.as_tensor(codes, device=dev)
+    check_multival(dev, report, codes, lay.total_bins)
+    check_quant_planar(dev, report, args.rows)
+    check_quant_multival(dev, report, codes, lay.total_bins)
     del codes
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
     paths(args, report, wide)

@@ -9,8 +9,9 @@ prediction, and the model text (gbdt_model_text.cpp:306
 SaveModelToString / :410 LoadModelFromString).
 
 Each iteration hands the learner's tree to the host right away, so
-``models`` holds plain host Trees. DART, GOSS, RF, bagging, rollback and
-refit are not ported yet (ROADMAP A10).
+``models`` holds plain host Trees. Quantized-gradient training
+(``use_quantized_grad``) runs on both learners. DART, GOSS, RF, bagging,
+rollback and refit are not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from ..treelearner.fused import (FusedSerialGrower, fused_reject_reason,
                                  leaf_index_binned, port_reject_reason)
 from ..treelearner.serial import SerialTreeGrower
 from ..utils import log
+from ..utils.device import resolve_device
 
 K_EPSILON = 1e-15
 K_MODEL_VERSION = "v3"
@@ -73,8 +75,11 @@ class _ScoreState:
 class GBDT:
     """The boosting loop (reference gbdt.h:34)."""
 
-    def __init__(self, device="cpu") -> None:
-        self.device = torch.device(device)
+    def __init__(self, device=None) -> None:
+        # like every entry point: the card unless the caller names a
+        # device ("cpu" included); no card raises
+        self.device = (torch.device(device) if device is not None
+                       else resolve_device(Config()))
         self.models: List[Tree] = []
         self.iter = 0
         self.config: Optional[Config] = None

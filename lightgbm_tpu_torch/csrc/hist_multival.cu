@@ -15,6 +15,13 @@
 // ends up holding the window's totals. Output [T + 1, 2] float32.
 // Grad/hess may be rounded to bfloat16 (round to nearest even) first.
 //
+// Quantized mode (both TPU kernels' quant=True): the grad plane (B5) or
+// lane row 0 (B6) holds one packed (qg << 16) | (qh & 0xFFFF) word per
+// row; each row's word is unpacked (arithmetic >> 16, & 0xFFFF) before
+// it is added, and the levels are summed exactly in int32: output
+// [T + 1, 2] int32. The same template serves both modes; integer sums
+// give the same bits in any order.
+//
 // What bounds it on the card: bytes. The least work reads each row's K
 // slot words and its grad/hess once (count * (K + 2) * 4 bytes) and
 // writes [T + 1, 2]. This version is latency bound instead: each warp
@@ -35,6 +42,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -58,12 +67,27 @@ __device__ __forceinline__ int win_count(const Window& w) {
   return w.count_d ? w.count_d[0] : w.count_h;
 }
 
-template <bool kSmemHist>
+// kQuant: packed levels in gplane (hplane unused), int32 sums
+template <bool kQuant>
+struct Mode {
+  using Acc = float;
+  using Acc2 = float2;
+};
+template <>
+struct Mode<true> {
+  using Acc = int32_t;
+  using Acc2 = int2;
+};
+
+template <bool kSmemHist, bool kQuant>
 __global__ void __launch_bounds__(32 * kWarps)
 mv_partials(const int32_t* __restrict__ slots, long long plane_stride,
             int kp, int stage_words, const int32_t* __restrict__ gplane,
             const int32_t* __restrict__ hplane, Window w, int total_bins,
-            int round_bf16, float2* __restrict__ partials) {
+            int round_bf16,
+            typename Mode<kQuant>::Acc2* __restrict__ partials) {
+  using Acc = typename Mode<kQuant>::Acc;
+  using Acc2 = typename Mode<kQuant>::Acc2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -76,17 +100,17 @@ mv_partials(const int32_t* __restrict__ slots, long long plane_stride,
   const int cells = total_bins + 1;
 
   // shared layout: int32 stage[kWarps][stage_words],
-  // float gh[kWarps][2][kMaxRowsStaged], float2 hist[kWarps][cells]
+  // Acc gh[kWarps][2][kMaxRowsStaged], Acc2 hist[kWarps][cells]
   int32_t* stage_all = reinterpret_cast<int32_t*>(smem);
-  float* gh_all = reinterpret_cast<float*>(stage_all + kWarps * stage_words);
+  Acc* gh_all = reinterpret_cast<Acc*>(stage_all + kWarps * stage_words);
   int32_t* stage = stage_all + warp * stage_words;
-  float* sg = gh_all + warp * 2 * kMaxRowsStaged;
-  float* sh = sg + kMaxRowsStaged;
-  float2* hist = kSmemHist
-      ? reinterpret_cast<float2*>(gh_all + kWarps * 2 * kMaxRowsStaged) +
+  Acc* sg = gh_all + warp * 2 * kMaxRowsStaged;
+  Acc* sh = sg + kMaxRowsStaged;
+  Acc2* hist = kSmemHist
+      ? reinterpret_cast<Acc2*>(gh_all + kWarps * 2 * kMaxRowsStaged) +
             (size_t)warp * cells
       : partials + (size_t)tile * cells;
-  for (int c = lane; c < cells; c += 32) hist[c] = make_float2(0.f, 0.f);
+  for (int c = lane; c < cells; c += 32) hist[c] = Acc2{0, 0};
   __syncwarp();
 
   const int rps = stage_words / kp;   // rows per stage
@@ -99,23 +123,29 @@ mv_partials(const int32_t* __restrict__ slots, long long plane_stride,
       stage[s * nr + r] = slots[(long long)s * plane_stride + base + r0 + r];
     }
     if (lane < nr) {
-      float g = __int_as_float(gplane[base + r0 + lane]);
-      float h = __int_as_float(hplane[base + r0 + lane]);
-      if (round_bf16) {
-        g = __bfloat162float(__float2bfloat16_rn(g));
-        h = __bfloat162float(__float2bfloat16_rn(h));
+      if constexpr (kQuant) {
+        const int32_t wd = gplane[base + r0 + lane];
+        sg[lane] = wd >> 16;    // arithmetic shift: qg keeps its sign
+        sh[lane] = wd & 0xFFFF;
+      } else {
+        float g = __int_as_float(gplane[base + r0 + lane]);
+        float h = __int_as_float(hplane[base + r0 + lane]);
+        if (round_bf16) {
+          g = __bfloat162float(__float2bfloat16_rn(g));
+          h = __bfloat162float(__float2bfloat16_rn(h));
+        }
+        sg[lane] = g;
+        sh[lane] = h;
       }
-      sg[lane] = g;
-      sh[lane] = h;
     }
     __syncwarp();
     for (int r = 0; r < nr; ++r) {    // fixed row order
-      const float g = sg[r];
-      const float h = sh[r];
+      const Acc g = sg[r];
+      const Acc h = sh[r];
       for (int s = lane; s < kp; s += 32) {
         const int c = stage[s * nr + r];
         if (c >= 0 && c <= total_bins) {
-          float2 v = hist[c];
+          Acc2 v = hist[c];
           v.x += g;
           v.y += h;
           hist[c] = v;
@@ -125,21 +155,22 @@ mv_partials(const int32_t* __restrict__ slots, long long plane_stride,
     }
   }
   if (kSmemHist) {
-    float2* dst = partials + (size_t)tile * cells;
+    Acc2* dst = partials + (size_t)tile * cells;
     for (int c = lane; c < cells; c += 32) dst[c] = hist[c];
   }
 }
 
-__global__ void mv_reduce(const float2* __restrict__ partials, Window w,
+template <typename Acc2>
+__global__ void mv_reduce(const Acc2* __restrict__ partials, Window w,
                           int grid_tiles, int cells,
-                          float2* __restrict__ out) {
+                          Acc2* __restrict__ out) {
   const int count = win_count(w);
   const int ntiles = min(grid_tiles, (count + kTile - 1) / kTile);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= cells) return;
-  float2 s = make_float2(0.f, 0.f);
+  Acc2 s{0, 0};
   for (int t = 0; t < ntiles; ++t) {  // fixed tile order
-    const float2 p = partials[(size_t)t * cells + c];
+    const Acc2 p = partials[(size_t)t * cells + c];
     s.x += p.x;
     s.y += p.y;
   }
@@ -158,10 +189,12 @@ size_t stage_bytes(int stage_words) {
          (size_t)kWarps * 2 * kMaxRowsStaged * 4;
 }
 
+template <bool kQuant>
 int launch(const int32_t* slots, long long plane_stride, int kp,
            const int32_t* gplane, const int32_t* hplane, Window w,
-           int max_count, int total_bins, int round_bf16, float* partials,
-           float* out, void* stream) {
+           int max_count, int total_bins, int round_bf16, void* partials,
+           void* out, void* stream) {
+  using Acc2 = typename Mode<kQuant>::Acc2;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (kp < 1 || kp > kStage || total_bins < 0) {
     return (int)cudaErrorInvalidValue;
@@ -170,28 +203,40 @@ int launch(const int32_t* slots, long long plane_stride, int kp,
   int grid_tiles = (max_count + kTile - 1) / kTile;
   if (grid_tiles < 1) grid_tiles = 1;
   const int blocks = (grid_tiles + kWarps - 1) / kWarps;
-  float2* parts = reinterpret_cast<float2*>(partials);
-  const size_t hist_bytes = (size_t)kWarps * cells * sizeof(float2);
+  Acc2* parts = static_cast<Acc2*>(partials);
+  const size_t hist_bytes = (size_t)kWarps * cells * sizeof(Acc2);
   const int sw = stage_words_for(kp);
   cudaError_t e;
   if (hist_bytes <= (size_t)kSmemHistMax) {
     const size_t bytes = stage_bytes(sw) + hist_bytes;
-    e = cudaFuncSetAttribute(mv_partials<true>,
+    e = cudaFuncSetAttribute(mv_partials<true, kQuant>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    mv_partials<true><<<blocks, 32 * kWarps, bytes, s>>>(
+    mv_partials<true, kQuant><<<blocks, 32 * kWarps, bytes, s>>>(
         slots, plane_stride, kp, sw, gplane, hplane, w, total_bins,
         round_bf16, parts);
   } else {
-    mv_partials<false><<<blocks, 32 * kWarps, stage_bytes(sw), s>>>(
+    mv_partials<false, kQuant><<<blocks, 32 * kWarps, stage_bytes(sw), s>>>(
         slots, plane_stride, kp, sw, gplane, hplane, w, total_bins,
         round_bf16, parts);
   }
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  mv_reduce<<<(cells + 255) / 256, 256, 0, s>>>(
-      parts, w, grid_tiles, cells, reinterpret_cast<float2*>(out));
+  mv_reduce<Acc2><<<(cells + 255) / 256, 256, 0, s>>>(
+      parts, w, grid_tiles, cells, static_cast<Acc2*>(out));
   return (int)cudaGetLastError();
+}
+
+int dispatch(const int32_t* slots, long long plane_stride, int kp,
+             const int32_t* gplane, const int32_t* hplane, Window w,
+             int max_count, int total_bins, int round_bf16, int quant,
+             void* partials, void* out, void* stream) {
+  if (quant) {
+    return launch<true>(slots, plane_stride, kp, gplane, hplane, w,
+                        max_count, total_bins, 0, partials, out, stream);
+  }
+  return launch<false>(slots, plane_stride, kp, gplane, hplane, w, max_count,
+                       total_bins, round_bf16, partials, out, stream);
 }
 
 }  // namespace
@@ -207,30 +252,32 @@ int lgbt_mv_smem_cells() {
 // Planar-state entry (histogram_multival_planar). data: [P, R] int32;
 // win_start / win_count: device int32 scalars or null (then start_h /
 // count_h); max_count bounds the count and sizes the launch. partials:
-// max(1, ceil(max_count / kTile)) * (total_bins + 1) * 2 floats.
+// max(1, ceil(max_count / kTile)) * (total_bins + 1) * 2 floats (int32
+// when quant: the grad plane then holds packed levels).
 int lgbt_hist_multival_planar(const int32_t* data, long long R,
                               const int32_t* win_start,
                               const int32_t* win_count, int start_h,
                               int count_h, int max_count, int mv_start,
                               int mv_planes, int grad_plane, int total_bins,
-                              int round_bf16, float* partials, float* out,
-                              void* stream) {
+                              int round_bf16, int quant, void* partials,
+                              void* out, void* stream) {
   Window w{win_start, win_count, start_h, count_h};
-  return launch(data + (long long)mv_start * R, R, mv_planes,
-                data + (long long)grad_plane * R,
-                data + (long long)(grad_plane + 1) * R, w, max_count,
-                total_bins, round_bf16, partials, out, stream);
+  return dispatch(data + (long long)mv_start * R, R, mv_planes,
+                  data + (long long)grad_plane * R,
+                  data + (long long)(grad_plane + 1) * R, w, max_count,
+                  total_bins, round_bf16, quant, partials, out, stream);
 }
 
 // Slot-major entry (histogram_multival_pallas). codes: [kp, C] int32;
-// gh: [8, C] int32 lane planes, rows 0/1 = bitcast float32 grad/hess
-// (pre-masked by the caller). partials as above with max_count = C.
+// gh: [8, C] int32 lane planes, rows 0/1 = bitcast float32 grad/hess,
+// or row 0 = packed levels when quant (pre-masked by the caller).
+// partials as above with max_count = C.
 int lgbt_hist_multival(const int32_t* codes, const int32_t* gh, int kp,
-                       int C, int total_bins, int round_bf16,
-                       float* partials, float* out, void* stream) {
+                       int C, int total_bins, int round_bf16, int quant,
+                       void* partials, void* out, void* stream) {
   Window w{nullptr, nullptr, 0, C};
-  return launch(codes, C, kp, gh, gh + C, w, C, total_bins, round_bf16,
-                partials, out, stream);
+  return dispatch(codes, C, kp, gh, gh + C, w, C, total_bins, round_bf16,
+                  quant, partials, out, stream);
 }
 
 }  // extern "C"

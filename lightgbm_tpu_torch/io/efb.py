@@ -239,14 +239,16 @@ def per_feature_hist(group_hist: torch.Tensor, hist_tables, sum_g, sum_h
     """
     gather_idx, valid, mfb_oh, _ = hist_tables
     flat = group_hist.reshape(-1, 2)
-    fh = flat[gather_idx] * valid[..., None]
+    # the casts keep quantized int32 histograms in exact integer space
+    # (no-ops on the float32 path)
+    fh = flat[gather_idx] * valid[..., None].to(flat.dtype)
     total = torch.stack([torch.as_tensor(sum_g, dtype=fh.dtype,
                                          device=fh.device),
                          torch.as_tensor(sum_h, dtype=fh.dtype,
                                          device=fh.device)])    # [2]
-    rest = fh.sum(dim=1)                                        # [F, 2]
+    rest = fh.sum(dim=1).to(fh.dtype)                           # [F, 2]
     fill = total[None, :] - rest                                # [F, 2]
-    return fh + mfb_oh[..., None] * fill[:, None, :]
+    return fh + mfb_oh[..., None].to(fh.dtype) * fill[:, None, :]
 
 
 def bundle_eligible(m) -> bool:

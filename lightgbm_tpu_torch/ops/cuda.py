@@ -31,9 +31,13 @@ SOURCES = ("hist_planar", "partition", "hist_rowmajor", "hist_multival")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"hist_planar": 0, "partition": 0,
-                             "hist_radix": 0, "hist_masked": 0,
-                             "hist_multival_planar": 0, "hist_multival": 0}
+# the quantized (int32) mode of a kernel counts under its own name, the
+# float name with a "_q" suffix
+LAUNCHES: Dict[str, int] = {
+    name: 0 for base in ("hist_planar", "hist_radix", "hist_masked",
+                         "hist_multival_planar", "hist_multival")
+    for name in (base, base + "_q")}
+LAUNCHES["partition"] = 0
 BUILD_INFO: Dict[str, object] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -47,7 +51,7 @@ _SIGNATURES = {
         "lgbt_hist_tile": ([], _I),
         "lgbt_hist_cols_per_block": ([_I], _I),
         "lgbt_hist_planar": ([_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _P, _P, _P], _I),
+                              _I, _I, _P, _P, _P], _I),
     },
     "partition": {
         "lgbt_partition_tile": ([], _I),
@@ -56,17 +60,19 @@ _SIGNATURES = {
     },
     "hist_rowmajor": {
         "lgbt_rm_tile": ([], _I),
-        "lgbt_hist_radix": ([_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
-                            _I),
-        "lgbt_hist_masked": ([_P, _I, _I, _I, _P, _P, _I, _P, _P, _P], _I),
+        "lgbt_hist_radix": ([_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P,
+                             _P], _I),
+        "lgbt_hist_masked": ([_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+                             _I),
     },
     "hist_multival": {
         "lgbt_mv_tile": ([], _I),
         "lgbt_mv_max_slots": ([], _I),
         "lgbt_mv_smem_cells": ([], _I),
         "lgbt_hist_multival_planar": ([_P, _L, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _I, _I, _P, _P, _P], _I),
-        "lgbt_hist_multival": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+                                       _I, _I, _I, _I, _P, _P, _P], _I),
+        "lgbt_hist_multival": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+                               _I),
     },
 }
 

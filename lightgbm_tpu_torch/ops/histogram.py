@@ -6,6 +6,14 @@ float32; bin counts are recovered at split-scan time as
 ``round(hess * num_data / sum_hess)``, like the reference
 (feature_histogram.hpp cnt_factor).
 
+Under quantized training (ops/quantize.py) every kernel also has an
+integer mode: grad/hess are int32 levels (``hist_radix`` / ``hist_masked``
+take it from an integer grad dtype, as the JAX package does) or packed
+``(qg << 16) | qh`` words in the planar state's grad plane
+(``hist_planar(quant=True)``), and the histogram is ``[F, B, 2]`` int32,
+summed exactly. Its plain version is one ``index_add_`` in int32, where
+any order gives the same bits.
+
 Every kernel comes as three functions: ``*_plain`` (plain PyTorch, the
 port's oracle), ``*_cuda`` (launches the hand-written CUDA kernel and
 raises for a tensor that is not on the card) and a dispatcher chosen by
@@ -31,6 +39,7 @@ from typing import Optional, Union
 import torch
 
 from . import cuda as K
+from .quantize import unpack_gh
 
 Window = Union[int, torch.Tensor]
 
@@ -40,17 +49,27 @@ Window = Union[int, torch.Tensor]
 HIST_TILE = 2048
 
 
+def _acc_dtype(grad: torch.Tensor) -> torch.dtype:
+    """int32 for quantized levels, else float32 (the JAX package's rule:
+    integer inputs build exact int32 histograms)."""
+    return torch.float32 if grad.is_floating_point() else torch.int32
+
+
 def histogram_scatter(bins: torch.Tensor, grad: torch.Tensor,
                       hess: torch.Tensor, num_bins: int) -> torch.Tensor:
     """Scatter-add histogram (oracle). bins: [C, F] integer bin codes;
-    grad/hess: [C] float32. Returns [F, B, 2] float32."""
+    grad/hess: [C] float32, or int32 levels. Returns [F, B, 2] float32,
+    or int32 for integer inputs (exact). Codes outside [0, num_bins) add
+    nothing."""
     c, f = bins.shape
+    acc = _acc_dtype(grad)
+    codes = bins.to(torch.int64)
+    ok = (codes >= 0) & (codes < num_bins)
     idx = (torch.arange(f, device=bins.device)[None, :] * num_bins
-           + bins.to(torch.int64)).reshape(-1)
-    vals = torch.stack([grad, hess], dim=-1).to(torch.float32)    # [C, 2]
-    vals = vals[:, None, :].expand(c, f, 2).reshape(-1, 2)
-    hist = torch.zeros((f * num_bins, 2), dtype=torch.float32,
-                       device=bins.device)
+           + torch.where(ok, codes, 0)).reshape(-1)
+    vals = torch.stack([grad, hess], dim=-1).to(acc)              # [C, 2]
+    vals = torch.where(ok[..., None], vals[:, None, :], 0).reshape(-1, 2)
+    hist = torch.zeros((f * num_bins, 2), dtype=acc, device=bins.device)
     hist.index_add_(0, idx, vals)
     return hist.reshape(f, num_bins, 2)
 
@@ -102,10 +121,7 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _check_dtype(dtype: torch.dtype, quant: bool) -> None:
-    if quant:
-        raise NotImplementedError(
-            "quantized histograms are not ported yet (ROADMAP A10)")
+def _check_dtype(dtype: torch.dtype) -> None:
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
 
@@ -124,15 +140,19 @@ def _need_cuda(t: torch.Tensor, name: str) -> None:
 def histogram_planar_plain(data: torch.Tensor, start: Window, count: Window,
                            *, num_bins: int, num_cols: int, code_bits: int,
                            grad_plane: int,
-                           dtype: torch.dtype = torch.float32
-                           ) -> torch.Tensor:
+                           dtype: torch.dtype = torch.float32,
+                           quant: bool = False) -> torch.Tensor:
     """Leaf-window histogram of the planar state in plain PyTorch:
     unpack, then ``tiled_scatter`` in the CUDA kernel's association.
     ``dtype=torch.bfloat16`` rounds grad/hess to bfloat16 (round to
-    nearest even) before the float32 accumulation."""
+    nearest even) before the float32 accumulation. ``quant``: the grad
+    plane holds packed levels; int32 sums by one ``index_add_``."""
     start, count = int(start), int(count)
     win = data[:, start:start + count]
     codes = unpack_codes(win, num_cols, code_bits)
+    if quant:
+        qg, qh = unpack_gh(win[grad_plane])
+        return histogram_scatter(codes, qg, qh, num_bins)
     g = win[grad_plane].view(torch.float32)
     h = win[grad_plane + 1].view(torch.float32)
     if dtype == torch.bfloat16:
@@ -152,9 +172,11 @@ def hist_planar_cuda(data: torch.Tensor, start: Window, count: Window, *,
     ``start``/``count`` are host ints, or 0-d int32 tensors on the card
     that the kernel reads itself — then ``max_count`` (a host int) must
     bound the count; it sizes the launch. ``dtype`` is float32 or
-    bfloat16 (grad/hess rounded before the float32 accumulation). The
-    packed-integer ``quant`` mode is not ported yet (ROADMAP A10)."""
-    _check_dtype(dtype, quant)
+    bfloat16 (grad/hess rounded before the float32 accumulation).
+    ``quant``: the grad plane holds packed (qg << 16) | qh words (the
+    hess plane is not read) and the histogram is int32, summed
+    exactly; ``dtype`` is then ignored."""
+    _check_dtype(dtype)
     _need_cuda(data, "hist_planar_cuda")
     if code_bits not in (4, 8, 16):
         raise ValueError(f"code_bits must be 4, 8 or 16, got {code_bits}")
@@ -170,16 +192,16 @@ def hist_planar_cuda(data: torch.Tensor, start: Window, count: Window, *,
     lib = K.lib("hist_planar")
     tile = lib.lgbt_hist_tile()
     grid_tiles = max(1, -(-max_count // tile))
+    acc = torch.int32 if quant else torch.float32
     partials = torch.empty(grid_tiles * num_cols * num_bins * 2,
-                           dtype=torch.float32, device=dev)
-    out = torch.empty((num_cols, num_bins, 2), dtype=torch.float32,
-                      device=dev)
+                           dtype=acc, device=dev)
+    out = torch.empty((num_cols, num_bins, 2), dtype=acc, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     K.check(lib.lgbt_hist_planar(
         data.data_ptr(), R, sp, cp, sh, ch, max_count, num_cols, num_bins,
-        code_bits, grad_plane, int(dtype == torch.bfloat16),
+        code_bits, grad_plane, int(dtype == torch.bfloat16), int(quant),
         partials.data_ptr(), out.data_ptr(), stream), "hist_planar_cuda")
-    K.LAUNCHES["hist_planar"] += 1
+    K.LAUNCHES["hist_planar_q" if quant else "hist_planar"] += 1
     return out
 
 
@@ -191,15 +213,13 @@ def hist_planar(data: torch.Tensor, start: Window, count: Window, *,
     """The planar histogram (the JAX package's histogram_planar_pallas):
     ``hist_planar_cuda`` for a state on the card, its plain version for
     a state on the CPU."""
-    _check_dtype(dtype, quant)
+    _check_dtype(dtype)
+    kw = dict(num_bins=num_bins, num_cols=num_cols, code_bits=code_bits,
+              grad_plane=grad_plane, dtype=dtype, quant=quant)
     if data.is_cuda:
-        return hist_planar_cuda(
-            data, start, count, num_bins=num_bins, num_cols=num_cols,
-            code_bits=code_bits, grad_plane=grad_plane, dtype=dtype,
-            max_count=max_count)
-    return histogram_planar_plain(
-        data, start, count, num_bins=num_bins, num_cols=num_cols,
-        code_bits=code_bits, grad_plane=grad_plane, dtype=dtype)
+        return hist_planar_cuda(data, start, count, max_count=max_count,
+                                **kw)
+    return histogram_planar_plain(data, start, count, **kw)
 
 
 def _window_args(start: Window, count: Window, max_count: Optional[int],
@@ -234,7 +254,10 @@ def histogram_radix_plain(bins: torch.Tensor, grad: torch.Tensor,
                           dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
     """Row-major histogram in plain PyTorch: grad/hess rounded to
-    bfloat16 when ``dtype`` says so, then ``tiled_scatter``."""
+    bfloat16 when ``dtype`` says so, then ``tiled_scatter``; integer
+    levels sum exactly in int32 (``dtype`` ignored)."""
+    if not grad.is_floating_point():
+        return histogram_scatter(bins, grad, hess, num_bins)
     grad, hess = grad.to(torch.float32), hess.to(torch.float32)
     if dtype == torch.bfloat16:
         grad, hess = round_bf16(grad), round_bf16(hess)
@@ -244,7 +267,10 @@ def histogram_radix_plain(bins: torch.Tensor, grad: torch.Tensor,
 def histogram_masked_plain(bins: torch.Tensor, grad: torch.Tensor,
                            hess: torch.Tensor, num_bins: int
                            ) -> torch.Tensor:
-    """The masked multiply-accumulate histogram in plain PyTorch."""
+    """The masked multiply-accumulate histogram in plain PyTorch
+    (int32 levels: exact int32 sums)."""
+    if not grad.is_floating_point():
+        return histogram_scatter(bins, grad, hess, num_bins)
     return tiled_scatter(bins, grad.to(torch.float32),
                          hess.to(torch.float32), num_bins)
 
@@ -262,49 +288,49 @@ def _rowmajor_launch(entry: str, bins, grad, hess, num_bins, bf16: bool):
         raise ValueError(f"num_bins {num_bins} / columns {f} out of range")
     codes = bins.contiguous() if bins.dtype == torch.uint8 \
         else bins.to(torch.int32).contiguous()
-    g = grad.to(torch.float32).contiguous()
-    h = hess.to(torch.float32).contiguous()
+    acc = _acc_dtype(grad)
+    quant = acc == torch.int32
+    g = grad.to(acc).contiguous()
+    h = hess.to(acc).contiguous()
     lib = K.lib("hist_rowmajor")
     ntiles = max(1, -(-c // lib.lgbt_rm_tile()))
-    partials = torch.empty(ntiles * f * num_bins * 2, dtype=torch.float32,
-                           device=dev)
-    out = torch.empty((f, num_bins, 2), dtype=torch.float32, device=dev)
+    partials = torch.empty(ntiles * f * num_bins * 2, dtype=acc, device=dev)
+    out = torch.empty((f, num_bins, 2), dtype=acc, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = [codes.data_ptr(), codes.element_size(), c, f, g.data_ptr(),
             h.data_ptr(), num_bins]
+    tail = [int(quant), partials.data_ptr(), out.data_ptr(), stream]
     if entry == "hist_radix_cuda":
-        err = lib.lgbt_hist_radix(*args, int(bf16), partials.data_ptr(),
-                                  out.data_ptr(), stream)
-        K.check(err, entry)
-        K.LAUNCHES["hist_radix"] += 1
+        K.check(lib.lgbt_hist_radix(*args, int(bf16), *tail), entry)
+        name = "hist_radix"
     else:
-        err = lib.lgbt_hist_masked(*args, partials.data_ptr(),
-                                   out.data_ptr(), stream)
-        K.check(err, entry)
-        K.LAUNCHES["hist_masked"] += 1
+        K.check(lib.lgbt_hist_masked(*args, *tail), entry)
+        name = "hist_masked"
+    K.LAUNCHES[name + "_q" if quant else name] += 1
     return out
 
 
 def hist_radix_cuda(bins: torch.Tensor, grad: torch.Tensor,
                     hess: torch.Tensor, num_bins: int,
-                    dtype: torch.dtype = torch.float32,
-                    quant: bool = False) -> torch.Tensor:
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[F, B, 2] float32 histogram of [C, F] codes (uint8, or any integer
     type, widened to int32) and [C] grad/hess, by the CUDA kernel
     csrc/hist_rowmajor.cu (entry lgbt_hist_radix). ``dtype`` bfloat16
-    rounds grad/hess before the float32 accumulation."""
-    _check_dtype(dtype, quant)
+    rounds grad/hess before the float32 accumulation. Integer grad/hess
+    (quantized levels) give an exact int32 histogram."""
+    _check_dtype(dtype)
     return _rowmajor_launch("hist_radix_cuda", bins, grad, hess, num_bins,
                             dtype == torch.bfloat16)
 
 
 def hist_radix(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
-               num_bins: int, dtype: torch.dtype = torch.float32,
-               quant: bool = False) -> torch.Tensor:
+               num_bins: int, dtype: torch.dtype = torch.float32
+               ) -> torch.Tensor:
     """The row-major histogram (the JAX package's
     histogram_radix_pallas): the CUDA kernel for tensors on the card,
-    the plain version for tensors on the CPU."""
-    _check_dtype(dtype, quant)
+    the plain version for tensors on the CPU; int32 for integer
+    grad/hess."""
+    _check_dtype(dtype)
     if bins.is_cuda:
         return hist_radix_cuda(bins, grad, hess, num_bins, dtype)
     return histogram_radix_plain(bins, grad, hess, num_bins, dtype)
@@ -312,8 +338,9 @@ def hist_radix(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
 def hist_masked_cuda(bins: torch.Tensor, grad: torch.Tensor,
                      hess: torch.Tensor, num_bins: int) -> torch.Tensor:
-    """The float32 row-major histogram by the CUDA kernel
-    csrc/hist_rowmajor.cu (entry lgbt_hist_masked)."""
+    """The row-major histogram by the CUDA kernel csrc/hist_rowmajor.cu
+    (entry lgbt_hist_masked): float32 inputs only, or int32 levels for
+    an exact int32 histogram."""
     return _rowmajor_launch("hist_masked_cuda", bins, grad, hess, num_bins,
                             False)
 
@@ -396,8 +423,8 @@ def leaf_histogram(bins_full: torch.Tensor, perm: torch.Tensor, start: int,
     ``histogram``. The gather is plain PyTorch glue."""
     rows, valid = gather_leaf_rows(perm, start, count, capacity)
     b = bins_full[rows]
-    g = torch.where(valid, grad[rows], 0.0)
-    h = torch.where(valid, hess[rows], 0.0)
+    g = torch.where(valid, grad[rows], 0)     # keeps int32 levels int32
+    h = torch.where(valid, hess[rows], 0)
     return histogram(b, g, h, num_bins, method=method)
 
 

@@ -28,8 +28,10 @@ dispatcher chosen by the tensor's device:
   histogram_multival_pallas).
 
 ``histogram_multival_scatter`` is the one-pass oracle (the JAX package's
-histogram_multival_xla). The quantized (int32-level) modes are not
-ported yet (ROADMAP A10).
+histogram_multival_xla). Both kernels have a quantized mode
+(``quant=True``): one packed ``(qg << 16) | qh`` word per row in the grad
+plane / lane row 0, summed exactly into a [T+1, 2] int32 histogram; its
+plain version is one ``index_add_`` in int32.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import torch
 from . import cuda as K
 from .histogram import (_check_dtype, _need_cuda, _window_args,
                         gather_leaf_rows)
+from .quantize import pack_gh, unpack_gh
 
 MV_SK = 8            # slot-plane tile: slot counts are padded to it
 # rows per warp tile of the CUDA kernels (csrc/hist_multival.cu kTile);
@@ -184,12 +187,13 @@ def group_tables(group_num_bins, default_code, device="cpu"):
 def group_hist_from_flat(flat: torch.Tensor, tables) -> torch.Tensor:
     """[T+1, 2] flat histogram -> [G, Bg, 2]: cell T carries the leaf
     (sum_g, sum_h) totals (the sentinel slot), and each group's default
-    cell is total - sum(its other cells)."""
+    cell is total - sum(its other cells). Keeps the flat histogram's
+    dtype: exact in int32 for quantized levels."""
     idx, valid, dmask = tables
-    gh = flat[idx] * valid[..., None]
+    gh = flat[idx] * valid[..., None].to(flat.dtype)
     total = flat[-1]                                    # [2]
-    fill = total[None, :] - gh.sum(dim=1)
-    return gh + dmask[..., None] * fill[:, None, :]
+    fill = total[None, :] - gh.sum(dim=1).to(flat.dtype)
+    return gh + dmask[..., None].to(flat.dtype) * fill[:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -201,15 +205,16 @@ def histogram_multival_scatter(codes: torch.Tensor, grad: torch.Tensor,
                                ) -> torch.Tensor:
     """Row-wise flat histogram by one scatter-add (the JAX package's
     histogram_multival_xla, the oracle): codes [C, K] int32 (-1 = pad),
-    grad/hess [C] f32 -> [T+1, 2] (cell T = leaf totals)."""
+    grad/hess [C] f32, or int32 levels (exact int32 sums) -> [T+1, 2]
+    (cell T = leaf totals). Codes outside [0, T] add nothing."""
     flat = codes.reshape(-1).to(torch.int64)
-    live = flat >= 0
+    live = (flat >= 0) & (flat <= total_bins)
     k = codes.shape[1]
-    vals = torch.stack([grad, hess], dim=-1).to(torch.float32)
+    acc = torch.float32 if grad.is_floating_point() else torch.int32
+    vals = torch.stack([grad, hess], dim=-1).to(acc)
     vals = vals[:, None, :].expand(-1, k, 2).reshape(-1, 2)
-    vals = torch.where(live[:, None], vals, 0.0)
-    out = torch.zeros((total_bins + 1, 2), dtype=torch.float32,
-                      device=codes.device)
+    vals = torch.where(live[:, None], vals, 0)
+    out = torch.zeros((total_bins + 1, 2), dtype=acc, device=codes.device)
     out.index_add_(0, torch.where(live, flat, 0), vals)
     return out
 
@@ -246,12 +251,23 @@ def _tiled_flat(codes_sm: torch.Tensor, grad: torch.Tensor,
     return out
 
 
+def _flat_quant(codes_sm: torch.Tensor, words: torch.Tensor,
+                total_bins: int) -> torch.Tensor:
+    """Quantized flat histogram [T+1, 2] int32 of slot-major codes
+    [Kp, C] and one packed level word per row: exact int32 sums."""
+    qg, qh = unpack_gh(words)
+    return histogram_multival_scatter(codes_sm.t(), qg, qh, total_bins)
+
+
 def histogram_multival_plain(codes: torch.Tensor, gh: torch.Tensor, *,
                              total_bins: int,
-                             dtype: torch.dtype = torch.float32
-                             ) -> torch.Tensor:
+                             dtype: torch.dtype = torch.float32,
+                             quant: bool = False) -> torch.Tensor:
     """B6 in plain PyTorch: slot-major codes [Kp, C] and [8, C] lane
-    planes (rows 0/1 = bitcast f32 grad/hess) -> [T+1, 2]."""
+    planes (rows 0/1 = bitcast f32 grad/hess; row 0 = packed levels when
+    ``quant``) -> [T+1, 2]."""
+    if quant:
+        return _flat_quant(codes, gh[0], total_bins)
     return _tiled_flat(codes, gh[0].view(torch.float32),
                        gh[1].view(torch.float32), total_bins, dtype)
 
@@ -259,12 +275,16 @@ def histogram_multival_plain(codes: torch.Tensor, gh: torch.Tensor, *,
 def histogram_multival_planar_plain(data: torch.Tensor, start, count, *,
                                     mv_start: int, mv_planes: int,
                                     total_bins: int, grad_plane: int,
-                                    dtype: torch.dtype = torch.float32
-                                    ) -> torch.Tensor:
+                                    dtype: torch.dtype = torch.float32,
+                                    quant: bool = False) -> torch.Tensor:
     """B5 in plain PyTorch: the flat histogram of the lane window
-    [start, start+count) over the slot planes of the planar state."""
+    [start, start+count) over the slot planes of the planar state
+    (packed levels in the grad plane when ``quant``)."""
     start, count = int(start), int(count)
     win = data[:, start:start + count]
+    if quant:
+        return _flat_quant(win[mv_start:mv_start + mv_planes],
+                           win[grad_plane], total_bins)
     return _tiled_flat(win[mv_start:mv_start + mv_planes],
                        win[grad_plane].view(torch.float32),
                        win[grad_plane + 1].view(torch.float32),
@@ -293,8 +313,9 @@ def hist_multival_planar_cuda(data: torch.Tensor, start, count, *,
     [start, start+count) of the planar state, by the CUDA kernel
     csrc/hist_multival.cu (entry lgbt_hist_multival_planar). The window
     is host ints or int32 scalars on the card (then ``max_count`` bounds
-    the count and sizes the launch), as for ``hist_planar_cuda``."""
-    _check_dtype(dtype, quant)
+    the count and sizes the launch), as for ``hist_planar_cuda``.
+    ``quant``: packed levels in the grad plane, int32 output."""
+    _check_dtype(dtype)
     _need_cuda(data, "hist_multival_planar_cuda")
     if data.dtype != torch.int32 or data.dim() != 2 \
             or not data.is_contiguous():
@@ -306,16 +327,18 @@ def hist_multival_planar_cuda(data: torch.Tensor, start, count, *,
     sp, cp, sh, ch, max_count = _window_args(start, count, max_count, R, dev)
     lib = _mv_lib(mv_planes, total_bins)
     tiles = max(1, -(-max_count // lib.lgbt_mv_tile()))
-    partials = torch.empty(tiles * (total_bins + 1) * 2,
-                           dtype=torch.float32, device=dev)
-    out = torch.empty((total_bins + 1, 2), dtype=torch.float32, device=dev)
+    acc = torch.int32 if quant else torch.float32
+    partials = torch.empty(tiles * (total_bins + 1) * 2, dtype=acc,
+                           device=dev)
+    out = torch.empty((total_bins + 1, 2), dtype=acc, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     K.check(lib.lgbt_hist_multival_planar(
         data.data_ptr(), R, sp, cp, sh, ch, max_count, mv_start, mv_planes,
-        grad_plane, total_bins, int(dtype == torch.bfloat16),
+        grad_plane, total_bins, int(dtype == torch.bfloat16), int(quant),
         partials.data_ptr(), out.data_ptr(), stream),
         "hist_multival_planar_cuda")
-    K.LAUNCHES["hist_multival_planar"] += 1
+    K.LAUNCHES["hist_multival_planar_q" if quant
+               else "hist_multival_planar"] += 1
     return out
 
 
@@ -326,9 +349,9 @@ def hist_multival_planar(data: torch.Tensor, start, count, *,
                          quant: bool = False) -> torch.Tensor:
     """B5: the CUDA kernel for a state on the card, the plain version
     for a state on the CPU."""
-    _check_dtype(dtype, quant)
+    _check_dtype(dtype)
     kw = dict(mv_start=mv_start, mv_planes=mv_planes, total_bins=total_bins,
-              grad_plane=grad_plane, dtype=dtype)
+              grad_plane=grad_plane, dtype=dtype, quant=quant)
     if data.is_cuda:
         return hist_multival_planar_cuda(data, start, count,
                                          max_count=max_count, **kw)
@@ -341,8 +364,9 @@ def hist_multival_cuda(codes: torch.Tensor, gh: torch.Tensor, *,
     """[T+1, 2] float32 flat histogram of slot-major codes [Kp, C] int32
     and [8, C] int32 lane planes (rows 0/1 = bitcast f32 grad/hess,
     pre-masked), by the CUDA kernel csrc/hist_multival.cu (entry
-    lgbt_hist_multival)."""
-    _check_dtype(dtype, quant)
+    lgbt_hist_multival). ``quant``: row 0 holds packed levels, int32
+    output."""
+    _check_dtype(dtype)
     _need_cuda(codes, "hist_multival_cuda")
     kp, c = codes.shape
     if codes.dtype != torch.int32 or gh.dtype != torch.int32 \
@@ -353,15 +377,16 @@ def hist_multival_cuda(codes: torch.Tensor, gh: torch.Tensor, *,
     dev = codes.device
     lib = _mv_lib(kp, total_bins)
     tiles = max(1, -(-c // lib.lgbt_mv_tile()))
-    partials = torch.empty(tiles * (total_bins + 1) * 2,
-                           dtype=torch.float32, device=dev)
-    out = torch.empty((total_bins + 1, 2), dtype=torch.float32, device=dev)
+    acc = torch.int32 if quant else torch.float32
+    partials = torch.empty(tiles * (total_bins + 1) * 2, dtype=acc,
+                           device=dev)
+    out = torch.empty((total_bins + 1, 2), dtype=acc, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     K.check(lib.lgbt_hist_multival(
         codes.data_ptr(), gh.data_ptr(), kp, c, total_bins,
-        int(dtype == torch.bfloat16), partials.data_ptr(), out.data_ptr(),
-        stream), "hist_multival_cuda")
-    K.LAUNCHES["hist_multival"] += 1
+        int(dtype == torch.bfloat16), int(quant), partials.data_ptr(),
+        out.data_ptr(), stream), "hist_multival_cuda")
+    K.LAUNCHES["hist_multival_q" if quant else "hist_multival"] += 1
     return out
 
 
@@ -370,12 +395,11 @@ def hist_multival(codes: torch.Tensor, gh: torch.Tensor, *, total_bins: int,
                   quant: bool = False) -> torch.Tensor:
     """B6: the CUDA kernel for tensors on the card, the plain version
     for tensors on the CPU."""
-    _check_dtype(dtype, quant)
+    _check_dtype(dtype)
+    kw = dict(total_bins=total_bins, dtype=dtype, quant=quant)
     if codes.is_cuda:
-        return hist_multival_cuda(codes, gh, total_bins=total_bins,
-                                  dtype=dtype)
-    return histogram_multival_plain(codes, gh, total_bins=total_bins,
-                                    dtype=dtype)
+        return hist_multival_cuda(codes, gh, **kw)
+    return histogram_multival_plain(codes, gh, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -396,12 +420,13 @@ def slot_major(codes_window: torch.Tensor) -> torch.Tensor:
 def gh_planes(grad: torch.Tensor, hess: torch.Tensor,
               quant: bool = False) -> torch.Tensor:
     """Masked [C] grad/hess -> the [8, C] int32 lane planes the kernel
-    reads: bitcast f32 rows 0/1, zeros elsewhere."""
-    if quant:
-        raise NotImplementedError(
-            "quantized lane planes are not ported yet (ROADMAP A10)")
+    reads: bitcast f32 rows 0/1, or one packed (qg << 16) | qh word row
+    when ``quant`` (int32 levels); zeros elsewhere."""
     out = torch.zeros((8, grad.shape[0]), dtype=torch.int32,
                       device=grad.device)
+    if quant:
+        out[0] = pack_gh(grad, hess)
+        return out
     out[0] = grad.to(torch.float32).contiguous().view(torch.int32)
     out[1] = hess.to(torch.float32).contiguous().view(torch.int32)
     return out
@@ -414,12 +439,14 @@ def leaf_histogram_multival(codes: torch.Tensor, perm: torch.Tensor, start,
                             ) -> torch.Tensor:
     """Row-wise flat histogram [T+1, 2] of a permuted leaf window (the
     ops/histogram.leaf_histogram twin for the multival layout). codes:
-    [N, K] int32 row-wise flat codes; grad/hess [N] f32. The leaf's
-    codes are gathered by ``perm`` and made slot-major in PyTorch (glue),
-    then ``hist_multival`` runs."""
+    [N, K] int32 row-wise flat codes; grad/hess [N] f32, or int32
+    quantized levels (then the kernel's quantized mode, int32 output).
+    The leaf's codes are gathered by ``perm`` and made slot-major in
+    PyTorch (glue), then ``hist_multival`` runs."""
     rows, valid = gather_leaf_rows(perm, start, count, capacity)
     c = codes[rows]
-    g = torch.where(valid, grad[rows], 0.0)
-    h = torch.where(valid, hess[rows], 0.0)
-    return hist_multival(slot_major(c), gh_planes(g, h),
-                         total_bins=total_bins, dtype=dtype)
+    g = torch.where(valid, grad[rows], 0)     # keeps int32 levels int32
+    h = torch.where(valid, hess[rows], 0)
+    quant = not grad.is_floating_point()
+    return hist_multival(slot_major(c), gh_planes(g, h, quant=quant),
+                         total_bins=total_bins, dtype=dtype, quant=quant)

@@ -109,6 +109,10 @@ def f32_as_i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).contiguous().view(torch.int32)
 
 
+def i32_as_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).contiguous().view(torch.float32)
+
+
 def _pack_codes(codes: torch.Tensor, layout: PlaneLayout,
                 lanes: int) -> torch.Tensor:
     """[n, G] bin codes -> [code_planes, lanes] int32 (little-endian
@@ -192,6 +196,18 @@ def set_gh(data: torch.Tensor, layout: PlaneLayout, grad: torch.Tensor,
     """Write the gradient and hessian planes, in place."""
     set_f32(data, layout.grad, grad)
     set_f32(data, layout.hess, hess)
+
+
+def set_gh_packed(data: torch.Tensor, layout: PlaneLayout,
+                  packed_f32: torch.Tensor) -> None:
+    """Write a quantize-packed (qg << 16 | qh) word plane, bitcast
+    through float32, into the gradient plane and zero the hessian plane,
+    in place: the quantized kernels unpack both levels from the one
+    word."""
+    v = f32_as_i32(packed_f32)
+    data[layout.grad, :v.shape[0]] = v
+    data[layout.grad, v.shape[0]:] = 0
+    data[layout.hess] = 0
 
 
 # ---------------------------------------------------------------------------

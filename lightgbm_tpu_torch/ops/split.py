@@ -141,6 +141,45 @@ def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], nb * _SCAN_BLOCK)[..., :n]
 
 
+# window of XLA's CPU tree-reduction rewrite of a full reduce
+_SUM_WINDOW = 32
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis in the exact association of the
+    JAX package's ``jnp.sum`` on the CPU: XLA rewrites a long reduce
+    into a reduce-window of 32 elements (the input zero-padded by
+    floor(pad / 2) in front and the rest behind), each window summed in
+    order from 0, then reduces the window totals the same way until at
+    most 32 are left, which are summed in order. Only float32 additions,
+    so the card and the CPU give the same bits, and both the JAX
+    package's."""
+    n = x.shape[-1]
+    if n > _SUM_WINDOW:
+        nb = -(-n // _SUM_WINDOW)
+        lo = (nb * _SUM_WINDOW - n) // 2
+        xp = torch.nn.functional.pad(x, (lo, nb * _SUM_WINDOW - n - lo))
+        return xla_sum(xla_sum(xp.reshape(*x.shape[:-1], nb, _SUM_WINDOW)))
+    out = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(n):
+        out = out + x[..., i]
+    return out
+
+
+def dequantize_hist(hist: torch.Tensor, grad_scale, hess_scale
+                    ) -> torch.Tensor:
+    """Integer histogram -> float32 at the split scan (the JAX package's
+    dequantize_hist): quantized training keeps the histogram pool and
+    the subtraction in exact int32 level sums, and this is the one
+    place they meet float arithmetic. hist: [..., 2] int32 (sum qg, sum
+    qh); the scales are float32 scalars of the iteration."""
+    scale = torch.stack([torch.as_tensor(grad_scale, dtype=torch.float32,
+                                         device=hist.device),
+                         torch.as_tensor(hess_scale, dtype=torch.float32,
+                                         device=hist.device)])
+    return hist.to(torch.float32) * scale
+
+
 def _round_int(x):
     return torch.floor(x + 0.5).to(torch.int32)
 

@@ -27,6 +27,15 @@ count. Each iteration adds one more read for the finished tree.
 ``syncs`` counts these reads. Getting to one read per iteration is later
 work (ROADMAP).
 
+Quantized-gradient training (``use_quantized_grad``, ops/quantize.py)
+quantizes the iteration's gradients with one threefry key per iteration
+(the JAX package's keys, so the same levels), writes the packed
+(qg << 16) | qh word into the grad plane, and runs the kernels'
+quantized modes: the histograms, the pool and the subtraction stay in
+exact int32, and ``dequantize_hist`` runs at the split scan. With
+``quant_train_renew_leaf`` the leaf values are refit from the float32
+gradient sums of each leaf's window.
+
 The state is updated IN PLACE (partition, grad/hess and score writes);
 the JAX package keeps it immutable and donates it instead.
 """
@@ -45,7 +54,9 @@ from ..models.tree import Tree
 from ..ops import histogram as H
 from ..ops import multival as MV
 from ..ops import plane
+from ..ops import quantize as Q
 from ..ops import split as S
+from ..ops import threefry
 
 NEG_INF = float("-inf")
 
@@ -114,8 +125,6 @@ def port_reject_reason(config: Config, dataset: BinnedDataset,
                        objective) -> Optional[str]:
     """What the JAX package trains (on either learner) but the port does
     not yet, each with the ROADMAP item that brings it."""
-    if config.use_quantized_grad:
-        return "use_quantized_grad (quantized gradients, ROADMAP A10)"
     if config.boosting != "gbdt" or bag_active(config):
         return (f"boosting={config.boosting} / bagging (ROADMAP A10)")
     if objective is None or objective.persistent_aux() is None:
@@ -272,6 +281,15 @@ class FusedSerialGrower:
         self._use_hist_pool = pool_mb <= 0 or need <= pool_mb * 1024 * 1024
         self._col_rng = np.random.RandomState(config.feature_fraction_seed)
         self._mask_ones = None
+        # quantized-gradient training: the grad plane carries packed
+        # (qg << 16 | qh) words and the histogram pool exact int32 level
+        # sums; a host-side iteration counter picks each iteration's
+        # stochastic-rounding key (the JAX package's keys)
+        self._quant = bool(config.use_quantized_grad)
+        self._quant_iter = 0
+        self._quant_base_key = (threefry.PRNGKey(config.objective_seed
+                                                 ^ 0x51A7)
+                                if self._quant else None)
         # blocking host reads (device -> host) taken by the learner
         self.syncs = 0
 
@@ -302,7 +320,7 @@ class FusedSerialGrower:
         ghist = H.hist_planar(
             data, start, count, num_bins=nbins, num_cols=Ly.num_cols,
             code_bits=Ly.code_bits, grad_plane=Ly.grad,
-            dtype=self._hist_dtype, max_count=max_count)
+            dtype=self._hist_dtype, max_count=max_count, quant=self._quant)
         return self._hist_from_groups(ghist)
 
     def _leaf_hist_multival(self, data, start, count, max_count=None):
@@ -315,18 +333,23 @@ class FusedSerialGrower:
         flat = MV.hist_multival_planar(
             data, start, count, mv_start=Ly.mv_start, mv_planes=Ly.mv_planes,
             total_bins=self._mv_total_bins, grad_plane=Ly.grad,
-            dtype=self._hist_dtype, max_count=max_count)
+            dtype=self._hist_dtype, max_count=max_count, quant=self._quant)
         ghist = MV.group_hist_from_flat(flat, self._mv_tables)
         if self._efb_hist is None:
             return ghist
         return per_feature_hist(ghist, self._efb_hist, flat[-1, 0],
                                 flat[-1, 1])
 
-    def _scan(self, hist, sum_g, sum_h, count, output, cmin, cmax, mask):
+    def _scan(self, hist, sum_g, sum_h, count, output, cmin, cmax, mask,
+              qscales=None):
         """Best split of K leaves at once (JAX _scan_leaf /
         _scan_two_leaves). All arguments have a leading [K] axis; returns
         (rec_f [7, K] f32: gain, lg, lh, lout, rg, rh, rout;
-        rec_i [3, K] i32: feature, threshold bin, default_left)."""
+        rec_i [3, K] i32: feature, threshold bin, default_left).
+        ``qscales``: (grad_scale, hess_scale) when ``hist`` holds int32
+        level sums — the scan itself runs in float32."""
+        if qscales is not None:
+            hist = S.dequantize_hist(hist, qscales[0], qscales[1])
         res = S.numerical_split_scan(hist, self.meta, self.split_cfg,
                                      sum_g, sum_h, count, output, cmin, cmax)
         gains = torch.where(mask, res["gain"], S.K_MIN_SCORE)
@@ -350,10 +373,13 @@ class FusedSerialGrower:
 
     # ------------------------------------------------------------------
     def _grow_tree(self, data: torch.Tensor, n: int,
-                   feature_mask: torch.Tensor) -> Dict:
+                   feature_mask: torch.Tensor, qscales=None) -> Dict:
         """Grow one tree over the planar state (partitioned in place).
         Returns the tree arrays as host numpy plus the device leaf
-        windows and outputs the score update needs."""
+        windows and outputs the score update needs. ``qscales``:
+        (grad_scale, hess_scale) 0-d tensors when the grad plane holds
+        packed quantized levels: the pool and the subtraction then stay
+        in exact int32, dequantized at the scan."""
         L = self.num_leaves
         F, B = self.num_features, self.max_num_bin
         dev = self.device
@@ -363,15 +389,19 @@ class FusedSerialGrower:
         root_mask = feature_mask[0] if bynode else feature_mask
 
         root_hist = self._leaf_hist(data, 0, n)
-        # leaf totals from feature 0's bins (float64 sum rounded to
-        # float32: the same on the card and the CPU)
-        sum_g = root_hist[0, :, 0].to(torch.float64).sum().to(f32)
-        sum_h = root_hist[0, :, 1].to(torch.float64).sum().to(f32)
+        # leaf totals from feature 0's bins: exact integer sums times the
+        # scales, or float32 sums in the JAX package's (XLA's) order —
+        # the same bits on the card and the CPU
+        if qscales is not None:
+            sum_g = root_hist[0, :, 0].sum().to(f32) * qscales[0]
+            sum_h = root_hist[0, :, 1].sum().to(f32) * qscales[1]
+        else:
+            sum_g, sum_h = S.xla_sum(root_hist[0].t())
         one = torch.ones(1, dtype=f32, device=dev)
         rf, ri = self._scan(root_hist[None], sum_g[None], sum_h[None],
                             torch.full((1,), n, dtype=i32, device=dev),
                             0.0 * one, NEG_INF * one, -NEG_INF * one,
-                            root_mask[None])
+                            root_mask[None], qscales)
 
         best_f = torch.zeros((7, L), dtype=f32, device=dev)
         best_f[0] = NEG_INF
@@ -389,7 +419,8 @@ class FusedSerialGrower:
         leaf_i[1, 0] = n
         pool = None
         if self._use_hist_pool:
-            pool = torch.zeros((L, F, B, 2), dtype=f32, device=dev)
+            pool = torch.zeros((L, F, B, 2), dtype=root_hist.dtype,
+                               device=dev)
             pool[0] = root_hist
         depth_ok = (torch.ones(L, dtype=torch.bool, device=dev)
                     if max_depth > 0 else None)
@@ -497,7 +528,8 @@ class FusedSerialGrower:
                 torch.stack([nleft, nright]),
                 torch.stack([leaf_f[2, leaf], leaf_f[2, new]]),
                 torch.stack([leaf_f[3, leaf], leaf_f[3, new]]),
-                torch.stack([leaf_f[4, leaf], leaf_f[4, new]]), mask2)
+                torch.stack([leaf_f[4, leaf], leaf_f[4, new]]), mask2,
+                qscales)
             best_f[:, leaf] = rf[:, 0]
             best_f[:, new] = rf[:, 1]
             best_i[:, leaf] = ri[:, 0]
@@ -505,6 +537,9 @@ class FusedSerialGrower:
             n_leaves += 1
 
         k, ni = n_leaves, n_leaves - 1
+        if qscales is not None and self.config.quant_train_renew_leaf:
+            leaf_f[2, :k] = self._renew_quant_leaves(
+                data, n, leaf_i[:, :k], leaf_f[:, :k])
         # ONE read for the finished tree: every value array as float64
         # (int32 and float32 values are exact in it)
         flat = torch.cat([t_f[:, :ni].reshape(-1).to(torch.float64),
@@ -525,6 +560,49 @@ class FusedSerialGrower:
             leaf_value=lf[2], leaf_weight=lf[1], leaf_count=lcnt,
             leaf_depth=leaf_depth[:k].copy())
         return ta, (leaf_i[:, :k], leaf_f[2, :k])
+
+    def _raw_grads(self, data: torch.Tensor, n: int):
+        """float32 gradients / hessians of the objective from the
+        state's score, label and weight planes, zero on pad lanes."""
+        Ly = self.layout
+        score = plane.get_f32(data, Ly.score)
+        label = plane.get_f32(data, Ly.label)
+        weight = plane.get_f32(data, Ly.weight) if Ly.weight >= 0 else None
+        g, h = self.objective.persistent_grads(score, label, weight)
+        realm = torch.arange(Ly.num_lanes, device=self.device) < n
+        return torch.where(realm, g, 0.0), torch.where(realm, h, 0.0)
+
+    def _renew_quant_leaves(self, data: torch.Tensor, n: int,
+                            win: torch.Tensor, leaf_f: torch.Tensor
+                            ) -> torch.Tensor:
+        """Leaf values from the float32 gradient / hessian sums of each
+        leaf after a quantized tree search (the JAX package's
+        _renew_quant_leaves, the reference's RenewIntGradTreeOutput):
+        the tree keeps the quantized split decisions, its outputs drop
+        the rounding error. The raw gradients come from the final
+        state's score / label planes (values unchanged by the growth,
+        only lane-permuted with the rows); each leaf's window sum is a
+        difference of one prefix sum in XLA's order. win: [2, k] window
+        start / count; leaf_f: [5, k] sum_g, sum_h, output, cmin,
+        cmax."""
+        g, h = self._raw_grads(data, n)
+        start, count = win[0].long(), win[1].long()
+        ends = torch.clamp(start + count, min=1) - 1
+        sidx = torch.clamp(start, min=1) - 1
+
+        def seg_sums(c):
+            cs = S._prefix_sum(c)
+            lo = torch.where(start > 0, cs[sidx], 0.0)
+            return torch.where(count > 0, cs[ends] - lo, 0.0)
+
+        sg, sh = seg_sums(g), seg_sums(h)
+        cfg = self.split_cfg
+        out = -S.threshold_l1(sg, cfg.lambda_l1) \
+            / (sh + cfg.lambda_l2 + S.K_EPSILON)
+        if cfg.max_delta_step > 0:
+            out = torch.clamp(out, -cfg.max_delta_step, cfg.max_delta_step)
+        out = torch.minimum(torch.maximum(out, leaf_f[3]), leaf_f[4])
+        return torch.where(count > 0, out, leaf_f[2])
 
     # -- persistent mode -----------------------------------------------
     def init_persistent_state(self, score_vec: np.ndarray) -> torch.Tensor:
@@ -560,16 +638,24 @@ class FusedSerialGrower:
         (host numpy, leaf values before shrinkage)."""
         Ly = self.layout
         n = self.actual_rows
-        score = plane.get_f32(data, Ly.score)
-        label = plane.get_f32(data, Ly.label)
-        weight = plane.get_f32(data, Ly.weight) if Ly.weight >= 0 else None
-        g, h = self.objective.persistent_grads(score, label, weight)
-        realm = torch.arange(Ly.num_lanes, device=self.device) < n
-        plane.set_gh(data, Ly, torch.where(realm, g, 0.0),
-                     torch.where(realm, h, 0.0))
+        g, h = self._raw_grads(data, n)
+        qscales = None
+        if self._quant:
+            # one quantization pass per iteration, keyed by fold_in of
+            # the base key with the iteration counter
+            key = threefry.fold_in(self._quant_base_key, self._quant_iter)
+            self._quant_iter += 1
+            qg, qh, gs, hs = Q.quantize_gradients(
+                g, h, self.config.num_grad_quant_bins, key,
+                stochastic=self.config.stochastic_rounding)
+            qscales = (gs, hs)
+            plane.set_gh_packed(data, Ly,
+                                plane.i32_as_f32(Q.pack_gh(qg, qh)))
+        else:
+            plane.set_gh(data, Ly, g, h)
 
         ta, (win, leaf_out) = self._grow_tree(
-            data, n, self.feature_masks_for_tree())
+            data, n, self.feature_masks_for_tree(), qscales)
 
         # score update by window: every lane of leaf l's window gets
         # leaf l's value — no gather, no scatter
@@ -577,7 +663,7 @@ class FusedSerialGrower:
         order = torch.argsort(win[0])
         add = torch.repeat_interleave(vals[order], win[1][order].long(),
                                       output_size=n)
-        s = score[:n]
+        s = plane.get_f32(data, Ly.score, n)
         s.add_(add)
         if bias != 0.0:
             s.add_(torch.tensor(bias, dtype=torch.float32))

@@ -20,8 +20,13 @@ counts them). The histogram pool is a per-leaf histogram kept until the
 leaf splits; ``histogram_pool_size`` too small for it recomputes leaf
 histograms on demand instead of subtracting.
 
-Quantized gradients (ROADMAP A10) and forced splits (ROADMAP A5) are not
-ported; the booster refuses them before a grower is built.
+Quantized-gradient training (``use_quantized_grad``) quantizes each
+tree's gradients once (ops/quantize.py, the JAX package's threefry keys);
+the leaf histograms then run the kernels' int32 modes, the pool and the
+subtraction stay exact, and ``dequantize_hist`` runs at the split scan.
+With ``quant_train_renew_leaf`` the leaf values are refit from the float
+gradient sums. Forced splits (ROADMAP A5) are not ported; the booster
+refuses them before a grower is built.
 """
 from __future__ import annotations
 
@@ -38,7 +43,9 @@ from ..io.efb import per_feature_hist
 from ..models.tree import Tree
 from ..ops import histogram as H
 from ..ops import multival as MV
+from ..ops import quantize as Q
 from ..ops import split as S
+from ..ops import threefry
 from ..ops.partition import partition_leaf
 from ..utils import log
 from .monotone import MonotoneState, monotone_penalty_factor
@@ -145,6 +152,12 @@ class SerialTreeGrower:
         self._cur_perm = None
         self._cur_grad = None
         self._cur_hess = None
+        # quantized-gradient training: per-tree scales of the current
+        # tree (None on the float32 path) and the tree counter that
+        # picks each tree's stochastic-rounding key
+        self._quant = bool(config.use_quantized_grad)
+        self._qscales = None
+        self._quant_tree_idx = 0
         # blocking device -> host reads taken by the learner
         self.syncs = 0
 
@@ -293,14 +306,34 @@ class SerialTreeGrower:
             self._mono_state = MonotoneState(
                 cfg.monotone_constraints_method, cfg.num_leaves,
                 self._monotone_np)
+        raw_grad, raw_hess = grad, hess
+        self._qscales = None
+        if self._quant:
+            # one quantization pass per tree; histograms, the pool and
+            # the subtraction then run in exact int32 level space
+            key = threefry.fold_in(
+                threefry.PRNGKey(cfg.objective_seed ^ 0x51A7),
+                self._quant_tree_idx)
+            self._quant_tree_idx += 1
+            grad, hess, gs, hs = Q.quantize_gradients(
+                grad, hess, cfg.num_grad_quant_bins, key,
+                cfg.stochastic_rounding)
+            self._qscales = (gs, hs)
         self._cur_perm, self._cur_grad, self._cur_hess = perm, grad, hess
         root = _Leaf(0, num_data, 0.0, 0.0, 0.0, 0)
         root.hist = self._leaf_hist(perm, 0, num_data, grad, hess)
         # root sums from the histogram (every row lands in exactly one
-        # bin of feature 0), as float64 sums rounded to float32: the
-        # same bits on the card and the CPU
-        sums = root.hist[0].to(torch.float64).sum(dim=0).to(torch.float32)
-        root.sum_g, root.sum_h = self._read(sums)
+        # bin of feature 0): float32 sums in the JAX package's (XLA's)
+        # order, or exact integer sums times the scales, taken in
+        # float64 on the host as the JAX package does; one read either
+        # way, the same bits on the card and the CPU
+        if self._quant:
+            gsh, hsh, sg, sh = self._read(torch.stack(
+                [gs.to(torch.float64), hs.to(torch.float64),
+                 *root.hist[0].sum(dim=0).to(torch.float64)]))
+            root.sum_g, root.sum_h = sg * gsh, sh * hsh
+        else:
+            root.sum_g, root.sum_h = self._read(S.xla_sum(root.hist[0].t()))
         leaves: Dict[int, _Leaf] = {0: root}
         root.best = self._compute_best(
             root, tree_mask, set() if self._interaction_sets else None,
@@ -322,7 +355,47 @@ class SerialTreeGrower:
                 break
             perm = self._split_leaf(tree, leaves, best_leaf, perm, grad, hess,
                                     tree_mask, rand_thr)
+        if self._quant and cfg.quant_train_renew_leaf:
+            self._renew_leaf_values(tree, leaves, perm, raw_grad, raw_hess)
         return tree
+
+    def _renew_leaf_values(self, tree: Tree, leaves: Dict[int, "_Leaf"],
+                           perm, grad, hess) -> None:
+        """Refit the leaf outputs from the float32 grad / hess sums after
+        a quantized growth (the JAX package's _renew_leaf_values, the
+        reference's RenewIntGradTreeOutput): the tree keeps the
+        quantized decisions, the leaf values drop the rounding error.
+        Window sums are differences of one prefix sum in XLA's order over
+        the final leaf-ordered permutation; one read brings the boundary
+        values, and the rest is float64 on the host, as in the JAX
+        package."""
+        items = [(lid, lf) for lid, lf in leaves.items() if lf.count > 0]
+        if not items:
+            return
+        dev = self.device
+        cs = S._prefix_sum(torch.stack([grad[perm], hess[perm]]))
+        ends = torch.as_tensor([lf.start + lf.count - 1 for _, lf in items],
+                               dtype=torch.int64, device=dev)
+        los = np.asarray([lf.start - 1 for _, lf in items])
+        lo_idx = torch.as_tensor(np.maximum(los, 0), dtype=torch.int64,
+                                 device=dev)
+        host = np.asarray(self._read(torch.cat(
+            [cs[:, ends], cs[:, lo_idx]], dim=1).to(torch.float64)))
+        m = len(items)
+        has_lo = los >= 0
+        sum_g = host[0, :m] - np.where(has_lo, host[0, m:], 0.0)
+        sum_h = host[1, :m] - np.where(has_lo, host[1, m:], 0.0)
+        cfg = self.config
+        for (lid, lf), g, h in zip(items, sum_g, sum_h):
+            if cfg.lambda_l1 > 0:
+                g = np.sign(g) * max(abs(g) - cfg.lambda_l1, 0.0)
+            out = -g / (h + cfg.lambda_l2 + S.K_EPSILON)
+            if cfg.max_delta_step > 0:
+                out = float(np.clip(out, -cfg.max_delta_step,
+                                    cfg.max_delta_step))
+            if self.use_monotone:
+                out = float(np.clip(out, lf.cmin, lf.cmax))
+            tree.leaf_value[lid] = float(out)
 
     # ------------------------------------------------------------------
     def _compute_best(self, leaf: _Leaf, tree_mask: np.ndarray,
@@ -351,8 +424,13 @@ class SerialTreeGrower:
 
         def f32(x):
             return torch.tensor(x, dtype=torch.float32, device=dev)
+        hist = leaf.hist
+        if self._qscales is not None:
+            # integer level sums meet float arithmetic here and only here
+            # (sum_g / sum_h are already dequantized leaf totals)
+            hist = S.dequantize_hist(hist, *self._qscales)
         res = S.best_split(
-            leaf.hist, self.meta, self.split_cfg, f32(leaf.sum_g),
+            hist, self.meta, self.split_cfg, f32(leaf.sum_g),
             f32(leaf.sum_h), torch.tensor(leaf.count, dtype=torch.int32,
                                           device=dev),
             f32(leaf.output), f32(leaf.cmin), f32(leaf.cmax),

@@ -11,6 +11,7 @@ import torch
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops import multival as TM
 from lightgbm_tpu_torch.ops import plane as tplane
+from lightgbm_tpu_torch.ops import quantize as TQ
 
 
 def _need_card():
@@ -147,6 +148,78 @@ def test_multival_kernels_match_plain(groups, dtype):
         assert torch.equal(a.cpu(), want), (start, count)
 
 
+def _levels(rng, n, num_bins):
+    """int32 quantized levels, qg at its negative extreme every 7th row
+    (the sign-carrying unpack)."""
+    qmax_g, qmax_h = TQ.grad_levels(num_bins)
+    qg = rng.randint(-qmax_g, qmax_g + 1, n).astype(np.int32)
+    qh = rng.randint(0, qmax_h + 1, n).astype(np.int32)
+    qg[::7] = -qmax_g
+    return torch.as_tensor(qg), torch.as_tensor(qh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [4, 64])
+def test_quantized_planar_and_rowmajor_kernels_match_plain(levels):
+    """B1q (packed words in the grad plane), B4q and B7q (int32 levels)
+    against their plain int32 versions, bit for bit."""
+    _need_card()
+    n = 50_000
+    lay, data = _state(n, 28, seed=levels)
+    qg, qh = _levels(np.random.RandomState(levels), lay.num_lanes, levels)
+    tplane.set_gh_packed(data, lay, tplane.i32_as_f32(TQ.pack_gh(qg, qh)))
+    dev = data.cuda()
+    kw = dict(num_bins=255, num_cols=28, code_bits=8, grad_plane=lay.grad,
+              quant=True)
+    for start, count in ((0, n), (333, 20_001), (n - 1, 1), (9, 0)):
+        got = TH.hist_planar_cuda(dev, start, count, **kw)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), TH.histogram_planar_plain(
+            data, start, count, **kw)), (start, count)
+    rng = np.random.RandomState(levels)
+    for c in (9_000, 1, 0):
+        bins = torch.as_tensor(rng.randint(0, 255, size=(c, 7))).to(
+            torch.uint8)
+        g, h = qg[:c], qh[:c]
+        want = TH.histogram_radix_plain(bins, g, h, 255)
+        for fn in (TH.hist_radix_cuda, TH.hist_masked_cuda):
+            got = fn(bins.cuda(), g.cuda(), h.cuda(), 255)
+            assert got.dtype == torch.int32
+            assert torch.equal(got.cpu(), want), (fn.__name__, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [40, 3000])     # T in / beyond smem
+def test_quantized_multival_kernels_match_plain(groups):
+    """B5q and B6q against their plain int32 versions, bit for bit."""
+    _need_card()
+    n = 5_000
+    codes, lay = _mv_state(n, groups, seed=groups)
+    T = lay.total_bins
+    qg, qh = _levels(np.random.RandomState(groups), n, 64)
+    sm = TM.slot_major(torch.as_tensor(codes))
+    gh = TM.gh_planes(qg, qh, quant=True)
+    got = TM.hist_multival_cuda(sm.cuda(), gh.cuda(), total_bins=T,
+                                quant=True)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), TM.histogram_multival_plain(
+        sm, gh, total_bins=T, quant=True))
+    tl = tplane.make_layout(4, 8, n, with_label=True, with_score=True,
+                            mv_planes=sm.shape[0])
+    zero = torch.zeros(n)
+    data = tplane.build_data(
+        tl, tplane.build_codes_planes(torch.zeros((n, 4), dtype=torch.int32),
+                                      tl), zero, zero, mv=sm)
+    tplane.set_gh_packed(data, tl, tplane.i32_as_f32(TQ.pack_gh(qg, qh)))
+    dd = data.cuda()
+    kw = dict(mv_start=tl.mv_start, mv_planes=tl.mv_planes, total_bins=T,
+              grad_plane=tl.grad, quant=True)
+    for start, count in ((0, n), (777, 3001), (n - 1, 1), (10, 0)):
+        a = TM.hist_multival_planar_cuda(dd, start, count, **kw)
+        want = TM.histogram_multival_planar_plain(data, start, count, **kw)
+        assert torch.equal(a.cpu(), want), (start, count)
+
+
 @pytest.mark.cuda
 def test_cuda_training_matches_cpu():
     _need_card()
@@ -154,7 +227,9 @@ def test_cuda_training_matches_cpu():
     rng = np.random.RandomState(0)
     X = rng.randn(5000, 8)
     y = (X[:, 0] - X[:, 1] * X[:, 2] + rng.randn(5000) > 0).astype(float)
-    for extra in ({}, {"tpu_fused": False, "extra_trees": True}):
+    for extra in ({}, {"tpu_fused": False, "extra_trees": True},
+                  {"use_quantized_grad": True},
+                  {"use_quantized_grad": True, "tpu_fused": False}):
         preds, trees = [], []
         for dev in ("cuda", "cpu"):
             b = lgt.train({"objective": "binary", "device_type": dev,

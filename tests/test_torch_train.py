@@ -203,22 +203,45 @@ def test_cuda_without_a_card_raises():
 @pytest.mark.parametrize("extra,err,match", [
     ({"bagging_freq": 1, "bagging_fraction": 0.5}, NotImplementedError,
      "A10"),
-    ({"use_quantized_grad": True}, NotImplementedError, "A10"),
+    ({"use_quantized_grad": True}, None, "fused"),
     ({"forcedsplits_filename": "forced_splits.json"}, NotImplementedError,
      "A5"),
-    ({"tpu_fused": False, "use_quantized_grad": True}, NotImplementedError,
-     "A10"),
+    ({"tpu_fused": False, "use_quantized_grad": True}, None, "host_loop"),
     ({"tree_learner": "voting", "num_machines": 2}, NotImplementedError,
      "A13"),
     ({"objective": "regression"}, NotImplementedError, "A9"),
     ({"categorical_feature": [3]}, NotImplementedError, "A3"),
 ])
 def test_left_out_options_raise(extra, err, match):
+    """Options the port does not train yet raise and name their ROADMAP
+    item; quantized gradients (``err`` None) now train on the learner
+    named by ``match``, with integer histograms."""
     X, y = _data(n=300)
     X[:, 3] = np.abs(np.round(X[:, 3]))
+    if err is None:
+        b = tlgb.train({**PARAMS, **extra}, tlgb.Dataset(X, label=y),
+                       num_boost_round=2, verbose_eval=False)
+        gb = b._gbdt
+        learner = gb._fused if match == "fused" else gb.tree_learner
+        assert learner is not None and learner._quant
+        assert len(gb.models) == 2 and gb.models[0].num_leaves > 2
+        assert np.isfinite(b.predict(X)).all()
+        return
     with pytest.raises(err, match=match):
         tlgb.train({**PARAMS, **extra}, tlgb.Dataset(X, label=y),
                    num_boost_round=1, verbose_eval=False)
+
+
+def test_gbdt_defaults_to_the_card():
+    """GBDT() resolves its device like every entry point: the card by
+    default (raising without one), the CPU only when asked for."""
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    assert GBDT("cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert GBDT().device.type == "cuda"
+    else:
+        with pytest.raises(tlgb.LightGBMError, match="no CUDA device"):
+            GBDT()
 
 
 def test_early_stopping_and_options():
