@@ -11,6 +11,11 @@ Phases, each of which fails the run (no exception is caught):
    B1, B4, B5, B6 and B7, against its plain PyTorch version on the card,
    at the paths' shapes and at edge cases; time each at its path's root
    window beside its bound, the plain version and a library yardstick.
+   B4 and B7 also take random (non-dyadic) float grad/hess, held bit for
+   bit against the plain version run on the CPU, windows around their
+   tile rule's breakpoints, more than 32 columns and more bins than one
+   column's histogram fits in shared memory, and are timed at a
+   16,384-row window too.
 3. paths — lightgbm_tpu_torch.train through each path the port runs,
    the launch counts of every kernel read around each run, AUC on
    held-out rows and seconds per iteration:
@@ -30,7 +35,8 @@ Phases, each of which fails the run (no exception is caught):
    and with quantized gradients: trees, leaf values and predictions must
    agree.
 
-``--profile`` instead profiles one iteration of each path.
+``--profile`` instead profiles one iteration of each path
+(``--profile-paths b,f`` of the named ones only).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -51,6 +57,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32, outside tensor cores
+SLEEP_CYCLES = 40_000_000      # ~20 ms at the H100's clock
 
 
 def log(msg: str) -> None:
@@ -99,9 +106,12 @@ def make_wide_like(rows, nvars=72, ncats=8, seed=7):
 
 def time_ms(fn, reps: int = 10) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` calls (CUDA
-    events, after one warm-up call)."""
+    events, after one warm-up call). A sleep kernel queued first holds
+    the card while the host queues the calls, so a call that costs the
+    host more than the card is timed by the card."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -316,20 +326,55 @@ def _dyadic_gh(rng, n, dev):
     return torch.as_tensor(g, device=dev), torch.as_tensor(h, device=dev)
 
 
+# (rows, columns, bins, code dtype) of the row-major checks besides the
+# root window: a second bin count, int32 codes, windows around the tile
+# rule's breakpoints (ops/histogram.py rowmajor_tile), more columns than
+# a warp has lanes, and more bins than one column's histogram fits in
+# shared memory (the wide-bin path)
+RM_CASES = [(300_001, 28, 64, torch.uint8), (200_000, 9, 16, torch.int32),
+            (100_000, 5, 1000, torch.int32), (2_047, 28, 255, torch.uint8),
+            (2_049, 28, 255, torch.uint8), (1, 28, 255, torch.uint8),
+            (0, 28, 255, torch.uint8),
+            (200_000, 40, 255, torch.uint8), (50_000, 3, 40_000, torch.int32)]
+# the mean smaller-child window of path (b): the per-launch floor
+SMALL_WINDOW = 16_384
+
+
+def _rm_codes(rng, c, f, nb, cdt, dev):
+    return torch.as_tensor(rng.randint(0, nb, size=(c, f))).to(cdt).to(dev)
+
+
+def _rm_index_add_ms(bins, g, h, nb):
+    """One ``index_add_`` of every (row, column)'s g/h into its
+    (column, bin) cell, in g's dtype (float32 or int32)."""
+    c, f = bins.shape
+    idx = (torch.arange(f, device=bins.device)[None, :] * nb
+           + bins.long()).reshape(-1)
+    vals = torch.stack([g, h], -1)[:, None, :].expand(c, f, 2) \
+        .reshape(-1, 2).contiguous()
+    acc = torch.zeros(f * nb, 2, dtype=g.dtype, device=bins.device)
+    return time_ms(lambda: acc.index_add_(0, idx, vals), reps=50)
+
+
+def _rm_bound_ms(c, f, nb):
+    """Bytes bound: each row's f code bytes and 8 bytes of grad/hess
+    read once, one [f, nb, 2] 4-byte histogram written once."""
+    return (c * (f + 8) + f * nb * 2 * 4) / HBM_BYTES_PER_S * 1e3
+
+
 def check_rowmajor(dev, report, rows):
     """B4 (hist_radix_cuda, float32 and bfloat16) and B7
-    (hist_masked_cuda) against their plain versions; timed at path (b)'s
-    root: ``rows`` x 28 uint8 codes, 255 bins."""
+    (hist_masked_cuda) against their plain versions: on dyadic g/h
+    against the plain version on the card (exact in any order), and on
+    random float g/h against the plain version on the CPU, which sums in
+    the kernels' association (bit for bit); every launch twice. Timed at
+    path (b)'s root (``rows`` x 28 uint8 codes, 255 bins) and at a
+    SMALL_WINDOW-row window."""
     from lightgbm_tpu_torch.ops import histogram as H
     rng = np.random.RandomState(11)
     worst = 0.0
-    cases = [(rows, 28, 255, torch.uint8), (300_001, 28, 64, torch.uint8),
-             (200_000, 9, 16, torch.int32), (100_000, 5, 1000, torch.int32),
-             (2_049, 28, 255, torch.uint8), (1, 28, 255, torch.uint8),
-             (0, 28, 255, torch.uint8)]
-    for c, f, nb, cdt in cases:
-        bins = torch.as_tensor(rng.randint(0, nb, size=(c, f))).to(cdt)
-        bins = bins.to(dev)
+    for c, f, nb, cdt in [(rows, 28, 255, torch.uint8)] + RM_CASES:
+        bins = _rm_codes(rng, c, f, nb, cdt, dev)
         g, h = _dyadic_gh(rng, c, dev)
         for dt in (torch.float32, torch.bfloat16):
             got = H.hist_radix_cuda(bins, g, h, nb, dtype=dt)
@@ -342,40 +387,66 @@ def check_rowmajor(dev, report, rows):
         got7 = H.hist_masked_cuda(bins, g, h, nb)
         assert torch.equal(got7, H.histogram_masked_plain(bins, g, h, nb)), \
             f"B7 {c}x{f}/{nb}: differs"
-    log(f"B4 hist_radix / B7 hist_masked: {len(cases)} shapes x (f32, bf16)"
-        " bit-exact against the plain versions (dyadic grad/hess), "
-        "run-to-run identical")
+        # random float g/h: bit for bit against the CPU plain version
+        g = torch.as_tensor(rng.randn(c).astype(np.float32), device=dev)
+        h = torch.as_tensor(rng.rand(c).astype(np.float32), device=dev)
+        cb, cg, ch = bins.cpu(), g.cpu(), h.cpu()
+        for dt in (torch.float32, torch.bfloat16):
+            got = H.hist_radix_cuda(bins, g, h, nb, dtype=dt)
+            again = H.hist_radix_cuda(bins, g, h, nb, dtype=dt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), \
+                f"B4 {c}x{f}/{nb} {dt} random g/h: launches differ"
+            assert torch.equal(got.cpu(), H.histogram_radix_plain(
+                cb, cg, ch, nb, dt)), f"B4 {c}x{f}/{nb} {dt} random g/h"
+        got7 = H.hist_masked_cuda(bins, g, h, nb)
+        assert torch.equal(got7, H.hist_masked_cuda(bins, g, h, nb))
+        assert torch.equal(got7.cpu(), H.histogram_masked_plain(
+            cb, cg, ch, nb)), f"B7 {c}x{f}/{nb} random g/h"
+    log(f"B4 hist_radix / B7 hist_masked: {len(RM_CASES) + 1} shapes x "
+        "(f32, bf16) bit-exact against the plain versions on dyadic "
+        "(card) and random (CPU) grad/hess, run-to-run identical")
     f, nb = 28, 255
-    bins = torch.as_tensor(rng.randint(0, nb, size=(rows, f)).astype(
-        np.uint8), device=dev)
-    g, h = _dyadic_gh(rng, rows, dev)
-    idx = (torch.arange(f, device=dev)[None, :] * nb
-           + bins.long()).reshape(-1)
-    vals = torch.stack([g, h], -1)[:, None, :].expand(rows, f, 2) \
-        .reshape(-1, 2).contiguous()
-    acc = torch.zeros(f * nb, 2, device=dev)
-    lib_ms = time_ms(lambda: acc.index_add_(0, idx, vals))
-    nbytes = rows * (f + 8) + f * nb * 2 * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    for name, fn, plain, line in (
+    windows = {}
+    for c in (rows, SMALL_WINDOW):
+        bins = _rm_codes(rng, c, f, nb, torch.uint8, dev)
+        g = torch.as_tensor(rng.randn(c).astype(np.float32), device=dev)
+        h = torch.as_tensor(rng.rand(c).astype(np.float32), device=dev)
+        windows[c] = (bins, g, h, _rm_index_add_ms(bins, g, h, nb))
+    for name, fn, plain, line, what in (
             ("hist_radix",
-             lambda: H.hist_radix_cuda(bins, g, h, nb, dtype=torch.bfloat16),
-             lambda: H.histogram_radix_plain(bins, g, h, nb, torch.bfloat16),
-             "lightgbm_tpu/ops/histogram.py:404"),
-            ("hist_masked", lambda: H.hist_masked_cuda(bins, g, h, nb),
-             lambda: H.histogram_masked_plain(bins, g, h, nb),
-             "lightgbm_tpu/ops/histogram.py:125")):
-        ms = time_ms(fn)
-        plain_ms = time_ms(plain, reps=3)
-        report.append(dict(
-            name=name, route="cuda",
-            source="lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
-            replaces=line, launches=0, max_abs_err=worst, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-            library_ms=lib_ms))
-        log(f"{name} root window {rows}x{f}x{nb}: {ms:.3f} ms (bound "
-            f"{bound_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
-            f"index_add_ {lib_ms:.3f} ms)")
+             lambda b, g, h: H.hist_radix_cuda(b, g, h, nb,
+                                               dtype=torch.bfloat16),
+             lambda b, g, h: H.histogram_radix_plain(b, g, h, nb,
+                                                     torch.bfloat16),
+             "lightgbm_tpu/ops/histogram.py:404", "bf16"),
+            ("hist_masked",
+             lambda b, g, h: H.hist_masked_cuda(b, g, h, nb),
+             lambda b, g, h: H.histogram_masked_plain(b, g, h, nb),
+             "lightgbm_tpu/ops/histogram.py:125", "f32")):
+        _rm_timings(report, name, line, worst, fn, plain, windows, nb, what)
+
+
+def _rm_timings(report, name, line, worst, fn, plain, windows, nb, what):
+    """Time a row-major entry at each of ``windows`` ({rows: (bins, g,
+    h, index_add_ ms)}) beside ``index_add_``; the largest (the root)
+    goes into the report line."""
+    root = max(windows)
+    for c, (bins, g, h, lib_ms) in sorted(windows.items(), reverse=True):
+        f = bins.shape[1]
+        ms = time_ms(lambda: fn(bins, g, h), reps=50)
+        plain_ms = time_ms(lambda: plain(bins, g, h), reps=3)
+        bound_ms = _rm_bound_ms(c, f, nb)
+        if c == root:
+            report.append(dict(
+                name=name, route="cuda",
+                source="lightgbm_tpu_torch/csrc/hist_rowmajor.cu",
+                replaces=line, launches=0, max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=lib_ms))
+        log(f"{name} {'root' if c == root else 'small'} window {c}x{f}x{nb} "
+            f"{what}: {ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, plain "
+            f"{plain_ms:.3f} ms, index_add_ {lib_ms:.4f} ms)")
 
 
 def _synthetic_mv_codes(n, groups, k, seed, dev):
@@ -578,12 +649,8 @@ def check_quant_planar(dev, report, rows):
         _int_index_add_ms(idx, vals, 28 * 255), f"{n}x28x255, 4 levels")
     del data, idx, vals
 
-    cases = [(rows, 28, 255, torch.uint8), (300_001, 28, 64, torch.uint8),
-             (100_000, 5, 1000, torch.int32), (2_049, 28, 255, torch.uint8),
-             (1, 28, 255, torch.uint8), (0, 28, 255, torch.uint8)]
-    for c, f, nb, cdt in cases:
-        bins = torch.as_tensor(rng.randint(0, nb, size=(c, f))).to(cdt)
-        bins = bins.to(dev)
+    for c, f, nb, cdt in [(rows, 28, 255, torch.uint8)] + RM_CASES:
+        bins = _rm_codes(rng, c, f, nb, cdt, dev)
         for levels in (4, 64):
             g, h = _levels(rng, c, levels, dev)
             want = H.histogram_radix_plain(bins, g, h, nb)
@@ -594,28 +661,23 @@ def check_quant_planar(dev, report, rows):
                 assert got.dtype == torch.int32
                 assert torch.equal(got, want), \
                     f"{tag} {c}x{f}/{nb} levels {levels}: differs"
-    log(f"B4q hist_radix / B7q hist_masked quant: {len(cases)} shapes x "
-        "(4, 64 levels) bit-exact against the plain int32 version")
+    log(f"B4q hist_radix / B7q hist_masked quant: {len(RM_CASES) + 1} "
+        "shapes x (4, 64 levels) bit-exact against the plain int32 version")
     f, nb = 28, 255
-    bins = torch.as_tensor(rng.randint(0, nb, size=(rows, f)).astype(
-        np.uint8), device=dev)
-    g, h = _levels(rng, rows, 4, dev)
-    idx = (torch.arange(f, device=dev)[None, :] * nb
-           + bins.long()).reshape(-1)
-    vals = torch.stack([g, h], -1)[:, None, :].expand(rows, f, 2) \
-        .reshape(-1, 2).contiguous()
-    lib_ms = _int_index_add_ms(idx, vals, f * nb)
+    windows = {}
+    for c in (rows, SMALL_WINDOW):
+        bins = _rm_codes(rng, c, f, nb, torch.uint8, dev)
+        g, h = _levels(rng, c, 4, dev)
+        windows[c] = (bins, g, h, _rm_index_add_ms(bins, g, h, nb))
     for name, fn, line in (
             ("hist_radix_q", H.hist_radix_cuda,
              "lightgbm_tpu/ops/histogram.py:404"),
             ("hist_masked_q", H.hist_masked_cuda,
              "lightgbm_tpu/ops/histogram.py:125")):
-        _quant_entry(
-            report, name, "lightgbm_tpu_torch/csrc/hist_rowmajor.cu", line,
-            time_ms(lambda: fn(bins, g, h, nb)),
-            time_ms(lambda: H.histogram_radix_plain(bins, g, h, nb), reps=3),
-            rows * (f + 8) + f * nb * 2 * 4, lib_ms,
-            f"{rows}x{f}x{nb}, 4 levels")
+        _rm_timings(report, name, line, 0.0,
+                    lambda b, g, h, fn=fn: fn(b, g, h, nb),
+                    lambda b, g, h: H.histogram_radix_plain(b, g, h, nb),
+                    windows, nb, "4 levels, int32")
 
 
 def check_quant_multival(dev, report, codes, total_bins):
@@ -986,17 +1048,21 @@ def profile_paths(args, wide):
     X, y = make_higgs_like(args.rows, 28, seed=0)
     dense = lgt.Dataset(X, label=y, params=HIGGS_PARAMS).construct()
     wds = wide[0]
-    cases = [("HIGGS fused", HIGGS_PARAMS, dense),
-             ("(a) wide-sparse fused", WIDE_PARAMS, wds),
-             ("(b) dense host loop", {**HIGGS_PARAMS, "extra_trees": True},
-              dense),
-             ("(c) wide-sparse host loop",
+    cases = [("higgs", "HIGGS fused", HIGGS_PARAMS, dense),
+             ("a", "(a) wide-sparse fused", WIDE_PARAMS, wds),
+             ("b", "(b) dense host loop",
+              {**HIGGS_PARAMS, "extra_trees": True}, dense),
+             ("c", "(c) wide-sparse host loop",
               {**WIDE_PARAMS, "tpu_fused": False}, wds)]
-    cases += [(f"({k}) quantized twin of {name}", {**params, **QUANT_PARAMS},
-               d) for k, (name, params, d) in zip("defg", cases)]
+    cases += [(k, f"({k}) quantized twin of {name}",
+               {**params, **QUANT_PARAMS}, d)
+              for k, (_, name, params, d) in zip("defg", cases)]
+    keep = args.profile_paths.split(",")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for name, params, ds in cases:
+    for key, name, params, ds in cases:
+        if key not in keep:
+            continue
         booster = lgt.Booster(params, ds)
         booster.update()                   # warm: state built, first tree
         torch.cuda.synchronize()
@@ -1059,6 +1125,8 @@ def main() -> int:
                     help="iterations of path (c)")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
+    ap.add_argument("--profile-paths", default="higgs,a,b,c,d,e,f,g",
+                    help="comma-separated paths --profile profiles")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

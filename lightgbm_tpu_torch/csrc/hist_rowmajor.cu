@@ -7,171 +7,408 @@
 //     argument rounds grad/hess to bfloat16 before the float32 sums;
 //   - histogram_pallas (_hist_pallas_kernel): the masked
 //     multiply-accumulate histogram, float32 only.
-// Both entries below launch the same kernel; the second never rounds.
+// Both entries below launch the same kernels; the second never rounds.
 // A code outside [0, num_bins) adds nothing (the JAX scatter drops it,
 // the radix kernel lands it in cells the output slice cuts off).
 //
-// Both TPU kernels also have an integer mode, taken when grad/hess are
-// int32 quantized levels (ops/quantize.py): the sums are exact int32
-// and so is the output. Here `quant` selects it: grad/hess are [C]
-// int32 levels (unpacked, |qg| <= 31, qh <= 63) and partials / out
-// are int32. Integer addition is associative, so the bits do not
-// depend on the order; the same template serves both modes.
+// What bounds it on the card: bytes. The least work reads each row's F
+// code bytes and 8 bytes of grad/hess once and writes one [F, B, 2]
+// histogram; each (row, column) is read once and added once into one
+// histogram cell in shared memory, so the work grows with rows x F and
+// not with the number of bins.
 //
-// What bounds it on the card: bytes. The least work reads each row's
-// F code bytes and 8 bytes of grad/hess once and writes one [F, B, 2]
-// float32 histogram. This first version is not bandwidth bound: as in
-// csrc/hist_planar.cu, each thread owns (column, bin) pairs and walks
-// every staged row of its tile, so the instruction count grows with
-// num_bins. It is simple and exact; a later redesign makes it fast.
+// Float modes (float32 grad/hess, optionally rounded to bfloat16): no
+// atomics on the sums; every cell is summed in row order inside its
+// tile. rm_partials gives one warp to each (tile, column): the warp walks
+// the tile 32 rows at a time, lane u holding row u's code, g and h (128
+// rows' loads in flight at once). The lanes whose rows fall in the same
+// cell form a group: each sets its bit in the cell's mask word in shared
+// memory (an integer atomicOr: the mask is the same whatever the order),
+// and the group's last lane loads the cell, adds the group's g/h one row
+// after the other (shuffled from the lanes in ascending order) and stores
+// it back. So a cell's chain of adds is as long as its rows, not as the
+// tile. The warp's histogram (one column) lives in shared memory and goes
+// out as the tile's partial; rm_reduce sums the partials in tile order.
+// The plain PyTorch version (ops/histogram.py tiled_scatter with the
+// tile of rowmajor_tile) sums in exactly this association, so the bits
+// match and are the same on every launch. (__match_any_sync forms the
+// same groups, but on the H100 its throughput made the root window
+// markedly slower than the mask words do.)
 //
-// Determinism: no float atomics. Pass 1 gives every (row tile, column
-// chunk) block a private partial histogram, each cell summed in row
-// order by one thread; pass 2 sums the partials over tiles in tile
-// order. The plain PyTorch version (ops/histogram.py
-// histogram_radix_plain) sums in the same association.
+// The tile comes from the shapes alone (rm_tile below, ops/histogram.py
+// rowmajor_tile, which the wrapper checks against lgbt_rm_tile): one
+// tile per resident block of a fixed grid (kSMs x kBlocksPerSM), at
+// least kMinTile rows (a window of up to kMinTile rows is summed in
+// plain row order, as the JAX package's scatter sums it), and few enough
+// tiles that the partials stay within kMaxPartialCells. A block takes as
+// many of a tile's columns as fit in shared memory (up to 32, sharing
+// the rows' lines in L1) but no more than keeps about kSMs x kBlocksPerSM
+// blocks in the grid, so a window of a few thousand rows still spreads
+// its columns over the card; this choice does not change the sums.
+//
+// Wide-bin path: a warp's share of shared memory holds at most
+// kSmemBudget bytes. When one column's cells (B x 12 bytes) need more,
+// the grid's third dimension splits the bins into ranges: one warp per
+// (tile, column, bin range), adding only the rows whose codes fall in
+// its range, still in row order.
+//
+// Int32 mode (quantized levels, `quant`: grad/hess are [C] int32 levels,
+// unpacked, |qg| <= 31, qh <= 63; the output is int32): integer sums
+// give the same bits in any order, so rm_quant lets every thread of a
+// 1024-thread block add (row, column) elements into one shared [columns,
+// bins, 2] int32 histogram with shared-memory atomics (four elements'
+// loads in flight), and folds the block's nonzero cells into the zeroed
+// output with global integer atomics; there is no partials pass. The
+// grid is kQBlocks blocks of at least kQMinRows rows, whatever the
+// window. When a column's histogram does not
+// fit in shared memory, every element goes to the output by a global
+// atomic. qg keeps its sign; a cell holds at most C x 63 < 2^31.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <algorithm>
 
 namespace {
 
-constexpr int kTile = 2048;     // rows per block
-constexpr int kThreads = 256;
-constexpr int kMaxCols = 4;     // columns per block (shared code rows)
-constexpr uint16_t kNoBin = 0xFFFF;
+// the tile rule (ops/histogram.py rowmajor_tile holds the same numbers)
+constexpr long long kSMs = 132;          // H100 SXM
+constexpr long long kBlocksPerSM = 2;
+constexpr long long kMinTile = 2048;
+constexpr long long kMaxPartialCells = 1LL << 22;
 
-// Acc: float (float32 grad/hess) or int32_t (quantized levels)
-template <typename CodeT, typename Acc>
-__global__ void __launch_bounds__(kThreads)
-rm_partials(const CodeT* __restrict__ codes, int C, int F,
-            const Acc* __restrict__ grad, const Acc* __restrict__ hess,
-            int num_bins, int cols_per_block, int round_bf16,
-            Acc* __restrict__ partials) {
-  const int tile = blockIdx.x;
-  const int row0 = tile * kTile;
-  const int rows = max(0, min(kTile, C - row0));
-  const int f0 = blockIdx.y * cols_per_block;
-  const int nf = min(cols_per_block, F - f0);
+constexpr int kSmemBudget = 232448;      // dynamic shared memory per block
+constexpr int kQThreads = 1024;
+constexpr long long kQBlocks = 132;      // int32 mode: one block per SM
+constexpr long long kQMinRows = 64;
+constexpr int kNoBin = 0xFFFF;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-  __shared__ Acc sg[kTile];
-  __shared__ Acc sh[kTile];
-  __shared__ uint16_t sc[kMaxCols][kTile];
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
-  for (int i = threadIdx.x; i < rows; i += kThreads) {
-    const long long r = (long long)row0 + i;
-    Acc g = grad[r];
-    Acc h = hess[r];
-    if constexpr (std::is_same<Acc, float>::value) {
+long long rm_tile(long long C, long long F, long long B) {
+  long long tile = ceil_div(C, kSMs * kBlocksPerSM);
+  if (tile < kMinTile) tile = kMinTile;
+  const long long cells = F * B > 0 ? F * B : 1;
+  long long max_tiles = kMaxPartialCells / cells;
+  if (max_tiles < 1) max_tiles = 1;
+  const long long need = ceil_div(C, max_tiles);
+  return tile > need ? tile : need;
+}
+
+// one warp's share of shared memory: a column's float2 cells, then one
+// group-mask word per cell (zero between steps), 16-byte aligned
+__host__ __device__ inline int warp_bytes(int nbr) {
+  return (nbr * 12 + 15) / 16 * 16;
+}
+
+// one step of 32 rows of one column: lanes whose rows fall in the same
+// cell form a group (each sets its bit in the cell's mask word); the
+// group's last lane folds the group's g/h into the cell in lane (row)
+// order, two members per round of shuffles
+__device__ __forceinline__ void rm_rows(float2* col, unsigned* mask,
+                                       unsigned key, int nb, float g,
+                                       float h, int lane) {
+  const bool valid = key < (unsigned)nb;
+  if (valid) atomicOr(mask + key, 1u << lane);
+  __syncwarp();
+  const unsigned group = valid ? mask[key] : 0u;
+  __syncwarp();
+  const bool last = valid && lane == 31 - __clz(group);
+  float2 s = make_float2(0.f, 0.f);
+  if (last) {
+    mask[key] = 0u;
+    s = col[key];
+  }
+  unsigned m = group;
+  while (__any_sync(kFull, m != 0u)) {
+    const int src0 = m ? __ffs(m) - 1 : lane;
+    const unsigned m1 = m & (m - 1);
+    const int src1 = m1 ? __ffs(m1) - 1 : lane;
+    const float g0 = __shfl_sync(kFull, g, src0);
+    const float h0 = __shfl_sync(kFull, h, src0);
+    const float g1 = __shfl_sync(kFull, g, src1);
+    const float h1 = __shfl_sync(kFull, h, src1);
+    if (m) {
+      s.x += g0;
+      s.y += h0;
+    }
+    if (m1) {
+      s.x += g1;
+      s.y += h1;
+    }
+    m = m1 & (m1 - 1);
+  }
+  if (last) col[key] = s;
+  __syncwarp();
+}
+
+// four steps (128 rows) of one column: key relative to the block's bin
+// range (any other range, a negative code or one >= num_bins wraps to a
+// value >= nb; rows past the tile get 0xFFFFFFFF)
+template <typename CodeT>
+__device__ __forceinline__ void rm_load(const CodeT* __restrict__ codes,
+                                       const float* __restrict__ grad,
+                                       const float* __restrict__ hess,
+                                       long long row0, int base, int rows,
+                                       int F, int f, int b0, int round_bf16,
+                                       int lane, unsigned (&key)[4],
+                                       float (&g)[4], float (&h)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = base + 32 * k + lane;
+    key[k] = 0xFFFFFFFFu;
+    g[k] = h[k] = 0.f;
+    if (r < rows) {
+      const long long row = row0 + r;
+      key[k] = (unsigned)codes[row * F + f] - (unsigned)b0;
+      g[k] = grad[row];
+      h[k] = hess[row];
       if (round_bf16) {
-        g = __bfloat162float(__float2bfloat16_rn(g));
-        h = __bfloat162float(__float2bfloat16_rn(h));
+        g[k] = __bfloat162float(__float2bfloat16_rn(g[k]));
+        h[k] = __bfloat162float(__float2bfloat16_rn(h[k]));
       }
     }
-    sg[i] = g;
-    sh[i] = h;
-    for (int j = 0; j < nf; ++j) {
-      const long long c = (long long)codes[r * F + f0 + j];
-      sc[j][i] = (c >= 0 && c < num_bins) ? (uint16_t)c : kNoBin;
-    }
-  }
-  __syncthreads();
-
-  const int pairs = nf * num_bins;
-  const size_t cells = (size_t)F * num_bins;
-  for (int p = threadIdx.x; p < pairs; p += kThreads) {
-    const int j = p / num_bins;
-    const int b = p - j * num_bins;
-    const uint16_t* c = sc[j];
-    Acc ag = 0, ah = 0;
-    for (int i = 0; i < rows; ++i) {      // fixed row order
-      const bool hit = c[i] == b;
-      ag += hit ? sg[i] : Acc(0);
-      ah += hit ? sh[i] : Acc(0);
-    }
-    const size_t o =
-        ((size_t)tile * cells + (size_t)(f0 + j) * num_bins + b) * 2;
-    partials[o] = ag;
-    partials[o + 1] = ah;
   }
 }
 
-template <typename Acc>
-__global__ void rm_reduce(const Acc* __restrict__ partials, int ntiles,
-                          int cells2, Acc* __restrict__ out) {
+template <typename CodeT>
+__global__ void __launch_bounds__(1024)
+rm_partials(const CodeT* __restrict__ codes, int C, int F,
+            const float* __restrict__ grad, const float* __restrict__ hess,
+            int num_bins, int tile, int cpb, int nbr, int round_bf16,
+            float2* __restrict__ partials) {
+  extern __shared__ float4 smem[];                 // [cpb][warp_bytes]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int f = blockIdx.y * cpb + warp;           // this warp's column
+  if (f >= F) return;
+  const long long row0 = (long long)blockIdx.x * tile;
+  const int rows = (int)min((long long)tile, (long long)C - row0);
+  const int b0 = blockIdx.z * nbr;
+  const int nb = min(nbr, num_bins - b0);
+  float2* col = reinterpret_cast<float2*>(
+      reinterpret_cast<char*>(smem) + (size_t)warp * warp_bytes(nbr));
+  unsigned* mask = reinterpret_cast<unsigned*>(col + nbr);
+  for (int i = lane; i < nb; i += 32) {
+    col[i] = make_float2(0.f, 0.f);
+    mask[i] = 0u;
+  }
+  __syncwarp();
+  for (int base = 0; base < rows; base += 128) {
+    // four steps' loads in flight, then the four steps in row order (a
+    // register double buffer of the next four cost a block per SM)
+    unsigned key[4];
+    float g[4], h[4];
+    rm_load(codes, grad, hess, row0, base, rows, F, f, b0, round_bf16, lane,
+            key, g, h);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {               // fixed row order
+      if (base + 32 * k < rows) {
+        rm_rows(col, mask, key[k], nb, g[k], h[k], lane);
+      }
+    }
+  }
+  for (int i = lane; i < nb; i += 32) {
+    partials[((size_t)blockIdx.x * F + f) * num_bins + b0 + i] = col[i];
+  }
+}
+
+__global__ void rm_reduce(const float* __restrict__ partials, int ntiles,
+                          int cells2, float* __restrict__ out) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= cells2) return;
-  Acc s = 0;
-  for (int t = 0; t < ntiles; ++t) {      // fixed tile order
-    s += partials[(size_t)t * cells2 + idx];
+  float s = 0.f;
+  int t = 0;
+  for (; t + 8 <= ntiles; t += 8) {       // loads in flight, adds in order
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = partials[(size_t)(t + k) * cells2 + idx];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s += v[k];
   }
+  for (; t < ntiles; ++t) s += partials[(size_t)t * cells2 + idx];
   out[idx] = s;
 }
 
-int cols_per_block(int num_bins) {
-  int c = 1024 / (num_bins > 0 ? num_bins : 1);
-  return c < 1 ? 1 : (c > kMaxCols ? kMaxCols : c);
+// kShared: the block's columns live in shared memory (zeroed, then
+// folded into `out`); otherwise every element adds straight into `out`
+template <typename CodeT, bool kShared>
+__global__ void __launch_bounds__(kQThreads)
+rm_quant(const CodeT* __restrict__ codes, int C, int F,
+         const int32_t* __restrict__ grad, const int32_t* __restrict__ hess,
+         int num_bins, int rows_per_block, int cpb, int32_t* __restrict__ out) {
+  extern __shared__ int32_t qhist[];               // [cpb][num_bins][2]
+  const long long row0 = (long long)blockIdx.x * rows_per_block;
+  const int rows = (int)min((long long)rows_per_block, (long long)C - row0);
+  const int f0 = blockIdx.y * cpb;
+  const int nf = min(cpb, F - f0);
+  int32_t* out_cols = out + (size_t)f0 * num_bins * 2;
+  int32_t* hist = kShared ? qhist : out_cols;
+  const int cells2 = nf * num_bins * 2;
+  if (kShared) {
+    for (int i = threadIdx.x; i < cells2; i += kQThreads) hist[i] = 0;
+    __syncthreads();
+  }
+  // element (r, j) = r * nf + j, advanced by kQThreads without dividing;
+  // four elements' loads in flight before their atomics
+  int r = threadIdx.x / nf, j = threadIdx.x % nf;
+  const int dr = kQThreads / nf, dj = kQThreads % nf;
+  while (r < rows) {
+    unsigned code[4];
+    int32_t g[4], h[4];
+    int col[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      code[k] = 0xFFFFFFFFu;
+      g[k] = h[k] = 0;
+      col[k] = j;
+      if (r < rows) {
+        const long long row = row0 + r;
+        code[k] = (unsigned)codes[row * F + f0 + j];
+        g[k] = grad[row];
+        h[k] = hess[row];
+      }
+      r += dr;
+      j += dj;
+      if (j >= nf) {
+        j -= nf;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (code[k] < (unsigned)num_bins) {
+        int32_t* cell = hist + ((size_t)col[k] * num_bins + code[k]) * 2;
+        if (g[k]) atomicAdd(cell, g[k]);
+        if (h[k]) atomicAdd(cell + 1, h[k]);
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < cells2; i += kQThreads) {
+      const int32_t v = hist[i];
+      if (v) atomicAdd(out_cols + i, v);
+    }
+  }
 }
 
-template <typename Acc>
-int launch(const void* codes, int code_bytes, int C, int F, const void* grad,
-           const void* hess, int num_bins, int round_bf16, void* partials,
-           void* out, cudaStream_t s) {
-  if (num_bins < 1 || num_bins >= kNoBin || F < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Acc* g = static_cast<const Acc*>(grad);
-  const Acc* h = static_cast<const Acc*>(hess);
-  Acc* parts = static_cast<Acc*>(partials);
-  const int cpb = cols_per_block(num_bins);
-  const int ntiles = C > 0 ? (C + kTile - 1) / kTile : 0;
+template <typename Kernel>
+cudaError_t allow_smem(Kernel k, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <typename CodeT>
+int launch_float(const CodeT* codes, int C, int F, const float* g,
+                 const float* h, int num_bins, int round_bf16,
+                 float* partials, float* out, cudaStream_t s) {
+  const int tile = (int)rm_tile(C, F, num_bins);
+  const int ntiles = C > 0 ? (int)ceil_div(C, tile) : 0;
   const int cells2 = F * num_bins * 2;
   if (ntiles > 0) {
-    dim3 grid(ntiles, (F + cpb - 1) / cpb);
-    if (code_bytes == 1) {
-      rm_partials<uint8_t, Acc><<<grid, kThreads, 0, s>>>(
-          static_cast<const uint8_t*>(codes), C, F, g, h, num_bins, cpb,
-          round_bf16, parts);
-    } else if (code_bytes == 4) {
-      rm_partials<int32_t, Acc><<<grid, kThreads, 0, s>>>(
-          static_cast<const int32_t*>(codes), C, F, g, h, num_bins, cpb,
-          round_bf16, parts);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-    cudaError_t e = cudaGetLastError();
+    // bins per range (the whole column unless it is wider than shared
+    // memory: the wide-bin path); then columns per block: as many as
+    // fit (up to 32), but no more than spreads the grid over about
+    // kSMs x kBlocksPerSM blocks
+    const int nbr = std::min(num_bins, kSmemBudget / 12 - 2);
+    const int nranges = (int)ceil_div(num_bins, nbr);
+    const long long spread =
+        ceil_div((long long)F * ntiles * nranges, kSMs * kBlocksPerSM);
+    const int cpb = (int)std::min<long long>(
+        {32, F, kSmemBudget / warp_bytes(nbr), spread});
+    const int ncol = (int)ceil_div(F, cpb);
+    if (ncol > 65535) return (int)cudaErrorInvalidValue;
+    const int smem = cpb * warp_bytes(nbr);
+    cudaError_t e = allow_smem(rm_partials<CodeT>, smem);
+    if (e != cudaSuccess) return (int)e;
+    rm_partials<CodeT><<<dim3(ntiles, ncol, nranges), 32 * cpb, smem, s>>>(
+        codes, C, F, g, h, num_bins, tile, cpb, nbr, round_bf16,
+        reinterpret_cast<float2*>(partials));
+    e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  rm_reduce<Acc><<<(cells2 + 255) / 256, 256, 0, s>>>(
-      parts, ntiles, cells2, static_cast<Acc*>(out));
+  rm_reduce<<<(cells2 + 127) / 128, 128, 0, s>>>(partials, ntiles, cells2,
+                                                 out);
   return (int)cudaGetLastError();
+}
+
+template <typename CodeT>
+int launch_quant(const CodeT* codes, int C, int F, const int32_t* g,
+                 const int32_t* h, int num_bins, int32_t* out,
+                 cudaStream_t s) {
+  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)F * num_bins * 2 * 4, s);
+  if (e != cudaSuccess || C == 0) return (int)e;
+  long long rpb = ceil_div(C, kQBlocks);
+  if (rpb < kQMinRows) rpb = kQMinRows;
+  const int nblocks = (int)ceil_div(C, rpb);
+  const int cpb = std::min(F, kSmemBudget / (num_bins * 8));
+  if (cpb > 0) {
+    const int ncol = (int)ceil_div(F, cpb);
+    if (ncol > 65535) return (int)cudaErrorInvalidValue;
+    const int smem = cpb * num_bins * 8;
+    e = allow_smem(rm_quant<CodeT, true>, smem);
+    if (e != cudaSuccess) return (int)e;
+    rm_quant<CodeT, true><<<dim3(nblocks, ncol), kQThreads, smem, s>>>(
+        codes, C, F, g, h, num_bins, (int)rpb, cpb, out);
+  } else {                                // a column beyond shared memory
+    rm_quant<CodeT, false><<<dim3(nblocks, 1), kQThreads, 0, s>>>(
+        codes, C, F, g, h, num_bins, (int)rpb, F, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename CodeT>
+int dispatch_codes(const void* codes, int C, int F, const void* grad,
+                   const void* hess, int num_bins, int round_bf16, int quant,
+                   void* partials, void* out, cudaStream_t s) {
+  const CodeT* c = static_cast<const CodeT*>(codes);
+  if (quant) {
+    return launch_quant<CodeT>(c, C, F, static_cast<const int32_t*>(grad),
+                               static_cast<const int32_t*>(hess), num_bins,
+                               static_cast<int32_t*>(out), s);
+  }
+  return launch_float<CodeT>(c, C, F, static_cast<const float*>(grad),
+                             static_cast<const float*>(hess), num_bins,
+                             round_bf16, static_cast<float*>(partials),
+                             static_cast<float*>(out), s);
 }
 
 int dispatch(const void* codes, int code_bytes, int C, int F,
              const void* grad, const void* hess, int num_bins,
              int round_bf16, int quant, void* partials, void* out,
              void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (quant) {
-    return launch<int32_t>(codes, code_bytes, C, F, grad, hess, num_bins, 0,
-                           partials, out, s);
+  if (num_bins < 1 || num_bins >= kNoBin || F < 1 || C < 0 ||
+      (long long)F * num_bins * 2 > 0x7FFFFFFFLL) {
+    return (int)cudaErrorInvalidValue;
   }
-  return launch<float>(codes, code_bytes, C, F, grad, hess, num_bins,
-                       round_bf16, partials, out, s);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (code_bytes == 1) {
+    return dispatch_codes<uint8_t>(codes, C, F, grad, hess, num_bins,
+                                   round_bf16, quant, partials, out, s);
+  }
+  if (code_bytes == 4) {
+    return dispatch_codes<int32_t>(codes, C, F, grad, hess, num_bins,
+                                   round_bf16, quant, partials, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-int lgbt_rm_tile() { return kTile; }
+// rows per tile of the float modes' first pass for these shapes
+int lgbt_rm_tile(int C, int F, int num_bins) {
+  return (int)rm_tile(C, F, num_bins);
+}
 
-// partials: max(1, ceil(C / kTile)) * F * num_bins * 2 floats (int32
-// when quant); codes: [C, F] uint8 (code_bytes 1) or int32 (code_bytes
-// 4), row-major; grad/hess: [C] float32, or int32 levels when quant.
+// partials (float modes only; NULL under quant): max(1, ceil(C / tile))
+// * F * num_bins * 2 floats, tile = lgbt_rm_tile(C, F, num_bins); codes:
+// [C, F] uint8 (code_bytes 1) or int32 (code_bytes 4), row-major;
+// grad/hess: [C] float32, or int32 levels when quant.
 int lgbt_hist_radix(const void* codes, int code_bytes, int C, int F,
                     const void* grad, const void* hess, int num_bins,
                     int round_bf16, int quant, void* partials, void* out,

@@ -59,7 +59,7 @@ _SIGNATURES = {
                             _P], _I),
     },
     "hist_rowmajor": {
-        "lgbt_rm_tile": ([], _I),
+        "lgbt_rm_tile": ([_I, _I, _I], _I),
         "lgbt_hist_radix": ([_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P,
                              _P], _I),
         "lgbt_hist_masked": ([_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],

@@ -43,10 +43,30 @@ from .quantize import unpack_gh
 
 Window = Union[int, torch.Tensor]
 
-# rows per tile of the CUDA kernels' first pass (csrc/hist_planar.cu and
-# csrc/hist_rowmajor.cu kTile); the plain versions sum in the same
-# association
+# rows per tile of csrc/hist_planar.cu's first pass (kTile); its plain
+# version sums in the same association
 HIST_TILE = 2048
+
+# the tile rule of csrc/hist_rowmajor.cu's float modes (rm_tile there,
+# lgbt_rm_tile): one tile per resident block of a fixed grid, at least
+# RM_MIN_TILE rows, and at most RM_MAX_PARTIAL_CELLS partial cells
+RM_SMS = 132                  # H100 SXM streaming multiprocessors
+RM_BLOCKS_PER_SM = 2          # blocks of 28 column warps at 255 bins
+RM_MIN_TILE = 2048
+RM_MAX_PARTIAL_CELLS = 1 << 22
+
+
+def rowmajor_tile(c: int, f: int, num_bins: int) -> int:
+    """Rows per tile of the row-major float histogram (B4 / B7) for a
+    [c, f] window and ``num_bins`` bins: a function of the shapes alone,
+    equal to the CUDA kernel's ``lgbt_rm_tile``. A large window is cut
+    into RM_SMS x RM_BLOCKS_PER_SM tiles, one per block the card holds
+    at once; a window of up to RM_MIN_TILE rows is one tile, summed in
+    plain row order as the JAX package's scatter sums it; the partials
+    (tiles x f x num_bins cells) stay within RM_MAX_PARTIAL_CELLS."""
+    tile = max(RM_MIN_TILE, -(-c // (RM_SMS * RM_BLOCKS_PER_SM)))
+    max_tiles = max(1, RM_MAX_PARTIAL_CELLS // max(1, f * num_bins))
+    return max(tile, -(-c // max_tiles))
 
 
 def _acc_dtype(grad: torch.Tensor) -> torch.dtype:
@@ -81,7 +101,8 @@ def tiled_scatter(codes: torch.Tensor, grad: torch.Tensor,
     association: one histogram per tile of ``tile`` rows (each cell
     summed in row order), then the tiles added in order. A code outside
     [0, num_bins) adds nothing. On the CPU, where ``index_add_`` runs in
-    index order, the result is bit-identical to the kernels'."""
+    index order, the result is bit-identical to the kernels' (B1 with
+    the default HIST_TILE, B4 / B7 with ``rowmajor_tile``)."""
     c, f = codes.shape
     dev = codes.device
     out = torch.zeros((f, num_bins, 2), dtype=torch.float32, device=dev)
@@ -249,19 +270,26 @@ def _window_args(start: Window, count: Window, max_count: Optional[int],
 # B4 / B7: row-major [C, F] histograms
 # ---------------------------------------------------------------------------
 
+def _rowmajor_tiled(bins, grad, hess, num_bins):
+    c, f = bins.shape
+    return tiled_scatter(bins, grad, hess, num_bins,
+                         tile=rowmajor_tile(c, f, num_bins))
+
+
 def histogram_radix_plain(bins: torch.Tensor, grad: torch.Tensor,
                           hess: torch.Tensor, num_bins: int,
                           dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
     """Row-major histogram in plain PyTorch: grad/hess rounded to
-    bfloat16 when ``dtype`` says so, then ``tiled_scatter``; integer
-    levels sum exactly in int32 (``dtype`` ignored)."""
+    bfloat16 when ``dtype`` says so, then ``tiled_scatter`` with the
+    kernel's ``rowmajor_tile``; integer levels sum exactly in int32
+    (``dtype`` ignored)."""
     if not grad.is_floating_point():
         return histogram_scatter(bins, grad, hess, num_bins)
     grad, hess = grad.to(torch.float32), hess.to(torch.float32)
     if dtype == torch.bfloat16:
         grad, hess = round_bf16(grad), round_bf16(hess)
-    return tiled_scatter(bins, grad, hess, num_bins)
+    return _rowmajor_tiled(bins, grad, hess, num_bins)
 
 
 def histogram_masked_plain(bins: torch.Tensor, grad: torch.Tensor,
@@ -271,8 +299,8 @@ def histogram_masked_plain(bins: torch.Tensor, grad: torch.Tensor,
     (int32 levels: exact int32 sums)."""
     if not grad.is_floating_point():
         return histogram_scatter(bins, grad, hess, num_bins)
-    return tiled_scatter(bins, grad.to(torch.float32),
-                         hess.to(torch.float32), num_bins)
+    return _rowmajor_tiled(bins, grad.to(torch.float32),
+                           hess.to(torch.float32), num_bins)
 
 
 def _rowmajor_launch(entry: str, bins, grad, hess, num_bins, bf16: bool):
@@ -293,13 +321,20 @@ def _rowmajor_launch(entry: str, bins, grad, hess, num_bins, bf16: bool):
     g = grad.to(acc).contiguous()
     h = hess.to(acc).contiguous()
     lib = K.lib("hist_rowmajor")
-    ntiles = max(1, -(-c // lib.lgbt_rm_tile()))
-    partials = torch.empty(ntiles * f * num_bins * 2, dtype=acc, device=dev)
+    partials = None       # the int32 mode folds blocks by integer atomics
+    if not quant:
+        tile = rowmajor_tile(c, f, num_bins)
+        if lib.lgbt_rm_tile(c, f, num_bins) != tile:
+            raise RuntimeError(f"{entry}: the kernel's tile for {c} x {f} "
+                               f"x {num_bins} is not rowmajor_tile's {tile}")
+        partials = torch.empty(max(1, -(-c // tile)) * f * num_bins * 2,
+                               dtype=acc, device=dev)
     out = torch.empty((f, num_bins, 2), dtype=acc, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = [codes.data_ptr(), codes.element_size(), c, f, g.data_ptr(),
             h.data_ptr(), num_bins]
-    tail = [int(quant), partials.data_ptr(), out.data_ptr(), stream]
+    tail = [int(quant), None if partials is None else partials.data_ptr(),
+            out.data_ptr(), stream]
     if entry == "hist_radix_cuda":
         K.check(lib.lgbt_hist_radix(*args, int(bf16), *tail), entry)
         name = "hist_radix"

@@ -93,6 +93,77 @@ def test_rowmajor_kernels_match_plain(num_bins, code_dtype, dtype):
                                                          num_bins))
 
 
+# (rows, columns, bins, code dtype): windows around the tile rule's
+# breakpoints, more columns than a warp has lanes, and more bins than
+# one column's histogram fits in shared memory (the wide-bin path)
+RM_SHAPES = [(9_000, 7, 255, torch.uint8),
+             (TH.RM_MIN_TILE - 1, 28, 255, torch.uint8),
+             (TH.RM_MIN_TILE + 1, 28, 255, torch.uint8),
+             (1, 28, 255, torch.uint8), (20_000, 40, 255, torch.uint8),
+             (6_000, 3, 40_000, torch.int32)]
+
+
+def _shape_id(shape):
+    return "x".join(str(v) for v in shape[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RM_SHAPES, ids=_shape_id)
+def test_rowmajor_kernels_bit_exact_on_random_floats(shape):
+    """B4 (float32 and bfloat16) and B7 on random, non-dyadic g/h: the
+    kernel sums in the plain version's association, so it equals the
+    plain version run on the CPU bit for bit, launch after launch."""
+    _need_card()
+    c, f, nb, cdt = shape
+    rng = np.random.RandomState(c + f)
+    codes = rng.randint(-1, nb + 1, size=(c, f)) if cdt == torch.int32 \
+        else rng.randint(0, nb, size=(c, f))
+    bins = torch.as_tensor(codes).to(cdt)
+    g = torch.as_tensor(rng.randn(c).astype(np.float32))
+    h = torch.as_tensor(rng.rand(c).astype(np.float32))
+    db, dg, dh = bins.cuda(), g.cuda(), h.cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        got = TH.hist_radix_cuda(db, dg, dh, nb, dtype=dtype)
+        again = TH.hist_radix_cuda(db, dg, dh, nb, dtype=dtype)
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), TH.histogram_radix_plain(
+            bins, g, h, nb, dtype)), (shape, dtype)
+    assert torch.equal(TH.hist_masked_cuda(db, dg, dh, nb).cpu(),
+                       TH.histogram_masked_plain(bins, g, h, nb)), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RM_SHAPES[-2:], ids=_shape_id)
+def test_quantized_rowmajor_wide_shapes(shape):
+    """B4q and B7q at more than 32 columns and on the wide-bin path
+    (global atomics): bit-equal to the plain int32 version."""
+    _need_card()
+    c, f, nb, cdt = shape
+    rng = np.random.RandomState(c)
+    bins = torch.as_tensor(rng.randint(0, nb, size=(c, f))).to(cdt)
+    qg, qh = _levels(rng, c, 64)
+    want = TH.histogram_radix_plain(bins, qg, qh, nb)
+    for fn in (TH.hist_radix_cuda, TH.hist_masked_cuda):
+        got = fn(bins.cuda(), qg.cuda(), qh.cuda(), nb)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want), (fn.__name__, shape)
+
+
+@pytest.mark.cuda
+def test_rowmajor_tile_rule_matches_kernel():
+    """The kernel's tile (lgbt_rm_tile) equals rowmajor_tile on a sweep
+    of shapes: the plain version's association is the kernel's."""
+    _need_card()
+    from lightgbm_tpu_torch.ops import cuda as K
+    lib = K.lib("hist_rowmajor")
+    for c in (0, 1, 127, 128, 129, 16_384, 50_687, 50_689, 2_000_000,
+              10_500_000):
+        for f, nb in ((28, 255), (40, 255), (9, 16), (2, 60_000),
+                      (28, 65_534)):
+            assert lib.lgbt_rm_tile(c, f, nb) == TH.rowmajor_tile(c, f, nb), \
+                (c, f, nb)
+
+
 def _mv_state(n, groups, seed, k=16):
     """A random row-wise code matrix: each row has up to k-1 present
     groups (distinct), sentinel in slot 0, -1 pads."""

@@ -55,14 +55,20 @@ def _gh(rng, n, dyadic):
 # B4 / B7: row-major histograms
 # ---------------------------------------------------------------------------
 
+# windows around the tile rule's breakpoints: 1 row, just under, at and
+# just over the minimum tile, and several tiles
+RM_ROWS = [1, TH.RM_MIN_TILE - 1, TH.RM_MIN_TILE + 1, 3 * TH.RM_MIN_TILE + 56]
+
+
+@pytest.mark.parametrize("rows", RM_ROWS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("num_bins", [255, 64, 16])
-def test_hist_radix_plain_matches_pallas(num_bins, dtype):
+def test_hist_radix_plain_matches_pallas(num_bins, dtype, rows):
     """B4's plain version against histogram_radix_pallas (interpret):
     exact on dyadic grad/hess, else rtol 1e-5 (float32) or the bf16
     tolerance of tests/test_kernels.py."""
     rng = np.random.RandomState(num_bins)
-    r, f = 1500, 11
+    r, f = rows, 11
     bins = rng.randint(0, num_bins, size=(r, f)).astype(np.uint8)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     for dyadic in (True, False):
@@ -81,10 +87,11 @@ def test_hist_radix_plain_matches_pallas(num_bins, dtype):
             np.testing.assert_allclose(got, want, rtol=1e-2, atol=0.3)
 
 
-def test_hist_masked_plain_matches_pallas():
+@pytest.mark.parametrize("rows", RM_ROWS)
+def test_hist_masked_plain_matches_pallas(rows):
     """B7's plain version against histogram_pallas (interpret)."""
     rng = np.random.RandomState(7)
-    n, f, nb = 700, 5, 32
+    n, f, nb = rows, 5, 32
     bins = rng.randint(0, nb, size=(n, f)).astype(np.uint8)
     for dyadic in (True, False):
         g, h = _gh(rng, n, dyadic)
@@ -97,6 +104,68 @@ def test_hist_masked_plain_matches_pallas():
             np.testing.assert_array_equal(got, want)
         else:
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,f,nb,tile", [
+    (0, 28, 255, TH.RM_MIN_TILE),                # empty window
+    (1, 28, 255, TH.RM_MIN_TILE),
+    (16_384, 28, 255, TH.RM_MIN_TILE),           # (b)'s mean smaller child
+    (2_000_000, 28, 255, 7576),                  # the root: one tile a block
+    (2_000_000, 40, 255, 7576),
+    (100_000, 28, 65_534, 50_000),               # wide bins: 2 tiles
+    (100_000, 2, 60_000, 2942)])                 # 34 tiles of partials
+def test_rowmajor_tile_rule(c, f, nb, tile):
+    """The row-major tile rule is a function of the shapes alone: fixed
+    values, ceil(c / 264) rows at large windows, the minimum tile at
+    small ones, and partials capped; B1's tile stays HIST_TILE."""
+    assert TH.rowmajor_tile(c, f, nb) == tile
+    ntiles = -(-c // tile)
+    assert ntiles <= TH.RM_SMS * TH.RM_BLOCKS_PER_SM
+    assert ntiles * f * nb <= max(TH.RM_MAX_PARTIAL_CELLS, f * nb)
+    assert TH.HIST_TILE == 2048
+    import inspect
+    assert inspect.signature(TH.tiled_scatter).parameters["tile"].default \
+        == TH.HIST_TILE
+
+
+def _sequential_tiles(bins, g, h, nb, tile):
+    """The kernel's association written out: each cell summed in row
+    order inside a tile (float32), the tiles added in order from 0."""
+    c, f = bins.shape
+    out = np.zeros((f, nb, 2), np.float32)
+    for t0 in range(0, c, tile):
+        part = np.zeros((f, nb, 2), np.float32)
+        for r in range(t0, min(c, t0 + tile)):
+            for j in range(f):
+                b = bins[r, j]
+                if 0 <= b < nb:
+                    part[j, b, 0] = np.float32(part[j, b, 0] + g[r])
+                    part[j, b, 1] = np.float32(part[j, b, 1] + h[r])
+        out = (out + part).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("c,f,nb", [(1, 3, 16), (2_047, 2, 16), (2_049, 2, 16),
+                                    (6_200, 2, 7), (20_000, 8, 65_000)])
+def test_rowmajor_plain_association(c, f, nb):
+    """On random (non-dyadic) float32 g/h, B4's and B7's plain versions
+    equal the kernel's association written out, bit for bit (codes
+    outside [0, nb) add nothing), float32 and bfloat16-rounded."""
+    rng = np.random.RandomState(c + nb)
+    bins = rng.randint(-1, nb + 2, size=(c, f)).astype(np.int32)
+    g = rng.randn(c).astype(np.float32)
+    h = rng.rand(c).astype(np.float32)
+    tile = TH.rowmajor_tile(c, f, nb)
+    tb, tg, th = (torch.as_tensor(x) for x in (bins, g, h))
+    want = _sequential_tiles(bins, g, h, nb, tile)
+    np.testing.assert_array_equal(
+        TH.histogram_radix_plain(tb, tg, th, nb).numpy(), want)
+    np.testing.assert_array_equal(
+        TH.histogram_masked_plain(tb, tg, th, nb).numpy(), want)
+    gb, hb = (TH.round_bf16(x).numpy() for x in (tg, th))
+    np.testing.assert_array_equal(
+        TH.histogram_radix_plain(tb, tg, th, nb, torch.bfloat16).numpy(),
+        _sequential_tiles(bins, gb, hb, nb, tile))
 
 
 def test_histogram_dispatch_and_leaf_gather():
