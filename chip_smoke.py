@@ -11,11 +11,14 @@ Phases, each of which fails the run (no exception is caught):
    B1, B4, B5, B6 and B7, against its plain PyTorch version on the card,
    at the paths' shapes and at edge cases; time each at its path's root
    window beside its bound, the plain version and a library yardstick.
-   B4 and B7 also take random (non-dyadic) float grad/hess, held bit for
-   bit against the plain version run on the CPU, windows around their
-   tile rule's breakpoints, more than 32 columns and more bins than one
-   column's histogram fits in shared memory, and are timed at a
-   16,384-row window too.
+   B1, B4 and B7 also take random (non-dyadic) float grad/hess, held
+   bit for bit against the plain version run on the CPU, windows around
+   their tiles, more bins than one column's histogram fits in shared
+   memory (and, B4/B7, more than 32 columns), and are timed at a
+   16,384-row window too. B2 is held at P = 16, 4-bit codes and P = 128
+   on both of its routes (one block in place; tiles plus a copy back),
+   timed at the root and at 16,384 lanes for P = 16 and P = 128, with
+   each route's kernel launches per partition.
 3. paths — lightgbm_tpu_torch.train through each path the port runs,
    the launch counts of every kernel read around each run, AUC on
    held-out rows and seconds per iteration:
@@ -151,7 +154,8 @@ def make_state(n, g, code_bits, max_code, seed, dev):
 # ---------------------------------------------------------------------------
 
 HIST_CASES = [
-    # (name, rows, cols, code_bits, num_bins, windows)
+    # (name, rows, cols, code_bits, num_bins, windows); codes run to
+    # min(2^bits, num_bins + 64): those >= num_bins add nothing
     ("higgs_8bit", 2_000_000, 28, 8, 255,
      [(0, 2_000_000), (777_777, 1_000_001), (2_000_000 - 12_345, 12_345),
       (1_234_567, 3), (5_000, 0)]),
@@ -159,16 +163,52 @@ HIST_CASES = [
      [(0, 200_000), (1_001, 150_000), (17, 3), (500, 0)]),
     ("16bit_1000bins", 300_000, 5, 16, 1000,
      [(0, 300_000), (333, 200_001), (5, 3), (0, 0)]),
+    # more bins than one column's histogram fits in shared memory (the
+    # wide-bin path), at windows around the 2048-row tile
+    ("16bit_40000bins", 100_000, 3, 16, 40_000,
+     [(0, 100_000), (1_001, 2_049), (7, 2_047), (5, 3), (0, 0)]),
 ]
 
 
+def _random_gh(data, layout, rng, dev):
+    """Random (non-dyadic) float grad/hess in every lane of ``data``."""
+    from lightgbm_tpu_torch.ops import plane
+    R = layout.num_lanes
+    plane.set_gh(data, layout,
+                 torch.as_tensor(rng.randn(R).astype(np.float32), device=dev),
+                 torch.as_tensor(rng.rand(R).astype(np.float32), device=dev))
+
+
+def _planar_index_add_ms(codes, gh, nb):
+    """One ``index_add_`` of every (row, column)'s g/h (``gh`` [c, 2],
+    float32 or int32 levels) into its (column, bin) cell, over
+    already-unpacked codes [c, g]: the scatter alone, without
+    unpacking."""
+    c, g = codes.shape
+    idx = (torch.arange(g, device=codes.device)[None, :] * nb
+           + codes.long()).reshape(-1)
+    vals = gh[:, None, :].expand(c, g, 2).reshape(-1, 2).contiguous()
+    acc = torch.zeros(g * nb, 2, dtype=gh.dtype, device=codes.device)
+    return time_ms(lambda: acc.index_add_(0, idx, vals), reps=50)
+
+
 def check_hist(dev, report):
+    """B1 (hist_planar_cuda, float32 and bfloat16) on random float
+    grad/hess, bit for bit against the plain version run on the CPU
+    (it sums in the kernel's association: HIST_TILE-row tiles, each cell
+    in row order, the tiles in order), every launch twice and through a
+    device window; timed at the main path's root window and at a
+    SMALL_WINDOW-row window beside ``index_add_``."""
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops import cuda as K
     assert K.lib("hist_planar").lgbt_hist_tile() == H.HIST_TILE
+    rng = np.random.RandomState(13)
     worst = 0.0
     for name, n, g, bits, nb, windows in HIST_CASES:
-        layout, data, _ = make_state(n, g, bits, nb, seed=n + g, dev=dev)
+        layout, data, _ = make_state(n, g, bits, min(1 << bits, nb + 64),
+                                     seed=n + g, dev=dev)
+        _random_gh(data, layout, rng, dev)
+        cpu = data.cpu()
         kw = dict(num_bins=nb, num_cols=g, code_bits=bits,
                   grad_plane=layout.grad)
         for start, count in windows:
@@ -179,45 +219,47 @@ def check_hist(dev, report):
                     data, torch.tensor(start, dtype=torch.int32, device=dev),
                     torch.tensor(count, dtype=torch.int32, device=dev),
                     dtype=dt, max_count=n, **kw)
-                want = H.histogram_planar_plain(data, start, count, dtype=dt,
+                want = H.histogram_planar_plain(cpu, start, count, dtype=dt,
                                                 **kw)
                 torch.cuda.synchronize()
                 assert torch.equal(got, again), \
                     f"B1 {name} {start}+{count} {dt}: launches differ"
                 assert torch.equal(got, dwin), \
                     f"B1 {name} {start}+{count} {dt}: device window differs"
-                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-                worst = max(worst, float((got - want).abs().max()))
+                worst = max(worst, float((got.cpu() - want).abs().max()))
+                assert torch.equal(got.cpu(), want), \
+                    f"B1 {name} {start}+{count} {dt}: differs from the CPU"
         log(f"B1 hist_planar {name}: {len(windows)} windows x (f32, bf16) "
-            "match the plain version, run-to-run bit-identical")
+            "on random float g/h bit-exact against the plain version on "
+            "the CPU, run-to-run and host/device windows identical")
     # timing at the main path's root window (2M rows, 28 cols, 255 bins,
-    # bf16 inputs as the main path runs them)
+    # bf16 inputs as the main path runs them) and at SMALL_WINDOW rows
     name, n, g, bits, nb, _ = HIST_CASES[0]
     layout, data, codes = make_state(n, g, bits, nb, seed=1, dev=dev)
+    _random_gh(data, layout, rng, dev)
+    codes = torch.as_tensor(codes, device=dev)
     kw = dict(num_bins=nb, num_cols=g, code_bits=bits, grad_plane=layout.grad,
               dtype=torch.bfloat16)
-    ms = time_ms(lambda: H.hist_planar_cuda(data, 0, n, **kw))
-    plain_ms = time_ms(lambda: H.histogram_planar_plain(data, 0, n, **kw),
-                       reps=3)
-    # yardstick: ONE index_add_ over the already-unpacked (feature, bin)
-    # indices — the scatter alone, without unpacking
-    idx = (torch.arange(g, device=dev)[None, :] * nb
-           + torch.as_tensor(codes, device=dev).long()).reshape(-1)
-    vals = torch.randn(n * g, 2, device=dev)
-    acc = torch.zeros(g * nb, 2, device=dev)
-    lib_ms = time_ms(lambda: acc.index_add_(0, idx, vals))
-    nbytes = (layout.code_planes + 2) * 4 * n + g * nb * 2 * 4
-    nops = 2 * n * g
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
-    report.append(dict(
-        name="hist_planar", route="cuda",
-        source="lightgbm_tpu_torch/csrc/hist_planar.cu",
-        replaces="lightgbm_tpu/ops/histogram.py:702",
-        launches=0, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms))
-    log(f"B1 hist_planar root window {n}x{g}x{nb} bf16: {ms:.3f} ms "
-        f"(bound {bound_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
-        f"index_add_ {lib_ms:.3f} ms)")
+    for c in (n, SMALL_WINDOW):
+        ms = time_ms(lambda: H.hist_planar_cuda(data, 0, c, **kw), reps=50)
+        plain_ms = time_ms(lambda: H.histogram_planar_plain(data, 0, c, **kw),
+                           reps=3)
+        gh = torch.stack([data[layout.grad, :c].view(torch.float32),
+                          data[layout.hess, :c].view(torch.float32)], -1)
+        lib_ms = _planar_index_add_ms(codes[:c], gh, nb)
+        nbytes = (layout.code_planes + 2) * 4 * c + g * nb * 2 * 4
+        bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                       2 * c * g / F32_OPS_PER_S) * 1e3
+        if c == n:
+            report.append(dict(
+                name="hist_planar", route="cuda",
+                source="lightgbm_tpu_torch/csrc/hist_planar.cu",
+                replaces="lightgbm_tpu/ops/histogram.py:702",
+                launches=0, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms))
+        log(f"B1 hist_planar {'root' if c == n else 'small'} window "
+            f"{c}x{g}x{nb} bf16: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
+            f"bytes, plain {plain_ms:.3f} ms, index_add_ {lib_ms:.4f} ms)")
 
 
 def _efb_tables(dev):
@@ -232,13 +274,53 @@ def _efb_tables(dev):
                  for k in ("group_of", "offset_of", "nslots_of", "skip_of"))
 
 
+def make_wide_state(n, seed, dev):
+    """A P = 128 planar state, the wide-sparse shape's width: 28 8-bit
+    code columns, label and score planes and 112 random slot planes."""
+    from lightgbm_tpu_torch.ops import plane
+    rng = np.random.RandomState(seed)
+    layout = plane.make_layout(28, 8, n, with_label=True, with_score=True,
+                               mv_planes=112)
+    codes = rng.randint(0, 256, size=(n, 28)).astype(np.int32)
+    cp = plane.build_codes_planes(torch.as_tensor(codes, device=dev), layout)
+    g = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+    mv = torch.randint(-1, 900, (112, n), dtype=torch.int32, device=dev,
+                       generator=torch.Generator(dev).manual_seed(seed))
+    data = plane.build_data(layout, cp, g, g.abs(), label=g, score=g, mv=mv)
+    assert layout.num_planes == 128, layout.num_planes
+    return layout, data, codes
+
+
+def _kernels_per_call(fn):
+    """Device kernels one call of ``fn`` launches, by torch.profiler
+    (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def check_partition(dev, report):
+    """B2 (partition_cuda) bit for bit against partition_plain on the
+    card: at P = 16 (numerical, missing, categorical, EFB-routed, all
+    left / right, tiny and empty windows, windows at the one-block
+    route's end and at the tile), at 4-bit codes and at P = 128; timed
+    at the root and at a SMALL_WINDOW-lane window at P = 16 and P = 128
+    beside ``argsort`` + ``index_select``, with the kernels each route
+    launches per partition."""
     from lightgbm_tpu_torch.ops import plane
     n = 2_000_000
     layout, base, codes = make_state(n, 28, 8, 256, seed=7, dev=dev)
     bitset = np.zeros(plane.CAT_WORDS, np.uint32)
     for b in (3, 17, 42, 128, 200, 255):
         bitset[b // 32] |= np.uint32(1 << (b % 32))
+    small16 = plane.PART_SMALL_BYTES // (4 * (layout.num_planes + 1))
+    num = dict(feature=9, threshold=128, default_left=0, miss_bin=-1)
     cases = [
         # (name, start, count, route_scalars kwargs)
         ("numerical_full", 0, n, dict(feature=3, threshold=120,
@@ -257,21 +339,43 @@ def check_partition(dev, report):
                                             default_left=0, miss_bin=-1)),
         ("all_right", 4_096, 999_999, dict(feature=1, threshold=-1,
                                            default_left=0, miss_bin=-1)),
-        ("tiny_3", 1_234_567, 3, dict(feature=9, threshold=128,
-                                      default_left=0, miss_bin=-1)),
-        ("count_1", 77, 1, dict(feature=9, threshold=128, default_left=0,
-                                miss_bin=-1)),
-        ("count_0", 500, 0, dict(feature=9, threshold=128, default_left=0,
-                                 miss_bin=-1)),
+        ("tiny_3", 1_234_567, 3, num),
+        ("count_1", 77, 1, num),
+        ("count_0", 500, 0, num),
+        ("one_block_largest", 31, small16, num),
+        ("tiles_smallest", 31, small16 + 1, num),
+        ("tile_plus_1", 6_000, plane.PART_TILE + 1, num),
+        ("small_window", 444, SMALL_WINDOW, dict(
+            feature=5, threshold=20, default_left=1, miss_bin=4,
+            efb_dev=_efb_tables(dev))),
     ]
     l4, base4, _ = make_state(1_048_576, 9, 4, 16, seed=9, dev=dev)
     cases4 = [("4bit_shift16", 300, 1_000_000,
                dict(feature=4, threshold=7, default_left=0, miss_bin=15)),
               ("4bit_shift12", 0, 1_048_576,
                dict(feature=3, threshold=9, default_left=1, miss_bin=2))]
-    for lay, st, cs in ((layout, base, cases), (l4, base4, cases4)):
+    n128 = 1_048_576
+    l128, base128, codes128 = make_wide_state(n128, seed=10, dev=dev)
+    small128 = plane.PART_SMALL_BYTES // (4 * 129)
+    cases128 = [
+        ("p128_full", 0, n128, dict(feature=3, threshold=120, default_left=0,
+                                    miss_bin=-1)),
+        ("p128_categorical", 12_345, 700_001,
+         dict(feature=2, threshold=0, default_left=0, miss_bin=-1, is_cat=1,
+              cat_bitset=bitset.view(np.int32))),
+        ("p128_one_block_largest", 77, small128, num),
+        ("p128_tiles_smallest", 77, small128 + 1, num),
+        ("p128_small_window", 5, SMALL_WINDOW, dict(
+            feature=7, threshold=60, default_left=1, miss_bin=249)),
+        ("p128_tiny", 3, 2, num),
+        ("p128_count_0", 0, 0, num),
+    ]
+    for lay, st, cs in ((layout, base, cases), (l4, base4, cases4),
+                        (l128, base128, cases128)):
+        routes = set()
         for name, start, count, kw in cs:
             rscal = plane.route_scalars(lay, device=dev, **kw)
+            routes.add(plane.partition_small(lay.num_planes, count))
             got, nl_got = plane.partition_cuda(st.clone(), lay, start, count,
                                                rscal)
             want, nl_want = plane.partition_plain(st.clone(), lay, start,
@@ -280,40 +384,60 @@ def check_partition(dev, report):
             assert int(nl_got) == int(nl_want), (name, int(nl_got),
                                                  int(nl_want))
             assert torch.equal(got, want), f"B2 {name}: data differs"
+        names = " and ".join(sorted("one block" if r else "tiles"
+                                    for r in routes))
         log(f"B2 partition: {len(cs)} cases bit-exact "
-            f"(P={lay.num_planes}, lanes={lay.num_lanes})")
-    # timing at the main path's root window
-    rscal = plane.route_scalars(layout, device=dev, **cases[0][3])
-    work = base.clone()
-    ms = time_ms(lambda: plane.partition_cuda(work, layout, 0, n, rscal))
-    plain_ms = time_ms(lambda: plane.partition_plain(work, layout, 0, n,
-                                                     rscal), reps=3)
-    key = (torch.as_tensor(codes[:, 3], device=dev) > 120).to(torch.int32)
-
-    def library():
-        return work[:, :n].index_select(1, torch.argsort(key, stable=True))
-    lib_ms = time_ms(library)
-    P = layout.num_planes
-    bound_ms = 2 * P * 4 * n / HBM_BYTES_PER_S * 1e3
+            f"(P={lay.num_planes}, lanes={lay.num_lanes}; routes: {names})")
+    # launches per partition on each route, and timings at the root and
+    # at SMALL_WINDOW lanes beside argsort + index_select
+    entries = []
+    for lay, st, cds in ((layout, base, codes), (l128, base128, codes128)):
+        P, root = lay.num_planes, lay.num_rows
+        rscal = plane.route_scalars(lay, device=dev, **cases[0][3])
+        work = st.clone()
+        for c in (plane.PART_SMALL_BYTES // (4 * (P + 1)), SMALL_WINDOW):
+            k = _kernels_per_call(
+                lambda: plane.partition_cuda(work, lay, 0, c, rscal))
+            log(f"B2 partition P={P}, {c} lanes "
+                f"({'one block' if plane.partition_small(P, c) else 'tiles'}"
+                f" route): {k} kernel launches per partition")
+        key_all = (torch.as_tensor(cds[:, 3], device=dev) > 120).to(
+            torch.int32)
+        for c in (root, SMALL_WINDOW):
+            ms = time_ms(lambda: plane.partition_cuda(work, lay, 0, c, rscal),
+                         reps=20)
+            plain_ms = time_ms(lambda: plane.partition_plain(work, lay, 0, c,
+                                                             rscal), reps=3)
+            key = key_all[:c]
+            lib_ms = time_ms(lambda: work[:, :c].index_select(
+                1, torch.argsort(key, stable=True)), reps=20)
+            bound_ms = 2 * P * 4 * c / HBM_BYTES_PER_S * 1e3
+            if P == layout.num_planes and c == root:
+                entries = [ms, plain_ms, bound_ms, lib_ms]
+            log(f"B2 partition {'root' if c == root else 'small'} window "
+                f"{c} lanes x P={P}: {ms:.4f} ms (bound {bound_ms:.4f} ms "
+                f"by bytes, plain {plain_ms:.3f} ms, argsort+index_select "
+                f"{lib_ms:.4f} ms)")
+    ms, plain_ms, bound_ms, lib_ms = entries
     report.append(dict(
         name="partition", route="cuda",
         source="lightgbm_tpu_torch/csrc/partition.cu",
         replaces="lightgbm_tpu/ops/plane.py:991",
         launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms))
-    log(f"B2 partition root window {n} lanes x P={P}: {ms:.3f} ms (bound "
-        f"{bound_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
-        f"argsort+index_select {lib_ms:.3f} ms)")
     # B3 (partition_pallas, the JAX package's v1 entry) is the same CUDA
     # kernel; its entry point is partition_window
-    v1_ms = time_ms(lambda: plane.partition_window(work, layout, 0, n, rscal))
+    rscal = plane.route_scalars(layout, device=dev, **cases[0][3])
+    work = base.clone()
+    v1_ms = time_ms(lambda: plane.partition_window(work, layout, 0, n, rscal),
+                    reps=20)
     report.append(dict(
         name="partition_window", route="cuda",
         source="lightgbm_tpu_torch/csrc/partition.cu",
         replaces="lightgbm_tpu/ops/plane.py:643",
         launches=0, max_abs_err=0.0, ms=v1_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms))
-    log(f"B3 partition_window (v1 entry, same kernel): {v1_ms:.3f} ms")
+    log(f"B3 partition_window (v1 entry, same kernel): {v1_ms:.4f} ms")
 
 
 def _dyadic_gh(rng, n, dev):
@@ -598,15 +722,18 @@ def check_quant_planar(dev, report, rows):
     """B1q (hist_planar_cuda(quant=True): packed levels in the grad
     plane) and B4q / B7q (int32 levels) bit for bit against their plain
     int32 versions, with 4 and 64 levels; windows full, unaligned, at
-    the end of the lanes, 1 row and empty, host and device windows.
-    Timed at paths (d) and (f)'s root windows."""
+    the end of the lanes, 1 row and empty, host and device windows; B1q
+    also with more bins than shared memory holds. Timed at paths (d) and
+    (f)'s root windows and at a SMALL_WINDOW-row window."""
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops import plane
     from lightgbm_tpu_torch.ops import quantize as Q
     rng = np.random.RandomState(21)
     for name, n, g, bits, nb in (("higgs_8bit", 2_000_000, 28, 8, 255),
-                                 ("4bit_16bins", 200_000, 9, 4, 16)):
-        layout, data, _ = make_state(n, g, bits, nb, seed=n + 1, dev=dev)
+                                 ("4bit_16bins", 200_000, 9, 4, 16),
+                                 ("16bit_40000bins", 100_000, 3, 16, 40_000)):
+        layout, data, _ = make_state(n, g, bits, min(1 << bits, nb + 64),
+                                     seed=n + 1, dev=dev)
         R = layout.num_lanes
         kw = dict(num_bins=nb, num_cols=g, code_bits=bits,
                   grad_plane=layout.grad, quant=True)
@@ -630,24 +757,32 @@ def check_quant_planar(dev, report, rows):
         log(f"B1q hist_planar quant {name}: 5 windows x (4, 64 levels) "
             "bit-exact against the plain int32 version, host and device "
             "windows identical")
-    layout, data, codes = make_state(2_000_000, 28, 8, 255, seed=1, dev=dev)
     n = 2_000_000
+    layout, data, codes = make_state(n, 28, 8, 255, seed=1, dev=dev)
     qg, qh = _levels(rng, layout.num_lanes, 4, dev)
     plane.set_gh_packed(data, layout, plane.i32_as_f32(Q.pack_gh(qg, qh)))
+    codes = torch.as_tensor(codes, device=dev)
     kw = dict(num_bins=255, num_cols=28, code_bits=8, grad_plane=layout.grad,
               quant=True)
-    idx = (torch.arange(28, device=dev)[None, :] * 255
-           + torch.as_tensor(codes, device=dev).long()).reshape(-1)
-    vals = torch.stack([qg[:n], qh[:n]], -1)[:, None, :].expand(n, 28, 2) \
-        .reshape(-1, 2).contiguous()
-    _quant_entry(
-        report, "hist_planar_q", "lightgbm_tpu_torch/csrc/hist_planar.cu",
-        "lightgbm_tpu/ops/histogram.py:702",
-        time_ms(lambda: H.hist_planar_cuda(data, 0, n, **kw)),
-        time_ms(lambda: H.histogram_planar_plain(data, 0, n, **kw), reps=3),
-        (layout.code_planes + 1) * 4 * n + 28 * 255 * 2 * 4,
-        _int_index_add_ms(idx, vals, 28 * 255), f"{n}x28x255, 4 levels")
-    del data, idx, vals
+    for c in (n, SMALL_WINDOW):
+        ms = time_ms(lambda: H.hist_planar_cuda(data, 0, c, **kw), reps=50)
+        plain_ms = time_ms(lambda: H.histogram_planar_plain(data, 0, c, **kw),
+                           reps=3)
+        lib_ms = _planar_index_add_ms(codes[:c],
+                                      torch.stack([qg[:c], qh[:c]], -1), 255)
+        nbytes = (layout.code_planes + 1) * 4 * c + 28 * 255 * 2 * 4
+        if c == n:
+            _quant_entry(
+                report, "hist_planar_q",
+                "lightgbm_tpu_torch/csrc/hist_planar.cu",
+                "lightgbm_tpu/ops/histogram.py:702", ms, plain_ms, nbytes,
+                lib_ms, f"{n}x28x255, 4 levels")
+        else:
+            log(f"hist_planar_q small window {c}x28x255, 4 levels: "
+                f"{ms:.4f} ms (bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                f"by bytes, plain {plain_ms:.3f} ms, int32 index_add_ "
+                f"{lib_ms:.4f} ms)")
+    del data, codes
 
     for c, f, nb, cdt in [(rows, 28, 255, torch.uint8)] + RM_CASES:
         bins = _rm_codes(rng, c, f, nb, cdt, dev)
@@ -1089,7 +1224,8 @@ def profile_paths(args, wide):
         busy = sum(r[0] for r in rows_) / 1e6
         fam = {"hist": 0.0, "partition": 0.0, "other": 0.0}
         for dev_us, _, key in rows_:
-            f = ("hist" if ("hist_" in key or "rm_" in key or "mv_" in key)
+            f = ("hist" if any(k in key for k in ("hist_", "hp_", "rm_",
+                                                  "mv_"))
                  else "partition" if "part_" in key else "other")
             fam[f] += dev_us / 1e3
         tree = gbdt.models[-1]

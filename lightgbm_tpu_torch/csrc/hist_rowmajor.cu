@@ -22,12 +22,11 @@
 // tile. rm_partials gives one warp to each (tile, column): the warp walks
 // the tile 32 rows at a time, lane u holding row u's code, g and h (128
 // rows' loads in flight at once). The lanes whose rows fall in the same
-// cell form a group: each sets its bit in the cell's mask word in shared
-// memory (an integer atomicOr: the mask is the same whatever the order),
-// and the group's last lane loads the cell, adds the group's g/h one row
-// after the other (shuffled from the lanes in ascending order) and stores
-// it back. So a cell's chain of adds is as long as its rows, not as the
-// tile. The warp's histogram (one column) lives in shared memory and goes
+// cell form a group through an integer atomicOr into the cell's mask word
+// in shared memory, and the group's last lane folds the group into the
+// cell in row order (warp_fold.cuh fold_rows, shared with hist_planar.cu).
+// So a cell's chain of adds is as long as its rows, not as the tile. The
+// warp's histogram (one column) lives in shared memory and goes
 // out as the tile's partial; rm_reduce sums the partials in tile order.
 // The plain PyTorch version (ops/histogram.py tiled_scatter with the
 // tile of rowmajor_tile) sums in exactly this association, so the bits
@@ -70,6 +69,8 @@
 
 #include <algorithm>
 
+#include "warp_fold.cuh"
+
 namespace {
 
 // the tile rule (ops/histogram.py rowmajor_tile holds the same numbers)
@@ -83,7 +84,6 @@ constexpr int kQThreads = 1024;
 constexpr long long kQBlocks = 132;      // int32 mode: one block per SM
 constexpr long long kQMinRows = 64;
 constexpr int kNoBin = 0xFFFF;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
@@ -95,53 +95,6 @@ long long rm_tile(long long C, long long F, long long B) {
   if (max_tiles < 1) max_tiles = 1;
   const long long need = ceil_div(C, max_tiles);
   return tile > need ? tile : need;
-}
-
-// one warp's share of shared memory: a column's float2 cells, then one
-// group-mask word per cell (zero between steps), 16-byte aligned
-__host__ __device__ inline int warp_bytes(int nbr) {
-  return (nbr * 12 + 15) / 16 * 16;
-}
-
-// one step of 32 rows of one column: lanes whose rows fall in the same
-// cell form a group (each sets its bit in the cell's mask word); the
-// group's last lane folds the group's g/h into the cell in lane (row)
-// order, two members per round of shuffles
-__device__ __forceinline__ void rm_rows(float2* col, unsigned* mask,
-                                       unsigned key, int nb, float g,
-                                       float h, int lane) {
-  const bool valid = key < (unsigned)nb;
-  if (valid) atomicOr(mask + key, 1u << lane);
-  __syncwarp();
-  const unsigned group = valid ? mask[key] : 0u;
-  __syncwarp();
-  const bool last = valid && lane == 31 - __clz(group);
-  float2 s = make_float2(0.f, 0.f);
-  if (last) {
-    mask[key] = 0u;
-    s = col[key];
-  }
-  unsigned m = group;
-  while (__any_sync(kFull, m != 0u)) {
-    const int src0 = m ? __ffs(m) - 1 : lane;
-    const unsigned m1 = m & (m - 1);
-    const int src1 = m1 ? __ffs(m1) - 1 : lane;
-    const float g0 = __shfl_sync(kFull, g, src0);
-    const float h0 = __shfl_sync(kFull, h, src0);
-    const float g1 = __shfl_sync(kFull, g, src1);
-    const float h1 = __shfl_sync(kFull, h, src1);
-    if (m) {
-      s.x += g0;
-      s.y += h0;
-    }
-    if (m1) {
-      s.x += g1;
-      s.y += h1;
-    }
-    m = m1 & (m1 - 1);
-  }
-  if (last) col[key] = s;
-  __syncwarp();
 }
 
 // four steps (128 rows) of one column: key relative to the block's bin
@@ -188,7 +141,7 @@ rm_partials(const CodeT* __restrict__ codes, int C, int F,
   const int b0 = blockIdx.z * nbr;
   const int nb = min(nbr, num_bins - b0);
   float2* col = reinterpret_cast<float2*>(
-      reinterpret_cast<char*>(smem) + (size_t)warp * warp_bytes(nbr));
+      reinterpret_cast<char*>(smem) + (size_t)warp * lgbt::warp_bytes(nbr));
   unsigned* mask = reinterpret_cast<unsigned*>(col + nbr);
   for (int i = lane; i < nb; i += 32) {
     col[i] = make_float2(0.f, 0.f);
@@ -205,7 +158,7 @@ rm_partials(const CodeT* __restrict__ codes, int C, int F,
 #pragma unroll
     for (int k = 0; k < 4; ++k) {               // fixed row order
       if (base + 32 * k < rows) {
-        rm_rows(col, mask, key[k], nb, g[k], h[k], lane);
+        lgbt::fold_rows(col, mask, key[k], nb, g[k], h[k], lane);
       }
     }
   }
@@ -318,10 +271,10 @@ int launch_float(const CodeT* codes, int C, int F, const float* g,
     const long long spread =
         ceil_div((long long)F * ntiles * nranges, kSMs * kBlocksPerSM);
     const int cpb = (int)std::min<long long>(
-        {32, F, kSmemBudget / warp_bytes(nbr), spread});
+        {32, F, kSmemBudget / lgbt::warp_bytes(nbr), spread});
     const int ncol = (int)ceil_div(F, cpb);
     if (ncol > 65535) return (int)cudaErrorInvalidValue;
-    const int smem = cpb * warp_bytes(nbr);
+    const int smem = cpb * lgbt::warp_bytes(nbr);
     cudaError_t e = allow_smem(rm_partials<CodeT>, smem);
     if (e != cudaSuccess) return (int)e;
     rm_partials<CodeT><<<dim3(ntiles, ncol, nranges), 32 * cpb, smem, s>>>(

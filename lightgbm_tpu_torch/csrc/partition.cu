@@ -16,24 +16,46 @@
 // categoricals are out of the set, so they go right).
 //
 // What bounds it on the card: bytes. The least work reads and writes
-// the window's P words per row once (2 * P * 4 bytes per row, P = 16 at
-// HIGGS width). This version moves them twice — read, write to scratch,
-// read scratch, write back — plus one plane read to route: a four-pass
-// design
-// that is simple and exact (integer only): it pays the copy back and
-// the uncoalesced scatter; later work fuses the scatter and the copy.
+// each of the window's P plane words once (2 * P * 4 bytes per lane, P =
+// 16 at HIGGS width, 128 at the wide-sparse shape). Most of a tree's
+// partitions are of small windows, where launches set the pace. Two
+// routes, chosen by the window's shape alone (part_is_small below,
+// ops/plane.py partition_small):
 //
-//   1. part_flags: route every lane once, store a byte flag, reduce a
-//      left count per tile of kTile lanes.
-//   2. part_scan: one block scans the tile counts (CUB BlockScan) into
-//      tile offsets and the total nleft.
-//   3. part_scatter: per tile, a block scan of the flags gives each
-//      lane its stable rank on its side; every plane word of the lane
-//      goes to its destination in a [P, count] scratch window.
-//   4. part_copyback: scratch -> data[:, start:start+count].
+//   - small window (P + 1) * count * 4 <= kSmallBytes: part_small, ONE
+//     launch of one block, in place. It loads every plane of the window
+//     into shared memory, routes the lanes, ranks them by warp ballots
+//     and a scan of the warp counts, and writes every word back to its
+//     place. No scratch, no second launch.
+//   - large window: two launches, about 4 * P * 4 + 4 bytes per lane
+//     (twice the bound), every access coalesced.
+//       1. part_tiles, a single-pass tile kernel. Each block takes a
+//          tile of kTile lanes (and a group of planes) in launch order
+//          through a global ticket, so that the look-back below cannot
+//          wait on a block that has not started. It routes its tile
+//          (one coalesced read of the split column's plane), ranks the
+//          lanes inside the tile by warp ballots and a scan of the 64
+//          warp counts, and gets the lefts of all earlier tiles by
+//          decoupled look-back over per-tile status words (aggregate,
+//          then inclusive prefix). The status words carry the call's
+//          epoch, so words of earlier calls read as "not ready" and no
+//          memset is needed per call; the block that draws the last
+//          ticket resets the ticket. Then plane by plane it copies the
+//          tile's words into a [P, count] scratch: the lefts from the
+//          front at their final rank, the rights from the back in
+//          reverse order (nleft is not known until the last tile). The
+//          32 lanes of a warp are 32 consecutive lanes of the window, so
+//          their lefts land in one contiguous run and their rights in
+//          another: each warp's store is at most two coalesced runs.
+//          When the window has few tiles, a tile's planes are split
+//          into groups over more blocks (each routes the tile again and
+//          looks back on its own chain), so a window of a few thousand
+//          lanes at P = 128 still spreads over the card.
+//       2. part_copyback: data[:, start + i] takes the front word i for
+//          i < nleft, else the back word count - 1 - (i - nleft).
+//
+// Integer only: the result is the same on every launch.
 
-#include <cub/block/block_reduce.cuh>
-#include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,9 +63,32 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 8;
-constexpr int kTile = kThreads * kItems;   // lanes per block
-constexpr int kScanThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = kThreads * kItems;   // lanes per tile
+constexpr int kSmallThreads = 1024;
+constexpr int kBatch = 16;                 // part_small: loads in flight
+// the small-window rule (ops/plane.py PART_SMALL_BYTES holds the same)
+constexpr long long kSmallBytes = 200 * 1024;
+constexpr long long kSpreadBlocks = 264;   // 2 x 132 SMs
 constexpr int kRouteScalars = 19;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+static_assert(kItems * kWarps == 64, "one warp scans two counts a lane");
+
+bool part_is_small(long long P, long long count) {
+  return count * (P + 1) * 4 <= kSmallBytes;
+}
+
+// planes per block of part_tiles: all of them, unless the window has
+// too few tiles to spread over about kSpreadBlocks blocks; groups of at
+// least 8 planes
+int planes_per_group(int P, int ntiles) {
+  long long want = (kSpreadBlocks + ntiles - 1) / ntiles;
+  const long long most = (P + 7) / 8;
+  if (want > most) want = most;
+  if (want < 1) want = 1;
+  return (int)((P + want - 1) / want);
+}
 
 // plane.py _route_from_col32; rs layout (route_scalars):
 // [plane, shift, mask, thr, dl, miss, efb_use, efb_off, efb_nsl,
@@ -65,96 +110,225 @@ __device__ __forceinline__ int route_left(uint32_t col32,
   return (is_miss ? rs[4] : dec_lr) == 1 ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-part_flags(const int32_t* __restrict__ data, long long R, int start,
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
+
+__global__ void __launch_bounds__(kSmallThreads)
+part_small(int32_t* __restrict__ data, long long R, int P, int start,
            int count, const int32_t* __restrict__ rscal,
-           uint8_t* __restrict__ flags, int32_t* __restrict__ tile_left) {
-  using Reduce = cub::BlockReduce<int, kThreads>;
-  __shared__ typename Reduce::TempStorage temp;
+           int32_t* __restrict__ nleft) {
+  extern __shared__ int32_t sbuf[];    // [P][count] words, then [count] ranks
   __shared__ int32_t rs[kRouteScalars];
-  if (threadIdx.x < kRouteScalars) rs[threadIdx.x] = rscal[threadIdx.x];
-  __syncthreads();
-  const int base = blockIdx.x * kTile;
-  const int32_t* col = data + (long long)rs[0] * R + start;
-  int local = 0;
-  for (int k = 0; k < kItems; ++k) {
-    const int i = base + k * kThreads + threadIdx.x;   // coalesced
-    if (i < count) {
-      const int l = route_left((uint32_t)col[i], rs);
-      flags[i] = (uint8_t)l;
-      local += l;
+  __shared__ int s_cnt[32];
+  __shared__ int s_carry, s_next;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  if (t < kRouteScalars) rs[t] = rscal[t];
+  if (t == 0) s_carry = 0;
+  const int total = P * count;
+  // kBatch words' loads in flight per thread: one block has to keep the
+  // memory system busy on its own
+  for (int idx0 = t; idx0 < total; idx0 += kSmallThreads * kBatch) {
+    int32_t v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int idx = idx0 + k * kSmallThreads;
+      if (idx < total) {
+        const int p = idx / count;
+        v[k] = data[(long long)p * R + start + (idx - p * count)];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int idx = idx0 + k * kSmallThreads;
+      if (idx < total) sbuf[idx] = v[k];
     }
   }
-  const int total = Reduce(temp).Sum(local);
-  if (threadIdx.x == 0) tile_left[blockIdx.x] = total;
+  __syncthreads();
+  // rank: a lane's left rank, or ~(its right rank)
+  int32_t* rank = sbuf + total;
+  const int32_t* col = sbuf + (long long)rs[0] * count;
+  for (int b = 0; b < count; b += kSmallThreads) {
+    const int i = b + t;
+    const bool left = i < count && route_left((uint32_t)col[i], rs);
+    const unsigned m = __ballot_sync(kFull, left);
+    if (lane == 0) s_cnt[warp] = __popc(m);
+    __syncthreads();
+    if (warp == 0) {
+      const int v = s_cnt[lane];
+      int incl = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += u;
+      }
+      const int carry = s_carry;
+      __syncwarp();
+      s_cnt[lane] = carry + incl - v;
+      if (lane == 31) s_next = carry + incl;
+    }
+    __syncthreads();
+    if (i < count) {
+      const int lr = s_cnt[warp] + __popc(m & lanes_below(lane));
+      rank[i] = left ? lr : ~(i - lr);
+    }
+    if (t == 0) s_carry = s_next;
+  }
+  __syncthreads();
+  const int nl = s_carry;
+  if (t == 0) nleft[0] = nl;
+#pragma unroll 8
+  for (int idx = t; idx < total; idx += kSmallThreads) {
+    const int p = idx / count;
+    const int r = rank[idx - p * count];
+    data[(long long)p * R + start + (r >= 0 ? r : nl + ~r)] = sbuf[idx];
+  }
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-part_scan(const int32_t* __restrict__ tile_left, int ntiles,
-          int32_t* __restrict__ tile_off, int32_t* __restrict__ nleft) {
-  using Scan = cub::BlockScan<int, kScanThreads>;
-  __shared__ typename Scan::TempStorage temp;
-  __shared__ int carry;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < ntiles; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int v = i < ntiles ? tile_left[i] : 0;
-    int excl, agg;
-    Scan(temp).ExclusiveSum(v, excl, agg);
-    if (i < ntiles) tile_off[i] = carry + excl;
-    __syncthreads();
-    if (threadIdx.x == 0) carry += agg;
-    __syncthreads();
+// status word: (epoch * 2 + inclusive) << 32 | value
+__device__ __forceinline__ void publish(unsigned long long* w,
+                                        unsigned epoch, unsigned inclusive,
+                                        int value) {
+  atomicExch(w, ((unsigned long long)(epoch * 2u + inclusive) << 32) |
+                    (unsigned)value);
+}
+
+// one warp: the lefts of tiles [0, tile) of this chain, summed from the
+// nearest predecessors back to the first inclusive prefix
+__device__ int look_back(const unsigned long long* st, int tile,
+                         unsigned epoch, int lane) {
+  int prefix = 0;
+  for (int pred = tile - 1;; pred -= 32) {
+    const int idx = pred - lane;       // lane 0 is the nearest tile
+    unsigned long long w;
+    int state;                         // 0 not ready, 1 aggregate, 2 prefix
+    do {
+      w = 0ull;
+      state = 2;                       // before tile 0: nothing to add
+      if (idx >= 0) {
+        w = *reinterpret_cast<const volatile unsigned long long*>(st + idx);
+        const unsigned tag = (unsigned)(w >> 32);
+        state = (tag >> 1) == epoch ? 1 + (int)(tag & 1u) : 0;
+      }
+    } while (__any_sync(kFull, state == 0));
+    const unsigned incl = __ballot_sync(kFull, state == 2);
+    const int stop = incl ? __ffs(incl) - 1 : 31;
+    int v = lane <= stop ? (int)(unsigned)w : 0;
+    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+    prefix += v;
+    if (incl) return prefix;
   }
-  if (threadIdx.x == 0) nleft[0] = carry;
 }
 
 __global__ void __launch_bounds__(kThreads)
-part_scatter(const int32_t* __restrict__ data, long long R, int P,
-             int start, int count, const uint8_t* __restrict__ flags,
-             const int32_t* __restrict__ tile_off,
-             const int32_t* __restrict__ nleft_p,
-             int32_t* __restrict__ scratch) {
-  using Scan = cub::BlockScan<int, kThreads>;
-  __shared__ typename Scan::TempStorage temp;
-  const int base = blockIdx.x * kTile;
-  const int nleft = nleft_p[0];
-  const int left_before = tile_off[blockIdx.x];
-  const int right_before = base - left_before;
-  // blocked arrangement: thread t owns lanes base + t*kItems + k, so the
-  // block-wide exclusive scan of flags is each lane's stable left rank
-  int fl[kItems];
-  int rank[kItems];
-  const int first = base + threadIdx.x * kItems;
-  for (int k = 0; k < kItems; ++k) {
-    const int i = first + k;
-    fl[k] = i < count ? (int)flags[i] : 0;
+part_tiles(const int32_t* __restrict__ data, long long R, int P, int start,
+           int count, const int32_t* __restrict__ rscal, int ntiles,
+           int groups, int pg, unsigned long long* __restrict__ status,
+           unsigned epoch, int32_t* __restrict__ scratch,
+           int32_t* __restrict__ nleft) {
+  __shared__ int32_t rs[kRouteScalars];
+  __shared__ int s_cnt[kItems * kWarps];  // item-major: k * kWarps + warp
+  __shared__ int s_ticket, s_prefix;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  if (t == 0) {
+    unsigned* ticket = reinterpret_cast<unsigned*>(status);
+    const unsigned tk = atomicAdd(ticket, 1u);
+    // every block draws once: the last ticket's holder may reset it
+    if (tk == (unsigned)(ntiles * groups) - 1u) atomicExch(ticket, 0u);
+    s_ticket = (int)tk;
   }
-  Scan(temp).ExclusiveSum(fl, rank);
+  if (t < kRouteScalars) rs[t] = rscal[t];
+  __syncthreads();
+  const int tile = s_ticket / groups;
+  const int g = s_ticket - tile * groups;
+  unsigned long long* st = status + 1 + (size_t)g * ntiles;
+  const int base = tile * kTile;
+  const int n_here = min(kTile, count - base);
+
+  // route: lane i = k * kThreads + t of the tile (coalesced)
+  const int32_t* col = data + (long long)rs[0] * R + start + base;
+  uint32_t cw[kItems];
+#pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const int i = first + k;
-    if (i >= count) break;
-    const int pos = threadIdx.x * kItems + k;        // position in tile
-    const int dest = fl[k] ? left_before + rank[k]
-                           : nleft + right_before + (pos - rank[k]);
-    const int32_t* src = data + start + i;
-    int32_t* dst = scratch + dest;
-    for (int p = 0; p < P; ++p) {
-      dst[(long long)p * count] = src[(long long)p * R];
+    const int i = k * kThreads + t;
+    cw[k] = i < n_here ? (uint32_t)col[i] : 0u;
+  }
+  unsigned m[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const bool left = k * kThreads + t < n_here && route_left(cw[k], rs);
+    m[k] = __ballot_sync(kFull, left);
+    if (lane == 0) s_cnt[k * kWarps + warp] = __popc(m[k]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the 64 counts in lane order: lane L holds counts 2L and 2L + 1
+    const int a = s_cnt[2 * lane], b = s_cnt[2 * lane + 1];
+    int incl = a + b;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += u;
+    }
+    __syncwarp();
+    s_cnt[2 * lane] = incl - a - b;
+    s_cnt[2 * lane + 1] = incl - b;
+    const int tile_left = __shfl_sync(kFull, incl, 31);
+    int prefix = 0;
+    if (tile == 0) {
+      if (lane == 0) publish(st, epoch, 1u, tile_left);
+    } else {
+      if (lane == 0) publish(st + tile, epoch, 0u, tile_left);
+      prefix = look_back(st, tile, epoch, lane);
+      if (lane == 0) publish(st + tile, epoch, 1u, prefix + tile_left);
+    }
+    if (lane == 0) {
+      s_prefix = prefix;
+      if (g == 0 && tile == ntiles - 1) nleft[0] = prefix + tile_left;
+    }
+  }
+  __syncthreads();
+
+  // each lane's place in the scratch: lefts from the front, rights from
+  // the back; -1 past the window
+  const int left_before = s_prefix;
+  const int right_before = base - left_before;
+  int dst[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = k * kThreads + t;
+    const int lr = s_cnt[k * kWarps + warp] + __popc(m[k] & lanes_below(lane));
+    const bool left = (m[k] >> lane) & 1u;
+    dst[k] = i >= n_here ? -1
+             : left      ? left_before + lr
+                         : count - 1 - (right_before + i - lr);
+  }
+  const int p1 = min(P, (g + 1) * pg);
+#pragma unroll 2
+  for (int p = g * pg; p < p1; ++p) {
+    const int32_t* src = data + (long long)p * R + start + base;
+    int32_t* out = scratch + (long long)p * count;
+    int32_t v[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (dst[k] >= 0) v[k] = src[k * kThreads + t];
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (dst[k] >= 0) out[dst[k]] = v[k];
     }
   }
 }
 
 __global__ void part_copyback(const int32_t* __restrict__ scratch,
                               int32_t* __restrict__ data, long long R,
-                              int start, int count) {
+                              int start, int count,
+                              const int32_t* __restrict__ nleft_p) {
+  const int nl = nleft_p[0];
   const int p = blockIdx.y;
   const int32_t* src = scratch + (long long)p * count;
   int32_t* dst = data + (long long)p * R + start;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
        i += gridDim.x * blockDim.x) {
-    dst[i] = src[i];
+    dst[i] = src[i < nl ? i : count - 1 + nl - i];
   }
 }
 
@@ -164,29 +338,59 @@ extern "C" {
 
 int lgbt_partition_tile() { return kTile; }
 
-// Scratch sizes (elements): flags [count] u8, tile_left / tile_off
-// [ceil(count / kTile)] i32, scratch [P * count] i32; nleft [1] i32.
-int lgbt_partition(int32_t* data, long long R, int P, int start, int count,
-                   const int32_t* rscal, uint8_t* flags, int32_t* tile_left,
-                   int32_t* tile_off, int32_t* scratch, int32_t* nleft,
-                   void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+// 1 when a window of `count` lanes of a P-plane state takes the one-block
+// in-place route (no scratch, no status words)
+int lgbt_partition_small(int P, int count) {
+  return part_is_small(P, count) ? 1 : 0;
+}
+
+// status words (uint64) the large route needs: the ticket, then one word
+// per (plane group, tile); 0 for a small window
+long long lgbt_partition_status_words(int P, int count) {
+  if (part_is_small(P, count)) return 0;
   const int ntiles = (count + kTile - 1) / kTile;
+  const int pg = planes_per_group(P, ntiles);
+  return 1 + (long long)((P + pg - 1) / pg) * ntiles;
+}
+
+// scratch: [P * count] int32 and status: lgbt_partition_status_words
+// uint64 words (zero when first used; the ticket word stays 0 between
+// calls), both NULL for a small window; epoch: nonzero, below 2^31, and
+// new for every call that shares `status`. nleft: [1] int32.
+int lgbt_partition(int32_t* data, long long R, int P, int start, int count,
+                   const int32_t* rscal, int32_t* scratch,
+                   unsigned long long* status, unsigned epoch,
+                   int32_t* nleft, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (ntiles > 0) {
-    part_flags<<<ntiles, kThreads, 0, s>>>(data, R, start, count, rscal,
-                                           flags, tile_left);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (P < 1 || count < 0) return (int)cudaErrorInvalidValue;
+  if (part_is_small(P, count)) {
+    const int smem = (P + 1) * count * 4;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(part_small,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    part_small<<<1, kSmallThreads, smem, s>>>(data, R, P, start, count,
+                                              rscal, nleft);
+    return (int)cudaGetLastError();
   }
-  part_scan<<<1, kScanThreads, 0, s>>>(tile_left, ntiles, tile_off, nleft);
+  if (scratch == nullptr || status == nullptr || epoch == 0u ||
+      epoch >= 0x80000000u) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int ntiles = (count + kTile - 1) / kTile;
+  const int pg = planes_per_group(P, ntiles);
+  const int groups = (P + pg - 1) / pg;
+  part_tiles<<<ntiles * groups, kThreads, 0, s>>>(
+      data, R, P, start, count, rscal, ntiles, groups, pg, status, epoch,
+      scratch, nleft);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (ntiles == 0) return 0;
-  part_scatter<<<ntiles, kThreads, 0, s>>>(data, R, P, start, count, flags,
-                                           tile_off, nleft, scratch);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  int gx = (count + 255) / 256;
-  if (gx > 1024) gx = 1024;
-  part_copyback<<<dim3(gx, P), 256, 0, s>>>(scratch, data, R, start, count);
+  int gx = (count + 1023) / 1024;
+  if (gx > 2048) gx = 2048;
+  part_copyback<<<dim3(gx, P), 256, 0, s>>>(scratch, data, R, start, count,
+                                            nleft);
   return (int)cudaGetLastError();
 }
 

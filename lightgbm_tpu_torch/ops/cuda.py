@@ -3,11 +3,12 @@
 Each source under csrc/ is compiled by its own ``nvcc`` process into a
 shared library with a plain C interface; all of them start together at
 first use, and the libraries land in the package's build directory
-(``_build/``, ignored by git), named by a hash of the source and flags so
-an edited source rebuilds and an unchanged one is reused. The libraries
-are loaded with ctypes: pointers and the CUDA stream are passed as
-``c_void_p``. Nothing here runs at import time — the CPU test suite
-imports every module on a machine without ``nvcc``.
+(``_build/``, ignored by git), named by a hash of the source, the
+headers under csrc/ and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. The libraries are loaded with
+ctypes: pointers and the CUDA stream are passed as ``c_void_p``.
+Nothing here runs at import time — the CPU test suite imports every
+module on a machine without ``nvcc``.
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
@@ -46,17 +47,19 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 _SIGNATURES = {
     "hist_planar": {
         "lgbt_hist_tile": ([], _I),
-        "lgbt_hist_cols_per_block": ([_I], _I),
         "lgbt_hist_planar": ([_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P, _P, _P], _I),
     },
     "partition": {
         "lgbt_partition_tile": ([], _I),
-        "lgbt_partition": ([_P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                            _P], _I),
+        "lgbt_partition_small": ([_I, _I], _I),
+        "lgbt_partition_status_words": ([_I, _I], _L),
+        "lgbt_partition": ([_P, _L, _I, _I, _I, _P, _P, _P, _U, _P, _P],
+                           _I),
     },
     "hist_rowmajor": {
         "lgbt_rm_tile": ([_I, _I, _I], _I),
@@ -96,8 +99,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        h = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``name``, named by a hash of its source, of every
+    header under CSRC (a source may include any of them) and of the
+    flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC)
+                     if f.endswith((".cuh", ".h")))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as fh:
+            h.update(fname.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 

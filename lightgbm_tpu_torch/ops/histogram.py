@@ -43,8 +43,9 @@ from .quantize import unpack_gh
 
 Window = Union[int, torch.Tensor]
 
-# rows per tile of csrc/hist_planar.cu's first pass (kTile); its plain
-# version sums in the same association
+# rows per tile of csrc/hist_planar.cu's float modes (kTile,
+# lgbt_hist_tile): each cell summed in row order inside a tile, the tiles
+# in order; its plain version sums in the same association
 HIST_TILE = 2048
 
 # the tile rule of csrc/hist_rowmajor.cu's float modes (rm_tile there,
@@ -208,20 +209,28 @@ def hist_planar_cuda(data: torch.Tensor, start: Window, count: Window, *,
     P, R = data.shape
     if grad_plane + 1 >= P or -(-num_cols * code_bits // 32) > grad_plane:
         raise ValueError("grad/hess planes must follow the code planes")
+    if not 1 <= num_bins <= 1 << 16:
+        raise ValueError(f"num_bins {num_bins} outside [1, 65536]")
     dev = data.device
     sp, cp, sh, ch, max_count = _window_args(start, count, max_count, R, dev)
     lib = K.lib("hist_planar")
-    tile = lib.lgbt_hist_tile()
-    grid_tiles = max(1, -(-max_count // tile))
-    acc = torch.int32 if quant else torch.float32
-    partials = torch.empty(grid_tiles * num_cols * num_bins * 2,
-                           dtype=acc, device=dev)
-    out = torch.empty((num_cols, num_bins, 2), dtype=acc, device=dev)
+    if lib.lgbt_hist_tile() != HIST_TILE:
+        raise RuntimeError("hist_planar_cuda: the kernel's tile is not "
+                           f"HIST_TILE {HIST_TILE}")
+    partials = None       # the int32 mode folds blocks by integer atomics
+    if not quant:
+        partials = torch.empty(
+            max(1, -(-max_count // HIST_TILE)) * num_cols * num_bins * 2,
+            dtype=torch.float32, device=dev)
+    out = torch.empty((num_cols, num_bins, 2),
+                      dtype=torch.int32 if quant else torch.float32,
+                      device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     K.check(lib.lgbt_hist_planar(
         data.data_ptr(), R, sp, cp, sh, ch, max_count, num_cols, num_bins,
         code_bits, grad_plane, int(dtype == torch.bfloat16), int(quant),
-        partials.data_ptr(), out.data_ptr(), stream), "hist_planar_cuda")
+        None if partials is None else partials.data_ptr(), out.data_ptr(),
+        stream), "hist_planar_cuda")
     K.LAUNCHES["hist_planar_q" if quant else "hist_planar"] += 1
     return out
 

@@ -25,6 +25,7 @@ them with every other plane, so they stay row-aligned.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
@@ -38,6 +39,12 @@ MAX_TILE = 32768
 
 ROUTE_SCALARS = 19      # routing vector length (see route_scalars)
 CAT_WORDS = 8           # bitset words -> categorical bins <= 256
+
+# csrc/partition.cu: lanes per tile of its large-window route (kTile,
+# lgbt_partition_tile) and the shared-memory bytes of its one-block
+# small-window route (kSmallBytes; see partition_small)
+PART_TILE = 2048
+PART_SMALL_BYTES = 200 * 1024
 
 
 class PlaneLayout(NamedTuple):
@@ -300,6 +307,38 @@ def partition_plain(data: torch.Tensor, layout: PlaneLayout, start: int,
     return data, go_left.sum().to(torch.int32)
 
 
+def partition_small(num_planes: int, count: int) -> bool:
+    """True when a window of ``count`` lanes of a ``num_planes``-plane
+    state takes the partition kernel's one-block route: every plane
+    word of the window and one rank per lane, ``(P + 1) * count * 4``
+    bytes, fit in PART_SMALL_BYTES of one block's shared memory (about
+    3,000 lanes at P = 16, 400 at P = 128). Equal to the CUDA kernel's
+    ``lgbt_partition_small``."""
+    return count * (num_planes + 1) * 4 <= PART_SMALL_BYTES
+
+
+# per (device, stream), for the life of the process like the loaded
+# kernel libraries: the large route's status words and the epoch of the
+# last call that used them (csrc/partition.cu lgbt_partition)
+_STATUS: dict = {}
+_STATUS_LOCK = threading.Lock()
+
+
+def _status_words(dev, stream: int, words: int):
+    """The status buffer of ``stream`` holding at least ``words`` uint64
+    words, and a fresh epoch for this call. The buffer is zeroed once
+    when it is made (or grown); every call tags its words with a new
+    epoch, so no call needs a memset."""
+    key = (dev, stream)
+    with _STATUS_LOCK:
+        buf, epoch = _STATUS.get(key, (None, 0))
+        if buf is None or buf.numel() < words or epoch + 1 >= 1 << 31:
+            n = words if buf is None else max(words, 2 * buf.numel())
+            buf, epoch = torch.zeros(n, dtype=torch.int64, device=dev), 0
+        _STATUS[key] = (buf, epoch + 1)
+        return buf, epoch + 1
+
+
 def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
                    count: int, rscal: torch.Tensor):
     """Stable in-place partition of the lane window [start, start+count)
@@ -308,8 +347,10 @@ def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
     partition_pallas2 and partition_pallas): lefts first, then rights,
     order kept on both sides, lanes outside the window untouched.
     Returns (data, nleft); ``data`` is the SAME tensor updated in place
-    and nleft a 0-d int32 tensor on its device. Raises for a state that
-    is not on the card."""
+    and nleft a 0-d int32 tensor on its device. A small window
+    (``partition_small``) is one launch with no scratch; a large one
+    takes a [P, count] scratch and the stream's status words. Raises
+    for a state that is not on the card."""
     start, count = int(start), int(count)
     P, R = data.shape
     if not 0 <= start <= start + count <= R:
@@ -325,19 +366,25 @@ def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
         raise ValueError("rscal must be a contiguous [19] int32 tensor on "
                          "the state's device")
     lib = K.lib("partition")
-    tile = lib.lgbt_partition_tile()
-    ntiles = -(-count // tile)
+    small = partition_small(P, count)
+    if bool(lib.lgbt_partition_small(P, count)) != small:
+        raise RuntimeError(f"partition_cuda: the kernel's small-window rule "
+                           f"for P={P}, count={count} is not "
+                           f"partition_small's {small}")
     dev = data.device
-    flags = torch.empty(count, dtype=torch.uint8, device=dev)
-    tile_left = torch.empty(ntiles, dtype=torch.int32, device=dev)
-    tile_off = torch.empty(ntiles, dtype=torch.int32, device=dev)
-    scratch = torch.empty((P, count), dtype=torch.int32, device=dev)
-    nleft = torch.empty(1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    nleft = torch.empty(1, dtype=torch.int32, device=dev)
+    scratch = status = None
+    epoch = 0
+    if not small:
+        scratch = torch.empty(P * count, dtype=torch.int32, device=dev)
+        status, epoch = _status_words(
+            dev, stream, lib.lgbt_partition_status_words(P, count))
     K.check(lib.lgbt_partition(
         data.data_ptr(), R, P, start, count, rscal.data_ptr(),
-        flags.data_ptr(), tile_left.data_ptr(), tile_off.data_ptr(),
-        scratch.data_ptr(), nleft.data_ptr(), stream), "partition_cuda")
+        None if scratch is None else scratch.data_ptr(),
+        None if status is None else status.data_ptr(), epoch,
+        nleft.data_ptr(), stream), "partition_cuda")
     K.LAUNCHES["partition"] += 1
     return data, nleft[0]
 

@@ -51,8 +51,9 @@ def test_cuda_kernels_match_plain(dtype):
         got = TH.hist_planar_cuda(dev, start, count, **kw)
         again = TH.hist_planar_cuda(dev, start, count, **kw)
         assert torch.equal(got, again)
-        torch.testing.assert_close(got.cpu(), TH.histogram_planar_plain(
-            data, start, count, **kw), rtol=1e-5, atol=1e-4)
+        # the kernel sums in the plain version's association: bit for bit
+        assert torch.equal(got.cpu(), TH.histogram_planar_plain(
+            data, start, count, **kw))
         rs = tplane.route_scalars(lay, 3, 100, 1, miss_bin=7)
         a, na = tplane.partition_cuda(dev.clone(), lay, start, count,
                                       rs.cuda())
@@ -105,6 +106,113 @@ RM_SHAPES = [(9_000, 7, 255, torch.uint8),
 
 def _shape_id(shape):
     return "x".join(str(v) for v in shape[:3])
+
+
+# (rows, columns, code bits, bins, largest code) of the planar
+# histogram: HIGGS width, 4-bit codes, and 16-bit codes with more bins
+# than one column's histogram fits in shared memory (the wide-bin path);
+# codes at and above num_bins add nothing
+PLANAR_SHAPES = [(30_000, 28, 8, 255, 255), (9_000, 9, 4, 14, 16),
+                 (7_000, 3, 16, 40_000, 40_100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PLANAR_SHAPES, ids=_shape_id)
+def test_planar_kernel_bit_exact_on_random_floats(shape):
+    """B1 (float32 and bfloat16) on random, non-dyadic g/h equals the
+    plain version run on the CPU bit for bit, at windows around the
+    HIST_TILE-row tile, with host and device windows; B1q (packed
+    levels) equals the plain int32 version."""
+    _need_card()
+    n, g, bits, nb, top = shape
+    rng = np.random.RandomState(n + g)
+    codes = rng.randint(0, top, size=(n, g)).astype(np.int32)
+    grad = torch.as_tensor(rng.randn(n).astype(np.float32))
+    hess = torch.as_tensor(rng.rand(n).astype(np.float32))
+    lay = tplane.make_layout(g, bits, n, with_label=True, with_score=True)
+    data = tplane.build_data(
+        lay, tplane.build_codes_planes(torch.as_tensor(codes), lay), grad,
+        hess, label=grad, score=hess)
+    t = TH.HIST_TILE
+    windows = ((0, n), (5, t - 1), (17, t), (3, t + 1), (n - 1, 1), (9, 0))
+    kw = dict(num_bins=nb, num_cols=g, code_bits=bits, grad_plane=lay.grad)
+    dev = data.cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        for start, count in windows:
+            got = TH.hist_planar_cuda(dev, start, count, dtype=dtype, **kw)
+            dwin = TH.hist_planar_cuda(
+                dev, torch.tensor(start, dtype=torch.int32, device="cuda"),
+                torch.tensor(count, dtype=torch.int32, device="cuda"),
+                dtype=dtype, max_count=n, **kw)
+            want = TH.histogram_planar_plain(data, start, count, dtype=dtype,
+                                             **kw)
+            assert torch.equal(got, dwin), (shape, dtype, start, count)
+            assert torch.equal(got.cpu(), want), (shape, dtype, start, count)
+    qg, qh = _levels(rng, lay.num_lanes, 64)
+    tplane.set_gh_packed(data, lay, tplane.i32_as_f32(TQ.pack_gh(qg, qh)))
+    dev = data.cuda()
+    for start, count in windows:
+        got = TH.hist_planar_cuda(dev, start, count, quant=True, **kw)
+        dwin = TH.hist_planar_cuda(
+            dev, torch.tensor(start, dtype=torch.int32, device="cuda"),
+            torch.tensor(count, dtype=torch.int32, device="cuda"),
+            max_count=n, quant=True, **kw)
+        want = TH.histogram_planar_plain(data, start, count, quant=True, **kw)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, dwin), (shape, start, count)
+        assert torch.equal(got.cpu(), want), (shape, start, count)
+
+
+def _partition_state(n, mv_planes, seed):
+    """A 28-column 8-bit state with label and score planes; with
+    ``mv_planes`` = 112 slot planes, P = 128 (the wide-sparse width)."""
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, 255, size=(n, 28)).astype(np.int32)
+    grad = torch.as_tensor(rng.randn(n).astype(np.float32))
+    lay = tplane.make_layout(28, 8, n, with_label=True, with_score=True,
+                             mv_planes=mv_planes)
+    mv = torch.as_tensor(rng.randint(-1, 900, size=(mv_planes, n)).astype(
+        np.int32)) if mv_planes else None
+    data = tplane.build_data(
+        lay, tplane.build_codes_planes(torch.as_tensor(codes), lay), grad,
+        grad, label=grad, score=grad, mv=mv)
+    return lay, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mv_planes", [0, 112], ids=["P16", "P128"])
+def test_partition_routes_bit_exact(mv_planes):
+    """B2 on both routes (one block in place; tiles with look-back and
+    a copy back) equals the plain version bit for bit at P = 16 and
+    P = 128, call after call on the same stream (the status words'
+    epochs), with the Python and C small-window rules agreeing."""
+    _need_card()
+    from lightgbm_tpu_torch.ops import cuda as K
+    lib = K.lib("partition")
+    assert lib.lgbt_partition_tile() == tplane.PART_TILE
+    for P in (8, 16, 128):
+        for c in (0, 1, 395, 396, 397, 1203, 1204, 3011, 3012, 10**6):
+            assert bool(lib.lgbt_partition_small(P, c)) == \
+                tplane.partition_small(P, c), (P, c)
+    n = 70_000
+    lay, data = _partition_state(n, mv_planes, seed=mv_planes)
+    P = lay.num_planes
+    assert P == (128 if mv_planes else 16)
+    small = tplane.PART_SMALL_BYTES // (4 * (P + 1))
+    t = tplane.PART_TILE
+    windows = [(0, n), (11, small), (11, small + 1), (500, t - 1),
+               (500, t + 1), (7, 30 * t + 3), (1, 1), (9, 0)]
+    routes = set()
+    dev, cpu = data.cuda(), data.clone()
+    for k, (start, count) in enumerate(windows * 2):
+        rs = tplane.route_scalars(lay, k % 28, 60 + 9 * k, k % 2,
+                                  miss_bin=7 * k)
+        routes.add(tplane.partition_small(P, count))
+        a, na = tplane.partition_cuda(dev, lay, start, count, rs.cuda())
+        b, nb = tplane.partition_plain(cpu, lay, start, count, rs)
+        assert int(na) == int(nb), (P, start, count)
+        assert torch.equal(a.cpu(), b), (P, start, count)
+    assert routes == {True, False}
 
 
 @pytest.mark.cuda
