@@ -7,18 +7,22 @@ Phases, each of which fails the run (no exception is caught):
 
 1. build  — compile every CUDA kernel from csrc/ (one nvcc per source,
    in parallel); print the build seconds and the card.
-2. kernels — every kernel (B1-B7), and the int32 (quantized) mode of
+2. xla_float — exp_f32, fma_f32, the binary gradients and the predict
+   transform (the JAX package's XLA:CPU float32 bits) on the card
+   against the CPU, bit for bit, on 2^24 inputs; then
+   kernels — every kernel (B1-B7), and the int32 (quantized) mode of
    B1, B4, B5, B6 and B7, against its plain PyTorch version on the card,
    at the paths' shapes and at edge cases; time each at its path's root
    window beside its bound, the plain version and a library yardstick.
-   B1, B4 and B7 also take random (non-dyadic) float grad/hess, held
-   bit for bit against the plain version run on the CPU, windows around
-   their tiles, more bins than one column's histogram fits in shared
-   memory (and, B4/B7, more than 32 columns), and are timed at a
-   16,384-row window too. B2 is held at P = 16, 4-bit codes and P = 128
-   on both of its routes (one block in place; tiles plus a copy back),
-   timed at the root and at 16,384 lanes for P = 16 and P = 128, with
-   each route's kernel launches per partition.
+   B1, B4-B7 also take random (non-dyadic) float grad/hess, held bit
+   for bit against the plain version run on the CPU, windows around
+   their tiles, more bins (B1, B4/B7) or cells (B5/B6) than one block's
+   shared memory holds (and, B4/B7, more than 32 columns), and are
+   timed at a 16,384-row window too, beside ``index_add_``. B2 is held
+   at P = 16, 4-bit codes and P = 128 on both of its routes (one block
+   in place; tiles plus a copy back), timed at the root and at 16,384
+   lanes for P = 16 and P = 128, with each route's kernel launches per
+   partition.
 3. paths — lightgbm_tpu_torch.train through each path the port runs,
    the launch counts of every kernel read around each run, AUC on
    held-out rows and seconds per iteration:
@@ -443,8 +447,8 @@ def check_partition(dev, report):
 def _dyadic_gh(rng, n, dev):
     """grad/hess on a dyadic grid: every partial sum is exact, so a
     kernel and its plain version agree bit for bit in any order."""
-    # 7 fractional bits: the multival sentinel cell sums every row, and
-    # 1M rows of hess <= 1/8 keep |sum| * 2^7 below 2^24
+    # 7 fractional bits: 2M rows of hess <= 1/8 keep |sum| * 2^7 below
+    # 2^24 in any one cell
     g = (rng.randint(-64, 65, n) / 128.0).astype(np.float32)
     h = (rng.randint(0, 17, n) / 128.0).astype(np.float32)
     return torch.as_tensor(g, device=dev), torch.as_tensor(h, device=dev)
@@ -591,102 +595,148 @@ def _synthetic_mv_codes(n, groups, k, seed, dev):
     return torch.as_tensor(codes, device=dev), total
 
 
-def check_multival(dev, report, codes, total_bins):
-    """B5 (hist_multival_planar_cuda) and B6 (hist_multival_cuda)
-    against their plain versions, f32 and bf16, at path (a)'s real
-    row-wise codes (full, unaligned, 1-row and empty windows, host and
-    device windows) and at a synthetic T beyond the kernel's shared
-    memory; timed at path (a)'s root window."""
-    from lightgbm_tpu_torch.ops import cuda as K
+def _mv_state(cds, g, h, dev):
+    """A planar state holding row-wise codes ``cds`` [m, k] as slot planes
+    and grad/hess ``g``/``h`` (float32, or zeros for packed levels set
+    later); returns (layout, data, slot-major codes)."""
     from lightgbm_tpu_torch.ops import multival as MV
     from lightgbm_tpu_torch.ops import plane
-    n, k = codes.shape
+    m = cds.shape[0]
+    sm = MV.slot_major(cds)
+    layout = plane.make_layout(1, 8, m, with_label=True, with_score=True,
+                               mv_planes=sm.shape[0])
+    data = plane.build_data(
+        layout, plane.build_codes_planes(
+            torch.zeros((m, 1), dtype=torch.int32, device=dev), layout),
+        g, h, mv=sm)
+    return layout, data, sm
+
+
+def mv_windows(m):
+    """(start, count) windows of the multi-value checks over m rows:
+    full, unaligned, 1 row, empty, and windows straddling the kernels'
+    512-row tiles."""
+    return [(0, m), (m // 5 + 3, m // 3), (1_001, m // 4), (m - 5, 1),
+            (m - 1, 1), (5, 1), (17, 0), (3, 512), (511, 513),
+            (1_000, 1_537), (77, 4_500), (m - 1_029, 1_029)]
+
+
+def _mv_live(sm, c, vals):
+    """(index, values) of the live codes of the first ``c`` rows of
+    slot-major ``sm``: the scatter ``index_add_`` performs."""
+    live = sm[:, :c].t().reshape(-1).long()
+    keep = live >= 0
+    v = vals[:c, None, :].expand(c, sm.shape[0], 2).reshape(-1, 2)
+    return live[keep], v[keep].contiguous()
+
+
+def _mv_timings(report, name, line, worst, fn, plain, nbytes, lib, what,
+                sizes):
+    """Time a multi-value entry at each row count of ``sizes`` (the
+    largest first: the root, which goes into the report line) beside its
+    bound, its plain version and ``lib(c)`` (index_add_ ms)."""
+    for c in sizes:
+        ms = time_ms(lambda: fn(c))
+        plain_ms = time_ms(lambda: plain(c), reps=3)
+        lib_ms = lib(c)
+        bound_ms = nbytes(c) / HBM_BYTES_PER_S * 1e3
+        if c == sizes[0]:
+            report.append(dict(
+                name=name, route="cuda",
+                source="lightgbm_tpu_torch/csrc/hist_multival.cu",
+                replaces=line, launches=0, max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=lib_ms))
+        log(f"{name} {'root' if c == sizes[0] else 'small'} window {c} rows"
+            f", {what}: {ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, "
+            f"plain {plain_ms:.3f} ms, index_add_ over live codes "
+            f"{lib_ms:.4f} ms)")
+
+
+def check_multival(dev, report, codes, total_bins):
+    """B5 (hist_multival_planar_cuda) and B6 (hist_multival_cuda), f32
+    and bf16, on random float grad/hess, bit for bit against the plain
+    version run on the CPU (it sums in the kernels' association: each
+    cell in row order inside 512-row tiles, the tiles in order), at path
+    (a)'s real row-wise codes and at a synthetic T beyond one block's
+    shared memory, on every ``mv_windows`` window; B5 through host and
+    device windows, every launch twice. Timed at path (a)'s root window
+    and at a SMALL_WINDOW-row window beside ``index_add_``."""
+    from lightgbm_tpu_torch.ops import cuda as K
+    from lightgbm_tpu_torch.ops import multival as MV
     rng = np.random.RandomState(12)
     smem_cells = K.lib("hist_multival").lgbt_mv_smem_cells()
     big, big_t = _synthetic_mv_codes(200_000, 3000, 24, 5, dev)
     assert big_t + 1 > smem_cells > total_bins + 1, (big_t, smem_cells)
     worst = 0.0
-    states = {}
+    timing = None
     for tag, cds, t in (("shape_a", codes, total_bins),
                         ("T_beyond_smem", big, big_t)):
         m = cds.shape[0]
-        sm = MV.slot_major(cds)
-        g, h = _dyadic_gh(rng, m, dev)
-        layout = plane.make_layout(1, 8, m, with_label=True, with_score=True,
-                                   mv_planes=sm.shape[0])
-        data = plane.build_data(
-            layout, plane.build_codes_planes(
-                torch.zeros((m, 1), dtype=torch.int32, device=dev), layout),
-            g, h, mv=sm)
-        states[tag] = (layout, data, sm, g, h, t)
+        g = torch.as_tensor(rng.randn(m).astype(np.float32), device=dev)
+        h = torch.as_tensor(rng.rand(m).astype(np.float32), device=dev)
+        layout, data, sm = _mv_state(cds, g, h, dev)
+        cpu = data.cpu()
+        gh = MV.gh_planes(g, h)
         kw = dict(mv_start=layout.mv_start, mv_planes=layout.mv_planes,
                   total_bins=t, grad_plane=layout.grad)
+        wins = mv_windows(m)
         for dt in (torch.float32, torch.bfloat16):
-            for start, count in ((0, m), (m // 5 + 3, m // 3), (m - 5, 1),
-                                 (17, 0)):
+            for start, count in wins:
+                want = MV.histogram_multival_planar_plain(
+                    cpu, start, count, dtype=dt, **kw)
                 got = MV.hist_multival_planar_cuda(data, start, count,
                                                    dtype=dt, **kw)
+                again = MV.hist_multival_planar_cuda(data, start, count,
+                                                     dtype=dt, **kw)
                 dwin = MV.hist_multival_planar_cuda(
                     data, torch.tensor(start, dtype=torch.int32, device=dev),
                     torch.tensor(count, dtype=torch.int32, device=dev),
                     max_count=m, dtype=dt, **kw)
-                want = MV.histogram_multival_planar_plain(
-                    data, start, count, dtype=dt, **kw)
+                b6 = MV.hist_multival_cuda(
+                    sm[:, start:start + count], gh[:, start:start + count],
+                    total_bins=t, dtype=dt)
                 torch.cuda.synchronize()
-                assert torch.equal(got, dwin), f"B5 {tag} {start}+{count}"
-                assert torch.equal(got, want), f"B5 {tag} {start}+{count} {dt}"
-                worst = max(worst, float((got - want).abs().max()))
-            gh = MV.gh_planes(g, h)
-            for lo, hi in ((0, m), (1_001, 1_001 + m // 4), (5, 6)):
-                got = MV.hist_multival_cuda(sm[:, lo:hi], gh[:, lo:hi],
-                                            total_bins=t, dtype=dt)
-                again = MV.hist_multival_cuda(sm[:, lo:hi], gh[:, lo:hi],
-                                              total_bins=t, dtype=dt)
-                want = MV.histogram_multival_plain(
-                    sm[:, lo:hi], gh[:, lo:hi], total_bins=t, dtype=dt)
-                torch.cuda.synchronize()
-                assert torch.equal(got, again), f"B6 {tag}: launches differ"
-                assert torch.equal(got, want), f"B6 {tag} {lo}:{hi} {dt}"
+                what = f"{tag} {start}+{count} {dt}"
+                assert torch.equal(got, again), f"B5 {what}: launches differ"
+                assert torch.equal(got, dwin), f"B5 {what}: device window"
+                worst = max(worst, float((got.cpu() - want).abs().max()))
+                assert torch.equal(got.cpu(), want), f"B5 {what}: differs"
+                assert torch.equal(b6.cpu(), want), f"B6 {what}: differs"
+        if tag == "shape_a":
+            timing = (layout, data, sm, gh, g, h, t)
         log(f"B5/B6 multival {tag} (T={t}, K={sm.shape[0]}, {m} rows): "
-            "windows x (f32, bf16) bit-exact against the plain versions, "
-            "host and device windows identical")
-    layout, data, sm, g, h, t = states["shape_a"]
-    kp = sm.shape[0]
-    live = sm.t().reshape(-1).long()
-    keep = live >= 0
-    idx = live[keep]
-    vals = torch.stack([g, h], -1)[:, None, :].expand(n, kp, 2) \
-        .reshape(-1, 2)[keep].contiguous()
-    acc = torch.zeros(t + 1, 2, device=dev)
-    lib_ms = time_ms(lambda: acc.index_add_(0, idx, vals))
+            f"{len(wins)} windows x (f32, bf16) on random float g/h "
+            "bit-exact against the plain version on the CPU, run-to-run "
+            "and host/device windows identical")
+    layout, data, sm, gh, g, h, t = timing
+    kp, n = sm.shape
+    sizes = (n, SMALL_WINDOW)
+    small = {c: (sm[:, :c].contiguous(), gh[:, :c].contiguous())
+             for c in sizes}
+    gh2 = torch.stack([g, h], -1)
+
+    def lib(c):
+        idx, vals = _mv_live(sm, c, gh2)
+        acc = torch.zeros(t + 1, 2, device=dev)
+        return time_ms(lambda: acc.index_add_(0, idx, vals))
     kw = dict(mv_start=layout.mv_start, mv_planes=layout.mv_planes,
               total_bins=t, grad_plane=layout.grad, dtype=torch.bfloat16)
-    gh = MV.gh_planes(g, h)
     out_b = (t + 1) * 2 * 4
-    for name, fn, plain, nbytes, line in (
-            ("hist_multival_planar",
-             lambda: MV.hist_multival_planar_cuda(data, 0, n, **kw),
-             lambda: MV.histogram_multival_planar_plain(data, 0, n, **kw),
-             n * (layout.mv_planes + 2) * 4 + out_b,
-             "lightgbm_tpu/ops/multival.py:450"),
-            ("hist_multival",
-             lambda: MV.hist_multival_cuda(sm, gh, total_bins=t,
-                                           dtype=torch.bfloat16),
-             lambda: MV.histogram_multival_plain(sm, gh, total_bins=t,
-                                                 dtype=torch.bfloat16),
-             n * (kp * 4 + 8) + out_b, "lightgbm_tpu/ops/multival.py:377")):
-        ms = time_ms(fn)
-        plain_ms = time_ms(plain, reps=3)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        report.append(dict(
-            name=name, route="cuda",
-            source="lightgbm_tpu_torch/csrc/hist_multival.cu",
-            replaces=line, launches=0, max_abs_err=worst, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-            library_ms=lib_ms))
-        log(f"{name} root window {n} rows, K={kp}, T={t}: {ms:.3f} ms "
-            f"(bound {bound_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
-            f"index_add_ over live codes {lib_ms:.3f} ms)")
+    _mv_timings(
+        report, "hist_multival_planar", "lightgbm_tpu/ops/multival.py:450",
+        worst, lambda c: MV.hist_multival_planar_cuda(data, 0, c, **kw),
+        lambda c: MV.histogram_multival_planar_plain(data, 0, c, **kw),
+        lambda c: c * (layout.mv_planes + 2) * 4 + out_b, lib,
+        f"K={kp}, T={t}, bf16", sizes)
+    _mv_timings(
+        report, "hist_multival", "lightgbm_tpu/ops/multival.py:377", worst,
+        lambda c: MV.hist_multival_cuda(*small[c], total_bins=t,
+                                        dtype=torch.bfloat16),
+        lambda c: MV.histogram_multival_plain(*small[c], total_bins=t,
+                                              dtype=torch.bfloat16),
+        lambda c: c * (kp * 4 + 8) + out_b, lib,
+        f"K={kp}, T={t}, bf16, slot-major", sizes)
 
 
 def _levels(rng, n, num_bins, dev):
@@ -818,39 +868,41 @@ def check_quant_planar(dev, report, rows):
 def check_quant_multival(dev, report, codes, total_bins):
     """B5q (packed levels in the grad plane) and B6q (packed levels in
     lane row 0) bit for bit against their plain int32 versions, with 4
-    and 64 levels, at path (e)'s real row-wise codes and at a synthetic
-    T beyond the kernel's shared memory; windows full, unaligned, at the
-    end of the lanes, 1 row and empty. Timed at paths (e) and (g)'s root
-    windows."""
+    and 64 levels, at path (e)'s real row-wise codes, at a synthetic T
+    beyond the float mode's block and at one beyond the int32 mode's
+    shared histogram; every ``mv_windows`` window plus the end of the
+    lanes, host and device windows. Timed at paths (e) and (g)'s root
+    windows and at a SMALL_WINDOW-row window beside int32
+    ``index_add_``."""
     from lightgbm_tpu_torch.ops import cuda as K
     from lightgbm_tpu_torch.ops import multival as MV
     from lightgbm_tpu_torch.ops import plane
     from lightgbm_tpu_torch.ops import quantize as Q
     rng = np.random.RandomState(22)
-    smem_cells = K.lib("hist_multival").lgbt_mv_smem_cells()
+    lib_mv = K.lib("hist_multival")
+    smem_cells = lib_mv.lgbt_mv_smem_cells()
+    q_cells = lib_mv.lgbt_mv_quant_smem_cells()
     big, big_t = _synthetic_mv_codes(200_000, 3000, 24, 5, dev)
+    huge, huge_t = _synthetic_mv_codes(50_000, 7000, 16, 6, dev)
     assert big_t + 1 > smem_cells > total_bins + 1, (big_t, smem_cells)
+    assert huge_t + 1 > q_cells, (huge_t, q_cells)
     timing = None
     for tag, cds, t in (("shape_e", codes, total_bins),
-                        ("T_beyond_smem", big, big_t)):
+                        ("T_beyond_smem", big, big_t),
+                        ("T_beyond_int32_smem", huge, huge_t)):
         m = cds.shape[0]
-        sm = MV.slot_major(cds)
         zero = torch.zeros(m, device=dev)
-        layout = plane.make_layout(1, 8, m, with_label=True, with_score=True,
-                                   mv_planes=sm.shape[0])
-        data = plane.build_data(
-            layout, plane.build_codes_planes(
-                torch.zeros((m, 1), dtype=torch.int32, device=dev), layout),
-            zero, zero, mv=sm)
+        layout, data, sm = _mv_state(cds, zero, zero, dev)
         R = layout.num_lanes
         kw = dict(mv_start=layout.mv_start, mv_planes=layout.mv_planes,
                   total_bins=t, grad_plane=layout.grad, quant=True)
+        wins = mv_windows(m) + [(R - 5, 5)]
         for levels in (4, 64):
             qg, qh = _levels(rng, m, levels, dev)
             plane.set_gh_packed(data, layout,
                                 plane.i32_as_f32(Q.pack_gh(qg, qh)))
-            for start, count in ((0, m), (m // 5 + 3, m // 3), (R - 5, 5),
-                                 (m - 1, 1), (17, 0)):
+            gh = MV.gh_planes(qg, qh, quant=True)
+            for start, count in wins:
                 got = MV.hist_multival_planar_cuda(data, start, count, **kw)
                 dwin = MV.hist_multival_planar_cuda(
                     data, torch.tensor(start, dtype=torch.int32, device=dev),
@@ -862,48 +914,104 @@ def check_quant_multival(dev, report, codes, total_bins):
                 assert got.dtype == torch.int32
                 assert torch.equal(got, dwin), f"B5q {tag} {start}+{count}"
                 assert torch.equal(got, want), f"B5q {tag} {start}+{count}"
-            gh = MV.gh_planes(qg, qh, quant=True)
-            for lo, hi in ((0, m), (1_001, 1_001 + m // 4), (m - 1, m),
-                           (5, 5)):
-                got = MV.hist_multival_cuda(sm[:, lo:hi], gh[:, lo:hi],
-                                            total_bins=t, quant=True)
-                want = MV.histogram_multival_plain(
-                    sm[:, lo:hi], gh[:, lo:hi], total_bins=t, quant=True)
+                if start + count > m:
+                    continue                   # lanes past the rows
+                b6 = MV.hist_multival_cuda(
+                    sm[:, start:start + count], gh[:, start:start + count],
+                    total_bins=t, quant=True)
+                want6 = MV.histogram_multival_plain(
+                    sm[:, start:start + count], gh[:, start:start + count],
+                    total_bins=t, quant=True)
                 torch.cuda.synchronize()
-                assert got.dtype == torch.int32
-                assert torch.equal(got, want), f"B6q {tag} {lo}:{hi}"
+                assert b6.dtype == torch.int32
+                assert torch.equal(b6, want6), f"B6q {tag} {start}+{count}"
             if tag == "shape_e" and levels == 4:
                 timing = (layout, data, sm, gh, qg, qh, t)
         log(f"B5q/B6q multival quant {tag} (T={t}, K={sm.shape[0]}, {m} "
-            "rows): windows x (4, 64 levels) bit-exact against the plain "
-            "int32 versions, host and device windows identical")
+            f"rows): {len(wins)} windows x (4, 64 levels) bit-exact against "
+            "the plain int32 versions, host and device windows identical")
     layout, data, sm, gh, qg, qh, t = timing
     kp, n = sm.shape
-    live = sm.t().reshape(-1).long()
-    keep = live >= 0
-    vals = torch.stack([qg, qh], -1)[:, None, :].expand(n, kp, 2) \
-        .reshape(-1, 2)[keep].contiguous()
-    lib_ms = _int_index_add_ms(live[keep], vals, t + 1)
+    sizes = (n, SMALL_WINDOW)
+    small = {c: (sm[:, :c].contiguous(), gh[:, :c].contiguous())
+             for c in sizes}
+    q2 = torch.stack([qg, qh], -1)
+
+    def lib(c):
+        idx, vals = _mv_live(sm, c, q2)
+        return _int_index_add_ms(idx, vals, t + 1)
     kw = dict(mv_start=layout.mv_start, mv_planes=layout.mv_planes,
               total_bins=t, grad_plane=layout.grad, quant=True)
     out_b = (t + 1) * 2 * 4
-    what = f"{n} rows, K={kp}, T={t}, 4 levels"
-    _quant_entry(
-        report, "hist_multival_planar_q",
-        "lightgbm_tpu_torch/csrc/hist_multival.cu",
-        "lightgbm_tpu/ops/multival.py:450",
-        time_ms(lambda: MV.hist_multival_planar_cuda(data, 0, n, **kw)),
-        time_ms(lambda: MV.histogram_multival_planar_plain(data, 0, n, **kw),
-                reps=3),
-        n * (layout.mv_planes + 1) * 4 + out_b, lib_ms, what)
-    _quant_entry(
-        report, "hist_multival_q", "lightgbm_tpu_torch/csrc/hist_multival.cu",
-        "lightgbm_tpu/ops/multival.py:377",
-        time_ms(lambda: MV.hist_multival_cuda(sm, gh, total_bins=t,
-                                              quant=True)),
-        time_ms(lambda: MV.histogram_multival_plain(sm, gh, total_bins=t,
-                                                    quant=True), reps=3),
-        n * (kp * 4 + 4) + out_b, lib_ms, what)
+    _mv_timings(
+        report, "hist_multival_planar_q", "lightgbm_tpu/ops/multival.py:450",
+        0.0, lambda c: MV.hist_multival_planar_cuda(data, 0, c, **kw),
+        lambda c: MV.histogram_multival_planar_plain(data, 0, c, **kw),
+        lambda c: c * (layout.mv_planes + 1) * 4 + out_b, lib,
+        f"K={kp}, T={t}, 4 levels, int32", sizes)
+    _mv_timings(
+        report, "hist_multival_q", "lightgbm_tpu/ops/multival.py:377", 0.0,
+        lambda c: MV.hist_multival_cuda(*small[c], total_bins=t, quant=True),
+        lambda c: MV.histogram_multival_plain(*small[c], total_bins=t,
+                                              quant=True),
+        lambda c: c * (kp * 4 + 4) + out_b, lib,
+        f"K={kp}, T={t}, 4 levels, int32, slot-major", sizes)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """float32 tensors equal bit for bit, NaN equal to NaN."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+def check_xla_float(dev):
+    """XLA:CPU's float32 arithmetic that the port reproduces (so that
+    its gradients carry the JAX package's bits) gives the CPU's bits on
+    the card: ``exp_f32`` on 2^24 inputs spread over every float32 bit
+    pattern (stride 256), ``fma_f32`` on 2^20 random triples, and the
+    binary gradients (get_gradients with weights, persistent_grads) and
+    the predict transform on 2^22 scores."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objective.functions import BinaryLogloss
+    from lightgbm_tpu_torch.ops import xla_float as XF
+    n = 1 << 24
+    x = ((torch.arange(n, dtype=torch.int64) * 256 + 77) & 0xFFFFFFFF).to(
+        torch.int32).view(torch.float32)
+    t0 = time.perf_counter()
+    assert _same_bits(XF.exp_f32(x.to(dev)).cpu(), XF.exp_f32(x)), \
+        "exp_f32: the card differs from the CPU"
+    rng = np.random.RandomState(31)
+    m = 1 << 20
+    abc = [torch.as_tensor((rng.randn(m) * np.exp(rng.uniform(-30, 30, m)))
+                           .astype(np.float32)) for _ in range(3)]
+    assert _same_bits(XF.fma_f32(*(v.to(dev) for v in abc)).cpu(),
+                      XF.fma_f32(*abc)), "fma_f32: the card differs"
+
+    k = 1 << 22
+
+    class _Meta:
+        label = (rng.rand(k) > 0.45).astype(np.float32)
+        weights = rng.uniform(0.2, 3.0, k).astype(np.float32)
+    obj = BinaryLogloss(Config.from_params({"objective": "binary",
+                                            "scale_pos_weight": 1.3}))
+    obj.init(_Meta, k)
+    score = torch.as_tensor((rng.randn(k) * 4).astype(np.float32))
+    score[:4096] = torch.linspace(-120.0, 120.0, 4096)
+    aux = torch.as_tensor(obj.persistent_aux()[0])
+    for name, card, cpu in (
+            ("get_gradients", obj.get_gradients(score.to(dev)),
+             obj.get_gradients(score)),
+            ("persistent_grads",
+             obj.persistent_grads(score.to(dev), aux.to(dev), None),
+             obj.persistent_grads(score, aux, None)),
+            ("convert_output", (obj.convert_output(score.to(dev)),),
+             (obj.convert_output(score),))):
+        for a, b in zip(card, cpu):
+            assert _same_bits(a.cpu(), b), f"{name}: the card differs"
+    log(f"xla_float: exp_f32 on {n} inputs over the float32 range, "
+        f"fma_f32 on {m} triples, binary gradients (weighted) and the "
+        f"predict transform on {k} scores: card == CPU bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -1293,6 +1401,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     wide = wide_data(args.wide_rows, 100_000, "cuda")
+    check_xla_float(dev)
     if args.profile:
         profile_paths(args, wide)
         return 0     # a profile prints no smoke result

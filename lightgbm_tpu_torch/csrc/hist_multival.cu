@@ -14,229 +14,392 @@
 // -1 pad) adds nothing, and slot 0 carries the sentinel T, so cell T
 // ends up holding the window's totals. Output [T + 1, 2] float32.
 // Grad/hess may be rounded to bfloat16 (round to nearest even) first.
+// A row's codes are distinct cells (one per group, plus the sentinel).
 //
 // Quantized mode (both TPU kernels' quant=True): the grad plane (B5) or
 // lane row 0 (B6) holds one packed (qg << 16) | (qh & 0xFFFF) word per
-// row; each row's word is unpacked (arithmetic >> 16, & 0xFFFF) before
-// it is added, and the levels are summed exactly in int32: output
-// [T + 1, 2] int32. The same template serves both modes; integer sums
-// give the same bits in any order.
+// row; each row's word is unpacked (arithmetic >> 16, & 0xFFFF) and the
+// levels are summed exactly in int32: output [T + 1, 2] int32.
 //
 // What bounds it on the card: bytes. The least work reads each row's K
 // slot words and its grad/hess once (count * (K + 2) * 4 bytes) and
-// writes [T + 1, 2]. This version is latency bound instead: each warp
-// walks its rows one at a time.
+// writes [T + 1, 2]. About 10 of a row's 40 slots are live at the
+// wide-sparse shape, so the adds are few; what costs is latency.
 //
-// Design. One warp owns a tile of kTile rows and a private histogram:
-// in shared memory when (T + 1) fits, else its slice of the global
-// partials. The warp stages a few rows' slot codes (coalesced over
-// rows), then takes the rows in order; lane l adds the row's slots l,
-// l + 32, ... A row's present codes are distinct cells (one per group,
-// plus the sentinel), so the lanes never collide inside a row, and a
-// __syncwarp after each row orders the read-modify-writes of one cell
-// across rows: every cell is summed in row order, with no atomics.
-// Pass 2 sums the tiles' partials in tile order. The plain PyTorch
-// version (ops/multival.py) sums in the same association, so the two
-// agree bit for bit on the CPU, and every launch gives the same bits.
+// Float modes: no float atomics. Every cell is summed in row order
+// inside its tile of kTile rows (relative to the window's start), and
+// mv_reduce sums the tiles' partials in tile order, so every launch
+// gives the same bits, and so does the plain PyTorch version
+// (ops/multival.py _tiled_flat, MV_TILE). mv_tiles gives one block to
+// each tile and splits the work over cells, not rows:
+//   1. thread r of the block takes row r: it stages the row's grad/hess
+//      in shared memory and reads the row's K slot codes (coalesced over
+//      rows, kLoadBatch loads in flight), setting bit r of the cell's
+//      row mask for each live code (integer atomicOr: order-free). The
+//      mask is kTile bits per cell, one 32-bit word per warp of rows.
+//   2. thread t then owns cells t, t + kThreads, ...: for each, it walks
+//      the cell's mask words in row order and adds the marked rows'
+//      grad/hess from shared memory in row order, in registers: a cell
+//      with few rows costs a few adds (two rows' loads in flight per
+//      step), a dense word (the sentinel's) is added from 32 staged
+//      values by selects. The chain per launch is the densest cell's
+//      rows, not the tile's 512 rows times K. Measured on the H100 the
+//      fold is still about half of a block's time (PERF.md).
+// A block holds at most kBlockCells cells' masks; past that the grid's
+// second dimension splits the cells into even ranges, each block adding
+// only codes in its range (each range reads the tile's codes again).
+// mv_reduce stages the partials of 16 cells for kRedChunk tiles at a
+// time in shared memory (cp.async, double-buffered) and one warp adds
+// them in tile order; the tile count is read from the device count.
+//
+// Int32 mode: integer sums give the same bits in any order, so mv_quant
+// lets the 1024 threads of about kQBlocks blocks take (slot, row)
+// elements (four loads in flight) and add into one shared [T + 1, 2]
+// int32 histogram by shared atomics; the sentinel cell, which every row
+// hits, is summed in registers and added once per warp. The block's
+// nonzero cells go into the zeroed output by global atomics: no
+// partials. The rows per block are sized on the device from the count.
+// Past kQSmemCells cells every element adds straight into the output.
+//
+// The fused learner sizes a child's launch by its parent's count
+// (max_count) and passes the window on the device: tiles and blocks
+// past the real count leave at once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
-constexpr int kTile = 512;          // rows per warp tile
-constexpr int kWarps = 4;           // warps (tiles) per block
-constexpr int kStage = 2048;        // staged slot words per warp
-constexpr int kMaxRowsStaged = 32;
-constexpr int kSmemHistMax = 192 * 1024;   // shared bytes for histograms
+constexpr int kTile = 512;                // rows per tile (MV_TILE)
+constexpr int kWords = kTile / 32;        // mask words per cell
+constexpr int kThreads = kTile;           // float mode: one row each
+constexpr int kBlockCells = 2048;         // cells per float block
+constexpr int kLoadBatch = 16;            // slot loads in flight
+constexpr int kDense = 8;                 // set bits of a dense word
+constexpr int kMaxSlots = 4096;
+constexpr int kRedFloats = 32;            // reduce: 16 cells per block
+constexpr int kRedChunk = 256;            // reduce: tiles per stage
+constexpr int kRedThreads = 256;
+constexpr int kQThreads = 1024;
+constexpr long long kQBlocks = 132;       // int32 mode: one per SM
+constexpr long long kQMinRows = 64;
+constexpr int kSmemBudget = 232448;       // dynamic shared memory
+constexpr int kQSmemCells = kSmemBudget / 8;
 
+__host__ __device__ inline long long ceil_div(long long a, long long b) {
+  return (a + b - 1) / b;
+}
+
+// the lane window: device int32 scalars, or host ints when null
 struct Window {
-  const int32_t* start_d;   // device scalars, or null
-  const int32_t* count_d;
+  const int32_t* start_p;
+  const int32_t* count_p;
   int start_h;
   int count_h;
+  __device__ int start() const { return start_p ? *start_p : start_h; }
+  __device__ int count() const { return count_p ? *count_p : count_h; }
 };
 
-__device__ __forceinline__ int win_start(const Window& w) {
-  return w.start_d ? w.start_d[0] : w.start_h;
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
 }
-__device__ __forceinline__ int win_count(const Window& w) {
-  return w.count_d ? w.count_d[0] : w.count_h;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// kQuant: packed levels in gplane (hplane unused), int32 sums
-template <bool kQuant>
-struct Mode {
-  using Acc = float;
-  using Acc2 = float2;
-};
-template <>
-struct Mode<true> {
-  using Acc = int32_t;
-  using Acc2 = int2;
-};
+// one mask word of a cell (32 rows from row 32 * k) added in row order
+__device__ __forceinline__ void fold_word(unsigned m, const float* g,
+                                          const float* h, float& ag,
+                                          float& ah) {
+  if (__popc(m) >= kDense) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {       // select, never add a zero
+      const bool on = (m >> j) & 1u;
+      const float a = ag + g[j];
+      const float b = ah + h[j];
+      ag = on ? a : ag;
+      ah = on ? b : ah;
+    }
+  } else {              // two rows per step: both loads in flight
+    while (m) {
+      const int j0 = __ffs(m) - 1;
+      m &= m - 1u;
+      const bool two = m != 0u;
+      const int j1 = two ? __ffs(m) - 1 : j0;
+      m &= m - 1u;
+      const float g0 = g[j0], h0 = h[j0], g1 = g[j1], h1 = h[j1];
+      ag += g0;
+      ah += h0;
+      if (two) {
+        ag += g1;
+        ah += h1;
+      }
+    }
+  }
+}
 
-template <bool kSmemHist, bool kQuant>
-__global__ void __launch_bounds__(32 * kWarps)
-mv_partials(const int32_t* __restrict__ slots, long long plane_stride,
-            int kp, int stage_words, const int32_t* __restrict__ gplane,
-            const int32_t* __restrict__ hplane, Window w, int total_bins,
-            int round_bf16,
-            typename Mode<kQuant>::Acc2* __restrict__ partials) {
-  using Acc = typename Mode<kQuant>::Acc;
-  using Acc2 = typename Mode<kQuant>::Acc2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int start = win_start(w);
-  const int count = win_count(w);
-  const int tile = blockIdx.x * kWarps + warp;
-  const int row0 = tile * kTile;
-  if (row0 >= count) return;          // past the window: tile unused
+__global__ void __launch_bounds__(kThreads, 2)
+mv_tiles(const int32_t* __restrict__ slots, long long stride, int kp,
+         const int32_t* __restrict__ gplane,
+         const int32_t* __restrict__ hplane, Window win, int total_bins,
+         int ncb, int round_bf16, float2* __restrict__ partials) {
+  extern __shared__ __align__(16) float smem[];
+  float* sg = smem;                                  // [kTile]
+  float* sh = smem + kTile;                          // [kTile]
+  unsigned* mask = reinterpret_cast<unsigned*>(smem + 2 * kTile);
+  const int count = win.count();
+  const int row0 = blockIdx.x * kTile;
+  if (row0 >= count) return;                         // past the window
   const int rows = min(kTile, count - row0);
   const int cells = total_bins + 1;
-
-  // shared layout: int32 stage[kWarps][stage_words],
-  // Acc gh[kWarps][2][kMaxRowsStaged], Acc2 hist[kWarps][cells]
-  int32_t* stage_all = reinterpret_cast<int32_t*>(smem);
-  Acc* gh_all = reinterpret_cast<Acc*>(stage_all + kWarps * stage_words);
-  int32_t* stage = stage_all + warp * stage_words;
-  Acc* sg = gh_all + warp * 2 * kMaxRowsStaged;
-  Acc* sh = sg + kMaxRowsStaged;
-  Acc2* hist = kSmemHist
-      ? reinterpret_cast<Acc2*>(gh_all + kWarps * 2 * kMaxRowsStaged) +
-            (size_t)warp * cells
-      : partials + (size_t)tile * cells;
-  for (int c = lane; c < cells; c += 32) hist[c] = Acc2{0, 0};
-  __syncwarp();
-
-  const int rps = stage_words / kp;   // rows per stage
-  const long long base = (long long)start + row0;
-  for (int r0 = 0; r0 < rows; r0 += rps) {
-    const int nr = min(rps, rows - r0);
-    for (int i = lane; i < kp * nr; i += 32) {
-      const int s = i / nr;
-      const int r = i - s * nr;
-      stage[s * nr + r] = slots[(long long)s * plane_stride + base + r0 + r];
+  const int c0 = blockIdx.y * ncb;
+  const int nc = min(ncb, cells - c0);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kWords * ncb; i += kThreads) mask[i] = 0u;
+  const long long base = (long long)win.start() + row0;
+  if (tid < rows) {
+    float g = __int_as_float(gplane[base + tid]);
+    float h = __int_as_float(hplane[base + tid]);
+    if (round_bf16) {
+      g = __bfloat162float(__float2bfloat16_rn(g));
+      h = __bfloat162float(__float2bfloat16_rn(h));
     }
-    if (lane < nr) {
-      if constexpr (kQuant) {
-        const int32_t wd = gplane[base + r0 + lane];
-        sg[lane] = wd >> 16;    // arithmetic shift: qg keeps its sign
-        sh[lane] = wd & 0xFFFF;
+    sg[tid] = g;
+    sh[tid] = h;
+  }
+  __syncthreads();
+  if (tid < rows) {                    // 1. mark the row in its cells
+    const int32_t* sp = slots + base + tid;
+    unsigned* mrow = mask + (tid >> 5) * ncb;
+    const unsigned bit = 1u << (tid & 31);
+    for (int s0 = 0; s0 < kp; s0 += kLoadBatch) {
+      int32_t code[kLoadBatch];
+#pragma unroll
+      for (int k = 0; k < kLoadBatch; ++k) {
+        code[k] = s0 + k < kp ? sp[(long long)(s0 + k) * stride] : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < kLoadBatch; ++k) {
+        const unsigned local = (unsigned)(code[k] - c0);
+        if (code[k] >= 0 && local < (unsigned)nc) atomicOr(mrow + local, bit);
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < nc; c += kThreads) {     // 2. fold in row order
+    unsigned m[kWords];
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) m[k] = mask[k * ncb + c];
+    float ag = 0.f, ah = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      if (m[k]) fold_word(m[k], sg + 32 * k, sh + 32 * k, ag, ah);
+    }
+    partials[(size_t)blockIdx.x * cells + c0 + c] = make_float2(ag, ah);
+  }
+}
+
+// the tiles' partials in tile order: block b adds floats
+// [b * kRedFloats, ...) of every tile's [cells2] row
+__global__ void __launch_bounds__(kRedThreads)
+mv_reduce(const float* __restrict__ partials, Window win, int grid_tiles,
+          int cells2, float* __restrict__ out) {
+  extern __shared__ __align__(16) float rbuf[];   // [2][kRedChunk][32]
+  const int count = win.count();
+  const int ntiles =
+      (int)min((long long)grid_tiles, ceil_div(count, kTile));
+  const int f0 = blockIdx.x * kRedFloats;
+  const int nf = min(kRedFloats, cells2 - f0);
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int nchunks = (int)ceil_div(ntiles, kRedChunk);
+  auto issue = [&](int ch) {
+    const int t0 = ch * kRedChunk;
+    const int nt = min(kRedChunk, ntiles - t0);
+    float* b = rbuf + (ch & 1) * kRedChunk * kRedFloats;
+    if (lane < nf) {
+      for (int t = wp; t < nt; t += kRedThreads / 32) {
+        cp_async4(b + t * kRedFloats + lane,
+                  partials + (size_t)(t0 + t) * cells2 + f0 + lane);
+      }
+    }
+    cp_async_commit();
+  };
+  float s = 0.f;
+  if (nchunks > 0) issue(0);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      issue(ch + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (wp == 0) {                                 // fixed tile order
+      const int nt = min(kRedChunk, ntiles - ch * kRedChunk);
+      const float* b = rbuf + (ch & 1) * kRedChunk * kRedFloats + lane;
+      for (int t = 0; t < nt; ++t) s += b[t * kRedFloats];
+    }
+    __syncthreads();                  // the buffer is issued again next
+  }
+  if (wp == 0 && lane < nf) out[f0 + lane] = s;
+}
+
+// kShared: the histogram lives in shared memory (zeroed, then folded
+// into `out`); otherwise every element adds straight into `out`
+template <bool kShared>
+__global__ void __launch_bounds__(kQThreads)
+mv_quant(const int32_t* __restrict__ slots, long long stride, int kp,
+         const int32_t* __restrict__ words, Window win, int total_bins,
+         int32_t* __restrict__ out) {
+  extern __shared__ int32_t qhist[];               // [cells][2]
+  const int count = win.count();
+  const long long rpb = ceil_div(count, kQBlocks) > kQMinRows
+                            ? ceil_div(count, kQBlocks)
+                            : kQMinRows;
+  const long long row0 = (long long)blockIdx.x * rpb;
+  if (row0 >= count) return;                       // the whole block
+  const int rows = (int)min(rpb, (long long)count - row0);
+  const int cells2 = (total_bins + 1) * 2;
+  int32_t* hist = kShared ? qhist : out;
+  if (kShared) {
+    for (int i = threadIdx.x; i < cells2; i += kQThreads) hist[i] = 0;
+    __syncthreads();
+  }
+  const long long base = (long long)win.start() + row0;
+  const int32_t* sp = slots + base;
+  const int32_t* wp = words + base;
+  // element (s, r) = s * rows + r, advanced by kQThreads without dividing
+  int s = threadIdx.x / rows, r = threadIdx.x % rows;
+  const int ds = kQThreads / rows, dr = kQThreads % rows;
+  int32_t tg = 0, th = 0;                          // the sentinel's sums
+  while (s < kp) {
+    int32_t code[4], wd[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      code[k] = -1;
+      wd[k] = 0;
+      if (s < kp) {
+        code[k] = sp[(long long)s * stride + r];
+        wd[k] = wp[r];
+      }
+      s += ds;
+      r += dr;
+      if (r >= rows) {
+        r -= rows;
+        ++s;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if ((unsigned)code[k] > (unsigned)total_bins) continue;
+      const int32_t qg = wd[k] >> 16;      // arithmetic: qg keeps its sign
+      const int32_t qh = wd[k] & 0xFFFF;
+      if (code[k] == total_bins) {
+        tg += qg;
+        th += qh;
       } else {
-        float g = __int_as_float(gplane[base + r0 + lane]);
-        float h = __int_as_float(hplane[base + r0 + lane]);
-        if (round_bf16) {
-          g = __bfloat162float(__float2bfloat16_rn(g));
-          h = __bfloat162float(__float2bfloat16_rn(h));
-        }
-        sg[lane] = g;
-        sh[lane] = h;
+        int32_t* cell = hist + 2 * code[k];
+        if (qg) atomicAdd(cell, qg);
+        if (qh) atomicAdd(cell + 1, qh);
       }
     }
-    __syncwarp();
-    for (int r = 0; r < nr; ++r) {    // fixed row order
-      const Acc g = sg[r];
-      const Acc h = sh[r];
-      for (int s = lane; s < kp; s += 32) {
-        const int c = stage[s * nr + r];
-        if (c >= 0 && c <= total_bins) {
-          Acc2 v = hist[c];
-          v.x += g;
-          v.y += h;
-          hist[c] = v;
-        }
-      }
-      __syncwarp();
+  }
+  tg = __reduce_add_sync(0xFFFFFFFFu, tg);
+  th = __reduce_add_sync(0xFFFFFFFFu, th);
+  if ((threadIdx.x & 31) == 0) {
+    if (tg) atomicAdd(hist + 2 * total_bins, tg);
+    if (th) atomicAdd(hist + 2 * total_bins + 1, th);
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < cells2; i += kQThreads) {
+      const int32_t v = hist[i];
+      if (v) atomicAdd(out + i, v);
     }
   }
-  if (kSmemHist) {
-    Acc2* dst = partials + (size_t)tile * cells;
-    for (int c = lane; c < cells; c += 32) dst[c] = hist[c];
-  }
 }
 
-template <typename Acc2>
-__global__ void mv_reduce(const Acc2* __restrict__ partials, Window w,
-                          int grid_tiles, int cells,
-                          Acc2* __restrict__ out) {
-  const int count = win_count(w);
-  const int ntiles = min(grid_tiles, (count + kTile - 1) / kTile);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cells) return;
-  Acc2 s{0, 0};
-  for (int t = 0; t < ntiles; ++t) {  // fixed tile order
-    const Acc2 p = partials[(size_t)t * cells + c];
-    s.x += p.x;
-    s.y += p.y;
-  }
-  out[c] = s;
+template <typename Kernel>
+cudaError_t allow_smem(Kernel k, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
-// staged slot words per warp: kp slots of up to kMaxRowsStaged rows
-int stage_words_for(int kp) {
-  int rps = kStage / kp;
-  if (rps > kMaxRowsStaged) rps = kMaxRowsStaged;
-  return kp * rps;
-}
-
-size_t stage_bytes(int stage_words) {
-  return (size_t)kWarps * stage_words * 4 +
-         (size_t)kWarps * 2 * kMaxRowsStaged * 4;
-}
-
-template <bool kQuant>
-int launch(const int32_t* slots, long long plane_stride, int kp,
-           const int32_t* gplane, const int32_t* hplane, Window w,
-           int max_count, int total_bins, int round_bf16, void* partials,
-           void* out, void* stream) {
-  using Acc2 = typename Mode<kQuant>::Acc2;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (kp < 1 || kp > kStage || total_bins < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+int launch_float(const int32_t* slots, long long stride, int kp,
+                 const int32_t* gplane, const int32_t* hplane, Window win,
+                 int max_count, int total_bins, int round_bf16,
+                 float* partials, float* out, cudaStream_t s) {
   const int cells = total_bins + 1;
-  int grid_tiles = (max_count + kTile - 1) / kTile;
-  if (grid_tiles < 1) grid_tiles = 1;
-  const int blocks = (grid_tiles + kWarps - 1) / kWarps;
-  Acc2* parts = static_cast<Acc2*>(partials);
-  const size_t hist_bytes = (size_t)kWarps * cells * sizeof(Acc2);
-  const int sw = stage_words_for(kp);
+  const int grid_tiles = (int)(max_count > kTile
+                                   ? ceil_div(max_count, kTile) : 1);
   cudaError_t e;
-  if (hist_bytes <= (size_t)kSmemHistMax) {
-    const size_t bytes = stage_bytes(sw) + hist_bytes;
-    e = cudaFuncSetAttribute(mv_partials<true, kQuant>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    mv_partials<true, kQuant><<<blocks, 32 * kWarps, bytes, s>>>(
-        slots, plane_stride, kp, sw, gplane, hplane, w, total_bins,
-        round_bf16, parts);
-  } else {
-    mv_partials<false, kQuant><<<blocks, 32 * kWarps, stage_bytes(sw), s>>>(
-        slots, plane_stride, kp, sw, gplane, hplane, w, total_bins,
-        round_bf16, parts);
+  if (max_count > 0) {
+    // cells per block: all of them up to kBlockCells, else even ranges
+    const int ny = (int)ceil_div(cells, kBlockCells);
+    const int ncb = (int)ceil_div(cells, ny);
+    if (ny > 65535) return (int)cudaErrorInvalidValue;
+    const int smem = (2 * kTile + kWords * ncb) * 4;
+    if ((e = allow_smem(mv_tiles, smem)) != cudaSuccess) return (int)e;
+    mv_tiles<<<dim3(grid_tiles, ny), kThreads, smem, s>>>(
+        slots, stride, kp, gplane, hplane, win, total_bins, ncb, round_bf16,
+        reinterpret_cast<float2*>(partials));
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  mv_reduce<Acc2><<<(cells + 255) / 256, 256, 0, s>>>(
-      parts, w, grid_tiles, cells, static_cast<Acc2*>(out));
+  const int rsmem = 2 * kRedChunk * kRedFloats * 4;
+  if ((e = allow_smem(mv_reduce, rsmem)) != cudaSuccess) return (int)e;
+  mv_reduce<<<(int)ceil_div(2 * cells, kRedFloats), kRedThreads, rsmem, s>>>(
+      partials, win, grid_tiles, 2 * cells, out);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const int32_t* slots, long long plane_stride, int kp,
-             const int32_t* gplane, const int32_t* hplane, Window w,
+int launch_quant(const int32_t* slots, long long stride, int kp,
+                 const int32_t* words, Window win, int max_count,
+                 int total_bins, int32_t* out, cudaStream_t s) {
+  const int cells = total_bins + 1;
+  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)cells * 2 * 4, s);
+  if (e != cudaSuccess || max_count == 0) return (int)e;
+  // enough blocks for any count <= max_count (mv_quant sizes its rows
+  // from the device count: max(kQMinRows, ceil(count / kQBlocks)))
+  const int nblocks = (int)(ceil_div(max_count, kQMinRows) < kQBlocks
+                                ? ceil_div(max_count, kQMinRows)
+                                : kQBlocks);
+  if (cells <= kQSmemCells) {
+    const int smem = cells * 8;
+    if ((e = allow_smem(mv_quant<true>, smem)) != cudaSuccess) return (int)e;
+    mv_quant<true><<<nblocks, kQThreads, smem, s>>>(
+        slots, stride, kp, words, win, total_bins, out);
+  } else {                            // beyond shared memory
+    mv_quant<false><<<nblocks, kQThreads, 0, s>>>(
+        slots, stride, kp, words, win, total_bins, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const int32_t* slots, long long stride, int kp,
+             const int32_t* gplane, const int32_t* hplane, Window win,
              int max_count, int total_bins, int round_bf16, int quant,
              void* partials, void* out, void* stream) {
-  if (quant) {
-    return launch<true>(slots, plane_stride, kp, gplane, hplane, w,
-                        max_count, total_bins, 0, partials, out, stream);
+  if (kp < 1 || kp > kMaxSlots || total_bins < 0 || max_count < 0 ||
+      (long long)(total_bins + 1) * 2 > 0x7FFFFFFFLL ||
+      (!quant && partials == nullptr)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return launch<false>(slots, plane_stride, kp, gplane, hplane, w, max_count,
-                       total_bins, round_bf16, partials, out, stream);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (quant) {
+    return launch_quant(slots, stride, kp, gplane, win, max_count,
+                        total_bins, static_cast<int32_t*>(out), s);
+  }
+  return launch_float(slots, stride, kp, gplane, hplane, win, max_count,
+                      total_bins, round_bf16, static_cast<float*>(partials),
+                      static_cast<float*>(out), s);
 }
 
 }  // namespace
@@ -244,16 +407,18 @@ int dispatch(const int32_t* slots, long long plane_stride, int kp,
 extern "C" {
 
 int lgbt_mv_tile() { return kTile; }
-int lgbt_mv_max_slots() { return kStage; }
-int lgbt_mv_smem_cells() {
-  return kSmemHistMax / (kWarps * (int)sizeof(float2));
-}
+int lgbt_mv_max_slots() { return kMaxSlots; }
+// cells one float-mode block holds (past that the cells are split over
+// the grid) and cells the int32 mode's shared histogram holds
+int lgbt_mv_smem_cells() { return kBlockCells; }
+int lgbt_mv_quant_smem_cells() { return kQSmemCells; }
 
 // Planar-state entry (histogram_multival_planar). data: [P, R] int32;
 // win_start / win_count: device int32 scalars or null (then start_h /
-// count_h); max_count bounds the count and sizes the launch. partials:
-// max(1, ceil(max_count / kTile)) * (total_bins + 1) * 2 floats (int32
-// when quant: the grad plane then holds packed levels).
+// count_h); max_count bounds the count and sizes the launch. partials
+// (float modes; null under quant): max(1, ceil(max_count / kTile)) *
+// (total_bins + 1) * 2 floats. quant: the grad plane holds packed
+// levels and out is int32.
 int lgbt_hist_multival_planar(const int32_t* data, long long R,
                               const int32_t* win_start,
                               const int32_t* win_count, int start_h,
@@ -261,7 +426,7 @@ int lgbt_hist_multival_planar(const int32_t* data, long long R,
                               int mv_planes, int grad_plane, int total_bins,
                               int round_bf16, int quant, void* partials,
                               void* out, void* stream) {
-  Window w{win_start, win_count, start_h, count_h};
+  const Window w{win_start, win_count, start_h, count_h};
   return dispatch(data + (long long)mv_start * R, R, mv_planes,
                   data + (long long)grad_plane * R,
                   data + (long long)(grad_plane + 1) * R, w, max_count,
@@ -275,7 +440,7 @@ int lgbt_hist_multival_planar(const int32_t* data, long long R,
 int lgbt_hist_multival(const int32_t* codes, const int32_t* gh, int kp,
                        int C, int total_bins, int round_bf16, int quant,
                        void* partials, void* out, void* stream) {
-  Window w{nullptr, nullptr, 0, C};
+  const Window w{nullptr, nullptr, 0, C};
   return dispatch(codes, C, kp, gh, gh + C, w, C, total_bins, round_bf16,
                   quant, partials, out, stream);
 }

@@ -17,16 +17,21 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..ops.xla_float import exp_f32, flush_f32
 from ..utils import log
 
 
-def _exp_f32(x: torch.Tensor) -> torch.Tensor:
-    """float32 exp evaluated in float64 and rounded: the card's and the
-    CPU's float32 exp differ in the last bit, which would make their
-    gradients, and so their trees, drift apart; the rounded float64
-    result is the same on both (but for a double-rounding case about
-    once in 2^29 values)."""
-    return torch.exp(x.to(torch.float64)).to(torch.float32)
+def _binary_grads(sign, lw, sigmoid: float, score):
+    """Binary logloss (grad, hess) in the JAX package's float32 ops, with
+    the bits its jitted CPU code gives: XLA's float32 ``exp``
+    (``exp_f32``, also the same bits on the card) and subnormal results
+    flushed to zero (``flush_f32``; they arise for scores far from 0)."""
+    response = flush_f32(-sign * sigmoid /
+                         (1.0 + exp_f32(sign * sigmoid * score)))
+    abs_resp = torch.abs(response)
+    g = flush_f32(response * lw)
+    h = flush_f32(flush_f32(abs_resp * (sigmoid - abs_resp)) * lw)
+    return g, h
 
 
 class ObjectiveFunction:
@@ -108,7 +113,7 @@ class BinaryLogloss(ObjectiveFunction):
         w_pos *= self.scale_pos_weight
         self._sign = np.where(is_pos, 1.0, -1.0).astype(np.float32)
         self._lw = np.where(is_pos, w_pos, w_neg).astype(np.float32)
-        self._row_consts = None     # (device, sign, lw, weights) tensors
+        self._row_consts = None     # (device, sign, per-row weight)
 
     def persistent_aux(self):
         # one aux plane: signed per-row weight sign*lw*w (sign in {+-1},
@@ -119,33 +124,20 @@ class BinaryLogloss(ObjectiveFunction):
         return aux, None
 
     def get_gradients(self, score):
-        # the JAX package's BinaryLogloss.get_gradients: sign and label
-        # weight as float32 constants, the row weights applied last
+        # the JAX package's BinaryLogloss.get_gradients jits with the
+        # label weights and row weights as constants, and XLA folds
+        # (x * lw) * w into x * (lw * w): one float32 weight per row
         dev = score.device
         if self._row_consts is None or self._row_consts[0] != dev:
-            self._row_consts = (dev, *(
-                None if a is None else torch.as_tensor(a, device=dev)
-                for a in (self._sign, self._lw, self.weights)))
-        _, sign, lw, w = self._row_consts
-        s = score.to(torch.float32)
-        response = -sign * self.sigmoid / \
-            (1.0 + _exp_f32(sign * self.sigmoid * s))
-        abs_resp = torch.abs(response)
-        g = response * lw
-        h = abs_resp * (self.sigmoid - abs_resp) * lw
-        if w is not None:
-            g, h = g * w, h * w
-        return g, h
+            lw = self._lw if self.weights is None else self._lw * self.weights
+            self._row_consts = (dev, torch.as_tensor(self._sign, device=dev),
+                                torch.as_tensor(lw, device=dev))
+        _, sign, lw = self._row_consts
+        return _binary_grads(sign, lw, self.sigmoid, score.to(torch.float32))
 
     def persistent_grads(self, score, label, weight):
-        sign = torch.sign(label)
-        lw = torch.abs(label)
-        response = -sign * self.sigmoid / \
-            (1.0 + _exp_f32(sign * self.sigmoid * score))
-        abs_resp = torch.abs(response)
-        g = response * lw
-        h = abs_resp * (self.sigmoid - abs_resp) * lw
-        return g, h
+        return _binary_grads(torch.sign(label), torch.abs(label),
+                             self.sigmoid, score)
 
     def boost_from_score(self, class_id):
         if self.weights is not None:
@@ -161,7 +153,8 @@ class BinaryLogloss(ObjectiveFunction):
         return initscore
 
     def convert_output(self, raw):
-        return 1.0 / (1.0 + torch.exp(-self.sigmoid * raw))
+        # the JAX package jits this on float32 scores: XLA's exp, flush
+        return flush_f32(1.0 / (1.0 + exp_f32(-self.sigmoid * raw)))
 
     def to_string(self):
         return f"{self.name} sigmoid:{self.sigmoid}"

@@ -72,6 +72,7 @@ _SIGNATURES = {
         "lgbt_mv_tile": ([], _I),
         "lgbt_mv_max_slots": ([], _I),
         "lgbt_mv_smem_cells": ([], _I),
+        "lgbt_mv_quant_smem_cells": ([], _I),
         "lgbt_hist_multival_planar": ([_P, _L, _P, _P, _I, _I, _I, _I, _I,
                                        _I, _I, _I, _I, _P, _P, _P], _I),
         "lgbt_hist_multival": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -303,6 +303,25 @@ def _mv_lib(slots: int, total_bins: int):
     return lib
 
 
+def _mv_buffers(lib, max_count: int, total_bins: int, quant: bool, dev):
+    """(partials, output) of one launch: the float modes sum per-tile
+    partials of [T+1, 2] floats, one per MV_TILE rows of ``max_count``;
+    the int32 mode adds straight into its output and takes no partials
+    (None)."""
+    if quant:
+        return None, torch.empty((total_bins + 1, 2), dtype=torch.int32,
+                                 device=dev)
+    tiles = max(1, -(-max_count // lib.lgbt_mv_tile()))
+    partials = torch.empty(tiles * (total_bins + 1) * 2,
+                           dtype=torch.float32, device=dev)
+    out = torch.empty((total_bins + 1, 2), dtype=torch.float32, device=dev)
+    return partials, out
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def hist_multival_planar_cuda(data: torch.Tensor, start, count, *,
                               mv_start: int, mv_planes: int,
                               total_bins: int, grad_plane: int,
@@ -326,17 +345,12 @@ def hist_multival_planar_cuda(data: torch.Tensor, start, count, *,
     dev = data.device
     sp, cp, sh, ch, max_count = _window_args(start, count, max_count, R, dev)
     lib = _mv_lib(mv_planes, total_bins)
-    tiles = max(1, -(-max_count // lib.lgbt_mv_tile()))
-    acc = torch.int32 if quant else torch.float32
-    partials = torch.empty(tiles * (total_bins + 1) * 2, dtype=acc,
-                           device=dev)
-    out = torch.empty((total_bins + 1, 2), dtype=acc, device=dev)
+    partials, out = _mv_buffers(lib, max_count, total_bins, quant, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     K.check(lib.lgbt_hist_multival_planar(
         data.data_ptr(), R, sp, cp, sh, ch, max_count, mv_start, mv_planes,
         grad_plane, total_bins, int(dtype == torch.bfloat16), int(quant),
-        partials.data_ptr(), out.data_ptr(), stream),
-        "hist_multival_planar_cuda")
+        _ptr(partials), out.data_ptr(), stream), "hist_multival_planar_cuda")
     K.LAUNCHES["hist_multival_planar_q" if quant
                else "hist_multival_planar"] += 1
     return out
@@ -376,15 +390,11 @@ def hist_multival_cuda(codes: torch.Tensor, gh: torch.Tensor, *,
     codes, gh = codes.contiguous(), gh.contiguous()
     dev = codes.device
     lib = _mv_lib(kp, total_bins)
-    tiles = max(1, -(-c // lib.lgbt_mv_tile()))
-    acc = torch.int32 if quant else torch.float32
-    partials = torch.empty(tiles * (total_bins + 1) * 2, dtype=acc,
-                           device=dev)
-    out = torch.empty((total_bins + 1, 2), dtype=acc, device=dev)
+    partials, out = _mv_buffers(lib, c, total_bins, quant, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     K.check(lib.lgbt_hist_multival(
         codes.data_ptr(), gh.data_ptr(), kp, c, total_bins,
-        int(dtype == torch.bfloat16), int(quant), partials.data_ptr(),
+        int(dtype == torch.bfloat16), int(quant), _ptr(partials),
         out.data_ptr(), stream), "hist_multival_cuda")
     K.LAUNCHES["hist_multival_q" if quant else "hist_multival"] += 1
     return out

@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import threefry
+from .xla_float import f32_reciprocal
 
 # one packed (qg, qh) word per row
 PACKED_BYTES_PER_ROW = 4
@@ -52,14 +53,17 @@ def packed_rows_ok(count: int, num_bins: int) -> bool:
 def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                        num_bins: int, key: Optional[torch.Tensor],
                        stochastic: bool = True, grad_max=None,
-                       hess_max=None):
+                       hess_max=None, reciprocal: bool = False):
     """One quantization pass. grad/hess: [n] float32 (pad rows already
     zeroed); ``key``: a threefry key (ops/threefry.py), needed when
     ``stochastic``. Returns (qg, qh, grad_scale, hess_scale): int32
     levels and 0-d float32 scales on the gradients' device. The scales
     are floored at 1e-35 so an all-zero iteration divides safely (its
     levels are all zero either way); ``grad_max`` / ``hess_max``
-    override the local maxima."""
+    override the local maxima. ``reciprocal``: divide the maxima by the
+    level counts as XLA does inside a jitted program, a product with the
+    float32 reciprocal (the JAX package's fused learner); else a true
+    division (its host loop quantizes outside the learner's program)."""
     qmax_g, qmax_h = grad_levels(num_bins)
     grad = grad.to(torch.float32)
     hess = hess.to(torch.float32)
@@ -67,13 +71,11 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
         grad_max = torch.max(torch.abs(grad))
     if hess_max is None:
         hess_max = torch.max(hess)
-    # true float32 divisions, as XLA computes them
-    gscale = torch.clamp(torch.as_tensor(grad_max, dtype=torch.float32,
-                                         device=grad.device),
-                         min=1e-35) / qmax_g
-    hscale = torch.clamp(torch.as_tensor(hess_max, dtype=torch.float32,
-                                         device=grad.device),
-                         min=1e-35) / qmax_h
+    def scale(vmax, qmax):
+        v = torch.clamp(torch.as_tensor(vmax, dtype=torch.float32,
+                                        device=grad.device), min=1e-35)
+        return v * f32_reciprocal(qmax) if reciprocal else v / qmax
+    gscale, hscale = scale(grad_max, qmax_g), scale(hess_max, qmax_h)
     sg = grad / gscale
     sh = hess / hscale
     if stochastic:

@@ -29,6 +29,8 @@ import math
 
 import torch
 
+from .xla_float import f32_reciprocal, fma_f32
+
 K_EPSILON = 1e-15
 K_MIN_SCORE = -math.inf
 
@@ -90,18 +92,40 @@ def _calc_output(g, h, cnt, cfg: SplitConfig, parent_output, cmin, cmax):
     if cfg.max_delta_step > 0:
         ret = torch.clamp(ret, -cfg.max_delta_step, cfg.max_delta_step)
     if cfg.path_smooth > K_EPSILON:
-        ratio = cnt / cfg.path_smooth
+        ratio = cnt * f32_reciprocal(cfg.path_smooth)      # as XLA
         ret = ret * ratio / (ratio + 1.0) + parent_output / (ratio + 1.0)
     if cfg.use_monotone:
         ret = torch.minimum(torch.maximum(ret, cmin), cmax)
     return ret
 
 
-def _gain_given_output(g, h, cfg: SplitConfig, output):
-    """GetLeafGainGivenOutput (feature_histogram.hpp:841-851)."""
+def _gain_given_output(g, h, cfg: SplitConfig, output, fuse_hoo=False):
+    """GetLeafGainGivenOutput (feature_histogram.hpp:841-851),
+    -(2·g·o + (h + l2)·o·o), with the multiply-add the JAX package's
+    jitted scan fuses: XLA:CPU contracts one of the two products into
+    the add, 2·g·o by default and (h + l2)·o·o where ``fuse_hoo`` (which
+    one follows the operand order LLVM gives the add in XLA's fusion:
+    ``_fuses_hoo``)."""
     if cfg.lambda_l1 > 0:
         g = threshold_l1(g, cfg.lambda_l1)
-    return -(2.0 * g * output + (h + cfg.lambda_l2) * output * output)
+    ho = (h + cfg.lambda_l2) * output
+    if fuse_hoo:
+        return -fma_f32(ho, output, 2.0 * g * output)
+    return -fma_f32(2.0 * g, output, ho * output)
+
+
+def _fuses_hoo(cfg: SplitConfig, site: str) -> bool:
+    """Whether XLA:CPU fuses (h + l2)·o·o rather than 2·g·o into the
+    gain's add at ``site`` (jaxlib 0.9.0, held bit for bit against the
+    JAX package's jitted scan): the reverse scan in the plain config
+    (its outputs come from another fusion), and the parent's gain of a
+    clamped or smoothed output under L1."""
+    if site == "reverse":
+        return not (cfg.lambda_l1 > 0 or cfg.max_delta_step > 0
+                    or cfg.path_smooth > K_EPSILON or cfg.use_monotone)
+    if site == "leaf":
+        return cfg.lambda_l1 > 0
+    return False
 
 
 def leaf_gain(g, h, cnt, cfg: SplitConfig, parent_output):
@@ -112,7 +136,7 @@ def leaf_gain(g, h, cnt, cfg: SplitConfig, parent_output):
     out = _calc_output(g, h, cnt,
                        dataclasses.replace(cfg, use_monotone=False),
                        parent_output, 0.0, 0.0)
-    return _gain_given_output(g, h, cfg, out)
+    return _gain_given_output(g, h, cfg, out, _fuses_hoo(cfg, "leaf"))
 
 
 # block length of XLA's CPU cumsum (its reduce-window rewriter)
@@ -233,7 +257,7 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     gain_shift = leaf_gain(sum_g2, sh2, num2, cfg, po2)
     min_gain_shift = gain_shift + cfg.min_gain_to_split          # [...,1,1]
 
-    def eval_dir(lg, lh, lcnt, thr_invalid):
+    def eval_dir(lg, lh, lcnt, thr_invalid, site):
         lh_eff = lh + K_EPSILON
         rg = sum_g2 - lg
         rh = sh2 - lh_eff
@@ -245,8 +269,9 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
               & (rh >= cfg.min_sum_hessian_in_leaf))
         out_l = _calc_output(lg, lh_eff, lcnt, cfg, po2, cmin2, cmax2)
         out_r = _calc_output(rg, rh, rcnt, cfg, po2, cmin2, cmax2)
-        gain = (_gain_given_output(lg, lh_eff, cfg, out_l)
-                + _gain_given_output(rg, rh, cfg, out_r))
+        hoo = _fuses_hoo(cfg, site)
+        gain = (_gain_given_output(lg, lh_eff, cfg, out_l, hoo)
+                + _gain_given_output(rg, rh, cfg, out_r, hoo))
         if cfg.use_monotone:
             mono = meta.monotone[:, None]
             viol = (((mono > 0) & (out_l > out_r))
@@ -257,7 +282,8 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
         return gain, out_l, out_r, lg, lh_eff, lcnt
 
     # forward scan: missing -> right; only in two-scan mode
-    f_res = eval_dir(cl_g, cl_h, cl_cnt, zero_mode & (bin_ar == miss_bin))
+    f_res = eval_dir(cl_g, cl_h, cl_cnt, zero_mode & (bin_ar == miss_bin),
+                     "forward")
     f_gain = torch.where(two_scan, f_res[0], K_MIN_SCORE)
 
     # reverse scan: right side accumulated from the top (missing -> left)
@@ -267,7 +293,8 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     r_lg = sum_g2 - r_rg
     r_lh = sh2 - r_rh - K_EPSILON          # eval_dir re-adds K_EPSILON
     r_lcnt = num2 - r_rcnt
-    r_res = eval_dir(r_lg, r_lh, r_lcnt, zero_mode & (bin_ar == miss_bin - 1))
+    r_res = eval_dir(r_lg, r_lh, r_lcnt, zero_mode & (bin_ar == miss_bin - 1),
+                     "reverse")
 
     def order(a_rev, a_fwd):
         return torch.cat([torch.flip(a_rev, dims=[-1]), a_fwd], dim=-1)

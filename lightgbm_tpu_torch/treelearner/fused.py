@@ -180,6 +180,25 @@ def leaf_index_binned(tree: Tree, bins: torch.Tensor,
     return -node - 1
 
 
+def _leaf_steps_sum(e: torch.Tensor) -> torch.Tensor:
+    """Row sums of e [k, L] in the order XLA:CPU (jaxlib 0.9.0) sums the
+    fused reduce of the JAX package's ``_score_add_by_pos``: ``xla_sum``,
+    but for L in [28, 32], where LLVM vectorizes the reduce: element 0
+    peeled, elements 1-24 into two interleaved 4-lane accumulators, a
+    pairwise horizontal add, then the rest in order."""
+    L = e.shape[-1]
+    if not 28 <= L <= 32:
+        return S.xla_sum(e)
+    b = [e[:, 0] + e[:, 1]] + [e[:, 1 + j] for j in range(1, 4)]
+    b = [(b[j] + e[:, 9 + j]) + e[:, 17 + j] for j in range(4)]
+    a = [(e[:, 5 + j] + e[:, 13 + j]) + e[:, 21 + j] for j in range(4)]
+    r = [a[j] + b[j] for j in range(4)]
+    out = (r[0] + r[2]) + (r[1] + r[3])
+    for i in range(25, L):
+        out = out + e[:, i]
+    return out
+
+
 class FusedSerialGrower:
     """Owns the planar state's layout and grows one tree per iteration
     on ``device``."""
@@ -647,7 +666,7 @@ class FusedSerialGrower:
             self._quant_iter += 1
             qg, qh, gs, hs = Q.quantize_gradients(
                 g, h, self.config.num_grad_quant_bins, key,
-                stochastic=self.config.stochastic_rounding)
+                stochastic=self.config.stochastic_rounding, reciprocal=True)
             qscales = (gs, hs)
             plane.set_gh_packed(data, Ly,
                                 plane.i32_as_f32(Q.pack_gh(qg, qh)))
@@ -657,17 +676,32 @@ class FusedSerialGrower:
         ta, (win, leaf_out) = self._grow_tree(
             data, n, self.feature_masks_for_tree(), qscales)
 
-        # score update by window: every lane of leaf l's window gets
-        # leaf l's value — no gather, no scatter
         vals = leaf_out * torch.tensor(shrinkage, dtype=torch.float32)
-        order = torch.argsort(win[0])
-        add = torch.repeat_interleave(vals[order], win[1][order].long(),
-                                      output_size=n)
         s = plane.get_f32(data, Ly.score, n)
-        s.add_(add)
-        if bias != 0.0:
-            s.add_(torch.tensor(bias, dtype=torch.float32))
+        s.add_(self._score_add(win, vals, ta["leaf_count"], n))
+        # always, as the JAX package: adding 0.0 turns a -0.0 score to +0.0
+        s.add_(torch.tensor(bias, dtype=torch.float32, device=s.device))
         return ta
+
+    def _score_add(self, win, vals, leaf_count, n: int) -> torch.Tensor:
+        """[n] score increment by window (every lane of leaf l's window
+        gets leaf l's value; no gather, no scatter) with the bits of the
+        JAX package's ``_score_add_by_pos``: over the leaves with rows,
+        sorted by window start, the differences of consecutive values
+        summed over ``num_leaves`` terms in XLA's reduce order. One
+        [leaves, num_leaves] table gives each leaf its value."""
+        keep = torch.as_tensor(np.nonzero(np.asarray(leaf_count) > 0)[0],
+                               device=self.device)
+        idx = keep[torch.argsort(win[0][keep])]
+        v = vals[idx]
+        d = v - torch.nn.functional.pad(v[:-1], (1, 0))
+        L = self.num_leaves
+        steps = (torch.arange(v.shape[0], device=v.device)[:, None]
+                 >= torch.arange(L, device=v.device)[None, :])
+        d = torch.nn.functional.pad(d, (0, L - v.shape[0]))
+        table = _leaf_steps_sum(torch.where(steps, d, 0.0))
+        return torch.repeat_interleave(table, win[1][idx].long(),
+                                       output_size=n)
 
     def sync_scores(self, data: torch.Tensor) -> torch.Tensor:
         """[n] f32 raw scores in original row order (one scatter)."""

@@ -272,6 +272,12 @@ def test_rowmajor_tile_rule_matches_kernel():
                 (c, f, nb)
 
 
+# windows of the multi-value checks: full, unaligned, 1 row, empty, and
+# windows straddling the kernels' 512-row tiles
+MV_WINDOWS = [(0, 5_000), (777, 3_001), (4_000, 1), (10, 0), (3, 512),
+              (0, 511), (100, 513), (1_000, 1_537), (480, 4_500)]
+
+
 def _mv_state(n, groups, seed, k=16):
     """A random row-wise code matrix: each row has up to k-1 present
     groups (distinct), sentinel in slot 0, -1 pads."""
@@ -287,12 +293,14 @@ def _mv_state(n, groups, seed, k=16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("groups", [40, 3000])     # T in / beyond smem
+@pytest.mark.parametrize("groups", [40, 3000])     # T in / beyond a block
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_multival_kernels_match_plain(groups, dtype):
     """B5 (planar state, host and device windows) and B6 (slot-major
-    codes) against their plain versions, bit-exact on dyadic grad/hess;
-    3000 groups put [T+1, 2] beyond the kernel's shared memory."""
+    codes) on random float grad/hess, bit for bit against their plain
+    versions on the CPU (each cell in row order inside 512-row tiles,
+    the tiles in order), at windows straddling the tiles; 3000 groups
+    split the cells over the grid's second dimension."""
     _need_card()
     n = 5_000
     codes, lay = _mv_state(n, groups, seed=groups)
@@ -301,30 +309,30 @@ def test_multival_kernels_match_plain(groups, dtype):
     smem_cells = K.lib("hist_multival").lgbt_mv_smem_cells()
     assert (T + 1 > smem_cells) == (groups > 100), (T, smem_cells)
     rng = np.random.RandomState(1)
-    g, h = _dyadic(rng, n)
+    g = torch.as_tensor(rng.randn(n).astype(np.float32))
+    h = torch.as_tensor(rng.rand(n).astype(np.float32))
     sm = TM.slot_major(torch.as_tensor(codes))
     gh = TM.gh_planes(g, h)
-    got = TM.hist_multival_cuda(sm.cuda(), gh.cuda(), total_bins=T,
-                                dtype=dtype)
-    want = TM.histogram_multival_plain(sm, gh, total_bins=T, dtype=dtype)
-    assert torch.equal(got.cpu(), want)
     tl = tplane.make_layout(4, 8, n, with_label=True, with_score=True,
                             mv_planes=sm.shape[0])
     data = tplane.build_data(
         tl, tplane.build_codes_planes(torch.zeros((n, 4), dtype=torch.int32),
                                       tl), g, h, mv=sm)
-    dd = data.cuda()
+    dd, smc, ghc = data.cuda(), sm.cuda(), gh.cuda()
     kw = dict(mv_start=tl.mv_start, mv_planes=tl.mv_planes, total_bins=T,
               grad_plane=tl.grad, dtype=dtype)
-    for start, count in ((0, n), (777, 3001), (4_000, 1), (10, 0)):
+    for start, count in MV_WINDOWS:
+        want = TM.histogram_multival_planar_plain(data, start, count, **kw)
         a = TM.hist_multival_planar_cuda(dd, start, count, **kw)
         b = TM.hist_multival_planar_cuda(
             dd, torch.tensor(start, dtype=torch.int32, device="cuda"),
             torch.tensor(count, dtype=torch.int32, device="cuda"),
             max_count=n, **kw)
-        want = TM.histogram_multival_planar_plain(data, start, count, **kw)
-        assert torch.equal(a, b)
-        assert torch.equal(a.cpu(), want), (start, count)
+        c = TM.hist_multival_cuda(smc[:, start:start + count],
+                                  ghc[:, start:start + count], total_bins=T,
+                                  dtype=dtype)
+        for got in (a, b, c):
+            assert torch.equal(got.cpu(), want), (start, count)
 
 
 def _levels(rng, n, num_bins):
@@ -368,21 +376,22 @@ def test_quantized_planar_and_rowmajor_kernels_match_plain(levels):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("groups", [40, 3000])     # T in / beyond smem
+@pytest.mark.parametrize("groups", [40, 3000, 7000])   # int32 smem / global
 def test_quantized_multival_kernels_match_plain(groups):
-    """B5q and B6q against their plain int32 versions, bit for bit."""
+    """B5q (host and device windows) and B6q against their plain int32
+    versions, bit for bit, at windows straddling the tiles; 7000 groups
+    put the histogram beyond the int32 mode's shared memory (global
+    atomics)."""
     _need_card()
     n = 5_000
     codes, lay = _mv_state(n, groups, seed=groups)
     T = lay.total_bins
+    from lightgbm_tpu_torch.ops import cuda as K
+    q_cells = K.lib("hist_multival").lgbt_mv_quant_smem_cells()
+    assert (T + 1 > q_cells) == (groups > 5000), (T, q_cells)
     qg, qh = _levels(np.random.RandomState(groups), n, 64)
     sm = TM.slot_major(torch.as_tensor(codes))
     gh = TM.gh_planes(qg, qh, quant=True)
-    got = TM.hist_multival_cuda(sm.cuda(), gh.cuda(), total_bins=T,
-                                quant=True)
-    assert got.dtype == torch.int32
-    assert torch.equal(got.cpu(), TM.histogram_multival_plain(
-        sm, gh, total_bins=T, quant=True))
     tl = tplane.make_layout(4, 8, n, with_label=True, with_score=True,
                             mv_planes=sm.shape[0])
     zero = torch.zeros(n)
@@ -390,13 +399,53 @@ def test_quantized_multival_kernels_match_plain(groups):
         tl, tplane.build_codes_planes(torch.zeros((n, 4), dtype=torch.int32),
                                       tl), zero, zero, mv=sm)
     tplane.set_gh_packed(data, tl, tplane.i32_as_f32(TQ.pack_gh(qg, qh)))
-    dd = data.cuda()
+    dd, smc, ghc = data.cuda(), sm.cuda(), gh.cuda()
     kw = dict(mv_start=tl.mv_start, mv_planes=tl.mv_planes, total_bins=T,
               grad_plane=tl.grad, quant=True)
-    for start, count in ((0, n), (777, 3001), (n - 1, 1), (10, 0)):
-        a = TM.hist_multival_planar_cuda(dd, start, count, **kw)
+    for start, count in MV_WINDOWS:
         want = TM.histogram_multival_planar_plain(data, start, count, **kw)
-        assert torch.equal(a.cpu(), want), (start, count)
+        a = TM.hist_multival_planar_cuda(dd, start, count, **kw)
+        b = TM.hist_multival_planar_cuda(
+            dd, torch.tensor(start, dtype=torch.int32, device="cuda"),
+            torch.tensor(count, dtype=torch.int32, device="cuda"),
+            max_count=n, **kw)
+        c = TM.hist_multival_cuda(smc[:, start:start + count],
+                                  ghc[:, start:start + count], total_bins=T,
+                                  quant=True)
+        for got in (a, b, c):
+            assert got.dtype == torch.int32
+            assert torch.equal(got.cpu(), want), (start, count)
+
+
+@pytest.mark.cuda
+def test_xla_float_on_card_equals_cpu():
+    """exp_f32, fma_f32 and the binary gradients give the CPU's bits on
+    the card (float64 emulation of the fused multiply-adds)."""
+    _need_card()
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objective.functions import BinaryLogloss
+    from lightgbm_tpu_torch.ops import xla_float as XF
+    bits = np.arange(0, 1 << 32, 4099, dtype=np.uint64).astype(np.uint32)
+    x = torch.as_tensor(bits.view(np.float32))
+    a, b = XF.exp_f32(x), XF.exp_f32(x.cuda()).cpu()
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan()
+                                                           & b.isnan())
+    assert bool(same.all())
+    rng = np.random.RandomState(0)
+    t = [torch.as_tensor((rng.randn(1 << 20) * np.exp(
+        rng.uniform(-20, 20, 1 << 20))).astype(np.float32))
+        for _ in range(3)]
+    got = XF.fma_f32(*(v.cuda() for v in t)).cpu()
+    assert torch.equal(got.view(torch.int32), XF.fma_f32(*t).view(torch.int32))
+
+    class _Meta:
+        label = (rng.rand(1 << 20) > 0.5).astype(np.float32)
+        weights = rng.uniform(0.5, 2, 1 << 20).astype(np.float32)
+    obj = BinaryLogloss(Config.from_params({"objective": "binary"}))
+    obj.init(_Meta, 1 << 20)
+    score = torch.as_tensor((rng.randn(1 << 20) * 4).astype(np.float32))
+    for c, g in zip(obj.get_gradients(score), obj.get_gradients(score.cuda())):
+        assert torch.equal(c.view(torch.int32), g.cpu().view(torch.int32))
 
 
 @pytest.mark.cuda

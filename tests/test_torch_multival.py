@@ -232,6 +232,70 @@ def test_b6_plain_matches_pallas(dtype):
             _close(got, want, dyadic, dtype)
 
 
+def _sequential_tiles(codes_sm: np.ndarray, g: np.ndarray, h: np.ndarray,
+                      cells: int, tile: int) -> np.ndarray:
+    """The CUDA kernels' association written out row by row in numpy:
+    per tile of ``tile`` rows each cell summed in row order from 0, then
+    the tiles' sums added in tile order to a zero histogram."""
+    kp, c = codes_sm.shape
+    out = np.zeros((cells, 2), np.float32)
+    for t0 in range(0, c, tile):
+        part = np.zeros((cells, 2), np.float32)
+        for r in range(t0, min(c, t0 + tile)):
+            for s in range(kp):
+                code = codes_sm[s, r]
+                if 0 <= code < cells:
+                    part[code, 0] = np.float32(part[code, 0] + g[r])
+                    part[code, 1] = np.float32(part[code, 1] + h[r])
+        out = (out + part).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [1, 511, 512, 513, 1_537, 4_500])
+def test_tiled_flat_association(rows, dtype):
+    """B5/B6's plain versions sum in the kernels' association (MV_TILE =
+    512 rows, each cell in row order, then the tiles in order) on random
+    float grad/hess, bit for bit, on both entries."""
+    rng = np.random.RandomState(rows)
+    groups, k = 30, 12
+    gnb = rng.randint(2, 7, groups)
+    off = np.concatenate([[0], np.cumsum(gnb)[:-1]])
+    total = int(gnb.sum())
+    codes = np.full((rows, k), -1, np.int32)
+    codes[:, 0] = total
+    for r in range(rows):        # distinct groups per row, as real rows
+        present = rng.choice(groups, rng.randint(0, k), replace=False)
+        codes[r, 1:1 + len(present)] = off[present] + rng.randint(
+            0, gnb[present])
+    g = rng.randn(rows).astype(np.float32)
+    h = rng.rand(rows).astype(np.float32)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    gq = torch.from_numpy(g).to(tdt).float().numpy()
+    hq = torch.from_numpy(h).to(tdt).float().numpy()
+    sm = TMV.slot_major(torch.from_numpy(codes))
+    want = _sequential_tiles(sm.numpy(), gq, hq, total + 1, TMV.MV_TILE)
+    got6 = TMV.histogram_multival_plain(
+        sm, TMV.gh_planes(torch.from_numpy(g), torch.from_numpy(h)),
+        total_bins=total, dtype=tdt)
+    np.testing.assert_array_equal(got6.numpy().view(np.int32),
+                                  want.view(np.int32))
+    lay = tplane.make_layout(2, 8, rows + 7, with_label=True,
+                             with_score=True, mv_planes=sm.shape[0])
+    pad = torch.full((sm.shape[0], 7), -1, dtype=torch.int32)
+    data = tplane.build_data(
+        lay, tplane.build_codes_planes(
+            torch.zeros((rows + 7, 2), dtype=torch.int32), lay),
+        torch.from_numpy(np.concatenate([np.zeros(7, np.float32), g])),
+        torch.from_numpy(np.concatenate([np.zeros(7, np.float32), h])),
+        mv=torch.cat([pad, sm], 1))
+    got5 = TMV.histogram_multival_planar_plain(
+        data, 7, rows, mv_start=lay.mv_start, mv_planes=lay.mv_planes,
+        total_bins=total, grad_plane=lay.grad, dtype=tdt)
+    np.testing.assert_array_equal(got5.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
 def test_leaf_histogram_multival_matches():
     bins, gnb, default = make_codes_fixture(n=256, seed=6)
     codes, lay = TMV.build_rowwise_codes(bins, gnb, default)

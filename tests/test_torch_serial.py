@@ -26,7 +26,8 @@ from lightgbm_tpu_torch.ops import partition as TP
 from lightgbm_tpu_torch.ops import split as TS
 from lightgbm_tpu_torch.treelearner import monotone as TM
 
-from test_torch_train import TREE_FIELDS, _data
+from test_torch_train import (BIT_GATES, TREE_FIELDS, _data,
+                              assert_bit_equal_training)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -365,6 +366,18 @@ def test_host_loop_gate(extra):
     np.testing.assert_allclose(tev["valid"]["auc"], jev["valid"]["auc"],
                                rtol=0, atol=1e-4)
     np.testing.assert_allclose(tb.predict(Xv), jb.predict(Xv), atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(BIT_GATES) + ["intermediate"])
+def test_host_loop_bit_equal(case):
+    """The bit-equality gates of test_torch_train.py on the host-loop
+    grower, plus the intermediate monotone case [1, -1, 0, 0, 0, 0]
+    whose near-tie flipped before the gain's fused multiply-add."""
+    extra, rounds = BIT_GATES.get(case, (
+        {"monotone_constraints": [1, -1, 0, 0, 0, 0],
+         "monotone_constraints_method": "intermediate"}, 3))
+    _, tb = assert_bit_equal_training({**extra, "tpu_fused": False}, rounds)
+    assert tb._gbdt._fused is None
 
 
 def test_serial_model_loads_into_the_port():

@@ -266,3 +266,60 @@ def test_early_stopping_and_options():
     hi[:, 0] = lo[:, 0] + 1.0
     assert (b.predict(hi, raw_score=True)
             >= b.predict(lo, raw_score=True) - 1e-6).all()
+
+
+# the gates of the JAX package's float32 bits (ROADMAP C1, C2): trees
+# grown past 15 leaves and 3 trees, where a gradient or gain one ulp
+# off flips near-ties; split gains, leaf values and predictions must be
+# bit-equal. Each case's parameters, with the tree count.
+BIT_GATES = {
+    "c1_63_leaves": ({"num_leaves": 63, "min_data_in_leaf": 5}, 4),
+    "c1_zero_as_missing": ({"num_leaves": 63, "min_data_in_leaf": 5,
+                            "zero_as_missing": True}, 4),
+    "c2_max_delta_step": ({"max_delta_step": 0.3}, 4),
+    "default_31_leaves": ({"num_leaves": 31}, 4),
+    "path_smooth_l1": ({"num_leaves": 30, "lambda_l1": 0.5,
+                        "path_smooth": 2.0}, 4),
+    "monotone_basic_l1": ({"num_leaves": 63, "lambda_l1": 0.5,
+                           "monotone_constraints": [1, -1, 0, 0, 0, 0]}, 4),
+    "quantized_63_leaves": ({"num_leaves": 63, "min_data_in_leaf": 5,
+                             "use_quantized_grad": True}, 4),
+    "quantized_max_delta_step": ({"max_delta_step": 0.3,
+                                  "use_quantized_grad": True,
+                                  "num_grad_quant_bins": 64}, 4),
+}
+
+
+def assert_bit_equal_training(extra, rounds):
+    """Train ``extra`` over PARAMS in both packages on ``_data()``: the
+    same trees, split gains, leaf values and predictions, bit for bit."""
+    X, y = _data()
+    params = {**PARAMS, **extra}
+    jb = jlgb.train(dict(params), jlgb.Dataset(X, label=y),
+                    num_boost_round=rounds)
+    tb = tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=rounds,
+                    verbose_eval=False)
+    jt, tt = _jax_trees(jb), tb._gbdt.models
+    assert len(jt) == len(tt) == rounds
+    for i, (a, b) in enumerate(zip(jt, tt)):
+        k = a.num_leaves
+        assert k == b.num_leaves, (i, k, b.num_leaves)
+        for f in ("split_feature", "threshold", "decision_type",
+                  "left_child", "right_child", "internal_count"):
+            np.testing.assert_array_equal(getattr(a, f)[:k - 1],
+                                          getattr(b, f)[:k - 1],
+                                          err_msg=f"tree {i} {f}")
+        for f, m in (("split_gain", k - 1), ("leaf_value", k)):
+            np.testing.assert_array_equal(getattr(a, f)[:m],
+                                          getattr(b, f)[:m],
+                                          err_msg=f"tree {i} {f}")
+    np.testing.assert_array_equal(tb.predict(X, raw_score=True),
+                                  jb.predict(X, raw_score=True))
+    return jb, tb
+
+
+@pytest.mark.parametrize("case", sorted(BIT_GATES))
+def test_fused_learner_bit_equal(case):
+    extra, rounds = BIT_GATES[case]
+    _, tb = assert_bit_equal_training(extra, rounds)
+    assert tb._gbdt._fused is not None
