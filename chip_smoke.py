@@ -36,14 +36,20 @@ Phases, each of which fails the run (no exception is caught):
    - (d)-(g): the same four with quantized gradients (use_quantized_grad,
      4 levels, stochastic rounding, renewed leaves): B1q + B2, B5q + B2,
      B4q, B6q; each path's held-out AUC must stay within 0.02 of its
-     float twin's.
+     float twin's;
+   - (h) HIGGS-cat fused: the HIGGS shape plus 4 categorical columns
+     (3, 24, 100 and 250 levels, Zipf-like, 1% NaN in the 100-level
+     one) on the fused learner (B1 + B2, whose categorical bitset route
+     must launch), then one profiled iteration (kernels, device busy
+     share).
 4. card vs CPU — the same small training on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
-   and with quantized gradients: trees, leaf values and predictions must
-   agree.
+   and with quantized gradients, and on (h)'s columns with categorical
+   features: trees (bitset pools included), leaf values and predictions
+   must agree, with prediction early stop off and on.
 
 ``--profile`` instead profiles one iteration of each path
-(``--profile-paths b,f`` of the named ones only).
+(``--profile-paths b,h`` of the named ones only).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -77,13 +83,46 @@ def make_higgs_like(n, f, seed=0, scale=2.4):
     Bayes-optimal AUC ~0.875."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, f).astype(np.float32)
+    s = _higgs_score(X, scale)
+    y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-s))).astype(np.float32)
+    return X, y
+
+
+def _higgs_score(X, scale):
     s = (0.9 * X[:, 0] - 0.8 * X[:, 1] + 1.1 * X[:, 2] * X[:, 3]
          + 0.8 * np.sin(2 * X[:, 4]) * X[:, 5] + 0.6 * (X[:, 6] ** 2 - 1)
          + 0.7 * X[:, 7] * X[:, 8] * X[:, 9]
          + 0.5 * np.tanh(X[:, 10]) * X[:, 11])
-    s = (s - s.mean()) / s.std() * scale
+    return (s - s.mean()) / s.std() * scale
+
+
+CAT_LEVELS = (3, 24, 100, 250)
+
+
+def make_higgs_cat_like(n, seed=0, scale=2.4):
+    """Path (h)'s data: make_higgs_like's 28 numerical columns plus 4
+    categorical integer columns of CAT_LEVELS levels, each drawn
+    Zipf-like (p(level k) ~ 1 / (k + 1)^1.1, so rare levels fall under
+    cat_smooth in small leaves), 1% NaN in the 100-level column; the
+    label's score gains one random effect per level (N(0, 0.5^2); NaN
+    adds none). Returns X [n, 32] float32, y, and the categorical
+    column indices."""
+    rng = np.random.RandomState(seed)
+    X = np.empty((n, 28 + len(CAT_LEVELS)), np.float32)
+    X[:, :28] = rng.randn(n, 28)
+    s = _higgs_score(X[:, :28], scale)
+    nan = rng.rand(n) < 0.01
+    for j, levels in enumerate(CAT_LEVELS):
+        p = 1.0 / np.arange(1, levels + 1) ** 1.1
+        cat = rng.choice(levels, size=n, p=p / p.sum()).astype(np.float32)
+        if levels == 100:
+            cat[nan] = np.nan
+        effect = rng.randn(levels) * 0.5
+        s += np.where(np.isnan(cat), 0.0,
+                      effect[np.nan_to_num(cat).astype(np.int64)])
+        X[:, 28 + j] = cat
     y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-s))).astype(np.float32)
-    return X, y
+    return X, y, list(range(28, 28 + len(CAT_LEVELS)))
 
 
 def make_wide_like(rows, nvars=72, ncats=8, seed=7):
@@ -1174,10 +1213,27 @@ QUANT_PARAMS = {"use_quantized_grad": True, "num_grad_quant_bins": 4,
 QUANT_AUC_SLACK = 0.02
 
 
+def cat_data(rows, hold, device):
+    """Path (h)'s data: make_higgs_cat_like, its constructed Dataset and
+    held-out rows."""
+    import lightgbm_tpu_torch as lgt
+    X, y, cats = make_higgs_cat_like(rows + hold, seed=5)
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:rows], label=y[:rows], categorical_feature=cats,
+                     params={**HIGGS_PARAMS, "device_type": device})
+    ds.construct()
+    nb = [ds.handle.bin_mappers[c].num_bin for c in cats]
+    log(f"HIGGS-cat: dataset {rows} x {X.shape[1]} binned in "
+        f"{time.perf_counter() - t0:.2f} s (host); categorical columns "
+        f"{cats} of {list(CAT_LEVELS)} levels take {nb} bins")
+    return ds, X[rows:], y[rows:]
+
+
 def paths(args, report, wide, device="cuda"):
     """Phase 3: the HIGGS fused path and paths (a)-(c), then their
-    quantized twins (d)-(g). Each kernel's ``launches`` in the report is
-    the count from its own path(s)."""
+    quantized twins (d)-(g), then the categorical path (h). Each
+    kernel's ``launches`` in the report is the count from its own
+    path(s)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.ops import histogram as H
@@ -1193,6 +1249,9 @@ def paths(args, report, wide, device="cuda"):
     cfg = Config.from_params(WIDE_PARAMS)
     assert H.hist_layout(cfg, wds.handle) == "multival", "(a) not multival"
     hX, hy = X[args.rows:], y[args.rows:]
+    cds, cX, cy = cat_data(args.rows, hold, device)
+    cat_params = {**HIGGS_PARAMS,
+                  "categorical_feature": list(range(28, 32))}
     # (key, name, params, dataset, iterations, held-out rows, kernels,
     #  AUC floor, float twin)
     plan = [
@@ -1216,9 +1275,12 @@ def paths(args, report, wide, device="cuda"):
         ("g", "(g) wide-sparse host loop quantized",
          {**WIDE_PARAMS, "tpu_fused": False, **QUANT_PARAMS}, wds,
          args.wide_host_iters, wX, wy, ("hist_multival_q",), 0.0, "c"),
+        ("h", "(h) HIGGS-cat fused", cat_params, cds, args.iters, cX, cy,
+         ("hist_planar", "partition"), 0.70, None),
     ]
     got, aucs = {}, {}
     for key, name, params, dset, iters, Xh, yh, expect, floor, twin in plan:
+        t_path = time.perf_counter()
         if twin is not None:
             floor = aucs[twin] - QUANT_AUC_SLACK
         got[key], booster, aucs[key] = run_path(
@@ -1233,7 +1295,24 @@ def paths(args, report, wide, device="cuda"):
             log(f"{name}: held-out AUC {aucs[key]:.6f} beside its float "
                 f"twin's {aucs[twin]:.6f} (diff "
                 f"{aucs[key] - aucs[twin]:+.6f})")
-    path_of = {"hist_planar": ["higgs"], "partition": ["higgs", "a", "d", "e"],
+        if key == "h":
+            trees = gb.models
+            ncat = sum(t.num_cat for t in trees)
+            log(f"{name}: {ncat} categorical splits in {len(trees)} trees; "
+                f"B2 launches on the categorical route "
+                f"{got[key]['partition_cat']} of {got[key]['partition']}")
+            assert gb._fused is not None, f"{name}: not the fused learner"
+            if device == "cuda":
+                assert got[key]["partition_cat"] > 0, \
+                    f"{name}: B2's categorical route never launched"
+                t_prof = time.perf_counter()
+                profile_iteration(name, booster, device_only=True)
+                log(f"{name}: profiled iteration took "
+                    f"{time.perf_counter() - t_prof:.1f} s with the "
+                    f"profiler's own work")
+        log(f"{name}: {time.perf_counter() - t_path:.1f} s in all")
+    path_of = {"hist_planar": ["higgs", "h"],
+               "partition": ["higgs", "a", "d", "e", "h"],
                "hist_radix": ["b"], "hist_multival_planar": ["a"],
                "hist_multival": ["c"], "hist_masked": [],
                "partition_window": [], "hist_planar_q": ["d"],
@@ -1248,20 +1327,39 @@ def paths(args, report, wide, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def card_vs_cpu():
+    """Phase 4: the same small training on the card and on the CPU (the
+    plain versions), on both learners, float and quantized, and on path
+    (h)'s columns with categorical features: trees (bitset pools
+    included), leaf values and predictions, these with prediction early
+    stop off and on for the categorical model."""
     import lightgbm_tpu_torch as lgt
     n = 100_000
     X, y = make_higgs_like(n, 28, seed=3)
-    for learner, extra in (
-            ("fused", {}), ("host loop", {"tpu_fused": False}),
-            ("fused quantized", QUANT_PARAMS),
-            ("host loop quantized", {"tpu_fused": False, **QUANT_PARAMS})):
+    Xc, yc, cats = make_higgs_cat_like(n, seed=6)
+    cat = {"categorical_feature": cats}
+    for learner, extra, data in (
+            ("fused", {}, (X, y)), ("host loop", {"tpu_fused": False}, (X, y)),
+            ("fused quantized", QUANT_PARAMS, (X, y)),
+            ("host loop quantized", {"tpu_fused": False, **QUANT_PARAMS},
+             (X, y)),
+            ("fused categorical", cat, (Xc, yc)),
+            ("host loop categorical", {"tpu_fused": False, **cat},
+             (Xc, yc))):
         out = {}
+        xs, ys = data
         for dev in ("cuda", "cpu"):
             params = {"objective": "binary", "tpu_hist_dtype": "float32",
                       "verbose": -1, "device_type": dev, **extra}
-            b = lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=3,
-                          verbose_eval=False)
-            out[dev] = (b._gbdt.models, b.predict(X[:20_000]))
+            b = lgt.train(params, lgt.Dataset(xs, label=ys),
+                          num_boost_round=3, verbose_eval=False)
+            preds = [b.predict(xs[:20_000])]
+            if "categorical_feature" in extra:
+                cfg = b._gbdt.config
+                cfg.pred_early_stop, cfg.pred_early_stop_freq = True, 1
+                cfg.pred_early_stop_margin = 1.0
+                preds.append(b.predict(xs[:20_000], raw_score=True))
+                cfg.pred_early_stop = False
+            out[dev] = (b._gbdt.models, preds)
         (tg, pg), (tc, pc) = out["cuda"], out["cpu"]
         assert len(tg) == len(tc) == 3
         for a, b in zip(tg, tc):
@@ -1271,15 +1369,26 @@ def card_vs_cpu():
                       "left_child", "right_child"):
                 assert np.array_equal(getattr(a, f)[:k - 1],
                                       getattr(b, f)[:k - 1]), (learner, f)
+            for f in ("cat_boundaries", "cat_threshold",
+                      "cat_boundaries_inner", "cat_threshold_inner"):
+                assert list(getattr(a, f)) == list(getattr(b, f)), \
+                    (learner, f)
             np.testing.assert_allclose(a.leaf_value[:k], b.leaf_value[:k],
                                        rtol=0, atol=1e-6)
-        np.testing.assert_allclose(pg, pc, rtol=0, atol=1e-6)
+        for p_g, p_c in zip(pg, pc):
+            np.testing.assert_allclose(p_g, p_c, rtol=0, atol=1e-6)
         leaf_diff = max(float(np.abs(a.leaf_value - b.leaf_value).max())
                         for a, b in zip(tg, tc))
+        ncat = sum(t.num_cat for t in tg)
+        if "categorical_feature" in extra:
+            assert ncat > 0, f"{learner}: no categorical split"
         log(f"card vs CPU ({learner}): {n} rows, 3 iterations: trees "
-            f"equal ({[t.num_leaves for t in tg]} leaves), leaf values max "
-            f"|diff| {leaf_diff:.3g}, predictions max |diff| "
-            f"{float(np.abs(pg - pc).max()):.3g}")
+            f"equal ({[t.num_leaves for t in tg]} leaves, {ncat} "
+            f"categorical splits), leaf values max |diff| {leaf_diff:.3g}, "
+            f"predictions max |diff| "
+            + ", ".join(f"{float(np.abs(a - b).max()):.3g}"
+                        for a, b in zip(pg, pc))
+            + (" (early stop off, on)" if len(pg) > 1 else ""))
 
 
 def profile_paths(args, wide):
@@ -1301,55 +1410,70 @@ def profile_paths(args, wide):
                {**params, **QUANT_PARAMS}, d)
               for k, (_, name, params, d) in zip("defg", cases)]
     keep = args.profile_paths.split(",")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    if "h" in keep:
+        cases.append(("h", "(h) HIGGS-cat fused",
+                      {**HIGGS_PARAMS,
+                       "categorical_feature": list(range(28, 32))},
+                      cat_data(args.rows, 0, "cuda")[0]))
     for key, name, params, ds in cases:
         if key not in keep:
             continue
         booster = lgt.Booster(params, ds)
         booster.update()                   # warm: state built, first tree
+        profile_iteration(name, booster)
+
+
+def profile_iteration(name, booster, device_only=False):
+    """One boosting iteration of ``booster`` under torch.profiler: wall
+    and device busy time, kernels, host syncs, device ms by kernel
+    family beside the bytes bounds, and the top kernels. Only device
+    rows are read; ``device_only`` records no host operators, which
+    cuts the profiler's own work on ~200,000 kernels from minutes to
+    seconds (the wall time is then less inflated than ``--profile``'s)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if not device_only:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
+    torch.cuda.synchronize()
+    gbdt = booster._gbdt
+    learner = gbdt._fused if gbdt._fused is not None else gbdt.tree_learner
+    syncs0 = learner.syncs
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        booster.update()
         torch.cuda.synchronize()
-        gbdt = booster._gbdt
-        learner = gbdt._fused if gbdt._fused is not None \
-            else gbdt.tree_learner
-        syncs0 = learner.syncs
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            booster.update()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows_ = []
-        for evt in prof.key_averages():
-            # device-side rows only (kernels, memcpy, memset): operator
-            # rows repeat their kernels' time
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dev_us = getattr(evt, "self_device_time_total",
-                             getattr(evt, "self_cuda_time_total", 0))
-            if dev_us > 0:
-                rows_.append((dev_us, evt.count, evt.key))
-        rows_.sort(reverse=True)
-        busy = sum(r[0] for r in rows_) / 1e6
-        fam = {"hist": 0.0, "partition": 0.0, "other": 0.0}
-        for dev_us, _, key in rows_:
-            f = ("hist" if any(k in key for k in ("hist_", "hp_", "rm_",
-                                                  "mv_"))
-                 else "partition" if "part_" in key else "other")
-            fam[f] += dev_us / 1e3
-        tree = gbdt.models[-1]
-        hb, pb = iteration_bounds_ms(gbdt, [tree])
-        log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy "
-            f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
-            f"{sum(r[1] for r in rows_)} kernels, "
-            f"{learner.syncs - syncs0} host syncs, {tree.num_leaves} leaves")
-        log(f"profile {name}: device ms by family " + json.dumps(
-            {k: round(v, 3) for k, v in fam.items()}) + f"; histogram "
-            f"kernel {fam['hist']:.3f} ms vs bytes bound {hb:.4f} ms "
-            f"({fam['hist'] / max(hb, 1e-9):.0f}x), partition kernel "
-            f"{fam['partition']:.3f} ms vs {pb:.4f} ms")
-        for dev_us, count, key in rows_[:8]:
-            log(f"profile {name}: {dev_us / 1e3:9.3f} ms  {count:6d}x  "
-                f"{key[:80]}")
+        wall = time.perf_counter() - t0
+    rows_ = []
+    for evt in prof.key_averages():
+        # device-side rows only (kernels, memcpy, memset): operator
+        # rows repeat their kernels' time
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows_.append((dev_us, evt.count, evt.key))
+    rows_.sort(reverse=True)
+    assert rows_, f"profile {name}: the profiler saw no device work"
+    busy = sum(r[0] for r in rows_) / 1e6
+    fam = {"hist": 0.0, "partition": 0.0, "other": 0.0}
+    for dev_us, _, key in rows_:
+        f = ("hist" if any(k in key for k in ("hist_", "hp_", "rm_", "mv_"))
+             else "partition" if "part_" in key else "other")
+        fam[f] += dev_us / 1e3
+    tree = gbdt.models[-1]
+    hb, pb = iteration_bounds_ms(gbdt, [tree])
+    log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(r[1] for r in rows_)} kernels, "
+        f"{learner.syncs - syncs0} host syncs, {tree.num_leaves} leaves")
+    log(f"profile {name}: device ms by family " + json.dumps(
+        {k: round(v, 3) for k, v in fam.items()}) + f"; histogram "
+        f"kernel {fam['hist']:.3f} ms vs bytes bound {hb:.4f} ms "
+        f"({fam['hist'] / max(hb, 1e-9):.0f}x), partition kernel "
+        f"{fam['partition']:.3f} ms vs {pb:.4f} ms")
+    for dev_us, count, key in rows_[:8]:
+        log(f"profile {name}: {dev_us / 1e3:9.3f} ms  {count:6d}x  "
+            f"{key[:80]}")
 
 
 def main() -> int:
@@ -1369,7 +1493,7 @@ def main() -> int:
                     help="iterations of path (c)")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
-    ap.add_argument("--profile-paths", default="higgs,a,b,c,d,e,f,g",
+    ap.add_argument("--profile-paths", default="higgs,a,b,c,d,e,f,g,h",
                     help="comma-separated paths --profile profiles")
     args = ap.parse_args()
     if not torch.cuda.is_available():

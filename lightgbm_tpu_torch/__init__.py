@@ -8,8 +8,10 @@ Hopper (csrc/), built with nvcc at first use; every kernel has a plain
 PyTorch version beside it that runs on the CPU.
 
 Entry points run on the card unless the params ask for the CPU
-(``device_type="cpu"``). This slice trains the binary main path:
-``train({"objective": "binary"}, Dataset(X, label=y))``.
+(``device_type="cpu"``). It trains the binary main path,
+``train({"objective": "binary"}, Dataset(X, label=y))``, categorical
+columns included, and predicts with the packed forest or the path
+forest.
 """
 
 __version__ = "0.1.0"

@@ -159,22 +159,34 @@ class Booster:
 
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = -1,
-                raw_score: bool = False) -> np.ndarray:
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False) -> np.ndarray:
+        """Scores, raw scores, or with ``pred_leaf`` the [N, T] leaf
+        index of every row in every tree."""
+        if pred_contrib:
+            raise NotImplementedError(
+                "pred_contrib is not ported yet (ROADMAP A12: "
+                "models/shap.py)")
         if num_iteration is None:
             num_iteration = -1
         mat = _to_2d_numpy(data)
+
+        def run(m):
+            if pred_leaf:
+                return self._gbdt.predict_leaf_index(m, start_iteration,
+                                                     num_iteration)
+            return self._gbdt.predict(m, start_iteration, num_iteration,
+                                      raw_score=raw_score)
         if _is_sparse(mat):
             # prediction walks raw feature values: densify sparse input
             # in bounded row chunks
             csr = mat.tocsr()
             chunk = 1 << 16
-            parts = [self._gbdt.predict(
-                np.asarray(csr[i:i + chunk].todense(), dtype=np.float64),
-                start_iteration, num_iteration, raw_score=raw_score)
-                for i in range(0, max(csr.shape[0], 1), chunk)]
+            parts = [run(np.asarray(csr[i:i + chunk].todense(),
+                                    dtype=np.float64))
+                     for i in range(0, max(csr.shape[0], 1), chunk)]
             return np.concatenate(parts, axis=0)
-        return self._gbdt.predict(mat, start_iteration, num_iteration,
-                                  raw_score=raw_score)
+        return run(mat)
 
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0,

@@ -27,7 +27,7 @@ from ..metric.metrics import Metric
 from ..models.tree import Tree
 from ..objective.functions import ObjectiveFunction, create_objective
 from ..treelearner.fused import (FusedSerialGrower, fused_reject_reason,
-                                 leaf_index_binned, port_reject_reason)
+                                 port_reject_reason)
 from ..treelearner.serial import SerialTreeGrower
 from ..utils import log
 from ..utils.device import resolve_device
@@ -192,8 +192,8 @@ class GBDT:
         states = [(self.train_score, tl.bins)] + \
             [(vs, vs.bins) for vs in self.valid_score]
         for st, bins in states:
-            leaf = leaf_index_binned(tree, bins, tl.feature_miss_bin,
-                                     tl._efb_dev)
+            leaf = tree.leaf_index_binned(bins, tl.feature_miss_bin,
+                                          tl._efb_dev)
             st.score[0] += vals[leaf]
 
     def _train_one_iter_host_loop(self, init_score: float) -> bool:
@@ -262,9 +262,9 @@ class GBDT:
                 device=self.device) * torch.tensor(self.shrinkage_rate,
                                                    dtype=torch.float32)
             for vs in self.valid_score:
-                leaf = leaf_index_binned(tree, vs.bins,
-                                         self._fused.feature_miss_bin,
-                                         self._fused._efb_dev)
+                leaf = tree.leaf_index_binned(vs.bins,
+                                              self._fused.feature_miss_bin,
+                                              self._fused._efb_dev)
                 vs.score[0] += vals[leaf]
         tree.apply_shrinkage(self.shrinkage_rate)
         if abs(init_score) > K_EPSILON:
@@ -305,28 +305,82 @@ class GBDT:
             else total
         return self.models[start * k:end * k]
 
+    # rows per prediction pass: bounds the [64, rows] traversal state
+    PREDICT_CHUNK = 131072
+
+    def _forest(self, kind: str, start_iteration: int, num_iteration: int):
+        """The cached forest of the used models: ``"packed"`` (the
+        walker, models/forest.py) or ``"path"`` (models/pathforest.py;
+        None when the model is out of its scope)."""
+        from ..models.forest import PackedForest
+        from ..models.pathforest import PathForest, build_path_tables
+        models = self._used_models(start_iteration, num_iteration)
+        key = (kind, start_iteration, num_iteration, len(self.models))
+        cache = getattr(self, "_forest_cache", {})
+        if key not in cache:
+            k = self.num_tree_per_iteration
+            if kind == "packed":
+                cache[key] = PackedForest(models, k, self.device)
+            else:
+                tabs = build_path_tables(models)
+                cache[key] = (None if tabs is None
+                              else PathForest(models, k, self.device, tabs))
+            self._forest_cache = cache
+        return cache[key]
+
+    def _raw_scores(self, x: np.ndarray, start_iteration: int,
+                    num_iteration: int) -> torch.Tensor:
+        """[k, N] float32 raw scores on the device, dispatched as the JAX
+        package's _raw_scores_device: prediction early stop takes the
+        walker's early-stopped sums; else the path forest where it
+        covers the model, else the walker."""
+        k = self.num_tree_per_iteration
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        if not self._used_models(start_iteration, num_iteration):
+            return torch.zeros((k, xt.shape[0]), dtype=torch.float32,
+                               device=self.device)
+        cfg = self.config
+        early = cfg is not None and cfg.pred_early_stop
+        path = (None if early
+                else self._forest("path", start_iteration, num_iteration))
+        parts = []
+        for i in range(0, max(xt.shape[0], 1), self.PREDICT_CHUNK):
+            xc = xt[i:i + self.PREDICT_CHUNK]
+            if early:
+                parts.append(self._forest(
+                    "packed", start_iteration, num_iteration
+                ).raw_scores_early_stop(xc, max(1, cfg.pred_early_stop_freq),
+                                        float(cfg.pred_early_stop_margin)))
+            elif path is not None:
+                parts.append(path.raw_scores(xc))
+            else:
+                parts.append(self._forest(
+                    "packed", start_iteration, num_iteration).raw_scores(xc))
+        return torch.cat(parts, dim=1)
+
     def predict(self, x: np.ndarray, start_iteration: int = 0,
                 num_iteration: int = -1, raw_score: bool = False
                 ) -> np.ndarray:
         """Scores [N] (or [N, k]) as float64, computed on the device."""
-        from ..models.pathforest import PathForest, build_path_tables
-        models = self._used_models(start_iteration, num_iteration)
         k = self.num_tree_per_iteration
-        xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        if not models:
-            score = torch.zeros((k, xt.shape[0]), dtype=torch.float32,
-                                device=self.device)
-        else:
-            tabs = build_path_tables(models)
-            if tabs is None:
-                raise NotImplementedError(
-                    "prediction of categorical models is not ported yet "
-                    "(ROADMAP A7: models/forest.py walker)")
-            score = PathForest(models, k, self.device, tabs).raw_scores(xt)
+        score = self._raw_scores(x, start_iteration, num_iteration)
         if not raw_score and self.objective is not None:
             score = self.objective.convert_output(score)
         out = score.to(torch.float64).cpu().numpy()
         return out[0] if k == 1 else out.T
+
+    def predict_leaf_index(self, x: np.ndarray, start_iteration: int = 0,
+                           num_iteration: int = -1) -> np.ndarray:
+        """[N, T] int32 leaf index of every row in every used tree
+        (reference PredictLeafIndex), through the walker."""
+        n = np.asarray(x).shape[0]
+        if not self._used_models(start_iteration, num_iteration):
+            return np.empty((n, 0), dtype=np.int32)
+        forest = self._forest("packed", start_iteration, num_iteration)
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        return np.concatenate(
+            [forest.leaf_indices(xt[i:i + self.PREDICT_CHUNK]).cpu().numpy()
+             for i in range(0, max(n, 1), self.PREDICT_CHUNK)], axis=0)
 
     # ------------------------------------------------------------------
     # model IO (reference gbdt_model_text.cpp)

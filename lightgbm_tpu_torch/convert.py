@@ -31,10 +31,10 @@ _FIELDS = {
 def tree_from_arrays(arrays: Dict[str, np.ndarray]) -> Tree:
     """One Tree from the JAX package's Tree fields. ``num_leaves`` and
     the structure arrays are required; missing statistics default to 0.
-    Categorical trees are not ported yet (ROADMAP A7)."""
-    if len(arrays.get("cat_boundaries", [0])) > 1:
-        raise NotImplementedError(
-            "categorical trees are not ported yet (ROADMAP A7)")
+    A categorical tree also takes ``num_cat``, ``cat_boundaries`` and
+    ``cat_threshold`` (its raw-category bitset pool) and
+    ``threshold_in_bin``, which holds a categorical node's bitset
+    family."""
     k = int(arrays["num_leaves"])
     ni = max(k - 1, 0)
     tree = Tree(k)
@@ -44,6 +44,17 @@ def tree_from_arrays(arrays: Dict[str, np.ndarray]) -> Tree:
         if name in arrays and n:
             getattr(tree, name)[:n] = np.asarray(arrays[name], dt)[:n]
     tree.split_feature_inner[:ni] = tree.split_feature[:ni]
+    if "threshold_in_bin" in arrays and ni:
+        tree.threshold_in_bin[:ni] = np.asarray(arrays["threshold_in_bin"],
+                                                np.int32)[:ni]
+    tree.num_cat = int(arrays.get("num_cat", 0))
+    if tree.num_cat > 0:
+        tree.cat_boundaries = [int(v) for v in arrays["cat_boundaries"]]
+        tree.cat_threshold = [int(v) for v in arrays["cat_threshold"]]
+        # as a parsed model text: the inner (bin-space) pools stand in
+        # for the raw ones until relink_to_dataset rebuilds them
+        tree.cat_boundaries_inner = list(tree.cat_boundaries)
+        tree.cat_threshold_inner = list(tree.cat_threshold)
     tree.shrinkage = float(arrays.get("shrinkage", 1.0))
     return tree
 

@@ -9,9 +9,10 @@ format of Tree::ToString (src/io/tree.cpp:223-260) so saved models are
 line-compatible with reference tooling.
 
 This is the port's copy of the JAX package's models/tree.py: the model
-text it writes is byte-identical for the same values. Device-side
-traversal lives elsewhere (treelearner/fused.py for bin space,
-models/pathforest.py for raw features).
+text it writes is byte-identical for the same values. The traversal
+bridges (``leaf_index_binned``, ``leaf_index_raw``) walk the tree on a
+device through ops/traverse.py; batch prediction over many trees is
+models/forest.py and models/pathforest.py.
 """
 from __future__ import annotations
 
@@ -19,6 +20,10 @@ import math
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
+
+from ..ops.traverse import (traverse_binned, traverse_raw, tree_depth,
+                             words_tensor)
 
 K_CATEGORICAL_MASK = 1
 K_DEFAULT_LEFT_MASK = 2
@@ -176,6 +181,67 @@ class Tree:
 
     def set_leaf_value(self, leaf: int, value: float) -> None:
         self.leaf_value[leaf] = value
+
+    # ------------------------------------------------------------------
+    # traversal bridges (ops/traverse.py), on the device of the rows
+    # ------------------------------------------------------------------
+    def _node_tensors(self, dev, names):
+        """The internal nodes' arrays ``names`` (fields, or the
+        decision-type flags default_left / is_cat) as tensors on
+        ``dev``."""
+        n = self.num_nodes
+        dt = self.decision_type[:n]
+        out = {"default_left": (dt & K_DEFAULT_LEFT_MASK) != 0,
+               "is_cat": (dt & K_CATEGORICAL_MASK) != 0}
+        return [torch.as_tensor(np.asarray(out[k] if k in out
+                                           else getattr(self, k)[:n]),
+                                device=dev) for k in names]
+
+    def leaf_index_binned(self, bins, feature_to_miss_bin, efb=None):
+        """Leaf index [N] (int64) of every row of ``bins`` ([N, G] bin
+        codes on a device) by bin-space traversal (train time; reference
+        Tree::AddPredictionToScore). ``feature_to_miss_bin`` [F] routes a
+        feature's missing bin by default_left (-1: none); categorical
+        nodes test the inner (bin-space) bitsets. ``efb`` decodes bundle
+        codes."""
+        n = self.num_nodes
+        dev = bins.device
+        if n <= 0:
+            return torch.zeros(bins.shape[0], dtype=torch.int64, device=dev)
+        sf, thr, left, right, dl, is_cat = self._node_tensors(dev, (
+            "split_feature_inner", "threshold_in_bin", "left_child",
+            "right_child", "default_left", "is_cat"))
+        sf, thr = sf.long(), thr.long()
+        miss = torch.as_tensor(feature_to_miss_bin, device=dev).long()[sf]
+        # categorical nodes have no missing-bin routing in bin space
+        miss = torch.where(is_cat, -1, miss)
+        bounds = self.cat_boundaries_inner + [self.cat_boundaries_inner[-1]]
+        return traverse_binned(
+            bins, sf, thr, left.long(), right.long(), dl, miss, is_cat,
+            words_tensor(self.cat_threshold_inner, dev),
+            torch.as_tensor(np.asarray(bounds, np.int64), device=dev),
+            tree_depth(self.left_child, self.right_child, n), efb=efb)
+
+    def leaf_index_raw(self, x):
+        """Leaf index [N] (int64) of every row of ``x`` ([N, F] float32
+        raw features on a device; reference Tree::PredictLeafIndex)."""
+        n = self.num_nodes
+        dev = x.device
+        if n <= 0:
+            return torch.zeros(x.shape[0], dtype=torch.int64, device=dev)
+        sf, left, right, dl, is_cat, cat_idx = self._node_tensors(dev, (
+            "split_feature", "left_child", "right_child", "default_left",
+            "is_cat", "threshold_in_bin"))
+        thr = torch.as_tensor(self.threshold[:n].astype(np.float32),
+                              device=dev)
+        mt = torch.as_tensor((self.decision_type[:n].astype(np.int64) >> 2)
+                             & 3, device=dev)
+        bounds = self.cat_boundaries + [self.cat_boundaries[-1]]
+        return traverse_raw(
+            x.to(torch.float32), sf.long(), thr, left.long(), right.long(),
+            dl, mt, is_cat, words_tensor(self.cat_threshold, dev),
+            torch.as_tensor(np.asarray(bounds, np.int64), device=dev),
+            cat_idx.long(), tree_depth(self.left_child, self.right_child, n))
 
     # ------------------------------------------------------------------
     # serialization (reference Tree::ToString, src/io/tree.cpp:223)

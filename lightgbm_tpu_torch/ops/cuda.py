@@ -39,6 +39,8 @@ LAUNCHES: Dict[str, int] = {
                          "hist_multival_planar", "hist_multival")
     for name in (base, base + "_q")}
 LAUNCHES["partition"] = 0
+# B2's launches on the categorical (bitset) route, also in "partition"
+LAUNCHES["partition_cat"] = 0
 BUILD_INFO: Dict[str, object] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}

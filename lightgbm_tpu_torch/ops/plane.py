@@ -340,7 +340,7 @@ def _status_words(dev, stream: int, words: int):
 
 
 def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
-                   count: int, rscal: torch.Tensor):
+                   count: int, rscal: torch.Tensor, cat: bool = False):
     """Stable in-place partition of the lane window [start, start+count)
     of ALL P planes by the split in ``rscal`` (route_scalars), by the
     CUDA kernel csrc/partition.cu (the counterpart of the JAX package's
@@ -350,7 +350,9 @@ def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
     and nleft a 0-d int32 tensor on its device. A small window
     (``partition_small``) is one launch with no scratch; a large one
     takes a [P, count] scratch and the stream's status words. Raises
-    for a state that is not on the card."""
+    for a state that is not on the card. ``cat``: the caller's host copy
+    of the routing vector's is_cat flag; a launch on the categorical
+    (bitset) route also counts under ``partition_cat``."""
     start, count = int(start), int(count)
     P, R = data.shape
     if not 0 <= start <= start + count <= R:
@@ -386,15 +388,17 @@ def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
         None if status is None else status.data_ptr(), epoch,
         nleft.data_ptr(), stream), "partition_cuda")
     K.LAUNCHES["partition"] += 1
+    if cat:
+        K.LAUNCHES["partition_cat"] += 1
     return data, nleft[0]
 
 
 def partition(data: torch.Tensor, layout: PlaneLayout, start: int,
-              count: int, rscal: torch.Tensor):
+              count: int, rscal: torch.Tensor, cat: bool = False):
     """The stable window partition: ``partition_cuda`` for a state on
     the card, ``partition_plain`` for a state on the CPU."""
     if data.is_cuda:
-        return partition_cuda(data, layout, start, count, rscal)
+        return partition_cuda(data, layout, start, count, rscal, cat)
     start, count = int(start), int(count)
     if not 0 <= start <= start + count <= data.shape[1]:
         raise ValueError(f"window [{start}, {start + count}) outside "

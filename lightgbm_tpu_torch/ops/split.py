@@ -19,14 +19,17 @@ max_delta_step, path smoothing and monotone clamps; two scans when
 num_bin > 2 and the feature has a missing type; candidate order reverse
 scan first (descending threshold), then forward, for argmax ties.
 
-The categorical scan is not ported yet (ROADMAP A3): the learners
-reject datasets with categorical features.
+Categorical features take ``categorical_split_scan`` (reference
+FindBestThresholdCategoricalInner): one-vs-rest for few bins, else the
+sorted many-vs-many scan from both ends; ``best_split`` runs it on the
+categorical columns only and merges it into the numerical result.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from .xla_float import f32_reciprocal, fma_f32
@@ -67,15 +70,31 @@ class FeatureMeta:
     is_categorical: torch.Tensor  # [F] bool
     monotone: torch.Tensor      # [F] int32 in {-1,0,1}
     penalty: torch.Tensor       # [F] f32 (feature_contri)
+    # host tuple of the categorical features' indices: the categorical
+    # scan runs on these columns only
+    cat_idx: tuple = ()
+    # host flag: some feature takes two scans (more than 2 bins and a
+    # missing type), so the forward scan is live
+    any_two_scan: bool = True
 
     @classmethod
     def build(cls, num_bin, missing_type, default_bin, is_categorical,
               monotone, penalty, device="cpu") -> "FeatureMeta":
         def t(x, dt):
             return torch.as_tensor(x, dtype=dt, device=device)
+        nb, mt = np.asarray(num_bin), np.asarray(missing_type)
         return cls(t(num_bin, torch.int32), t(missing_type, torch.int32),
                    t(default_bin, torch.int32), t(is_categorical, torch.bool),
-                   t(monotone, torch.int32), t(penalty, torch.float32))
+                   t(monotone, torch.int32), t(penalty, torch.float32),
+                   tuple(int(i) for i, c in enumerate(is_categorical) if c),
+                   bool(((nb > 2) & (mt != MISSING_NONE)).any()))
+
+    def subset(self, idx: torch.Tensor, cat_idx: tuple) -> "FeatureMeta":
+        """The metadata of the features ``idx``."""
+        return FeatureMeta(self.num_bin[idx], self.missing_type[idx],
+                           self.default_bin[idx], self.is_categorical[idx],
+                           self.monotone[idx], self.penalty[idx], cat_idx,
+                           self.any_two_scan)
 
 
 def threshold_l1(s, l1):
@@ -117,13 +136,19 @@ def _gain_given_output(g, h, cfg: SplitConfig, output, fuse_hoo=False):
 def _fuses_hoo(cfg: SplitConfig, site: str) -> bool:
     """Whether XLA:CPU fuses (h + l2)·o·o rather than 2·g·o into the
     gain's add at ``site`` (jaxlib 0.9.0, held bit for bit against the
-    JAX package's jitted scan): the reverse scan in the plain config
-    (its outputs come from another fusion), and the parent's gain of a
-    clamped or smoothed output under L1."""
+    JAX package's jitted scans; ROADMAP §C). Numerical sites: the
+    reverse scan in the plain config (its outputs come from another
+    fusion), except ``reverse_alone``, the host loop's reverse scan when
+    no feature has a missing type (XLA folds the forward scan away and
+    the reverse scan's fusion changes; the fused learner's program keeps
+    ``reverse``); and the parent's gain of a clamped or smoothed output
+    under L1 (``leaf``). Categorical sites: the one-vs-rest gains
+    (``cat_onehot``) and the smoothed parent's gain (``cat_leaf``) under
+    L1; the sorted scans (``cat_sorted``, both directions) never."""
     if site == "reverse":
         return not (cfg.lambda_l1 > 0 or cfg.max_delta_step > 0
                     or cfg.path_smooth > K_EPSILON or cfg.use_monotone)
-    if site == "leaf":
+    if site in ("leaf", "cat_onehot", "cat_leaf"):
         return cfg.lambda_l1 > 0
     return False
 
@@ -210,14 +235,17 @@ def _round_int(x):
 
 def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
                          cfg: SplitConfig, sum_g, sum_h, num_data,
-                         parent_output, cmin, cmax, rand_thresholds=None):
+                         parent_output, cmin, cmax, rand_thresholds=None,
+                         reverse_site="reverse"):
     """Best numerical split per feature.
 
     hist: [..., F, B, 2]; sum_g / sum_h (WITHOUT the epsilon bias) /
     num_data (int32) / parent_output / cmin / cmax: leaf scalars of
     shape [...]. ``rand_thresholds`` ([F] int32): with
     ``cfg.extra_trees`` the one threshold bin each feature may split at
-    (reference USE_RAND). Returns a dict of [..., F] tensors.
+    (reference USE_RAND). ``reverse_site``: the reverse scan's
+    multiply-add site (``_fuses_hoo``). Returns a dict of [..., F]
+    tensors.
     """
     b_dim = hist.shape[-2]
     dev = hist.device
@@ -294,7 +322,7 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     r_lh = sh2 - r_rh - K_EPSILON          # eval_dir re-adds K_EPSILON
     r_lcnt = num2 - r_rcnt
     r_res = eval_dir(r_lg, r_lh, r_lcnt, zero_mode & (bin_ar == miss_bin - 1),
-                     "reverse")
+                     reverse_site)
 
     def order(a_rev, a_fwd):
         return torch.cat([torch.flip(a_rev, dims=[-1]), a_fwd], dim=-1)
@@ -334,6 +362,255 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     }
 
 
+def group_thinning(lc: torch.Tensor, lc_ok: torch.Tensor,
+                   min_data_per_group: int) -> torch.Tensor:
+    """Positions of a sorted categorical scan where the reference's
+    stateful group counter fires (feature_histogram.hpp:440-444; the
+    JAX package's sequential ``lax.scan``): walking the positions in
+    order, the counter adds each position's count; a position whose
+    left-side checks pass (``lc_ok``) with the counter at or above
+    ``min_data_per_group`` fires and resets it. With ``lc`` the prefix
+    counts, position i fires iff lc_ok[i] and lc[i] - lc[p] >=
+    min_data_per_group, p the last position that fired before it (lc[p]
+    = 0 if none).
+
+    The fired positions form a chain in which each link is the first
+    position after the last that qualifies: ``nxt`` gives every link's
+    successor at once, and binary lifting over ``nxt`` finds each
+    position's last chain link at or before it, in log2(B) steps of
+    integer gathers instead of B sequential steps. Exact, like the scan.
+    lc / lc_ok: [..., B]; returns [..., B] bool."""
+    b = lc.shape[-1]
+    dev = lc.device
+    # nodes: 0 = the start (count 0), 1..B = positions, B+1 = the end
+    base = torch.nn.functional.pad(lc, (1, 0))                # [..., B+1]
+    pos = torch.arange(b, device=dev)
+    after = pos[None, :] >= torch.arange(b + 1, device=dev)[:, None]
+    cand = (after & lc_ok[..., None, :]
+            & (lc[..., None, :] - base[..., :, None] >= min_data_per_group))
+    nxt = torch.where(cand.any(dim=-1),
+                      torch.argmax(cand.to(torch.int8), dim=-1) + 1, b + 1)
+    end = torch.full_like(nxt[..., :1], b + 1)
+    up = [torch.cat([nxt, end], dim=-1)]                      # [..., B+2]
+    for _ in range((b + 1).bit_length() - 1):
+        up.append(torch.gather(up[-1], -1, up[-1]))
+    q = (pos + 1).expand(lc.shape)
+    cur = torch.zeros_like(q)
+    for jump in reversed(up):
+        to = torch.gather(jump, -1, cur)
+        cur = torch.where(to <= q, to, cur)
+    return cur == q
+
+
+def categorical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
+                           cfg: SplitConfig, sum_g, sum_h, num_data,
+                           parent_output, cmin, cmax, rand_thresholds=None):
+    """Best categorical split per feature (reference
+    FindBestThresholdCategoricalInner, feature_histogram.hpp:278-515;
+    the JAX package's categorical_split_scan).
+
+    One-vs-rest when num_bin <= max_cat_to_onehot (with the original
+    l2); else the sorted many-vs-many scan: bins past bin 0 (the unseen
+    categories) with a count of at least cat_smooth, sorted by
+    g / (h + cat_smooth), scanned as prefixes from both ends up to
+    max_cat_threshold categories, with l2 + cat_l2 and the
+    min_data_per_group thinning. The shapes are numerical_split_scan's;
+    the result adds ``family`` (0 one-vs-rest, 1 forward, 2 backward),
+    ``position``, ``sorted_order`` ([..., F, B], the bin at each sorted
+    position) and ``used_bin``, which describe the left category set."""
+    b_dim = hist.shape[-2]
+    dev = hist.device
+
+    def e1(x):   # leaf scalar [...] -> [..., 1]
+        return torch.as_tensor(x, device=dev)[..., None]
+
+    def e2(x):
+        return e1(x)[..., None]
+
+    sum_g2, num2 = e2(sum_g), e2(num_data)
+    sh2 = e2(sum_h) + 2 * K_EPSILON
+    po2, cmin2, cmax2 = e2(parent_output), e2(cmin), e2(cmax)
+    bin_ar = torch.arange(b_dim, dtype=torch.int32, device=dev)[None, :]
+    nb = meta.num_bin[:, None]
+    valid_bin = (bin_ar < nb) & (bin_ar >= 1)
+    g = torch.where(valid_bin, hist[..., 0], 0.0)
+    h = torch.where(valid_bin, hist[..., 1], 0.0)
+    cnt = _round_int(h * (num2 / sh2))
+
+    cat_cfg = dataclasses.replace(cfg, lambda_l2=cfg.lambda_l2 + cfg.cat_l2)
+    if cfg.path_smooth > K_EPSILON:
+        gain_shift = _gain_given_output(sum_g2, sh2, cfg, po2,
+                                        _fuses_hoo(cfg, "cat_leaf"))
+    else:
+        gain_shift = leaf_gain(sum_g2, sh2, num2,
+                               dataclasses.replace(cfg, path_smooth=0.0), 0.0)
+    min_gain_shift = gain_shift + cfg.min_gain_to_split          # [...,1,1]
+
+    def eval_lr(lg, lh, lcnt, ok_extra, ecfg, site):
+        lh_eff = lh + K_EPSILON
+        rg = sum_g2 - lg
+        rh = sh2 - lh_eff
+        rcnt = num2 - lcnt
+        ok = (ok_extra
+              & (lcnt >= cfg.min_data_in_leaf)
+              & (rcnt >= cfg.min_data_in_leaf)
+              & (lh_eff >= cfg.min_sum_hessian_in_leaf)
+              & (rh >= cfg.min_sum_hessian_in_leaf))
+        out_l = _calc_output(lg, lh_eff, lcnt, ecfg, po2, cmin2, cmax2)
+        out_r = _calc_output(rg, rh, rcnt, ecfg, po2, cmin2, cmax2)
+        hoo = _fuses_hoo(cfg, site)
+        gain = (_gain_given_output(lg, lh_eff, ecfg, out_l, hoo)
+                + _gain_given_output(rg, rh, ecfg, out_r, hoo))
+        ok = ok & (gain > min_gain_shift)
+        return (torch.where(ok, gain, K_MIN_SCORE), out_l, out_r, lg, lh_eff,
+                lcnt)
+
+    use_onehot = nb <= cfg.max_cat_to_onehot
+    # extra_trees: one random candidate per feature, the numerical draw
+    # reused modulo the categorical bounds (reference USE_RAND)
+    rand = cfg.extra_trees and rand_thresholds is not None
+    if rand:
+        rt = rand_thresholds.to(dev)[:, None]
+        oh_rand_ok = bin_ar == 1 + torch.remainder(
+            rt, torch.clamp(nb - 1, min=1))
+    else:
+        oh_rand_ok = torch.ones_like(valid_bin)
+
+    # ---- one-vs-rest: left = the single category bin, original l2 ----
+    oh = eval_lr(g, h, cnt, valid_bin & use_onehot & oh_rand_ok, cfg,
+                 "cat_onehot")
+
+    # ---- sorted many-vs-many ---------------------------------------
+    usable = valid_bin & (cnt >= cfg.cat_smooth)
+    # + 0.0 makes a -0.0 ratio +0.0: the two compare equal, and every
+    # stable sort then orders them by bin (a radix sort would not)
+    ctr = torch.where(usable, g / (h + cfg.cat_smooth), math.inf) + 0.0
+    order = torch.sort(ctr, dim=-1, stable=True).indices       # [..., F, B]
+    used_bin = usable.sum(dim=-1).to(torch.int32)               # [..., F]
+
+    # the JAX package permutes by an exact 0/1 product: the sum of x and
+    # zeros gives x, but +0.0 for -0.0 (hence + 0.0), and the counts pass
+    # through float32
+    def permute(x, idx):
+        return torch.gather(x, -1, idx) + 0.0
+    sg, shh = permute(g, order), permute(h, order)
+    scnt = permute(cnt.to(torch.float32), order).to(torch.int32)
+    max_num_cat = torch.clamp((used_bin + 1) // 2,
+                              max=cfg.max_cat_threshold)[..., None]
+    pos_ar = bin_ar
+    if rand:
+        max_num = torch.clamp(torch.minimum(
+            torch.clamp((used_bin + 1) // 2, max=cfg.max_cat_threshold),
+            used_bin) - 1, min=1)[..., None]
+        sorted_rand_ok = pos_ar == torch.remainder(rt, max_num)
+    else:
+        sorted_rand_ok = torch.ones_like(valid_bin)
+    # both directions at once, stacked on a new leading axis (0 forward,
+    # 1 backward): one prefix sum, one thinning, one gain evaluation.
+    # Backward: position k reads sorted slot (used_bin - 1 - k) mod B.
+    rev = torch.remainder(used_bin[..., None] - 1 - bin_ar,
+                          b_dim).to(torch.int64)
+    sums = _prefix_sum(torch.stack([sg, shh, permute(sg, rev),
+                                    permute(shh, rev)]))
+    lg, lh = sums[0::2], sums[1::2]
+    lc = torch.cumsum(torch.stack([
+        scnt, permute(scnt.to(torch.float32), rev).to(torch.int32)]),
+        dim=-1, dtype=torch.int32)
+    # the thinning's hessian check reads the FORWARD sorted prefix in
+    # both directions, as the JAX package does
+    lc_ok = ((lc >= cfg.min_data_in_leaf)
+             & (lh[0] + K_EPSILON >= cfg.min_sum_hessian_in_leaf))
+    ok = ((pos_ar < torch.minimum(used_bin[..., None], max_num_cat))
+          & ~use_onehot & sorted_rand_ok
+          & (num2 - lc >= cfg.min_data_per_group)
+          & group_thinning(lc, lc_ok, cfg.min_data_per_group))
+    srt = eval_lr(lg, lh, lc, ok, cat_cfg, "cat_sorted")
+
+    # candidates in the JAX package's order: one-vs-rest, forward, backward
+    def cands(i):
+        return torch.cat([oh[i], srt[i][0], srt[i][1]], dim=-1)
+
+    all_gain = cands(0)                                        # [..., F, 3B]
+    jk = torch.argmax(all_gain, dim=-1, keepdim=True)
+    best_gain = torch.gather(all_gain, -1, jk)[..., 0]
+
+    def pick(i):
+        return torch.gather(cands(i), -1, jk)[..., 0]
+
+    j = jk[..., 0]
+    found = torch.isfinite(best_gain)
+    gain_out = torch.where(found, (best_gain - min_gain_shift[..., 0])
+                           * meta.penalty, K_MIN_SCORE)
+    lg, lh, lcnt = pick(3), pick(4), pick(5).to(torch.int32)
+    return {
+        "gain": gain_out,
+        "family": (j // b_dim).to(torch.int32),
+        "position": (j % b_dim).to(torch.int32),
+        "sorted_order": order.to(torch.int32),
+        "used_bin": used_bin,
+        "left_output": pick(1),
+        "right_output": pick(2),
+        "left_sum_gradient": lg,
+        "left_sum_hessian": lh - K_EPSILON,
+        "left_count": lcnt,
+        "right_sum_gradient": e1(sum_g) - lg,
+        "right_sum_hessian": e1(sum_h) + K_EPSILON - lh,
+        "right_count": e1(num_data) - lcnt,
+        "found": found,
+        "default_left": torch.zeros_like(found),
+    }
+
+
+# the fields the merged scan takes from the categorical result
+_MERGED = ("gain", "default_left", "left_sum_gradient", "left_sum_hessian",
+           "left_count", "left_output", "right_sum_gradient",
+           "right_sum_hessian", "right_count", "right_output", "found")
+
+
+def merge_categorical(num: dict, hist, meta: FeatureMeta, cfg, sum_g, sum_h,
+                       num_data, parent_output, cmin, cmax,
+                       rand_thresholds) -> dict:
+    """The JAX package's ``any_categorical`` merge: the categorical scan
+    runs on the categorical columns only (4 of 28 columns cost the JAX
+    package 4.2x per iteration before it made this cut), and its fields
+    replace the numerical ones there; ``threshold`` takes the position,
+    and the result gains ``cat_family``, ``cat_sorted_order`` and
+    ``cat_used_bin`` (zeros on numerical columns)."""
+    f_total = hist.shape[-3]
+    ci = meta.cat_idx
+    idx = torch.as_tensor(ci, dtype=torch.int64, device=hist.device)
+    every = len(ci) == f_total
+    if every:
+        cat = categorical_split_scan(hist, meta, cfg, sum_g, sum_h, num_data,
+                                     parent_output, cmin, cmax,
+                                     rand_thresholds)
+    else:
+        cat = categorical_split_scan(
+            hist.index_select(-3, idx), meta.subset(idx, ci), cfg, sum_g,
+            sum_h, num_data, parent_output, cmin, cmax,
+            None if rand_thresholds is None else rand_thresholds[idx])
+
+    def full(v, axis=-1):
+        """[..., C] (or [..., C, B]) -> zeros on the other columns."""
+        if every:
+            return v
+        shape = list(v.shape)
+        shape[axis] = f_total
+        out = torch.zeros(shape, dtype=v.dtype, device=v.device)
+        return out.index_copy_(v.dim() + axis, idx, v)
+
+    is_cat = meta.is_categorical
+    merged = dict(num)
+    for k in _MERGED:
+        merged[k] = torch.where(is_cat, full(cat[k]), num[k])
+    merged["threshold"] = torch.where(is_cat, full(cat["position"]),
+                                      num["threshold"])
+    merged["cat_family"] = full(cat["family"])
+    merged["cat_used_bin"] = full(cat["used_bin"])
+    merged["cat_sorted_order"] = full(cat["sorted_order"], axis=-2)
+    return merged
+
+
 def best_split(hist: torch.Tensor, meta: FeatureMeta, cfg: SplitConfig,
                sum_g, sum_h, num_data, parent_output, cmin, cmax,
                feature_mask=None, rand_thresholds=None, cegb_delta=None,
@@ -343,12 +620,18 @@ def best_split(hist: torch.Tensor, meta: FeatureMeta, cfg: SplitConfig,
     ``gain_scale`` ([F]) multiplies finite gains (the monotone split
     penalty, reference serial_tree_learner.cpp:728-732); ``cegb_delta``
     ([F]) is then subtracted from them (cost-effective gradient
-    boosting, reference cost_effective_gradient_boosting.hpp:66)."""
-    if bool(meta.is_categorical.any()):
-        raise NotImplementedError(
-            "the categorical split scan is not ported yet (ROADMAP A3)")
-    res = numerical_split_scan(hist, meta, cfg, sum_g, sum_h, num_data,
-                               parent_output, cmin, cmax, rand_thresholds)
+    boosting, reference cost_effective_gradient_boosting.hpp:66).
+    Categorical features (``meta.cat_idx``) take the categorical scan,
+    merged in by ``merge_categorical``. This is the host loop's program;
+    the fused learner calls the scans itself."""
+    res = numerical_split_scan(
+        hist, meta, cfg, sum_g, sum_h, num_data, parent_output, cmin, cmax,
+        rand_thresholds,
+        "reverse" if meta.any_two_scan else "reverse_alone")
+    if meta.cat_idx:
+        res = merge_categorical(res, hist, meta, cfg, sum_g, sum_h,
+                                 num_data, parent_output, cmin, cmax,
+                                 rand_thresholds)
     gains = res["gain"]
     finite = torch.isfinite(gains)
     if gain_scale is not None:

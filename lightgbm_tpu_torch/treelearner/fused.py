@@ -36,6 +36,13 @@ exact int32, and ``dequantize_hist`` runs at the split scan. With
 ``quant_train_renew_leaf`` the leaf values are refit from the float32
 gradient sums of each leaf's window.
 
+Categorical features take the categorical scan (ops/split.py
+``merge_categorical``, on the categorical columns only); the left
+category set of a categorical split is built on the device as the 8
+words of a bin bitset, which ride the split record and route the
+partition (B2's categorical route); ``materialize_tree`` turns them
+into the tree's inner and raw-category bitset pools.
+
 The state is updated IN PLACE (partition, grad/hess and score writes);
 the JAX package keeps it immutable and donates it instead.
 """
@@ -50,7 +57,7 @@ from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import BinnedDataset
 from ..io.efb import per_feature_hist
-from ..models.tree import Tree
+from ..models.tree import K_CATEGORICAL_MASK, Tree, _to_bitset
 from ..ops import histogram as H
 from ..ops import multival as MV
 from ..ops import plane
@@ -133,51 +140,7 @@ def port_reject_reason(config: Config, dataset: BinnedDataset,
         return "multiclass (ROADMAP A9)"
     if config.forcedsplits_filename:
         return "forcedsplits_filename (forced splits, ROADMAP A5)"
-    if any(m.bin_type == BIN_CATEGORICAL for m in dataset.bin_mappers):
-        return "categorical features (categorical split scan, ROADMAP A3)"
     return None
-
-
-def leaf_index_binned(tree: Tree, bins: torch.Tensor,
-                      feature_miss_bin: torch.Tensor, efb_dev=None
-                      ) -> torch.Tensor:
-    """Leaf index [N] int64 of every row of ``bins`` ([N, G] bin codes on
-    the device) by bin-space traversal of ``tree`` (the JAX package's
-    Tree.leaf_index_binned): one pass per tree level, no host reads.
-    ``feature_miss_bin`` [F] routes each feature's missing bin by the
-    node's default_left (-1: no missing bin); ``efb_dev`` decodes bundle
-    codes."""
-    n = bins.shape[0]
-    dev = bins.device
-    if tree.num_leaves <= 1:
-        return torch.zeros(n, dtype=torch.int64, device=dev)
-    ni = tree.num_leaves - 1
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a[:ni], np.int64), device=dev)
-    feat, thr = t(tree.split_feature_inner), t(tree.threshold_in_bin)
-    left, right = t(tree.left_child), t(tree.right_child)
-    dl = t((tree.decision_type & 2) != 0).bool()
-    miss = torch.as_tensor(feature_miss_bin, device=dev).long()
-    rows = torch.arange(n, device=dev)
-    node = torch.zeros(n, dtype=torch.int64, device=dev)
-    for _ in range(int(tree.leaf_depth[:tree.num_leaves].max())):
-        nid = torch.clamp(node, min=0)
-        f = feat[nid]
-        if efb_dev is None:
-            b = bins[rows, f].long()
-        else:
-            group_of, offset_of, nslots_of, skip_of = (
-                x.long() for x in efb_dev)
-            rel = bins[rows, group_of[f]].long() - offset_of[f]
-            inband = (rel >= 0) & (rel < nslots_of[f])
-            b = torch.where(inband, rel + (rel >= skip_of[f]).long(),
-                            skip_of[f])
-        mb = miss[f]
-        go_left = torch.where((b == mb) & (mb >= 0), dl[nid], b <= thr[nid])
-        nxt = torch.where(go_left, left[nid], right[nid])
-        node = torch.where(node < 0, node, nxt)
-    return -node - 1
 
 
 def _leaf_steps_sum(e: torch.Tensor) -> torch.Tensor:
@@ -217,6 +180,8 @@ class FusedSerialGrower:
         monotone = [dataset.monotone_constraint(i)
                     for i in range(self.num_features)]
         self.use_monotone = any(m != 0 for m in monotone)
+        self.any_categorical = any(m.bin_type == BIN_CATEGORICAL
+                                   for m in mappers)
         penalty = list(config.feature_contri) + \
             [1.0] * (self.num_features - len(config.feature_contri))
         self.meta = S.FeatureMeta.build(
@@ -364,13 +329,19 @@ class FusedSerialGrower:
         """Best split of K leaves at once (JAX _scan_leaf /
         _scan_two_leaves). All arguments have a leading [K] axis; returns
         (rec_f [7, K] f32: gain, lg, lh, lout, rg, rh, rout;
-        rec_i [3, K] i32: feature, threshold bin, default_left).
-        ``qscales``: (grad_scale, hess_scale) when ``hist`` holds int32
-        level sums — the scan itself runs in float32."""
+        rec_i [12, K] i32: feature, threshold bin (a categorical split's
+        position), default_left, is_cat, the 8 words of the left
+        category bitset). ``qscales``: (grad_scale, hess_scale) when
+        ``hist`` holds int32 level sums — the scan itself runs in
+        float32."""
         if qscales is not None:
             hist = S.dequantize_hist(hist, qscales[0], qscales[1])
         res = S.numerical_split_scan(hist, self.meta, self.split_cfg,
                                      sum_g, sum_h, count, output, cmin, cmax)
+        if self.any_categorical:
+            res = S.merge_categorical(res, hist, self.meta, self.split_cfg,
+                                      sum_g, sum_h, count, output, cmin,
+                                      cmax, None)
         gains = torch.where(mask, res["gain"], S.K_MIN_SCORE)
         f = torch.argmax(gains, dim=-1, keepdim=True)            # [K, 1]
 
@@ -386,9 +357,45 @@ class FusedSerialGrower:
             at(res["left_output"]),
             at(res["right_sum_gradient"]), at(res["right_sum_hessian"]),
             at(res["right_output"])])
-        rec_i = torch.stack([f[:, 0].to(torch.int32), at(res["threshold"]),
-                             at(res["default_left"]).to(torch.int32)])
-        return rec_f, rec_i
+        head = torch.stack([f[:, 0].to(torch.int32), at(res["threshold"]),
+                            at(res["default_left"]).to(torch.int32)])
+        if self.any_categorical:
+            cat = self.meta.is_categorical[f[:, 0]].to(torch.int32)
+            words = self._cat_bitset_device(res, f)
+        else:
+            cat = torch.zeros_like(head[0])
+            words = torch.zeros((plane.CAT_WORDS, head.shape[1]),
+                                dtype=torch.int32, device=head.device)
+        return rec_f, torch.cat([head, cat[None], words])
+
+    @staticmethod
+    def _cat_bitset_device(res, f) -> torch.Tensor:
+        """[8, K] int32 words of the left-category bin bitset of each
+        leaf's best feature ``f`` ([K, 1]), built on the device from the
+        categorical scan's (family, position, sorted order, used bins)
+        (the JAX package's _cat_bitset_device; the host loop's mirror is
+        serial.py _cat_bins): family 0 is the single one-vs-rest bin,
+        1 / 2 a prefix of the sorted order from its front / from the end
+        of its used part."""
+        def at(x):
+            return torch.gather(x, -1, f)[:, 0].to(torch.int64)[:, None]
+        fam, pos, used = (at(res["cat_family"]), at(res["threshold"]),
+                          at(res["cat_used_bin"]))
+        b_dim = res["cat_sorted_order"].shape[-1]
+        order = torch.gather(res["cat_sorted_order"], 1,
+                             f[:, :, None].expand(-1, 1, b_dim))[:, 0]
+        idx = torch.arange(b_dim, device=f.device)[None, :]
+        sel = torch.where(fam == 1, idx <= pos,
+                          (idx >= used - 1 - pos) & (idx < used))
+        sel = (sel & (fam != 0)) | ((fam == 0) & (idx == 0))
+        bins = torch.where(fam == 0, pos, order.to(torch.int64))
+        bit = torch.where(sel, torch.ones_like(bins) << (bins & 31), 0)
+        word = bins >> 5
+        words = torch.stack([torch.where(word == w, bit, 0).sum(dim=1)
+                             for w in range(plane.CAT_WORDS)])
+        # the unsigned 32-bit words as int32 bit patterns
+        return torch.where(words >= 1 << 31, words - (1 << 32),
+                           words).to(torch.int32)
 
     # ------------------------------------------------------------------
     def _grow_tree(self, data: torch.Tensor, n: int,
@@ -425,7 +432,7 @@ class FusedSerialGrower:
         best_f = torch.zeros((7, L), dtype=f32, device=dev)
         best_f[0] = NEG_INF
         best_f[:, 0] = rf[:, 0]
-        best_i = torch.zeros((3, L), dtype=i32, device=dev)
+        best_i = torch.zeros((ri.shape[0], L), dtype=i32, device=dev)
         best_i[:, 0] = ri[:, 0]
         # per-leaf rows: sum_g, sum_h, output, cmin, cmax
         leaf_f = torch.zeros((5, L), dtype=f32, device=dev)
@@ -443,9 +450,11 @@ class FusedSerialGrower:
             pool[0] = root_hist
         depth_ok = (torch.ones(L, dtype=torch.bool, device=dev)
                     if max_depth > 0 else None)
-        # internal nodes: rows gain, value, weight / feature, thr, dl, count
+        # internal nodes: rows gain, value, weight / count, then the
+        # split record's rows (feature, thr, dl, is_cat, 8 bitset words)
         t_f = torch.zeros((3, max(L - 1, 1)), dtype=f32, device=dev)
-        t_i = torch.zeros((4, max(L - 1, 1)), dtype=i32, device=dev)
+        t_i = torch.zeros((1 + ri.shape[0], max(L - 1, 1)), dtype=i32,
+                          device=dev)
         # tree STRUCTURE depends only on the leaf ids the host reads, so
         # it is kept on the host (Tree::Split semantics, tree.h:61)
         t_left = np.zeros(max(L - 1, 1), np.int32)
@@ -461,8 +470,9 @@ class FusedSerialGrower:
             best = torch.argmax(gains)
             probe = torch.stack([best, (gains[best] > 0.0).to(torch.int64),
                                  leaf_i[0, best].to(torch.int64),
-                                 leaf_i[1, best].to(torch.int64)])
-            leaf, cont, start, count = self._read(probe)
+                                 leaf_i[1, best].to(torch.int64),
+                                 best_i[3, best].to(torch.int64)])
+            leaf, cont, start, count, is_cat = self._read(probe)
             if not cont:
                 break
             node, new = n_leaves - 1, n_leaves
@@ -475,19 +485,23 @@ class FusedSerialGrower:
                     t_right[parent] = node
             t_left[node] = ~leaf
             t_right[node] = ~new
-            t_i[0:3, node] = best_i[:, leaf]
-            t_i[3, node] = leaf_i[1, leaf]
+            t_i[0, node] = leaf_i[1, leaf]
+            t_i[1:, node] = best_i[:, leaf]
             t_f[0, node] = best_f[0, leaf]
             t_f[1, node] = leaf_f[2, leaf]
             t_f[2, node] = leaf_f[1, leaf]
 
             # --- partition the leaf's window in place ---
             feat = best_i[0, leaf]
+            cat_route = ({"is_cat": best_i[3, leaf],
+                          "cat_bitset": best_i[4:, leaf]}
+                         if self.any_categorical else {})
             rscal = plane.route_scalars(
                 self.layout, feat, best_i[1, leaf], best_i[2, leaf],
-                self.feature_miss_bin[feat], self._efb_dev, device=dev)
+                self.feature_miss_bin[feat], self._efb_dev, device=dev,
+                **cat_route)
             data, nleft = plane.partition(data, self.layout, start, count,
-                                          rscal)
+                                          rscal, cat=bool(is_cat))
             nright = count - nleft
             left_smaller = nleft <= nright
             s_start = start + torch.where(left_smaller, 0, nleft)
@@ -566,14 +580,17 @@ class FusedSerialGrower:
                           leaf_f[:3, :k].reshape(-1).to(torch.float64),
                           leaf_i[1, :k].to(torch.float64)])
         host = np.asarray(self._read(flat), dtype=np.float64)
+        ri_rows = t_i.shape[0]
         tf = host[:3 * ni].reshape(3, ni)
-        ti = host[3 * ni:7 * ni].reshape(4, ni).astype(np.int64)
-        lf = host[7 * ni:7 * ni + 3 * k].reshape(3, k)
-        lcnt = host[7 * ni + 3 * k:].astype(np.int64)
+        ti = host[3 * ni:(3 + ri_rows) * ni].reshape(ri_rows, ni
+                                                      ).astype(np.int64)
+        lf = host[(3 + ri_rows) * ni:(3 + ri_rows) * ni + 3 * k].reshape(3, k)
+        lcnt = host[(3 + ri_rows) * ni + 3 * k:].astype(np.int64)
         ta = dict(
-            n_leaves=k,
-            split_feature=ti[0], threshold_bin=ti[1],
-            default_left=ti[2].astype(bool), internal_count=ti[3],
+            n_leaves=k, internal_count=ti[0],
+            split_feature=ti[1], threshold_bin=ti[2],
+            default_left=ti[3].astype(bool), split_cat=ti[4].astype(bool),
+            split_bits=(ti[5:].T & 0xFFFFFFFF),
             split_gain=tf[0], internal_value=tf[1], internal_weight=tf[2],
             left_child=t_left[:ni].copy(), right_child=t_right[:ni].copy(),
             leaf_value=lf[2], leaf_weight=lf[1], leaf_count=lcnt,
@@ -759,12 +776,33 @@ class FusedSerialGrower:
         inner_feat = ta["split_feature"][:ni]
         tree.split_feature_inner[:ni] = inner_feat
         tree.split_feature[:ni] = [real_idx[f] for f in inner_feat]
-        tree.threshold_in_bin[:ni] = ta["threshold_bin"][:ni]
-        tree.threshold[:ni] = [mappers[f].bin_to_value(int(tb)) for f, tb in
-                               zip(inner_feat, ta["threshold_bin"][:ni])]
-        tree.decision_type[:ni] = [
-            (2 if dl else 0) | ((mappers[f].missing_type & 3) << 2)
-            for f, dl in zip(inner_feat, ta["default_left"][:ni])]
+        for i, f in enumerate(inner_feat):
+            m = mappers[f]
+            if ta["split_cat"][i]:
+                # the left-category sets from the device bitset
+                # (Tree::Split categorical case, tree.cpp:70-91)
+                words = ta["split_bits"][i]
+                bin_set = [b for b in range(m.num_bin)
+                           if (words[b >> 5] >> (b & 31)) & 1]
+                cat_vals = sorted(m.bin_2_categorical[b] for b in bin_set
+                                  if m.bin_2_categorical[b] >= 0)
+                tree.decision_type[i] = K_CATEGORICAL_MASK | (
+                    (m.missing_type & 3) << 2)
+                tree.threshold_in_bin[i] = tree.num_cat
+                tree.threshold[i] = tree.num_cat
+                tree.num_cat += 1
+                inner, raw = _to_bitset(bin_set), _to_bitset(cat_vals)
+                tree.cat_boundaries_inner.append(
+                    tree.cat_boundaries_inner[-1] + len(inner))
+                tree.cat_threshold_inner.extend(inner)
+                tree.cat_boundaries.append(tree.cat_boundaries[-1] + len(raw))
+                tree.cat_threshold.extend(raw)
+            else:
+                tb = int(ta["threshold_bin"][i])
+                tree.threshold_in_bin[i] = tb
+                tree.threshold[i] = m.bin_to_value(tb)
+                tree.decision_type[i] = ((2 if ta["default_left"][i] else 0)
+                                         | ((m.missing_type & 3) << 2))
         tree.left_child[:ni] = ta["left_child"][:ni]
         tree.right_child[:ni] = ta["right_child"][:ni]
         tree.split_gain[:ni] = ta["split_gain"][:ni]

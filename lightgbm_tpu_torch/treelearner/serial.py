@@ -85,6 +85,8 @@ class SerialTreeGrower:
         monotone = [dataset.monotone_constraint(i)
                     for i in range(self.num_features)]
         self.use_monotone = any(m != 0 for m in monotone)
+        self.any_categorical = any(m.bin_type == BIN_CATEGORICAL
+                                   for m in mappers)
         self._monotone_np = np.asarray(monotone, dtype=np.int32)
         self._mono_state = None
         penalty = list(config.feature_contri) + \
@@ -439,21 +441,26 @@ class SerialTreeGrower:
             gain_scale=scale)
         f = res["best_feature"].to(torch.int64)
         # ONE read for the packed split record: floats as float64 and
-        # the integer fields (exact in float64)
-        rec = torch.stack([
+        # the integer fields (exact in float64), then the categorical
+        # block (family, used bins, the sorted bin order)
+        parts = [torch.stack([
             res["best_gain"].to(torch.float64),
             *(res[k][f].to(torch.float64) for k in (
                 "left_sum_gradient", "left_sum_hessian", "left_output",
                 "right_sum_gradient", "right_sum_hessian",
                 "right_output", "threshold", "default_left",
                 "left_count", "right_count", "found")),
-            f.to(torch.float64)])
-        v = self._read(rec)
+            f.to(torch.float64)])]
+        if self.any_categorical:
+            parts += [torch.stack([res["cat_family"][f],
+                                   res["cat_used_bin"][f]]).to(torch.float64),
+                      res["cat_sorted_order"][f].to(torch.float64)]
+        v = self._read(torch.cat(parts))
         if drop_after:
             leaf.hist = None
         if not v[11] or not np.isfinite(v[0]) or v[0] <= 0.0:
             return None
-        return {
+        best = {
             "feature": int(v[12]), "gain": float(v[0]),
             "threshold": int(v[7]), "default_left": bool(v[8]),
             "left_sum_gradient": v[1], "left_sum_hessian": v[2],
@@ -461,6 +468,25 @@ class SerialTreeGrower:
             "right_sum_gradient": v[4], "right_sum_hessian": v[5],
             "right_count": int(v[10]), "right_output": v[6],
         }
+        if self.any_categorical:
+            best["cat_family"] = int(v[13])
+            best["cat_used_bin"] = int(v[14])
+            best["cat_sorted_order"] = [int(o) for o in v[15:]]
+        return best
+
+    @staticmethod
+    def _cat_bins(best: dict) -> List[int]:
+        """The left category bin set from the scan's (family, position,
+        sorted order) description: the one bin of a one-vs-rest split,
+        else a prefix of the sorted order from its front (family 1) or
+        from the end of its used part (family 2)."""
+        fam, pos = best["cat_family"], best["threshold"]
+        if fam == 0:
+            return [pos]
+        order, used = best["cat_sorted_order"], best["cat_used_bin"]
+        if fam == 1:
+            return [order[i] for i in range(pos + 1)]
+        return [order[used - 1 - i] for i in range(pos + 1)]
 
     def _split_leaf(self, tree: Tree, leaves: Dict[int, _Leaf], lid: int,
                     perm, grad, hess, tree_mask, rand_thr):
@@ -474,17 +500,37 @@ class SerialTreeGrower:
         mono = self.dataset.monotone_constraint(fi)
         if self._mono_state is not None:
             self._mono_state.before_split(tree, lid, mono)
-        right_leaf = tree.split(
-            lid, fi, real_feature, best["threshold"],
-            mapper.bin_to_value(best["threshold"]),
-            best["left_output"], best["right_output"],
-            best["left_count"], best["right_count"],
-            best["left_sum_hessian"], best["right_sum_hessian"],
-            best["gain"], mapper.missing_type, best["default_left"])
+        is_cat = mapper.bin_type == BIN_CATEGORICAL
+        if is_cat:
+            # bitsets of the left bins (inner) and of their raw category
+            # values (reference Tree::SplitCategorical, tree.cpp:70-91)
+            bin_set = self._cat_bins(best)
+            words = np.zeros((self.max_num_bin + 31) // 32, dtype=np.int64)
+            for b in bin_set:
+                words[b // 32] |= 1 << (b % 32)
+            cat_vals = sorted(mapper.bin_2_categorical[b] for b in bin_set
+                              if mapper.bin_2_categorical[b] >= 0)
+            right_leaf = tree.split_categorical(
+                lid, fi, real_feature, sorted(bin_set), cat_vals,
+                best["left_output"], best["right_output"],
+                best["left_count"], best["right_count"],
+                best["left_sum_hessian"], best["right_sum_hessian"],
+                best["gain"], mapper.missing_type)
+            route = (0, False, -1, torch.as_tensor(words, device=self.device))
+        else:
+            right_leaf = tree.split(
+                lid, fi, real_feature, best["threshold"],
+                mapper.bin_to_value(best["threshold"]),
+                best["left_output"], best["right_output"],
+                best["left_count"], best["right_count"],
+                best["left_sum_hessian"], best["right_sum_hessian"],
+                best["gain"], mapper.missing_type, best["default_left"])
+            route = (best["threshold"], best["default_left"],
+                     int(self.feature_miss_bin[fi]), None)
+        thr, dl, mb, bitset = route
         new_perm, lc = partition_leaf(
-            self.bins, perm, leaf.start, leaf.count, fi, best["threshold"],
-            best["default_left"], int(self.feature_miss_bin[fi]), False,
-            efb=self._efb_dev)
+            self.bins, perm, leaf.start, leaf.count, fi, thr, dl, mb, is_cat,
+            cat_bitset=bitset, efb=self._efb_dev)
         self.syncs += 1          # the left count steers the host loop
         rc = leaf.count - lc
 
@@ -496,7 +542,7 @@ class SerialTreeGrower:
         if self._mono_state is not None:
             ms = self._mono_state
             updated_leaves = ms.update(
-                tree, lid, right_leaf, mono, True, best["left_output"],
+                tree, lid, right_leaf, mono, not is_cat, best["left_output"],
                 best["right_output"], fi, best["threshold"],
                 lambda l: l in leaves and leaves[l].best is not None)
             lcmin, lcmax = ms.cmin[lid], ms.cmax[lid]

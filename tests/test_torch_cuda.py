@@ -475,3 +475,95 @@ def test_cuda_training_matches_cpu():
                       "left_child", "right_child"):
                 np.testing.assert_array_equal(getattr(a, f)[:k - 1],
                                               getattr(c, f)[:k - 1])
+
+
+def _cat_data(n, seed):
+    """4 numerical columns and categorical columns of 3, 24 and 100
+    levels (NaN in the last)."""
+    rng = np.random.RandomState(seed)
+    X = np.column_stack([rng.randn(n, 4), rng.randint(0, 3, n),
+                         rng.randint(0, 24, n),
+                         rng.randint(0, 100, n).astype(float)])
+    X[rng.rand(n) < 0.02, 6] = np.nan
+    eff = rng.randn(100)
+    y = (X[:, 0] + eff[np.nan_to_num(X[:, 6]).astype(int)] * 0.8
+         + (X[:, 5] % 3 == 1) + rng.randn(n) > 0.5).astype(float)
+    return X, y, [4, 5, 6]
+
+
+@pytest.mark.cuda
+def test_categorical_training_on_card_equals_cpu():
+    """Categorical training on both learners: the card's trees (bitset
+    pools included) equal the CPU's; predictions through the packed
+    forest agree with early stop off and on."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    X, y, cats = _cat_data(8000, 0)
+    for extra in ({}, {"tpu_fused": False}):
+        out = []
+        for dev in ("cuda", "cpu"):
+            b = lgt.train({"objective": "binary", "device_type": dev,
+                           "tpu_hist_dtype": "float32", "verbose": -1,
+                           "categorical_feature": cats, **extra},
+                          lgt.Dataset(X, label=y), num_boost_round=3,
+                          verbose_eval=False)
+            cfg = b._gbdt.config
+            p = [b.predict(X)]
+            cfg.pred_early_stop, cfg.pred_early_stop_freq = True, 1
+            cfg.pred_early_stop_margin = 1.0
+            p.append(b.predict(X, raw_score=True))
+            cfg.pred_early_stop = False
+            out.append((b._gbdt.models, p))
+        (tg, pg), (tc, pc) = out
+        assert sum(t.num_cat for t in tg) > 0
+        for a, c in zip(tg, tc):
+            k = a.num_leaves
+            assert k == c.num_leaves
+            for f in ("split_feature", "threshold", "decision_type",
+                      "left_child", "right_child"):
+                np.testing.assert_array_equal(getattr(a, f)[:k - 1],
+                                              getattr(c, f)[:k - 1])
+            for f in ("cat_boundaries", "cat_threshold",
+                      "cat_boundaries_inner", "cat_threshold_inner"):
+                assert list(getattr(a, f)) == list(getattr(c, f)), f
+        for a, c in zip(pg, pc):
+            np.testing.assert_allclose(a, c, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_traverse_and_forest_on_card_equal_cpu():
+    """ops/traverse.py (through Tree.leaf_index_binned / leaf_index_raw)
+    and models/forest.py PackedForest on the card against the same
+    functions on the CPU, bit for bit, on a categorical model (trees
+    twelve times over: two forest blocks)."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.models.forest import PackedForest
+    X, y, cats = _cat_data(4000, 1)
+    b = lgt.train({"objective": "binary", "device_type": "cpu",
+                   "verbose": -1, "categorical_feature": cats},
+                  lgt.Dataset(X, label=y), num_boost_round=6,
+                  verbose_eval=False)
+    trees = b._gbdt.models
+    assert sum(t.num_cat for t in trees) > 0
+    x = torch.as_tensor(X.astype(np.float32))
+    ds = b._gbdt.train_data
+    bins = torch.as_tensor(ds.bins.astype(np.int32))
+    miss = b._gbdt._fused.feature_miss_bin
+    for t in trees:
+        assert torch.equal(t.leaf_index_raw(x.cuda()).cpu(),
+                           t.leaf_index_raw(x))
+        assert torch.equal(t.leaf_index_binned(bins.cuda(), miss.cuda()).cpu(),
+                           t.leaf_index_binned(bins, miss))
+    for reps in (1, 12):
+        fc = PackedForest(trees * reps, 1, "cuda")
+        fh = PackedForest(trees * reps, 1, "cpu")
+        for fn in (lambda f, v: f.raw_scores(v),
+                   lambda f, v: f.leaf_indices(v),
+                   lambda f, v: f.raw_scores_early_stop(v, 1, 1.0),
+                   lambda f, v: f.raw_scores_early_stop(v, 3, 2.5)):
+            got, want = fn(fc, x.cuda()).cpu(), fn(fh, x)
+            assert torch.equal(got.view(torch.int32)
+                               if got.dtype == torch.float32 else got,
+                               want.view(torch.int32)
+                               if want.dtype == torch.float32 else want)

@@ -106,14 +106,3 @@ def test_split_scan_batches_leaves():
                                       z[i], z[i] - np.inf, z[i] + np.inf)
         for k, v in one.items():
             assert torch.equal(both[k][i], v), k
-
-
-def test_categorical_scan_not_ported_raises():
-    hist, num_bin, missing, default_bin, monotone = _case(4)
-    cat = np.zeros(F, bool)
-    cat[2] = True
-    meta = TS.FeatureMeta.build(num_bin, missing, default_bin, cat, monotone,
-                                np.ones(F))
-    with pytest.raises(NotImplementedError, match="A3"):
-        TS.best_split(torch.as_tensor(hist), meta, TS.SplitConfig(), 0.0,
-                      1.0, 10, 0.0, -np.inf, np.inf)

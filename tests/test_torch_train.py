@@ -210,7 +210,6 @@ def test_cuda_without_a_card_raises():
     ({"tree_learner": "voting", "num_machines": 2}, NotImplementedError,
      "A13"),
     ({"objective": "regression"}, NotImplementedError, "A9"),
-    ({"categorical_feature": [3]}, NotImplementedError, "A3"),
 ])
 def test_left_out_options_raise(extra, err, match):
     """Options the port does not train yet raise and name their ROADMAP
