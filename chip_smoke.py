@@ -24,8 +24,8 @@ Phases, each of which fails the run (no exception is caught):
    lanes for P = 16 and P = 128, with each route's kernel launches per
    partition.
 3. paths — lightgbm_tpu_torch.train through each path the port runs,
-   the launch counts of every kernel read around each run, AUC on
-   held-out rows and seconds per iteration:
+   the launch counts of every kernel read around each run, AUC (or the
+   path's loss) on held-out rows and seconds per iteration:
    - HIGGS fused: HIGGS-shaped synthetic (28 features, 255 leaves, 255
      bins) on the fused learner (B1 + B2);
    - (a) wide-sparse fused: the bench.py wide sidecar's one-hot CSR
@@ -41,12 +41,23 @@ Phases, each of which fails the run (no exception is caught):
      (3, 24, 100 and 250 levels, Zipf-like, 1% NaN in the 100-level
      one) on the fused learner (B1 + B2, whose categorical bitset route
      must launch), then one profiled iteration (kernels, device busy
-     share).
+     share);
+   - (i)-(k): the HIGGS columns with a regression label (score plus
+     N(0, 1) noise) on the fused learner (B1 + B2): (i) the default
+     objective (no objective key: regression, metric l2), (j) quantile
+     at alpha 0.9 and (k) MAPE, the last two with the in-program
+     percentile refit (unweighted; weighted, as MAPE's weight plane
+     carries its label weights), timed per iteration with CUDA events;
+     each held-out metric must beat its floor (0.8 x the label variance;
+     the constant 0.9-quantile's and the constant median's loss); each
+     takes one profiled iteration.
 4. card vs CPU — the same small training on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
-   and with quantized gradients, and on (h)'s columns with categorical
-   features: trees (bitset pools included), leaf values and predictions
-   must agree, with prediction early stop off and on.
+   and with quantized gradients, on (h)'s columns with categorical
+   features, and with the regression, quantile and MAPE objectives:
+   trees (bitset pools included), leaf values and predictions must
+   agree, with prediction early stop off and on for the categorical
+   model.
 
 ``--profile`` instead profiles one iteration of each path
 (``--profile-paths b,h`` of the named ones only).
@@ -85,6 +96,16 @@ def make_higgs_like(n, f, seed=0, scale=2.4):
     X = rng.randn(n, f).astype(np.float32)
     s = _higgs_score(X, scale)
     y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-s))).astype(np.float32)
+    return X, y
+
+
+def make_higgs_reg_like(n, f, seed=0, scale=2.4):
+    """make_higgs_like's columns (the same rows for the same seed) with
+    a regression label: the standardized score plus N(0, 1) noise, so
+    the best possible l2 is 1 against a label variance of ~6.76."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    y = (_higgs_score(X, scale) + rng.randn(n)).astype(np.float32)
     return X, y
 
 
@@ -1120,26 +1141,31 @@ def iteration_bounds_ms(gbdt, trees):
             part_b / n / HBM_BYTES_PER_S * 1e3)
 
 
-def held_out_auc(booster, X, y, device):
-    from lightgbm_tpu_torch.metric.metrics import AUCMetric
-    pred = booster.predict(X, raw_score=True)
-    assert pred.shape == (len(y),) and np.isfinite(pred).all()
-    metric = AUCMetric(booster.config)
+def held_out_metric(booster, X, y, metric, device):
+    """``metric`` (the port's own, reduced on ``device``) of the booster's
+    predictions on held-out rows."""
+    from lightgbm_tpu_torch.metric.metrics import create_metric
+    gbdt = booster._gbdt
+    raw = booster.predict(X, raw_score=True)
+    assert raw.shape == (len(y),) and np.isfinite(raw).all()
+    m = create_metric(metric, gbdt.config)
 
     class _Meta:
         label, weights = y, None
-    metric.init(_Meta, len(y))
-    return float(metric.eval_device(torch.as_tensor(pred,
-                                                    device=device))[0][1])
+    m.init(_Meta, len(y))
+    obj = gbdt.objective if metric != "auc" else None
+    return float(m.eval_device(torch.as_tensor(raw, device=device),
+                               obj)[0][1])
 
 
 def run_path(name, params, ds, iters, X_hold, y_hold, expect,
-             device="cuda", min_auc=0.70):
+             device="cuda", floor=0.70, metric="auc"):
     """Train ``iters`` iterations through lightgbm_tpu_torch.train with
     every launch counter set to 0 just before and read just after; fail
     unless each kernel of ``expect`` was launched. Prints seconds and
     host syncs per iteration, launches, the per-iteration bytes bounds
-    and held-out AUC; returns (launches, booster, auc)."""
+    and the held-out ``metric``, which must be above ``floor`` (AUC) or
+    below it (a loss); returns (launches, booster, metric value)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import cuda as K
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -1173,15 +1199,19 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
         for k in expect:
             assert launches[k] > 0, f"{name}: kernel {k} never launched"
     hb, pb = iteration_bounds_ms(gbdt, trees)
-    auc = held_out_auc(booster, X_hold, y_hold, device)
+    val = held_out_metric(booster, X_hold, y_hold, metric, device)
     log(f"{name}: launches {json.dumps(launches)}; leaves per tree "
         f"{leaves}; histogram rows per tree "
         f"{[window_rows(t)[0] for t in trees]}; per-iteration bytes bound "
         f"histogram {hb:.4f} ms, partition {pb:.4f} ms")
-    log(f"{name}: held-out AUC {auc:.6f} on {len(y_hold)} rows after "
-        f"{iters} iterations; mean {np.mean(secs):.4f} s/iteration")
-    assert min_auc < auc <= 1.0, (name, auc)
-    return launches, booster, auc
+    log(f"{name}: held-out {'AUC' if metric == 'auc' else metric} "
+        f"{val:.6f} on {len(y_hold)} rows after {iters} iterations "
+        f"(floor {floor:.6f}); mean {np.mean(secs):.4f} s/iteration")
+    if metric == "auc":
+        assert floor < val <= 1.0, (name, val)
+    else:
+        assert 0.0 <= val < floor, (name, val, floor)
+    return launches, booster, val
 
 
 def wide_data(rows, hold, device):
@@ -1229,6 +1259,78 @@ def cat_data(rows, hold, device):
     return ds, X[rows:], y[rows:]
 
 
+# paths (i)-(k): the HIGGS columns with a regression label; (i) has no
+# objective key (the default regression, metric l2)
+REG_PARAMS = {"num_leaves": 255, "max_bin": 255, "verbose": -1}
+REG_PATHS = [("i", "(i) HIGGS-reg fused", {}, "l2"),
+             ("j", "(j) HIGGS-quantile fused",
+              {"objective": "quantile", "alpha": 0.9}, "quantile"),
+             ("k", "(k) HIGGS-MAPE fused", {"objective": "mape"}, "mape")]
+
+
+def reg_data(rows, hold, device):
+    """Paths (i)-(k)'s data: make_higgs_reg_like (seed 0: the HIGGS
+    path's columns), its constructed Dataset, held-out rows, and each
+    metric's floor on the held-out rows: 0.8 x the label variance (l2),
+    and the loss of the constant 0.9-quantile (quantile) and of the
+    constant median (mape) of the training labels, in numpy float64."""
+    import lightgbm_tpu_torch as lgt
+    X, y = make_higgs_reg_like(rows + hold, 28, seed=0)
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:rows], label=y[:rows],
+                     params={**REG_PARAMS, "device_type": device})
+    ds.construct()
+    yt, yh = y[:rows].astype(np.float64), y[rows:].astype(np.float64)
+    r = yh - np.quantile(yt, 0.9)
+    floors = {"l2": 0.8 * float(np.var(yh)),
+              "quantile": float(np.mean(np.where(r < 0, -0.1 * r, 0.9 * r))),
+              "mape": float(np.mean(np.abs(yh - np.median(yt))
+                                    / np.maximum(1.0, np.abs(yh))))}
+    log(f"HIGGS-reg: dataset {rows} x 28 binned in "
+        f"{time.perf_counter() - t0:.2f} s (host); held-out label variance "
+        f"{np.var(yh):.6f}; floors {json.dumps(floors)}")
+    return ds, X[rows:], y[rows:], floors
+
+
+class refit_timer:
+    """Times each call of the fused learner's percentile refit while
+    active: CUDA events around it on the card (read after the training
+    has synchronized, so the timing adds no blocking read) and host
+    seconds. Entering yields the list of (device ms, host ms) that
+    fills when the context exits."""
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.treelearner import fused
+        self.cls, self.orig = fused.FusedSerialGrower, \
+            fused.FusedSerialGrower._renew_leaf_outputs
+        self.marks, self.out = [], []
+        orig, marks = self.orig, self.marks
+
+        def timed(learner, *a, **kw):
+            cuda = learner.device.type == "cuda"
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+                if cuda else None
+            if cuda:
+                ev[0].record()
+            t0 = time.perf_counter()
+            res = orig(learner, *a, **kw)
+            host = (time.perf_counter() - t0) * 1e3
+            if cuda:
+                ev[1].record()
+            marks.append((ev, host))
+            return res
+        self.cls._renew_leaf_outputs = timed
+        return self.out
+
+    def __exit__(self, *exc):
+        self.cls._renew_leaf_outputs = self.orig
+        if self.marks and self.marks[0][0] is not None:
+            torch.cuda.synchronize()
+        self.out.extend((ev[0].elapsed_time(ev[1]) if ev else host, host)
+                        for ev, host in self.marks)
+        return False
+
+
 def paths(args, report, wide, device="cuda"):
     """Phase 3: the HIGGS fused path and paths (a)-(c), then their
     quantized twins (d)-(g), then the categorical path (h). Each
@@ -1249,11 +1351,12 @@ def paths(args, report, wide, device="cuda"):
     cfg = Config.from_params(WIDE_PARAMS)
     assert H.hist_layout(cfg, wds.handle) == "multival", "(a) not multival"
     hX, hy = X[args.rows:], y[args.rows:]
+    rds, rX, ry, reg_floors = reg_data(args.rows, hold, device)
     cds, cX, cy = cat_data(args.rows, hold, device)
     cat_params = {**HIGGS_PARAMS,
                   "categorical_feature": list(range(28, 32))}
     # (key, name, params, dataset, iterations, held-out rows, kernels,
-    #  AUC floor, float twin)
+    #  AUC floor, float twin); (i)-(k) add their metric
     plan = [
         ("higgs", "HIGGS fused", HIGGS_PARAMS, ds, args.iters, hX, hy,
          ("hist_planar", "partition"), 0.70, None),
@@ -1277,14 +1380,19 @@ def paths(args, report, wide, device="cuda"):
          args.wide_host_iters, wX, wy, ("hist_multival_q",), 0.0, "c"),
         ("h", "(h) HIGGS-cat fused", cat_params, cds, args.iters, cX, cy,
          ("hist_planar", "partition"), 0.70, None),
-    ]
+    ] + [(key, name, {**REG_PARAMS, **extra}, rds, args.iters, rX, ry,
+          ("hist_planar", "partition"), reg_floors[metric], None, metric)
+         for key, name, extra, metric in REG_PATHS]
     got, aucs = {}, {}
-    for key, name, params, dset, iters, Xh, yh, expect, floor, twin in plan:
+    for key, name, params, dset, iters, Xh, yh, expect, floor, twin, \
+            *metric in plan:
         t_path = time.perf_counter()
         if twin is not None:
             floor = aucs[twin] - QUANT_AUC_SLACK
-        got[key], booster, aucs[key] = run_path(
-            name, params, dset, iters, Xh, yh, expect, device, min_auc=floor)
+        with refit_timer() as refits:
+            got[key], booster, aucs[key] = run_path(
+                name, params, dset, iters, Xh, yh, expect, device,
+                floor=floor, metric=(metric or ["auc"])[0])
         gb = booster._gbdt
         learner = gb._fused if gb._fused is not None else gb.tree_learner
         assert learner._quant == (twin is not None), name
@@ -1310,9 +1418,21 @@ def paths(args, report, wide, device="cuda"):
                 log(f"{name}: profiled iteration took "
                     f"{time.perf_counter() - t_prof:.1f} s with the "
                     f"profiler's own work")
+        if key in ("j", "k"):
+            spec = gb.objective.persistent_renew_spec()
+            assert gb._fused is not None and spec is not None, name
+            assert len(refits) == iters, (name, len(refits))
+            log(f"{name}: refit (alpha {spec[0]}, weighted {spec[1]}) "
+                f"{np.mean([r[0] for r in refits]):.3f} ms per iteration "
+                f"of stream time between CUDA events around it "
+                f"({np.mean([r[1] for r in refits]):.3f} ms host time), "
+                f"{iters} refits: " + ", ".join(
+                    f"{r[0]:.3f}" for r in refits))
+        if key in ("i", "j", "k") and device == "cuda":
+            profile_iteration(name, booster, device_only=True)
         log(f"{name}: {time.perf_counter() - t_path:.1f} s in all")
-    path_of = {"hist_planar": ["higgs", "h"],
-               "partition": ["higgs", "a", "d", "e", "h"],
+    path_of = {"hist_planar": ["higgs", "h", "i", "j", "k"],
+               "partition": ["higgs", "a", "d", "e", "h", "i", "j", "k"],
                "hist_radix": ["b"], "hist_multival_planar": ["a"],
                "hist_multival": ["c"], "hist_masked": [],
                "partition_window": [], "hist_planar_q": ["d"],
@@ -1328,23 +1448,32 @@ def paths(args, report, wide, device="cuda"):
 
 def card_vs_cpu():
     """Phase 4: the same small training on the card and on the CPU (the
-    plain versions), on both learners, float and quantized, and on path
-    (h)'s columns with categorical features: trees (bitset pools
-    included), leaf values and predictions, these with prediction early
-    stop off and on for the categorical model."""
+    plain versions), on both learners, float and quantized, on path
+    (h)'s columns with categorical features, and with the regression,
+    quantile and MAPE objectives (the percentile refits): trees (bitset
+    pools included), leaf values and predictions, these with prediction
+    early stop off and on for the categorical model."""
     import lightgbm_tpu_torch as lgt
     n = 100_000
     X, y = make_higgs_like(n, 28, seed=3)
     Xc, yc, cats = make_higgs_cat_like(n, seed=6)
+    Xr, yr = make_higgs_reg_like(n, 28, seed=3)
     cat = {"categorical_feature": cats}
-    for learner, extra, data in (
-            ("fused", {}, (X, y)), ("host loop", {"tpu_fused": False}, (X, y)),
-            ("fused quantized", QUANT_PARAMS, (X, y)),
-            ("host loop quantized", {"tpu_fused": False, **QUANT_PARAMS},
-             (X, y)),
-            ("fused categorical", cat, (Xc, yc)),
-            ("host loop categorical", {"tpu_fused": False, **cat},
-             (Xc, yc))):
+    cases = [("fused", {}, (X, y)),
+             ("host loop", {"tpu_fused": False}, (X, y)),
+             ("fused quantized", QUANT_PARAMS, (X, y)),
+             ("host loop quantized", {"tpu_fused": False, **QUANT_PARAMS},
+              (X, y)),
+             ("fused categorical", cat, (Xc, yc)),
+             ("host loop categorical", {"tpu_fused": False, **cat},
+              (Xc, yc))]
+    for obj in ({"objective": "regression"},
+                {"objective": "quantile", "alpha": 0.9},
+                {"objective": "mape"}):
+        cases += [(f"fused {obj['objective']}", obj, (Xr, yr)),
+                  (f"host loop {obj['objective']}",
+                   {"tpu_fused": False, **obj}, (Xr, yr))]
+    for learner, extra, data in cases:
         out = {}
         xs, ys = data
         for dev in ("cuda", "cpu"):
@@ -1415,6 +1544,10 @@ def profile_paths(args, wide):
                       {**HIGGS_PARAMS,
                        "categorical_feature": list(range(28, 32))},
                       cat_data(args.rows, 0, "cuda")[0]))
+    if any(k in keep for k, *_ in REG_PATHS):
+        rds = reg_data(args.rows, 1000, "cuda")[0]
+        cases += [(k, name, {**REG_PARAMS, **extra}, rds)
+                  for k, name, extra, _ in REG_PATHS]
     for key, name, params, ds in cases:
         if key not in keep:
             continue
@@ -1493,7 +1626,7 @@ def main() -> int:
                     help="iterations of path (c)")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
-    ap.add_argument("--profile-paths", default="higgs,a,b,c,d,e,f,g,h",
+    ap.add_argument("--profile-paths", default="higgs,a,b,c,d,e,f,g,h,i,j,k",
                     help="comma-separated paths --profile profiles")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -180,6 +180,9 @@ class GBDT:
                     vs.add_constant(init_score, 0)
                 log.info("Start training from score %f", init_score)
                 return init_score
+        elif self.objective.name in ("regression_l1", "quantile", "mape"):
+            log.warning("Disabling boost_from_average in %s may cause the "
+                        "slow convergence", self.objective.name)
         return 0.0
 
     def _update_score(self, tree: Tree) -> None:
@@ -196,6 +199,25 @@ class GBDT:
                                           tl._efb_dev)
             st.score[0] += vals[leaf]
 
+    def _renew_tree_output(self, tree: Tree) -> None:
+        """The host loop's leaf refit of L1, quantile and MAPE (reference
+        SerialTreeLearner::RenewTreeOutput, serial_tree_learner.cpp:661,
+        as the JAX package's GBDT._renew_tree_output): each training
+        row's leaf by bin-space traversal, the float32 residual label -
+        score, and the percentile of each leaf's residuals in numpy
+        float64."""
+        obj = self.objective
+        if obj is None or not obj.is_renew_tree_output:
+            return
+        tl = self.tree_learner
+        leaf_idx = tree.leaf_index_binned(tl.bins, tl.feature_miss_bin,
+                                          tl._efb_dev).cpu().numpy()
+        score = self.train_score.score[0].cpu().numpy()
+        residual = np.asarray(self.train_data.metadata.label) - score
+        out = obj.renew_tree_output(leaf_idx, residual, tree.num_leaves)
+        if out is not None:
+            tree.leaf_value[:tree.num_leaves] = out
+
     def _train_one_iter_host_loop(self, init_score: float) -> bool:
         """One iteration on the host-loop grower (the JAX package's
         non-fused TrainOneIter branch): gradients in row order, one
@@ -205,8 +227,7 @@ class GBDT:
         grad, hess = self.objective.get_gradients(score)
         tree = self.tree_learner.grow(grad, hess, self._perm, self.num_data)
         if tree.num_leaves > 1:
-            # objectives with a renewed tree output (L1, quantile, MAPE)
-            # are not ported (ROADMAP A9): nothing to renew here
+            self._renew_tree_output(tree)
             tree.apply_shrinkage(self.shrinkage_rate)
             self._update_score(tree)
             if abs(init_score) > K_EPSILON:

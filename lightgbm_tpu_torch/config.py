@@ -576,7 +576,7 @@ class Config:
     tpu_hist_layout: str = "auto"
     tpu_rows_per_chunk: int = 0  # 0 = auto
     # fused tree growth over the planar state (treelearner/fused.py);
-    # the port has no host-loop grower yet, so False is rejected
+    # False runs the host-loop grower (treelearner/serial.py)
     tpu_fused: bool = True
     num_gpu: int = 1
 

@@ -44,6 +44,7 @@ from . import cuda as K
 from .histogram import (_check_dtype, _need_cuda, _window_args,
                         gather_leaf_rows)
 from .quantize import pack_gh, unpack_gh
+from .split import xla_sum
 
 MV_SK = 8            # slot-plane tile: slot counts are padded to it
 # rows per warp tile of the CUDA kernels (csrc/hist_multival.cu kTile);
@@ -188,11 +189,18 @@ def group_hist_from_flat(flat: torch.Tensor, tables) -> torch.Tensor:
     """[T+1, 2] flat histogram -> [G, Bg, 2]: cell T carries the leaf
     (sum_g, sum_h) totals (the sentinel slot), and each group's default
     cell is total - sum(its other cells). Keeps the flat histogram's
-    dtype: exact in int32 for quantized levels."""
+    dtype: exact in int32 for quantized levels. The float32 sum over a
+    group's cells runs in XLA's reduce order (``xla_sum``), which the
+    JAX package's learners take, so the rebuilt default cell has their
+    bits."""
     idx, valid, dmask = tables
     gh = flat[idx] * valid[..., None].to(flat.dtype)
     total = flat[-1]                                    # [2]
-    fill = total[None, :] - gh.sum(dim=1).to(flat.dtype)
+    if gh.dtype == torch.float32:
+        other = xla_sum(gh.transpose(1, 2))
+    else:
+        other = gh.sum(dim=1).to(flat.dtype)
+    fill = total[None, :] - other
     return gh + dmask[..., None].to(flat.dtype) * fill[:, None, :]
 
 

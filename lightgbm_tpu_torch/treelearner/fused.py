@@ -36,6 +36,11 @@ exact int32, and ``dequantize_hist`` runs at the split scan. With
 ``quant_train_renew_leaf`` the leaf values are refit from the float32
 gradient sums of each leaf's window.
 
+L1, quantile and MAPE refit each leaf to a percentile of its residuals
+label - score before the tree's one read (``_renew_leaf_outputs``):
+32-step bisections over the residuals' monotone integer keys, counted
+per leaf window by prefix sums, with no read of their own.
+
 Categorical features take the categorical scan (ops/split.py
 ``merge_categorical``, on the categorical columns only); the left
 category set of a categorical split is built on the device as the 8
@@ -64,6 +69,7 @@ from ..ops import plane
 from ..ops import quantize as Q
 from ..ops import split as S
 from ..ops import threefry
+from ..ops.xla_float import f32_value, fma_f32
 
 NEG_INF = float("-inf")
 
@@ -570,7 +576,16 @@ class FusedSerialGrower:
             n_leaves += 1
 
         k, ni = n_leaves, n_leaves - 1
-        if qscales is not None and self.config.quant_train_renew_leaf:
+        renew = (self.objective.persistent_renew_spec()
+                 if self.objective is not None else None)
+        if renew is not None:
+            # the percentile refit of L1, quantile and MAPE, before the
+            # tree's one read and before shrinkage (the reference's
+            # RenewTreeOutput -> Shrinkage order, gbdt.cpp:379-386); it
+            # takes precedence over the quantized refit
+            leaf_f[2, :k] = self._renew_leaf_outputs(
+                data, n, leaf_i[:, :k], *renew)
+        elif qscales is not None and self.config.quant_train_renew_leaf:
             leaf_f[2, :k] = self._renew_quant_leaves(
                 data, n, leaf_i[:, :k], leaf_f[:, :k])
         # ONE read for the finished tree: every value array as float64
@@ -607,6 +622,151 @@ class FusedSerialGrower:
         g, h = self.objective.persistent_grads(score, label, weight)
         realm = torch.arange(Ly.num_lanes, device=self.device) < n
         return torch.where(realm, g, 0.0), torch.where(realm, h, 0.0)
+
+    def _renew_leaf_outputs(self, data: torch.Tensor, n: int,
+                            win: torch.Tensor, alpha: float,
+                            weighted: bool) -> torch.Tensor:
+        """[k] float32 leaf values: the weighted percentile of each
+        leaf's residuals label - score, straight off the planar state
+        (the JAX package's _renew_leaf_outputs, the reference's
+        RegressionL1loss::RenewTreeOutput and Percentile /
+        WeightedPercentileFun, regression_objective.hpp:23-88,249).
+        win: [2, k] window start / count. Leaves without rows get 0.
+
+        No sort: each residual maps to a monotone 32-bit key (its
+        float bits, sign-flipped), carried as int64 in [0, 2^32), and
+        each leaf's order statistic is found by a 32-step bisection
+        over key space. A step broadcasts each leaf's candidate key to
+        the lanes of its window by a gather (the JAX package sums a
+        telescoping [R, L] step matrix for the same exact integers) and
+        counts, per leaf, the lanes at or below it: one [R] compare and
+        one prefix sum read back at the window ends. Weighted mode sums
+        float32 weights instead, in XLA's prefix-sum order
+        (``S._prefix_sum``), so the crossing is the JAX package's, and
+        then snaps it to a data key with integer rank bisections. As in
+        the JAX package, under exact ties the weighted rule counts a
+        tie block as one mass, and may pick a neighbouring value where
+        the reference walks the sorted rows."""
+        Ly = self.layout
+        dev = self.device
+        i64 = torch.int64
+        mask32 = 0xFFFFFFFF
+        start, cnt = win[0].long(), win[1].long()
+        lanes = Ly.num_lanes
+        realm = torch.arange(lanes, device=dev) < n
+        resid = plane.get_f32(data, Ly.label) - plane.get_f32(data, Ly.score)
+        bits = resid.view(torch.int32).to(i64)
+        u = bits & mask32
+        ukey = torch.where(bits < 0, ~u & mask32, u | 0x80000000)
+        # each lane's leaf: the windows tile [0, n) in start order (an
+        # empty leaf repeats 0 times; no host read)
+        order = torch.argsort(start, stable=True)
+        lane_leaf = torch.zeros(lanes, dtype=i64, device=dev)
+        lane_leaf[:n] = torch.repeat_interleave(order, cnt[order],
+                                                output_size=n)
+        ends = torch.clamp(start + cnt, min=1) - 1
+        sidx = torch.clamp(start, min=1) - 1
+
+        def seg_sums(c):
+            """Per-leaf window sums of a [R] (or [T, R]) tensor by one
+            prefix sum along the lanes (the last axis): float32 in XLA's
+            order, counts exact in int32."""
+            if c.dtype == torch.float32:
+                cs = S._prefix_sum(c)
+            else:
+                # one flat scan (a device-wide scan on the card; a
+                # row-wise scan of [T, R] is ~10x slower there), then
+                # each row less the rows before it
+                cs = torch.cumsum(c.reshape(-1), 0,
+                                  dtype=torch.int32).view(c.shape)
+                if c.dim() == 2:
+                    cs = cs - torch.nn.functional.pad(cs[:-1, -1:],
+                                                      (0, 0, 1, 0))
+            lo = torch.where(start > 0, cs[..., sidx],
+                             torch.zeros_like(cs[..., sidx]))
+            raw = cs[..., ends] - lo
+            raw = torch.where(cnt > 0, raw, torch.zeros_like(raw))
+            return raw if raw.dtype == torch.float32 else raw.to(i64)
+
+        def bisect(pred, shape):
+            """Smallest key in [0, 2^32) with the monotone pred true."""
+            lo = torch.zeros(shape, dtype=i64, device=dev)
+            hi = torch.full(shape, mask32, dtype=i64, device=dev)
+            for _ in range(32):
+                mid = lo + (hi - lo) // 2
+                p = pred(mid)
+                lo = torch.where(p, lo, (mid + 1) & mask32)
+                hi = torch.where(p, mid, hi)
+            return lo
+
+        def key_to_f32(k):
+            u_orig = torch.where(k < 0x80000000, ~k & mask32,
+                                 k & 0x7FFFFFFF)
+            return torch.where(u_orig >= 1 << 31, u_orig - (1 << 32),
+                               u_orig).to(torch.int32).view(torch.float32)
+
+        def order_stat_keys(targets):
+            """Keys at ascending 0-indexed per-leaf ranks ``targets``
+            [k, T] (integer-exact counts)."""
+            def pred(mid):
+                le = (ukey <= mid.t()[:, lane_leaf]) & realm     # [T, R]
+                return seg_sums(le.to(torch.int32)).t() >= targets + 1
+            return bisect(pred, targets.shape)
+
+        def mass_le(key):
+            """Per-leaf weight of the lanes with a key <= ``key`` [k]."""
+            return seg_sums(torch.where((ukey <= key[lane_leaf]) & realm,
+                                        w, 0.0))
+
+        cnt_m1 = torch.clamp(cnt - 1, min=0)
+        if not weighted:
+            # PercentileFun: DESCENDING selection at float_pos =
+            # (1 - alpha) * cnt; in ascending ranks the two selected
+            # order statistics are cnt - pos and cnt - pos - 1
+            cf = cnt.to(torch.float32)
+            float_pos = cf * f32_value(1.0 - f32_value(alpha))
+            pos = torch.floor(float_pos).to(i64)
+            bias = float_pos - pos.to(torch.float32)
+            edge_max = pos < 1                     # includes cnt <= 1
+            edge_min = pos >= cnt
+            r_hi = torch.minimum(torch.clamp(cnt - pos, min=0), cnt_m1)
+            r_lo = torch.minimum(torch.clamp(cnt - pos - 1, min=0), cnt_m1)
+            r_hi = torch.where(edge_max, cnt_m1,
+                               torch.where(edge_min, 0, r_hi))
+            r_lo = torch.where(edge_max | edge_min, r_hi, r_lo)
+            bias = torch.where(edge_max | edge_min, 0.0, bias)
+            keys = order_stat_keys(torch.stack([r_hi, r_lo], dim=1))
+            v1 = key_to_f32(keys[:, 0])            # d[pos - 1]
+            v2 = key_to_f32(keys[:, 1])            # d[pos]
+            # XLA contracts v1 - (v1 - v2) * bias into one multiply-add
+            # (its negated difference keeps the signed zero of v1 = v2)
+            out = fma_f32(-(v1 - v2), bias, v1)
+        else:
+            # WeightedPercentileFun: ascending weighted CDF, pos =
+            # upper_bound(cdf, alpha * total); the value at pos, or the
+            # reference's interpolation when the next step's weight is
+            # >= 1.0 (with its negative factor, mirrored as is)
+            w = torch.where(realm, plane.get_f32(data, Ly.weight), 0.0)
+            thresh = seg_sums(w) * f32_value(alpha)
+            b = bisect(lambda mid: mass_le(mid) > thresh, cnt.shape)
+            c_lt = seg_sums(((ukey < b[lane_leaf]) & realm).to(torch.int32))
+            c_lt = torch.minimum(c_lt, cnt_m1)
+            keys = order_stat_keys(torch.stack(
+                [c_lt, torch.clamp(c_lt - 1, min=0)], dim=1))
+            v2k = keys[:, 0]
+            v2 = key_to_f32(v2k)                   # value at pos
+            v1 = key_to_f32(keys[:, 1])            # value at pos - 1
+            wle2 = mass_le(v2k)
+            c_le2 = seg_sums(((ukey <= v2k[lane_leaf])
+                              & realm).to(torch.int32))
+            nxt = order_stat_keys(torch.minimum(c_le2, cnt_m1)[:, None])
+            wnext = mass_le(nxt[:, 0]) - wle2
+            interp = (c_lt != 0) & (c_le2 < cnt) & (wnext >= 1.0)
+            # one multiply-add in XLA: q * (v2 - v1) + v1
+            q = (thresh - wle2) / torch.where(wnext == 0, 1.0, wnext)
+            out_i = fma_f32(q, v2 - v1, v1)
+            out = torch.where(interp, out_i, v2)
+        return torch.where(cnt > 0, out, 0.0).to(torch.float32)
 
     def _renew_quant_leaves(self, data: torch.Tensor, n: int,
                             win: torch.Tensor, leaf_f: torch.Tensor

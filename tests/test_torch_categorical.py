@@ -25,12 +25,12 @@ import torch
 import lightgbm_tpu as jlgb
 import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu.models.forest import PackedForest as JForest
-from lightgbm_tpu.ops import histogram as JH
 from lightgbm_tpu.ops import split as JS
 from lightgbm_tpu_torch.convert import booster_from_jax_arrays
 from lightgbm_tpu_torch.models.forest import PackedForest as TForest
-from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops import split as TS
+
+from test_torch_multival import force_multival
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -293,54 +293,34 @@ def test_categorical_training_bit_equal(case):
     np.testing.assert_array_equal(tb.predict(X), jb.predict(X))
 
 
-def test_categorical_training_multival_forced(monkeypatch):
-    """The multi-value layout forced in both packages (as
-    tests/test_torch_multival.py does), NaN in a categorical column: the
-    JAX host loop on its multival entry against the port's fused
-    learner on B5's plain version. The tree structure and bitset pools
-    are equal (the counts are not compared: the fused learner counts a
-    leaf's rows, the host loop estimates them from hessians); the split
-    gains and leaf values are not bit-equal (ROADMAP §C: the two
-    packages' multival histograms of a leaf differ in the last bits, as
-    they did before categorical features), so they are held within 1e-4
-    relative (the gains, as tests/test_torch_multival.py holds its
-    predictions) and 1e-6 absolute (leaf values; the raw scores of three
-    trees within 3e-6)."""
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "host_loop"])
+def test_categorical_training_multival_forced(monkeypatch, fused):
+    """The multi-value layout forced in both packages
+    (tests/test_torch_multival.py ``force_multival``), NaN in a
+    categorical column: the port's fused learner on B5's plain version
+    against the JAX fused learner, and the port's host loop on B6's
+    against the JAX host loop. The same trees (bitset pools and counts
+    included), split gains, leaf values and predictions, bit for bit."""
     X, y = make_cat_data(n=500)
     X = _nan_in_cat(X)
-    params = {**PARAMS, "min_data_in_leaf": 5}
-    monkeypatch.setattr(JH, "hist_method",
-                        lambda config, dataset=None: "multival_pallas")
-    jb = jlgb.train({**params, "tpu_fused": False}, jlgb.Dataset(X, label=y),
+    params = {**PARAMS, "min_data_in_leaf": 5, "tpu_fused": fused}
+    force_multival(monkeypatch)
+    jb = jlgb.train(dict(params), jlgb.Dataset(X, label=y),
                     num_boost_round=3)
-    monkeypatch.setattr(TH, "hist_method",
-                        lambda config, dataset=None: "multival_pallas")
     tb = tlgb.train({**params, "device_type": "cpu"},
                     tlgb.Dataset(X, label=y), num_boost_round=3,
                     verbose_eval=False)
     gb = tb._gbdt
-    assert gb._fused is not None and gb._fused.layout.mv_planes > 0
-    jt, tt = _jax_trees(jb), gb.models
-    assert len(jt) == len(tt) == 3
-    for i, (a, b) in enumerate(zip(jt, tt)):
-        k = a.num_leaves
-        assert k == b.num_leaves, (i, k, b.num_leaves)
-        for f in TREE_FIELDS[:5]:
-            np.testing.assert_array_equal(getattr(a, f)[:k - 1],
-                                          getattr(b, f)[:k - 1],
-                                          err_msg=f"tree {i} {f}")
-        for f in ("cat_boundaries", "cat_threshold", "cat_boundaries_inner",
-                  "cat_threshold_inner"):
-            assert list(getattr(a, f)) == list(getattr(b, f)), (i, f)
-        np.testing.assert_allclose(b.split_gain[:k - 1], a.split_gain[:k - 1],
-                                   rtol=1e-4)
-        np.testing.assert_allclose(b.leaf_value[:k], a.leaf_value[:k],
-                                   rtol=0, atol=1e-6)
-    assert sum(t.num_cat for t in tt) > 0
-    # three trees' leaf values, each within 1e-6
-    np.testing.assert_allclose(tb.predict(X, raw_score=True),
-                               jb.predict(X, raw_score=True), rtol=0,
-                               atol=3e-6)
+    assert (jb._gbdt._fused is not None) == fused
+    if fused:
+        assert gb._fused is not None and gb._fused.layout.mv_planes > 0
+    else:
+        assert gb.tree_learner._mv_state is not None
+    tt = gb.models
+    assert len(tt) == 3 and sum(t.num_cat for t in tt) > 0
+    assert_trees_bit_equal(_jax_trees(jb), tt, categorical=True)
+    np.testing.assert_array_equal(tb.predict(X, raw_score=True),
+                                  jb.predict(X, raw_score=True))
 
 
 # ---------------------------------------------------------------------------

@@ -567,3 +567,102 @@ def test_traverse_and_forest_on_card_equal_cpu():
                                if got.dtype == torch.float32 else got,
                                want.view(torch.int32)
                                if want.dtype == torch.float32 else want)
+
+
+# the regression family and cross-entropy (objective, its params)
+REG_OBJECTIVES = [("regression", {}), ("regression", {"reg_sqrt": True}),
+                  ("regression_l1", {}), ("huber", {"alpha": 0.7}),
+                  ("fair", {"fair_c": 0.9}), ("poisson", {}),
+                  ("quantile", {"alpha": 0.8}), ("mape", {}),
+                  ("gamma", {}), ("tweedie", {"tweedie_variance_power": 1.3}),
+                  ("cross_entropy", {})]
+
+
+def _reg_meta(objective, n, rng, weighted):
+    if objective in ("poisson", "gamma", "tweedie"):
+        y = rng.gamma(2.0, 1.0, n) * (rng.rand(n) < 0.8
+                                      if objective == "tweedie" else 1)
+    elif objective == "cross_entropy":
+        y = rng.rand(n)
+    else:
+        y = rng.standard_cauchy(n) * 2
+
+    class _Meta:
+        label = y.astype(np.float32)
+        weights = rng.uniform(0.5, 2, n).astype(np.float32) if weighted \
+            else None
+    return _Meta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,extra", REG_OBJECTIVES)
+def test_cuda_regression_objectives_match_cpu(objective, extra):
+    """Both gradient forms, convert_output and the default metric of each
+    objective on the card against the CPU: gradients and conversions bit
+    for bit, the metric within 1e-7 relative (float64 sums in another
+    order, rounded to float32 for l2 and l1)."""
+    _need_card()
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metric.metrics import create_metric
+    from lightgbm_tpu_torch.objective.functions import create_objective
+    n = 1 << 20
+    rng = np.random.RandomState(1)
+    for weighted in (False, True):
+        meta = _reg_meta(objective, n, rng, weighted)
+        cfg = Config.from_params({"objective": objective, **extra})
+        obj = create_objective(cfg)
+        obj.init(meta, n)
+        score = torch.as_tensor((rng.randn(n) * 2).astype(np.float32))
+        label, w = (torch.as_tensor(np.asarray(a, np.float32))
+                    if a is not None else None
+                    for a in obj.persistent_aux())
+        pairs = list(zip(obj.get_gradients(score),
+                         obj.get_gradients(score.cuda())))
+        pairs += list(zip(
+            obj.persistent_grads(score, label, w),
+            obj.persistent_grads(score.cuda(), label.cuda(),
+                                 None if w is None else w.cuda())))
+        pairs.append((obj.convert_output(score),
+                      obj.convert_output(score.cuda())))
+        for c, g in pairs:
+            assert torch.equal(c.view(torch.int32), g.cpu().view(torch.int32))
+        m = create_metric(cfg.metric[0], cfg)
+        m.init(meta, n)
+        (_, c), = m.eval_device(score, obj)
+        (_, g), = m.eval_device(score.cuda(), obj)
+        np.testing.assert_allclose(float(g), float(c), rtol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,extra", [
+    ("regression", {}), ("regression_l1", {}),
+    ("quantile", {"alpha": 0.9}), ("mape", {}), ("gamma", {})])
+def test_cuda_regression_training_matches_cpu(objective, extra):
+    """Regression trainings on the card against the CPU on both learners,
+    the percentile refits included: the same trees, leaf values and
+    predictions, bit for bit."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.RandomState(0)
+    X = rng.randn(5000, 8)
+    y = np.abs(X[:, 0] - X[:, 1] * X[:, 2] + rng.randn(5000)) + 0.1
+    w = rng.uniform(0.5, 2, 5000)
+    for learner in ({}, {"tpu_fused": False}):
+        out = []
+        for dev in ("cuda", "cpu"):
+            b = lgt.train({"objective": objective, "device_type": dev,
+                           "tpu_hist_dtype": "float32", "verbose": -1,
+                           **extra, **learner},
+                          lgt.Dataset(X, label=y, weight=w),
+                          num_boost_round=3, verbose_eval=False)
+            out.append((b._gbdt.models, b.predict(X, raw_score=True)))
+        (tg, pg), (tc, pc) = out
+        for a, b in zip(tg, tc):
+            k = a.num_leaves
+            assert k == b.num_leaves
+            for f in ("split_feature", "threshold", "left_child",
+                      "right_child"):
+                assert np.array_equal(getattr(a, f)[:k - 1],
+                                      getattr(b, f)[:k - 1]), f
+            assert np.array_equal(a.leaf_value[:k], b.leaf_value[:k])
+        assert np.array_equal(pg, pc)

@@ -9,7 +9,9 @@ tests/test_kernels.py otherwise; the planar state with slot planes is
 byte-identical and its partition keeps the slot planes row-aligned; the
 fused learner's multival leaf histogram matches the scatter oracle; and
 a whole wide-sparse training with the multi-value layout forced on both
-sides predicts within rtol 1e-4, atol 5e-5 (tests/test_multival.py:400).
+sides gives each port learner the trees of its JAX counterpart: the host
+loop bit for bit, the fused learner's leaf values and predictions bit
+for bit and its split gains within 1e-6 (ROADMAP §C).
 """
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from lightgbm_tpu.io.dataset import BinnedDataset as JDataset
 from lightgbm_tpu.ops import histogram as JH
 from lightgbm_tpu.ops import multival as JMV
 from lightgbm_tpu.ops import plane as jplane
+from lightgbm_tpu.treelearner import fused as JF
 from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.io.dataset import BinnedDataset as TDataset
 from lightgbm_tpu_torch.ops import histogram as TH
@@ -397,34 +400,107 @@ def test_fused_leaf_hist_multival_matches_scatter(monkeypatch):
 # end to end: wide-sparse training with the multi-value layout forced
 # ---------------------------------------------------------------------------
 
+def _jax_fused_multival_hist(self, data, start, count, interpret=False):
+    """The JAX fused learner's leaf histogram on the multi-value layout
+    through the JAX package's own oracle, ``histogram_multival_xla``
+    (one scatter over the window's lanes, in lane order), where the
+    learner would run its Pallas kernel: on the CPU that kernel runs
+    only in interpret mode, whose one-hot dot sums in an order of the
+    CPU's matrix product, not in lane order. The rest is the learner's
+    ``_leaf_hist_multival``."""
+    from lightgbm_tpu.io.efb import per_feature_hist
+    Ly = self.layout
+    lanes = jnp.arange(data.shape[1], dtype=jnp.int32)
+    valid = (lanes >= start) & (lanes < start + count)
+    codes = data[Ly.mv_start:Ly.mv_start + Ly.mv_planes].T
+    g = jnp.where(valid, jplane.get_f32(data, Ly.grad), 0.0)
+    h = jnp.where(valid, jplane.get_f32(data, Ly.hess), 0.0)
+    flat = JMV.histogram_multival_xla(codes, g, h, self._mv_total_bins)
+    ghist = JMV.group_hist_from_flat(flat, self._mv_tables)
+    if self._efb_hist is None:
+        return ghist
+    return per_feature_hist(ghist, self._efb_hist, flat[-1][0], flat[-1][1])
+
+
+def force_multival(monkeypatch):
+    """The multi-value layout forced in both packages on the CPU. The JAX
+    fused learner then takes the oracle histogram above and the plain
+    partition (``LGBM_TPU_PART=ref``; its Pallas partition runs only on
+    the TPU), so each port learner meets its own JAX counterpart."""
+    monkeypatch.setattr(JH, "hist_method",
+                        lambda config, dataset=None: "multival_pallas")
+    monkeypatch.setattr(TH, "hist_method",
+                        lambda config, dataset=None: "multival_pallas")
+    monkeypatch.setenv("LGBM_TPU_PART", "ref")
+    monkeypatch.setattr(JF.FusedSerialGrower, "_leaf_hist_multival",
+                        _jax_fused_multival_hist)
+
+
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "host_loop"])
 def test_wide_sparse_training_multival_forced(monkeypatch, fused):
-    """The JAX package's serial learner on the multival entry (its CPU
-    path, as tests/test_multival.py:370 runs it) against the port's
-    fused (B5) or host-loop (B6) learner on the multival layout, both
-    forced on the CPU; CSR input on both sides."""
+    """The multi-value layout forced in both packages, CSR input on both
+    sides: the port's fused (B5) or host-loop (B6) learner against the
+    same JAX learner. Trees, leaf values and predictions are bit-equal;
+    so are the host loop's split gains. The fused learner's split gains
+    on this EFB data are held within 1e-6 relative: they differ in the
+    last bits on the planar layout as well (ROADMAP §C, the fused split
+    scan on wide-sparse data)."""
     X, y = make_wide_sparse(n=400)
     Xs = sp.csr_matrix(X)
     params = {"objective": "binary", "num_leaves": 15, "verbose": -1,
-              "min_data_in_leaf": 5}
-    monkeypatch.setattr(JH, "hist_method",
-                        lambda config, dataset=None: "multival_pallas")
-    jb = jlgb.train({**params, "tpu_fused": False}, jlgb.Dataset(Xs, label=y),
+              "min_data_in_leaf": 5, "tpu_fused": fused}
+    force_multival(monkeypatch)
+    jb = jlgb.train(dict(params), jlgb.Dataset(Xs, label=y),
                     num_boost_round=5)
-    monkeypatch.setattr(TH, "hist_method",
-                        lambda config, dataset=None: "multival_pallas")
-    tb = tlgb.train({**params, "device_type": "cpu", "tpu_fused": fused},
+    tb = tlgb.train({**params, "device_type": "cpu"},
                     tlgb.Dataset(Xs, label=y), num_boost_round=5)
     gb = tb._gbdt
+    assert (jb._gbdt._fused is not None) == fused
     if fused:
         assert gb._fused is not None and gb._fused.layout.mv_planes > 0
     else:
         assert gb.tree_learner is not None \
             and gb.tree_learner._mv_state is not None
-    np.testing.assert_allclose(tb.predict(Xs), jb.predict(X), rtol=1e-4,
-                               atol=5e-5)
+    jt, tt = jb._gbdt._used_models(0, -1), gb.models
+    assert len(jt) == len(tt) == 5
+    for i, (a, b) in enumerate(zip(jt, tt)):
+        k = a.num_leaves
+        assert k == b.num_leaves, (i, k, b.num_leaves)
+        for f in ("split_feature", "threshold", "decision_type",
+                  "left_child", "right_child", "internal_count"):
+            np.testing.assert_array_equal(getattr(a, f)[:k - 1],
+                                          getattr(b, f)[:k - 1],
+                                          err_msg=f"tree {i} {f}")
+        np.testing.assert_array_equal(a.leaf_value[:k], b.leaf_value[:k])
+        if fused:
+            np.testing.assert_allclose(b.split_gain[:k - 1],
+                                       a.split_gain[:k - 1], rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(b.split_gain[:k - 1],
+                                          a.split_gain[:k - 1])
+    np.testing.assert_array_equal(tb.predict(Xs, raw_score=True),
+                                  jb.predict(X, raw_score=True))
+    np.testing.assert_array_equal(tb.predict(Xs), jb.predict(X))
     np.testing.assert_allclose(tb.predict(X), tb.predict(Xs), rtol=0,
                                atol=0)
+
+
+def test_group_hist_from_flat_matches_jax():
+    """The default cell of each group, rebuilt from the leaf totals, has
+    the bits of the JAX package's jitted ``group_hist_from_flat``: the
+    sum of a group's other cells runs in XLA's reduce order."""
+    import jax
+    rng = np.random.RandomState(0)
+    for g, bg in ((5, 7), (3, 40), (20, 255), (4, 33)):
+        flat = rng.randn(g * bg + 1, 2).astype(np.float32)
+        flat[-1] = flat[:-1].sum(0) * 1.01
+        gnb = np.full(g, bg, np.int32)
+        dc = rng.randint(0, bg, g).astype(np.int32)
+        want = jax.jit(JMV.group_hist_from_flat)(
+            jnp.asarray(flat), JMV.group_tables(gnb, dc))
+        got = TMV.group_hist_from_flat(torch.as_tensor(flat),
+                                       TMV.group_tables(gnb, dc, "cpu"))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "host_loop"])

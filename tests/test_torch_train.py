@@ -140,8 +140,8 @@ def test_model_text(trained):
 
 
 @pytest.mark.parametrize("objective", [
-    "regression", "multiclass num_class:3", "poisson max_delta_step:0.7",
-    "cross_entropy"])
+    "lambdarank", "multiclass num_class:3", "multiclassova num_class:3",
+    "cross_entropy_lambda"])
 def test_loading_an_untrained_objective_raises(trained, objective):
     """JAX model text whose objective the port does not train raises and
     names its ROADMAP item, rather than predicting untransformed raw
@@ -209,7 +209,7 @@ def test_cuda_without_a_card_raises():
     ({"tpu_fused": False, "use_quantized_grad": True}, None, "host_loop"),
     ({"tree_learner": "voting", "num_machines": 2}, NotImplementedError,
      "A13"),
-    ({"objective": "regression"}, NotImplementedError, "A9"),
+    ({"objective": "cross_entropy_lambda"}, NotImplementedError, "A9"),
 ])
 def test_left_out_options_raise(extra, err, match):
     """Options the port does not train yet raise and name their ROADMAP
