@@ -7,9 +7,10 @@ Phases, each of which fails the run (no exception is caught):
 
 1. build  — compile every CUDA kernel from csrc/ (one nvcc per source,
    in parallel); print the build seconds and the card.
-2. xla_float — exp_f32, fma_f32, the binary gradients and the predict
-   transform (the JAX package's XLA:CPU float32 bits) on the card
-   against the CPU, bit for bit, on 2^24 inputs; then
+2. xla_float — exp_f32, fma_f32, log1p_f32, the binary, multiclass
+   and cross_entropy_lambda gradients and their predict transforms
+   (the JAX package's XLA:CPU float32 bits) on the card against the
+   CPU, bit for bit, on up to 2^24 inputs; then
    kernels — every kernel (B1-B7), and the int32 (quantized) mode of
    B1, B4, B5, B6 and B7, against its plain PyTorch version on the card,
    at the paths' shapes and at edge cases; time each at its path's root
@@ -51,16 +52,29 @@ Phases, each of which fails the run (no exception is caught):
      each held-out metric must beat its floor (0.8 x the label variance;
      the constant 0.9-quantile's and the constant median's loss); each
      takes one profiled iteration.
+   - (l)-(n): the per-tree fused path (``grow_device``: a fresh planar
+     state per class tree from row-order gradients, the score update
+     through each row's leaf): (l) HIGGS-multiclass fused, the HIGGS
+     columns with 5 classes (the quintiles of (i)'s label), multiclass,
+     5 iterations (25 trees), B1 + B2, held-out multi_logloss below the
+     constant predictor's ln 5; (m) the same data with multiclassova, 3
+     iterations, held-out multi_error below the constant predictor's
+     0.8; (n) shape (a) (multi-value layout, P = 128) with a custom
+     objective (the binary log loss in numpy), 3 iterations, B5 + B2,
+     held-out AUC above 0.75. Each prints its kernels' launches per
+     iteration.
 4. card vs CPU — the same small training on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
    and with quantized gradients, on (h)'s columns with categorical
-   features, and with the regression, quantile and MAPE objectives:
-   trees (bitset pools included), leaf values and predictions must
-   agree, with prediction early stop off and on for the categorical
-   model.
+   features, with the regression, quantile and MAPE objectives, and
+   with multiclass, multiclassova and a custom objective: trees (bitset
+   pools included), leaf values and predictions must agree (the last
+   three exactly), with prediction early stop off and on for the
+   categorical model.
 
 ``--profile`` instead profiles one iteration of each path
-(``--profile-paths b,h`` of the named ones only).
+(``--profile-paths b,h`` of the named ones only; (l)-(n) device rows
+only).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -75,6 +89,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1030,9 +1045,13 @@ def check_xla_float(dev):
     the card: ``exp_f32`` on 2^24 inputs spread over every float32 bit
     pattern (stride 256), ``fma_f32`` on 2^20 random triples, and the
     binary gradients (get_gradients with weights, persistent_grads) and
-    the predict transform on 2^22 scores."""
+    the predict transform on 2^22 scores; ``log1p_f32`` on 2^22 bit
+    patterns, and the multiclass (softmax, 5 classes) and weighted
+    cross_entropy_lambda (exp, log1p) gradients and transforms on 2^20
+    rows."""
     from lightgbm_tpu_torch.config import Config
-    from lightgbm_tpu_torch.objective.functions import BinaryLogloss
+    from lightgbm_tpu_torch.objective.functions import (BinaryLogloss,
+                                                        create_objective)
     from lightgbm_tpu_torch.ops import xla_float as XF
     n = 1 << 24
     x = ((torch.arange(n, dtype=torch.int64) * 256 + 77) & 0xFFFFFFFF).to(
@@ -1068,9 +1087,32 @@ def check_xla_float(dev):
              (obj.convert_output(score),))):
         for a, b in zip(card, cpu):
             assert _same_bits(a.cpu(), b), f"{name}: the card differs"
+    xl = x[::4].contiguous()
+    assert _same_bits(XF.log1p_f32(xl.to(dev)).cpu(), XF.log1p_f32(xl)), \
+        "log1p_f32: the card differs from the CPU"
+    r = 1 << 20
+    weights = rng.uniform(0.2, 3.0, r).astype(np.float32)
+    for params, shape, label in (
+            ({"objective": "multiclass", "num_class": 5}, (5, r),
+             rng.randint(0, 5, r)),
+            ({"objective": "cross_entropy_lambda"}, (r,), rng.rand(r))):
+        obj = create_objective(Config.from_params(params))
+        obj.init(types.SimpleNamespace(label=label.astype(np.float32),
+                                       weights=weights), r)
+        sc = torch.as_tensor((rng.randn(*shape) * 4).astype(np.float32))
+        raw = sc.t().contiguous()
+        pairs = list(zip(obj.get_gradients(sc.to(dev)),
+                         obj.get_gradients(sc)))
+        pairs.append((obj.convert_output(raw.to(dev)),
+                      obj.convert_output(raw)))
+        for a, b in pairs:
+            assert _same_bits(a.cpu(), b), \
+                f"{params['objective']}: the card differs"
     log(f"xla_float: exp_f32 on {n} inputs over the float32 range, "
         f"fma_f32 on {m} triples, binary gradients (weighted) and the "
-        f"predict transform on {k} scores: card == CPU bit for bit "
+        f"predict transform on {k} scores, log1p_f32 on {n // 4} inputs, "
+        f"multiclass (5 classes) and weighted cross_entropy_lambda "
+        f"gradients and transforms on {r} rows: card == CPU bit for bit "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1142,24 +1184,28 @@ def iteration_bounds_ms(gbdt, trees):
 
 
 def held_out_metric(booster, X, y, metric, device):
-    """``metric`` (the port's own, reduced on ``device``) of the booster's
-    predictions on held-out rows."""
+    """``metric`` (the port's own, computed on ``device``) of the
+    booster's predictions on held-out rows ([N] raw scores, or [N, K]
+    with K classes)."""
     from lightgbm_tpu_torch.metric.metrics import create_metric
     gbdt = booster._gbdt
+    k = gbdt.num_tree_per_iteration
     raw = booster.predict(X, raw_score=True)
-    assert raw.shape == (len(y),) and np.isfinite(raw).all()
+    assert raw.shape == ((len(y),) if k == 1 else (len(y), k))
+    assert np.isfinite(raw).all()
     m = create_metric(metric, gbdt.config)
 
     class _Meta:
         label, weights = y, None
     m.init(_Meta, len(y))
     obj = gbdt.objective if metric != "auc" else None
-    return float(m.eval_device(torch.as_tensor(raw, device=device),
-                               obj)[0][1])
+    score = torch.as_tensor(raw.T if k > 1 else raw, device=device)
+    val = m.eval_device(score, obj)[0][1]
+    return float(m.finish(val.reshape(-1).to(torch.float64).cpu().numpy()))
 
 
 def run_path(name, params, ds, iters, X_hold, y_hold, expect,
-             device="cuda", floor=0.70, metric="auc"):
+             device="cuda", floor=0.70, metric="auc", fobj=None):
     """Train ``iters`` iterations through lightgbm_tpu_torch.train with
     every launch counter set to 0 just before and read just after; fail
     unless each kernel of ``expect`` was launched. Prints seconds and
@@ -1183,18 +1229,19 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
     marks.append((time.perf_counter(), 0))
     booster = lgt.train({**params, "device_type": device}, ds,
                         num_boost_round=iters, callbacks=[timer],
-                        verbose_eval=False)
+                        verbose_eval=False, fobj=fobj)
     sync()
     launches = dict(K.LAUNCHES)
     gbdt = booster._gbdt
     trees = gbdt.models
+    k = gbdt.num_tree_per_iteration
     leaves = [t.num_leaves for t in trees]
     secs = [marks[i][0] - marks[i - 1][0] for i in range(1, len(marks))]
     for i, sec in enumerate(secs, 1):
         log(f"{name}: iteration {i}: {sec:.4f} s, "
             f"{marks[i][1] - marks[i - 1][1]} host syncs, "
-            f"{leaves[i - 1]} leaves")
-    assert len(trees) == iters, (name, len(trees), iters)
+            f"{leaves[(i - 1) * k:i * k]} leaves")
+    assert len(trees) == iters * k, (name, len(trees), iters, k)
     if device == "cuda":
         for k in expect:
             assert launches[k] > 0, f"{name}: kernel {k} never launched"
@@ -1206,7 +1253,10 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
         f"histogram {hb:.4f} ms, partition {pb:.4f} ms")
     log(f"{name}: held-out {'AUC' if metric == 'auc' else metric} "
         f"{val:.6f} on {len(y_hold)} rows after {iters} iterations "
-        f"(floor {floor:.6f}); mean {np.mean(secs):.4f} s/iteration")
+        f"(floor {floor:.6f}); mean {np.mean(secs):.4f} s/iteration, "
+        f"{(marks[-1][1] - marks[0][1]) / iters:.1f} host syncs/iteration")
+    log(f"{name}: launches per iteration " + json.dumps(
+        {key: round(launches[key] / iters, 1) for key in expect}))
     if metric == "auc":
         assert floor < val <= 1.0, (name, val)
     else:
@@ -1290,6 +1340,43 @@ def reg_data(rows, hold, device):
         f"{time.perf_counter() - t0:.2f} s (host); held-out label variance "
         f"{np.var(yh):.6f}; floors {json.dumps(floors)}")
     return ds, X[rows:], y[rows:], floors
+
+
+# paths (l)-(n): the per-tree fused path (grow_device)
+MC_PARAMS = {"num_leaves": 255, "max_bin": 255, "num_class": 5,
+             "verbose": -1}
+# (key, name, objective, held-out metric, its bound, iterations)
+MC_PATHS = [("l", "(l) HIGGS-multiclass fused", "multiclass",
+             "multi_logloss", float(np.log(5.0)), 5),
+            ("m", "(m) HIGGS-multiclassova fused", "multiclassova",
+             "multi_error", 0.8, 3)]
+FOBJ_ITERS = 3                     # path (n)
+
+
+def mc_data(rows, hold, device):
+    """Paths (l)-(m)'s data: make_higgs_reg_like (seed 0: the HIGGS
+    columns) with 5 classes, the quintiles of its regression label over
+    the training rows; the constructed Dataset and held-out rows."""
+    import lightgbm_tpu_torch as lgt
+    X, yr = make_higgs_reg_like(rows + hold, 28, seed=0)
+    y = np.digitize(yr, np.quantile(yr[:rows], [0.2, 0.4, 0.6, 0.8])
+                    ).astype(np.float32)
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:rows], label=y[:rows],
+                     params={**MC_PARAMS, "objective": "multiclass",
+                             "device_type": device})
+    ds.construct()
+    log(f"HIGGS-multiclass: dataset {rows} x 28 binned in "
+        f"{time.perf_counter() - t0:.2f} s (host); held-out class shares "
+        f"{np.bincount(y[rows:].astype(np.int64), minlength=5) / hold}")
+    return ds, X[rows:], y[rows:]
+
+
+def binary_fobj(preds, data):
+    """Path (n)'s custom objective: the binary log loss's gradients in
+    numpy float64 from the raw training scores."""
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return p - data.get_label(), p * (1.0 - p)
 
 
 class refit_timer:
@@ -1383,20 +1470,39 @@ def paths(args, report, wide, device="cuda"):
     ] + [(key, name, {**REG_PARAMS, **extra}, rds, args.iters, rX, ry,
           ("hist_planar", "partition"), reg_floors[metric], None, metric)
          for key, name, extra, metric in REG_PATHS]
+    mds, mX, my = mc_data(args.rows, hold, device)
+    plan += [(key, name, {**MC_PARAMS, "objective": obj}, mds, iters, mX,
+              my, ("hist_planar", "partition"), floor, None, metric)
+             for key, name, obj, metric, floor, iters in MC_PATHS]
+    plan.append(("n", "(n) wide custom-objective fused", WIDE_PARAMS, wds,
+                 FOBJ_ITERS, wX, wy,
+                 ("hist_multival_planar", "partition"), 0.75, None, "auc",
+                 binary_fobj))
     got, aucs = {}, {}
     for key, name, params, dset, iters, Xh, yh, expect, floor, twin, \
-            *metric in plan:
+            *more in plan:
         t_path = time.perf_counter()
         if twin is not None:
             floor = aucs[twin] - QUANT_AUC_SLACK
+        metric, fobj = (more + ["auc", None][len(more):])[:2]
         with refit_timer() as refits:
             got[key], booster, aucs[key] = run_path(
                 name, params, dset, iters, Xh, yh, expect, device,
-                floor=floor, metric=(metric or ["auc"])[0])
+                floor=floor, metric=metric, fobj=fobj)
         gb = booster._gbdt
         learner = gb._fused if gb._fused is not None else gb.tree_learner
         assert learner._quant == (twin is not None), name
-        if key in ("a", "e") and device == "cuda":
+        if key in ("l", "m", "n"):
+            # the per-tree path: no persistent state, K trees per
+            # iteration, a fresh planar state per tree
+            assert gb._fused is not None and not gb._fused_persist, name
+            assert gb._fused_state is None, name
+            assert (gb.objective is None) == (key == "n"), name
+            log(f"{name}: {gb.num_tree_per_iteration} trees per iteration "
+                f"through grow_device, layout P = "
+                f"{gb._fused.layout.num_planes}"
+                f"{' (multi-value)' if gb._fused.layout.mv_planes else ''}")
+        if key in ("a", "e", "n") and device == "cuda":
             assert gb._fused._hist_method == "multival_pallas", \
                 f"{name}: the dispatcher did not pick the multi-value layout"
         if twin is not None:
@@ -1431,9 +1537,10 @@ def paths(args, report, wide, device="cuda"):
         if key in ("i", "j", "k") and device == "cuda":
             profile_iteration(name, booster, device_only=True)
         log(f"{name}: {time.perf_counter() - t_path:.1f} s in all")
-    path_of = {"hist_planar": ["higgs", "h", "i", "j", "k"],
-               "partition": ["higgs", "a", "d", "e", "h", "i", "j", "k"],
-               "hist_radix": ["b"], "hist_multival_planar": ["a"],
+    path_of = {"hist_planar": ["higgs", "h", "i", "j", "k", "l", "m"],
+               "partition": ["higgs", "a", "d", "e", "h", "i", "j", "k",
+                             "l", "m", "n"],
+               "hist_radix": ["b"], "hist_multival_planar": ["a", "n"],
                "hist_multival": ["c"], "hist_masked": [],
                "partition_window": [], "hist_planar_q": ["d"],
                "hist_radix_q": ["f"], "hist_masked_q": [],
@@ -1473,14 +1580,28 @@ def card_vs_cpu():
         cases += [(f"fused {obj['objective']}", obj, (Xr, yr)),
                   (f"host loop {obj['objective']}",
                    {"tpu_fused": False, **obj}, (Xr, yr))]
+    # the per-tree path: 3 classes (the terciles of the regression
+    # label), and a custom objective (no objective function)
+    y3 = np.digitize(yr, np.quantile(yr, [1 / 3, 2 / 3])).astype(np.float32)
+    exact = set()
+    for obj in ({"objective": "multiclass", "num_class": 3},
+                {"objective": "multiclassova", "num_class": 3},
+                {"objective": "none", "fobj": binary_fobj}):
+        name = ("custom objective" if "fobj" in obj else obj["objective"])
+        data = (X, y) if "fobj" in obj else (Xr, y3)
+        cases += [(f"fused {name}", obj, data),
+                  (f"host loop {name}", {"tpu_fused": False, **obj}, data)]
+        exact |= {f"fused {name}", f"host loop {name}"}
     for learner, extra, data in cases:
         out = {}
         xs, ys = data
+        extra = dict(extra)
+        fobj = extra.pop("fobj", None)
         for dev in ("cuda", "cpu"):
             params = {"objective": "binary", "tpu_hist_dtype": "float32",
                       "verbose": -1, "device_type": dev, **extra}
             b = lgt.train(params, lgt.Dataset(xs, label=ys),
-                          num_boost_round=3, verbose_eval=False)
+                          num_boost_round=3, verbose_eval=False, fobj=fobj)
             preds = [b.predict(xs[:20_000])]
             if "categorical_feature" in extra:
                 cfg = b._gbdt.config
@@ -1490,7 +1611,8 @@ def card_vs_cpu():
                 cfg.pred_early_stop = False
             out[dev] = (b._gbdt.models, preds)
         (tg, pg), (tc, pc) = out["cuda"], out["cpu"]
-        assert len(tg) == len(tc) == 3
+        per_iter = b._gbdt.num_tree_per_iteration
+        assert len(tg) == len(tc) == 3 * per_iter
         for a, b in zip(tg, tc):
             k = a.num_leaves
             assert k == b.num_leaves, (learner, k, b.num_leaves)
@@ -1506,12 +1628,18 @@ def card_vs_cpu():
                                        rtol=0, atol=1e-6)
         for p_g, p_c in zip(pg, pc):
             np.testing.assert_allclose(p_g, p_c, rtol=0, atol=1e-6)
+            if learner in exact:
+                assert np.array_equal(p_g, p_c), learner
+                for a, b in zip(tg, tc):
+                    assert np.array_equal(a.leaf_value, b.leaf_value)
+                    assert np.array_equal(a.split_gain, b.split_gain)
         leaf_diff = max(float(np.abs(a.leaf_value - b.leaf_value).max())
                         for a, b in zip(tg, tc))
         ncat = sum(t.num_cat for t in tg)
         if "categorical_feature" in extra:
             assert ncat > 0, f"{learner}: no categorical split"
-        log(f"card vs CPU ({learner}): {n} rows, 3 iterations: trees "
+        log(f"card vs CPU ({learner}): {n} rows, 3 iterations of "
+            f"{per_iter} trees: trees "
             f"equal ({[t.num_leaves for t in tg]} leaves, {ncat} "
             f"categorical splits), leaf values max |diff| {leaf_diff:.3g}, "
             f"predictions max |diff| "
@@ -1548,15 +1676,24 @@ def profile_paths(args, wide):
         rds = reg_data(args.rows, 1000, "cuda")[0]
         cases += [(k, name, {**REG_PARAMS, **extra}, rds)
                   for k, name, extra, _ in REG_PATHS]
+    if "l" in keep or "m" in keep:
+        mds = mc_data(args.rows, 1000, "cuda")[0]
+        cases += [(k, name, {**MC_PARAMS, "objective": obj}, mds)
+                  for k, name, obj, *_ in MC_PATHS]
+    cases.append(("n", "(n) wide custom-objective fused",
+                  {**WIDE_PARAMS, "objective": "none"}, wds))
     for key, name, params, ds in cases:
         if key not in keep:
             continue
         booster = lgt.Booster(params, ds)
-        booster.update()                   # warm: state built, first tree
-        profile_iteration(name, booster)
+        fobj = binary_fobj if key == "n" else None
+        booster.update(fobj=fobj)          # warm: state built, first tree
+        # the per-tree paths' K x 255 splits: device rows only
+        profile_iteration(name, booster, device_only=key in ("l", "m", "n"),
+                          fobj=fobj)
 
 
-def profile_iteration(name, booster, device_only=False):
+def profile_iteration(name, booster, device_only=False, fobj=None):
     """One boosting iteration of ``booster`` under torch.profiler: wall
     and device busy time, kernels, host syncs, device ms by kernel
     family beside the bytes bounds, and the top kernels. Only device
@@ -1572,7 +1709,7 @@ def profile_iteration(name, booster, device_only=False):
     syncs0 = learner.syncs
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        booster.update()
+        booster.update(fobj=fobj)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows_ = []
@@ -1593,8 +1730,9 @@ def profile_iteration(name, booster, device_only=False):
         f = ("hist" if any(k in key for k in ("hist_", "hp_", "rm_", "mv_"))
              else "partition" if "part_" in key else "other")
         fam[f] += dev_us / 1e3
-    tree = gbdt.models[-1]
-    hb, pb = iteration_bounds_ms(gbdt, [tree])
+    trees = gbdt.models[-gbdt.num_tree_per_iteration:]
+    tree = trees[-1]
+    hb, pb = (k * len(trees) for k in iteration_bounds_ms(gbdt, trees))
     log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
         f"{sum(r[1] for r in rows_)} kernels, "
@@ -1614,8 +1752,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="training rows of the HIGGS-shaped paths (HIGGS "
                     "has 10.5M)")
-    ap.add_argument("--iters", type=int, default=10,
-                    help="iterations of the HIGGS fused path")
+    ap.add_argument("--iters", type=int, default=8,
+                    help="iterations of the HIGGS fused path, (d), (h) "
+                    "and (i)-(k)")
     ap.add_argument("--wide-rows", type=int, default=1_048_576,
                     help="training rows of shape (a) (the bench.py wide "
                     "sidecar's own default)")
@@ -1626,7 +1765,8 @@ def main() -> int:
                     help="iterations of path (c)")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
-    ap.add_argument("--profile-paths", default="higgs,a,b,c,d,e,f,g,h,i,j,k",
+    ap.add_argument("--profile-paths",
+                    default="higgs,a,b,c,d,e,f,g,h,i,j,k,l,m,n",
                     help="comma-separated paths --profile profiles")
     args = ap.parse_args()
     if not torch.cuda.is_available():

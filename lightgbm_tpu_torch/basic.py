@@ -12,6 +12,7 @@ import copy
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from .boosting.gbdt import GBDT
 from .config import Config
@@ -90,6 +91,20 @@ class Dataset:
     def handle(self) -> Optional[BinnedDataset]:
         return self._handle
 
+    def get_label(self):
+        """The label (float32 once constructed), as a custom objective
+        reads it."""
+        if self._handle is not None \
+                and self._handle.metadata.label is not None:
+            return np.asarray(self._handle.metadata.label)
+        return self.label
+
+    def get_weight(self):
+        if self._handle is not None \
+                and self._handle.metadata.weights is not None:
+            return np.asarray(self._handle.metadata.weights)
+        return self.weight
+
 
 class Booster:
     """Gradient-boosting model handle (reference basic.py:1930)."""
@@ -143,19 +158,79 @@ class Booster:
         self.name_valid_sets.append(name)
         return self
 
-    def update(self) -> bool:
-        """One boosting iteration; returns True if training stopped."""
-        return self._gbdt.train_one_iter()
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration; returns True if training stopped
+        (reference basic.py:2315). ``fobj(preds, train_set)`` returns the
+        gradients and hessians of a custom objective: [N], or [N, K]
+        (or K * N class-major) for K classes."""
+        if train_set is not None and train_set is not self._train_set:
+            raise LightGBMError("Replacing train_set is not supported yet")
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        grad, hess = fobj(self._curr_pred_for_fobj(), self._train_set)
+        return self.__boost(grad, hess)
 
-    def eval_all(self) -> list:
+    def _curr_pred_for_fobj(self) -> np.ndarray:
+        """Raw training scores for a custom objective: [N] float64, or
+        [N, K] with K classes."""
+        score = self._gbdt.get_training_score().to(torch.float64)
+        score = score.cpu().numpy()
+        k = self._gbdt.num_tree_per_iteration
+        return score[0] if k == 1 else score.T
+
+    def __boost(self, grad, hess) -> bool:
+        grad = np.asarray(grad, dtype=np.float32)
+        hess = np.asarray(hess, dtype=np.float32)
+        k = self._gbdt.num_tree_per_iteration
+        n = self._gbdt.num_data
+        if grad.ndim == 2:      # [N, K] sklearn layout -> [K, N]
+            grad, hess = grad.T, hess.T
+        if grad.size != n * k or hess.size != n * k:
+            raise ValueError(
+                f"Length of gradient ({grad.size}) doesn't match "
+                f"num_data*num_class ({n * k})")
+        return self._gbdt.train_one_iter(grad.reshape(k, n),
+                                         hess.reshape(k, n))
+
+    def eval_all(self, feval=None) -> list:
         """[(dataset_name, metric_name, value, bigger_is_better)] with
-        validation sets under the names given to add_valid."""
+        validation sets under the names given to add_valid; then, per
+        dataset, each ``feval(preds, dataset)``'s (name, value,
+        is_higher_better) results, with preds the transformed scores
+        ([N], or [N, K]) and dataset the training Dataset (None for a
+        validation set), as the JAX package calls it."""
+        res = self._gbdt.eval_at_iter()
+        keys = ["training"] + [f"valid_{i}"
+                               for i in range(len(self.name_valid_sets))]
         out = []
-        for ds, name, val, bib in self._gbdt.eval_at_iter():
-            if ds != "training":
-                ds = self.name_valid_sets[int(ds.split("_")[1])]
-            out.append((ds, name, val, bib))
+        for key in keys:
+            ds = key if key == "training" else \
+                self.name_valid_sets[int(key.split("_")[1])]
+            out += [(ds, name, val, bib)
+                    for d, name, val, bib in res if d == key]
+            for f in ([] if feval is None
+                      else feval if isinstance(feval, list) else [feval]):
+                ret = f(self._eval_preds(key), self._train_set
+                        if key == "training" else None)
+                for name, val, bib in (ret if isinstance(ret, list)
+                                       else [ret]):
+                    out.append((ds, name, val, bib))
         return out
+
+    def _eval_preds(self, key: str) -> np.ndarray:
+        """The scores of one dataset for ``feval``, as the JAX package
+        hands them: the objective's float32 transform, or the float64
+        raw scores without an objective."""
+        gb = self._gbdt
+        score = (gb.get_training_score() if key == "training"
+                 else gb.valid_score[int(key.split("_")[1])].score).t()
+        if gb.objective is not None:
+            score = gb.objective.convert_output(score.to(torch.float32))
+        else:
+            score = score.to(torch.float64)
+        out = score.cpu().numpy()
+        return out[:, 0] if gb.num_tree_per_iteration == 1 else out
 
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = -1,

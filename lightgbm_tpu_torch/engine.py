@@ -1,8 +1,9 @@
 """``train`` — the training entry point (reference engine.py:18), main-path
 subset of the JAX package's engine.py: a synchronous loop over
-boosting iterations with validation sets, evaluation callbacks and
-early stopping. ``cv``, init_model, custom objectives and checkpointing
-are not ported yet (ROADMAP A12/A14)."""
+boosting iterations with validation sets, evaluation callbacks, early
+stopping, custom objectives (``fobj``) and custom metrics (``feval``).
+``cv``, init_model and checkpointing are not ported yet (ROADMAP
+A6/A14)."""
 from __future__ import annotations
 
 import copy
@@ -20,11 +21,18 @@ _EARLY_STOP_KEYS = ("early_stopping_round", "early_stopping_rounds",
 
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100, valid_sets=None, valid_names=None,
+          fobj=None, feval=None,
           early_stopping_rounds: Optional[int] = None, evals_result=None,
           verbose_eval=True, callbacks=None) -> Booster:
     """Train a booster; params are the JAX package's (and LightGBM's)
-    keys and aliases, plus ``device_type`` "cuda" (default) or "cpu"."""
+    keys and aliases, plus ``device_type`` "cuda" (default) or "cpu".
+    ``fobj(preds, train_set) -> (grad, hess)`` replaces the objective
+    (``objective`` becomes "none"); ``feval(preds, dataset)`` returns
+    (name, value, is_higher_better) or a list of them, appended to each
+    dataset's evaluation results."""
     params = copy.deepcopy(params) if params else {}
+    if fobj is not None:
+        params["objective"] = "none"
     for k in _NUM_ROUND_KEYS:
         if k in params:
             num_boost_round = int(params.pop(k))
@@ -70,10 +78,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
 
     evals: list = []
     for i in range(num_boost_round):
-        finished = booster.update()
+        finished = booster.update(fobj=fobj)
         evals = []
         if want_eval:
-            for ds, name, val, bib in booster.eval_all():
+            for ds, name, val, bib in booster.eval_all(feval):
                 if ds == "training":
                     if not valid_contain_train:
                         continue

@@ -20,7 +20,16 @@ same precision (``f32_loss``), and takes the per-row terms that depend
 only on the labels from the same numpy code, so the values agree to the
 last bits of the sum's order.
 
-The multiclass and ranking metrics are not ported yet (ROADMAP A9).
+The multiclass metrics (multiclass_metric.hpp) read the [K, N] class
+scores (``all_classes``). The JAX package evaluates them on the host in
+numpy: ``multi_logloss`` over the float32 class probabilities, so its
+logs and mean run in float32 there, and ``auc_mu`` over a matrix
+product and a stable sort. The port computes their per-row inputs on the
+device (the probability of each row's class, each row's top-k error,
+the raw scores) and finishes with the same numpy code on the host
+(``finish``), so the values are the JAX package's. Every metric of an
+evaluation rides one host read (``GBDT.eval_at_iter``). Ranking metrics
+are not ported yet (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -81,10 +90,26 @@ class Metric:
                 np.asarray(term, np.float64), device=device)
         return self._dev_cache[key]
 
+    # the metric reads the [K, N] scores of every class (else the [N]
+    # scores of class 0)
+    all_classes = False
+
     def eval_device(self, score: torch.Tensor, objective=None
                     ) -> List[Tuple[str, torch.Tensor]]:
-        """[(name, 0-d tensor on the score's device)]."""
+        """[(name, tensor on the score's device)]: the value as a 0-d
+        tensor, or the per-row input of ``finish``."""
         raise NotImplementedError
+
+    def finish(self, host: np.ndarray) -> float:
+        """The value from the host copy (float64) of what
+        ``eval_device`` returned."""
+        return float(host[0])
+
+    def _avg(self, loss: np.ndarray) -> float:
+        """The JAX package's host mean of a per-row loss."""
+        if self.weights is not None:
+            return float(np.sum(loss * self.weights) / self.sum_weights)
+        return float(np.mean(loss))
 
 
 class _Pointwise(Metric):
@@ -315,6 +340,139 @@ class AUCMetric(Metric):
         return [(self.name, val)]
 
 
+# --- multiclass (multiclass_metric.hpp) -----------------------------------
+
+class MultiLoglossMetric(Metric):
+    """-log of each row's class probability: the float32 probabilities
+    of the objective's transform (softmax, or the OVA sigmoids), then the
+    JAX package's numpy loss and mean on the host."""
+    name = "multi_logloss"
+    all_classes = True
+
+    def _probs(self, score, objective):
+        """[N, K] probabilities on the device: the objective's float32
+        transform, or the float64 softmax of the JAX package's numpy
+        fallback."""
+        s = score.t()
+        if objective is not None:
+            return objective.convert_output(s.to(torch.float32))
+        s = s.to(torch.float64)
+        e = torch.exp(s - s.max(dim=1, keepdim=True).values)
+        return e / e.sum(dim=1, keepdim=True)
+
+    def _label_idx(self, device):
+        key = ("label_idx", str(device))
+        if key not in self._dev_cache:
+            self._dev_cache[key] = torch.as_tensor(
+                self.label.astype(np.int64), device=device)[:, None]
+        return self._dev_cache[key]
+
+    def eval_device(self, score, objective=None):
+        p = self._probs(score, objective)
+        self._f32 = p.dtype == torch.float32
+        lab = self._label_idx(p.device)
+        return [(self.name, torch.gather(p, 1, lab)[:, 0])]
+
+    def finish(self, host):
+        p = host.astype(np.float32) if self._f32 else host
+        loss = -np.log(np.maximum(np.clip(p, 1e-15, 1.0), 1e-308))
+        return self._avg(loss)
+
+
+class MultiErrorMetric(MultiLoglossMetric):
+    """Top-k error: a row is right when fewer than k classes have a
+    higher probability than its class (ties count for it)."""
+    name = "multi_error"
+
+    def eval_device(self, score, objective=None):
+        p = self._probs(score, objective)
+        label_p = torch.gather(p, 1, self._label_idx(p.device))
+        rank = torch.sum(p > label_p, dim=1)
+        k = max(1, self.config.multi_error_top_k)
+        return [(self.name, (rank >= k).to(torch.float64))]
+
+    def finish(self, host):
+        return self._avg(host)
+
+
+class AucMuMetric(Metric):
+    """Multiclass pairwise AUC (reference multiclass_metric.hpp:183
+    AucMuMetric, AUC-mu of Kleiman & Page 2019) over the raw class
+    scores: each class pair (i, j) ranks the rows of both classes by
+    their distance t1 * (v @ s) from the hyperplane v = W[i] - W[j]
+    (``auc_mu_weights``, default 1 - I), ties at half credit in a
+    stable order; the mean over the K(K-1)/2 pairs. Sample weights do
+    not enter. The raw scores go to the host and the JAX package's numpy
+    code finishes it (its matrix product's and sort's order)."""
+    name = "auc_mu"
+    bigger_is_better = True
+    all_classes = True
+
+    def eval_device(self, score, objective=None):
+        self._shape = tuple(score.shape)
+        return [(self.name, score.reshape(-1))]
+
+    def finish(self, host):
+        s = host.reshape(self._shape)
+        nc = self.config.num_class
+        lab = self.label.astype(np.int64)
+        W = np.asarray(self.config.auc_mu_weights, dtype=np.float64)
+        if W.size == nc * nc:
+            W = W.reshape(nc, nc)
+        elif W.size == 0:
+            W = 1.0 - np.eye(nc)
+        else:
+            raise ValueError(
+                f"auc_mu_weights must have num_class^2 = {nc * nc} "
+                f"entries, got {W.size}")
+        total, pairs = 0.0, 0
+        for i in range(nc):
+            mi = lab == i
+            ni = int(mi.sum())
+            for j in range(i + 1, nc):
+                pairs += 1
+                mj = lab == j
+                nj = int(mj.sum())
+                if ni == 0 or nj == 0:
+                    continue
+                v = W[i] - W[j]
+                d = (v[i] - v[j]) * (v @ s)
+                comb = np.concatenate([d[mi], d[mj]])
+                order = np.argsort(comb, kind="stable")
+                sc = comb[order]
+                # average ranks over tie blocks: the rank-sum AUC is
+                # P(d_i > d_j) + 0.5 P(d_i == d_j)
+                starts = np.concatenate([[True], sc[1:] != sc[:-1]])
+                blk = np.cumsum(starts) - 1
+                counts = np.bincount(blk)
+                avg_rank = np.cumsum(counts) - (counts - 1) / 2.0
+                ranks = np.empty(len(comb))
+                ranks[order] = avg_rank[blk]
+                total += ((ranks[:ni].sum() - ni * (ni + 1) / 2.0)
+                          / (ni * nj))
+        return total / pairs if pairs else 1.0
+
+
+class CrossEntropyLambdaMetric(Metric):
+    """The cross-entropy of the intensity model over the raw score
+    (xentropy_metric.hpp): z = 1 - exp(-w log(1 + exp(s))), in float64;
+    the plain mean of the rows (the weights enter z)."""
+    name = "cross_entropy_lambda"
+
+    def eval_device(self, score, objective=None):
+        dev = score.device
+        s = score.to(torch.float64)
+        hhat = torch.log1p(torch.exp(s))
+        w = self._on(dev, "weights", self.weights)
+        w = 1.0 if w is None else w.to(torch.float64)
+        z = torch.clamp(1.0 - torch.exp(-w * hhat), 1e-15, 1 - 1e-15)
+        y = self._on(dev, "label", self.label)
+        # 1 - y rounded in float32, as numpy takes it
+        loss = (-y.to(torch.float64) * torch.log(z)
+                - (1 - y).to(torch.float64) * torch.log(1 - z))
+        return [(self.name, _sum_dev(loss) / loss.shape[0])]
+
+
 _REGISTRY = {
     "l2": L2Metric,
     "rmse": RMSEMetric,
@@ -330,7 +488,11 @@ _REGISTRY = {
     "binary_logloss": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    "auc_mu": AucMuMetric,
+    "multi_logloss": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric,
     "cross_entropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kldiv": KLDivMetric,
 }
 

@@ -20,7 +20,13 @@ where that gives different float32 bits, the two forms here differ too
 percentile of the residuals (``renew_tree_output`` on the host loop,
 ``persistent_renew_spec`` for the fused learner's in-program refit).
 
-``cross_entropy_lambda``, multiclass and ranking are not ported yet.
+The objectives that grow K trees per iteration, or none in the
+persistent learner's state, take the per-tree path: ``multiclass``
+(softmax over the K class scores; multiclass_objective.hpp:24),
+``multiclassova`` (K binary objectives, one per class; :186) and
+``cross_entropy_lambda`` (xentropy_objective.hpp:185). Their
+``get_gradients`` takes the [K, N] (or [N]) row-order scores. Ranking is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..ops.xla_float import exp_f32, f32_value, flush_f32, fma_f32
+from ..ops.xla_float import (exp_f32, f32_value, flush_f32, fma_f32,
+                              log1p_f32, softmax_f32)
 from ..utils import log
 
 
@@ -555,6 +562,124 @@ class CrossEntropy(ObjectiveFunction):
         return _sigmoid_f32(raw)
 
 
+class CrossEntropyLambda(ObjectiveFunction):
+    """Cross-entropy over a log-intensity score (reference
+    xentropy_objective.hpp:185-213): unweighted it is cross-entropy;
+    with weights the probability is 1 - (1 - z)^w."""
+    name = "cross_entropy_lambda"
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if np.any((self.label < 0) | (self.label > 1)):
+            log.fatal("[%s]: label must be in [0, 1]", self.name)
+
+    def get_gradients(self, score):
+        s = score.to(torch.float32)
+        dev = s.device
+        y, w = self._on(dev, "label"), self._on(dev, "weights")
+        if w is None:
+            z = _sigmoid_f32(s)
+            return z - y, flush_f32(z * (1.0 - z))
+        # the ops as XLA rewrites the JAX package's jitted program:
+        # 1 / exp(s) becomes exp(-s); c / (d d) becomes 1 / ((1 - z) d d)
+        # with c = 1 / (1 - z); y b + 1 is one multiply-add
+        epf = exp_f32(s)
+        ez = exp_f32(log1p_f32(epf) * -w)
+        z = 1.0 - ez
+        g = flush_f32(flush_f32((1.0 - flush_f32(y / z)) * w)
+                      / (exp_f32(-s) + 1.0))
+        we = flush_f32(epf * w)
+        d = epf + 1.0
+        a = flush_f32(we / flush_f32(d * d))
+        one_z = 1.0 - z
+        c = 1.0 / one_z
+        c1 = c - 1.0
+        b = flush_f32(flush_f32(1.0 / flush_f32(one_z * flush_f32(c1 * c1)))
+                      * ((we + 1.0) - c))
+        return g, flush_f32(a * fma_f32(b, y, 1.0))
+
+    def boost_from_score(self, class_id):
+        havg = float(np.mean(self.label)) if self.weights is None else \
+            float(np.sum(self.label * self.weights) / np.sum(self.weights))
+        initscore = float(np.log(max(np.exp(havg) - 1.0, 1e-15)))
+        log.info("[%s:BoostFromScore]: havg=%f -> initscore=%f", self.name,
+                 havg, initscore)
+        return initscore
+
+    def convert_output(self, raw):
+        return log1p_f32(exp_f32(raw))
+
+
+# ---------------------------------------------------------------------------
+# multiclass (reference multiclass_objective.hpp:24/:186)
+# ---------------------------------------------------------------------------
+
+class MulticlassSoftmax(ObjectiveFunction):
+    name = "multiclass"
+
+    def __init__(self, config: Config) -> None:
+        super().__init__(config)
+        self.num_class = config.num_class
+        self.num_tree_per_iteration = self.num_class
+        self.factor = self.num_class / max(self.num_class - 1.0, 1.0)
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        lab = self.label.astype(np.int32)
+        if np.any((lab < 0) | (lab >= self.num_class)):
+            log.fatal("Label must be in [0, %d) for multiclass",
+                      self.num_class)
+        self.onehot = (lab[None, :] == np.arange(self.num_class)[:, None]
+                       ).astype(np.float32)
+
+    def get_gradients(self, score):
+        """score: [K, N] raw scores; (grad, hess) [K, N] each."""
+        p = softmax_f32(score, dim=0)
+        dev = p.device
+        g = p - self._on(dev, "onehot")
+        h = flush_f32(flush_f32(f32_value(self.factor) * p) * (1.0 - p))
+        return _weigh(g, h, self._on(dev, "weights"))
+
+    def convert_output(self, raw):
+        """[N, K] raw scores to class probabilities (the last axis)."""
+        return softmax_f32(raw, dim=-1)
+
+
+def _ova_is_pos(k: int) -> Callable:
+    return lambda y: np.abs(y - k) < 1e-9
+
+
+class MulticlassOVA(ObjectiveFunction):
+    """One binary log loss per class, label == k positive."""
+    name = "multiclassova"
+
+    def __init__(self, config: Config) -> None:
+        super().__init__(config)
+        self.num_class = config.num_class
+        self.num_tree_per_iteration = self.num_class
+        self.sigmoid = config.sigmoid
+        self._binary: list = []
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        self._binary = []
+        for k in range(self.num_class):
+            b = BinaryLogloss(self.config, is_pos=_ova_is_pos(k))
+            b.init(metadata, num_data)
+            self._binary.append(b)
+
+    def get_gradients(self, score):
+        gs, hs = zip(*(b.get_gradients(score[k])
+                       for k, b in enumerate(self._binary)))
+        return torch.stack(gs), torch.stack(hs)
+
+    def boost_from_score(self, class_id):
+        return self._binary[class_id].boost_from_score(0)
+
+    def convert_output(self, raw):
+        return flush_f32(1.0 / (1.0 + exp_f32(-self.sigmoid * raw)))
+
+
 _REGISTRY = {
     "regression": RegressionL2,
     "regression_l1": RegressionL1,
@@ -566,28 +691,24 @@ _REGISTRY = {
     "gamma": RegressionGamma,
     "tweedie": RegressionTweedie,
     "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
-}
-
-# objectives the JAX package trains and the port does not yet, with the
-# ROADMAP item that brings each
-_NOT_PORTED = {
-    "multiclass": "the per-tree fused path, ROADMAP A5 / A9",
-    "multiclassova": "the per-tree fused path, ROADMAP A5 / A9",
-    "cross_entropy_lambda": "the per-tree fused path, ROADMAP A5 / A9",
-    "lambdarank": "ranking, ROADMAP A9",
-    "rank_xendcg": "ranking, ROADMAP A9",
+    "cross_entropy_lambda": CrossEntropyLambda,
 }
 
 
 def create_objective(config: Config) -> Optional[ObjectiveFunction]:
-    """CreateObjectiveFunction; None for objective=custom."""
+    """CreateObjectiveFunction; None for objective=custom (``none``):
+    the caller then supplies the gradients (reference
+    objective_function.cpp:49-51)."""
     name = config.objective
     if name == "custom":
         return None
+    if name in ("lambdarank", "rank_xendcg"):
+        raise NotImplementedError(
+            f"objective {name!r} is not ported yet (ranking, ROADMAP A9)")
     cls = _REGISTRY.get(name)
     if cls is None:
-        raise NotImplementedError(
-            f"objective {name!r} is not ported yet "
-            f"({_NOT_PORTED.get(name, 'ROADMAP A9')})")
+        log.fatal("Unknown objective type name: %s", name)
     return cls(config)

@@ -136,21 +136,40 @@ def _gain_given_output(g, h, cfg: SplitConfig, output, fuse_hoo=False):
 def _fuses_hoo(cfg: SplitConfig, site: str) -> bool:
     """Whether XLA:CPU fuses (h + l2)·o·o rather than 2·g·o into the
     gain's add at ``site`` (jaxlib 0.9.0, held bit for bit against the
-    JAX package's jitted scans; ROADMAP §C). Numerical sites: the
-    reverse scan in the plain config (its outputs come from another
-    fusion), except ``reverse_alone``, the host loop's reverse scan when
-    no feature has a missing type (XLA folds the forward scan away and
-    the reverse scan's fusion changes; the fused learner's program keeps
-    ``reverse``); and the parent's gain of a clamped or smoothed output
-    under L1 (``leaf``). Categorical sites: the one-vs-rest gains
+    JAX package's jitted scans; ROADMAP §C). Numerical sites
+    (``scan_sites``): the reverse scan in the plain config from 64 bins
+    (``reverse``), both scans under L1 without monotone constraints up
+    to 16 bins (``narrow``), the
+    forward scan (``forward``) and the reverse scan between 17 and 63
+    bins or where the forward scan is folded away (``reverse_alone``)
+    never; and the parent's gain of a clamped or smoothed output under
+    L1 (``leaf``). Categorical sites: the one-vs-rest gains
     (``cat_onehot``) and the smoothed parent's gain (``cat_leaf``) under
     L1; the sorted scans (``cat_sorted``, both directions) never."""
     if site == "reverse":
         return not (cfg.lambda_l1 > 0 or cfg.max_delta_step > 0
                     or cfg.path_smooth > K_EPSILON or cfg.use_monotone)
+    if site == "narrow":
+        return cfg.lambda_l1 > 0 and not cfg.use_monotone
     if site in ("leaf", "cat_onehot", "cat_leaf"):
         return cfg.lambda_l1 > 0
     return False
+
+
+def scan_sites(num_bins: int, forward_folded: bool = False):
+    """The (forward, reverse) scans' multiply-add sites (``_fuses_hoo``)
+    in a jitted scan over ``num_bins``-bin histograms. ``forward_folded``:
+    XLA folds the forward scan away, as in the host loop's program when
+    no feature takes two scans (the fused program takes the metadata as
+    arguments and keeps both scans). Otherwise the bin count picks the
+    sites, as found by sweeping ``max_bin`` against both JAX programs:
+    ``reverse`` from 64 bins, ``narrow`` for both scans up to 16, and
+    2·g·o first between them (ROADMAP §C, C7 and the open C9)."""
+    if forward_folded:
+        return "forward", "reverse_alone"
+    if num_bins <= 16:
+        return "narrow", "narrow"
+    return "forward", "reverse" if num_bins >= 64 else "reverse_alone"
 
 
 def leaf_gain(g, h, cnt, cfg: SplitConfig, parent_output):
@@ -236,15 +255,15 @@ def _round_int(x):
 def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
                          cfg: SplitConfig, sum_g, sum_h, num_data,
                          parent_output, cmin, cmax, rand_thresholds=None,
-                         reverse_site="reverse"):
+                         forward_folded=False):
     """Best numerical split per feature.
 
     hist: [..., F, B, 2]; sum_g / sum_h (WITHOUT the epsilon bias) /
     num_data (int32) / parent_output / cmin / cmax: leaf scalars of
     shape [...]. ``rand_thresholds`` ([F] int32): with
     ``cfg.extra_trees`` the one threshold bin each feature may split at
-    (reference USE_RAND). ``reverse_site``: the reverse scan's
-    multiply-add site (``_fuses_hoo``). Returns a dict of [..., F]
+    (reference USE_RAND). ``forward_folded``: the program's forward
+    scan is folded away (``scan_sites``). Returns a dict of [..., F]
     tensors.
     """
     b_dim = hist.shape[-2]
@@ -309,9 +328,10 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
         gain = torch.where(ok, gain, K_MIN_SCORE)
         return gain, out_l, out_r, lg, lh_eff, lcnt
 
+    forward_site, reverse_site = scan_sites(b_dim, forward_folded)
     # forward scan: missing -> right; only in two-scan mode
     f_res = eval_dir(cl_g, cl_h, cl_cnt, zero_mode & (bin_ar == miss_bin),
-                     "forward")
+                     forward_site)
     f_gain = torch.where(two_scan, f_res[0], K_MIN_SCORE)
 
     # reverse scan: right side accumulated from the top (missing -> left)
@@ -626,8 +646,7 @@ def best_split(hist: torch.Tensor, meta: FeatureMeta, cfg: SplitConfig,
     the fused learner calls the scans itself."""
     res = numerical_split_scan(
         hist, meta, cfg, sum_g, sum_h, num_data, parent_output, cmin, cmax,
-        rand_thresholds,
-        "reverse" if meta.any_two_scan else "reverse_alone")
+        rand_thresholds, not meta.any_two_scan)
     if meta.cat_idx:
         res = merge_categorical(res, hist, meta, cfg, sum_g, sum_h,
                                  num_data, parent_output, cmin, cmax,

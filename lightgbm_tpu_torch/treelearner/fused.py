@@ -48,6 +48,13 @@ words of a bin bitset, which ride the split record and route the
 partition (B2's categorical route); ``materialize_tree`` turns them
 into the tree's inner and raw-category bitset pools.
 
+Objectives without in-state gradients (multiclass and OVA with K trees
+per iteration, cross_entropy_lambda, custom objectives) take the
+per-tree path, ``grow_device``: each tree starts from a fresh state
+(the cached code planes, the tree's row-order grad / hess, row ids
+0..n-1) without label or score planes, and returns each row's leaf,
+read off the partitioned windows, for the booster's score update.
+
 The state is updated IN PLACE (partition, grad/hess and score writes);
 the JAX package keeps it immutable and donates it instead.
 """
@@ -140,10 +147,6 @@ def port_reject_reason(config: Config, dataset: BinnedDataset,
     not yet, each with the ROADMAP item that brings it."""
     if config.boosting != "gbdt" or bag_active(config):
         return (f"boosting={config.boosting} / bagging (ROADMAP A10)")
-    if objective is None or objective.persistent_aux() is None:
-        return "a custom objective (the per-tree fused path, ROADMAP A5)"
-    if objective.num_tree_per_iteration != 1:
-        return "multiclass (ROADMAP A9)"
     if config.forcedsplits_filename:
         return "forcedsplits_filename (forced splits, ROADMAP A5)"
     return None
@@ -244,6 +247,8 @@ class FusedSerialGrower:
         # them row-aligned and the histogram reads K words per row
         # instead of every group's code
         self._mv_codes = None
+        self._mv_dev = None
+        self._codes_planes = None
         self._mv_total_bins = 0
         self._mv_tables = None
         mv_planes = 0
@@ -294,8 +299,10 @@ class FusedSerialGrower:
         FixHistogram most-frequent-bin reconstruction), or identity."""
         if self._efb_hist is None:
             return ghist
-        total = ghist[0].sum(dim=0)
-        return per_feature_hist(ghist, self._efb_hist, total[0], total[1])
+        # the leaf totals from group 0's bins in XLA's reduce order, as
+        # the JAX package's program sums them (ROADMAP §C)
+        sum_g, sum_h = S.xla_sum(ghist[0].t())
+        return per_feature_hist(ghist, self._efb_hist, sum_g, sum_h)
 
     def _leaf_hist(self, data, start, count, max_count=None):
         """Histogram [F, B, 2] of one lane window straight off the
@@ -623,6 +630,16 @@ class FusedSerialGrower:
         realm = torch.arange(Ly.num_lanes, device=self.device) < n
         return torch.where(realm, g, 0.0), torch.where(realm, h, 0.0)
 
+    @staticmethod
+    def _lane_leaf(win: torch.Tensor, n: int) -> torch.Tensor:
+        """[n] int64 leaf of each of the first n lanes, from the leaf
+        windows win [2, k] (start, count): the windows tile [0, n) in
+        start order, and an empty leaf repeats 0 times (the JAX
+        package's _pos_leaf, with no host read)."""
+        start, cnt = win[0].long(), win[1].long()
+        order = torch.argsort(start, stable=True)
+        return torch.repeat_interleave(order, cnt[order], output_size=n)
+
     def _renew_leaf_outputs(self, data: torch.Tensor, n: int,
                             win: torch.Tensor, alpha: float,
                             weighted: bool) -> torch.Tensor:
@@ -658,12 +675,8 @@ class FusedSerialGrower:
         bits = resid.view(torch.int32).to(i64)
         u = bits & mask32
         ukey = torch.where(bits < 0, ~u & mask32, u | 0x80000000)
-        # each lane's leaf: the windows tile [0, n) in start order (an
-        # empty leaf repeats 0 times; no host read)
-        order = torch.argsort(start, stable=True)
         lane_leaf = torch.zeros(lanes, dtype=i64, device=dev)
-        lane_leaf[:n] = torch.repeat_interleave(order, cnt[order],
-                                                output_size=n)
+        lane_leaf[:n] = self._lane_leaf(win, n)
         ends = torch.clamp(start + cnt, min=1) - 1
         sidx = torch.clamp(start, min=1) - 1
 
@@ -800,6 +813,41 @@ class FusedSerialGrower:
         out = torch.minimum(torch.maximum(out, leaf_f[3]), leaf_f[4])
         return torch.where(count > 0, out, leaf_f[2])
 
+    def codes_planes(self) -> torch.Tensor:
+        """The bin-code planes of the training rows in row order,
+        packed on the device once and cached with the multi-value slot
+        planes (``_mv_dev``, None without them): every per-tree state
+        starts from them (the persistent state drops them once built)."""
+        if self._codes_planes is None:
+            dev = self.device
+            codes = torch.as_tensor(np.ascontiguousarray(self.dataset.bins),
+                                    device=dev)
+            self._codes_planes = plane.build_codes_planes(codes, self.layout)
+            if self._mv_codes is not None:
+                self._mv_dev = torch.as_tensor(
+                    np.ascontiguousarray(self._mv_codes.T), device=dev)
+        return self._codes_planes
+
+    # -- per-tree mode -------------------------------------------------
+    def grow_device(self, grad: torch.Tensor, hess: torch.Tensor):
+        """One tree from row-order gradients (the JAX package's
+        grow_device, unbagged: ``_grow_tree`` with the score update
+        from the partition). A fresh planar state per tree: the cached
+        code planes, grad / hess [n] float32 in row order, row ids
+        0..n-1 and the slot planes. Returns the tree arrays (host numpy,
+        leaf values before shrinkage) and leaf_of_row [n] int64 on the
+        device: each row's leaf, the lanes' leaves scattered back to row
+        order through the row-id plane."""
+        n = self.actual_rows
+        cp = self.codes_planes()
+        data = plane.build_data(self.layout, cp, grad.to(torch.float32),
+                                hess.to(torch.float32), mv=self._mv_dev)
+        ta, (win, _) = self._grow_tree(data, n, self.feature_masks_for_tree())
+        rowids = data[self.layout.rowid, :n].long()
+        leaf_of_row = torch.empty(n, dtype=torch.int64, device=self.device)
+        leaf_of_row[rowids] = self._lane_leaf(win, n)
+        return ta, leaf_of_row
+
     # -- persistent mode -----------------------------------------------
     def init_persistent_state(self, score_vec: np.ndarray) -> torch.Tensor:
         """Planar state carrying label/score/row-id across iterations.
@@ -808,23 +856,20 @@ class FusedSerialGrower:
         dev = self.device
         aux_label, aux_weight = self.objective.persistent_aux()
         n = self.actual_rows
-        codes = torch.as_tensor(np.ascontiguousarray(self.dataset.bins),
-                                device=dev)
-        cp = plane.build_codes_planes(codes, self.layout)
+        cp = self.codes_planes()
         zeros = torch.zeros(n, dtype=torch.float32, device=dev)
 
         def up(a):
             if a is None or torch.is_tensor(a):
                 return None if a is None else a.to(dev, torch.float32)
             return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-        mv = None
-        if self._mv_codes is not None:
-            mv = torch.as_tensor(np.ascontiguousarray(self._mv_codes.T),
-                                 device=dev)
-        return plane.build_data(self.layout, cp, zeros, zeros,
+        data = plane.build_data(self.layout, cp, zeros, zeros,
                                 label=up(aux_label),
                                 score=up(score_vec), weight=up(aux_weight),
-                                mv=mv)
+                                mv=self._mv_dev)
+        # the state is built once: keep no second device copy of it
+        self._codes_planes = self._mv_dev = None
+        return data
 
     def train_iter(self, data: torch.Tensor, shrinkage: float,
                    bias: float = 0.0) -> Dict:

@@ -666,3 +666,86 @@ def test_cuda_regression_training_matches_cpu(objective, extra):
                                       getattr(b, f)[:k - 1]), f
             assert np.array_equal(a.leaf_value[:k], b.leaf_value[:k])
         assert np.array_equal(pg, pc)
+
+
+def _grow_device_pair(X, y, params, wide=False):
+    """grow_device's tree arrays and leaf_of_row on the card and on the
+    CPU for the same row-order gradients (random, non-dyadic)."""
+    import scipy.sparse as sp
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import BinnedDataset
+    from lightgbm_tpu_torch.treelearner.fused import FusedSerialGrower
+    rng = np.random.RandomState(2)
+    g = torch.as_tensor(rng.randn(len(y)).astype(np.float32))
+    h = torch.as_tensor((rng.rand(len(y)) + 0.1).astype(np.float32))
+    out = []
+    for dev in ("cuda", "cpu"):
+        cfg = Config.from_params({**params, "tpu_hist_dtype": "float32",
+                                  "device_type": dev})
+        ds = BinnedDataset.from_matrix(sp.csr_matrix(X) if wide else X,
+                                       cfg, label=y)
+        fl = FusedSerialGrower(ds, cfg, None, dev)
+        ta, leaf = fl.grow_device(g.to(dev), h.to(dev))
+        out.append((fl, ta, leaf.cpu()))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["dense_B1", "wide_B5"])
+def test_grow_device_on_card_equals_cpu(wide, monkeypatch):
+    """The per-tree fused path on the card (B1 + B2 on dense data; B5 +
+    B2 on the wide-sparse multi-value layout, which the CPU learner takes
+    too when it is forced: B5's plain version) against the CPU: the same
+    tree arrays and leaf_of_row, bit for bit."""
+    _need_card()
+    rng = np.random.RandomState(0)
+    if wide:
+        monkeypatch.setattr(TH, "hist_method",
+                            lambda config, dataset=None: "multival_pallas")
+        from chip_smoke import make_wide_like
+        X, y = make_wide_like(60_000)
+        params = {"objective": "multiclass", "num_class": 3,
+                  "num_leaves": 63, "verbose": -1}
+        y = (y + (rng.rand(len(y)) < 0.3)).astype(np.float32)
+    else:
+        X = rng.randn(60_000, 12)
+        y = rng.randint(0, 3, 60_000).astype(np.float32)
+        params = {"objective": "multiclass", "num_class": 3,
+                  "num_leaves": 63, "verbose": -1}
+    (fg, tg, lg), (fc, tc, lc) = _grow_device_pair(X, y, params, wide)
+    if wide:
+        assert fg.layout.mv_planes == fc.layout.mv_planes > 0
+    assert tg["n_leaves"] == tc["n_leaves"] > 2
+    for key, v in tg.items():
+        assert np.array_equal(np.asarray(v), np.asarray(tc[key])), key
+    assert torch.equal(lg, lc)
+
+
+@pytest.mark.cuda
+def test_multiclass_booster_on_card_equals_cpu():
+    """A K = 3 multiclass booster, both learners, on the card and on the
+    CPU: trees, leaf values and probabilities bit for bit."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.RandomState(5)
+    X = rng.randn(20_000, 10)
+    y = np.digitize(X[:, 0] + X[:, 1] * X[:, 2] + rng.randn(20_000) * 0.3,
+                    [-0.5, 0.5]).astype(np.float32)
+    for learner in ({}, {"tpu_fused": False}):
+        out = []
+        for dev in ("cuda", "cpu"):
+            b = lgt.train({"objective": "multiclass", "num_class": 3,
+                           "device_type": dev, "tpu_hist_dtype": "float32",
+                           "verbose": -1, **learner},
+                          lgt.Dataset(X, label=y), num_boost_round=3,
+                          verbose_eval=False)
+            out.append((b._gbdt.models, b.predict(X)))
+        (tg, pg), (tc, pc) = out
+        assert len(tg) == len(tc) == 9
+        for a, b in zip(tg, tc):
+            k = a.num_leaves
+            assert k == b.num_leaves
+            assert np.array_equal(a.split_feature[:k - 1],
+                                  b.split_feature[:k - 1])
+            assert np.array_equal(a.leaf_value[:k], b.leaf_value[:k])
+        assert pg.shape == (20_000, 3) and np.array_equal(pg, pc)

@@ -33,6 +33,7 @@ from lightgbm_tpu_torch.io.dataset import BinnedDataset as TDataset
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops import multival as TMV
 from lightgbm_tpu_torch.ops import plane as tplane
+from lightgbm_tpu_torch.ops import split as TS
 
 from chip_smoke import make_wide_like
 from test_multival import (make_codes_fixture, make_exclusive_highcard,
@@ -440,11 +441,9 @@ def force_multival(monkeypatch):
 def test_wide_sparse_training_multival_forced(monkeypatch, fused):
     """The multi-value layout forced in both packages, CSR input on both
     sides: the port's fused (B5) or host-loop (B6) learner against the
-    same JAX learner. Trees, leaf values and predictions are bit-equal;
-    so are the host loop's split gains. The fused learner's split gains
-    on this EFB data are held within 1e-6 relative: they differ in the
-    last bits on the planar layout as well (ROADMAP §C, the fused split
-    scan on wide-sparse data)."""
+    same JAX learner. Trees, split gains, leaf values and predictions
+    are bit-equal (ROADMAP §C, C7: the fused split scan on wide-sparse
+    data)."""
     X, y = make_wide_sparse(n=400)
     Xs = sp.csr_matrix(X)
     params = {"objective": "binary", "num_leaves": 15, "verbose": -1,
@@ -472,17 +471,47 @@ def test_wide_sparse_training_multival_forced(monkeypatch, fused):
                                           getattr(b, f)[:k - 1],
                                           err_msg=f"tree {i} {f}")
         np.testing.assert_array_equal(a.leaf_value[:k], b.leaf_value[:k])
-        if fused:
-            np.testing.assert_allclose(b.split_gain[:k - 1],
-                                       a.split_gain[:k - 1], rtol=1e-6)
-        else:
-            np.testing.assert_array_equal(b.split_gain[:k - 1],
-                                          a.split_gain[:k - 1])
+        np.testing.assert_array_equal(b.split_gain[:k - 1],
+                                      a.split_gain[:k - 1],
+                                      err_msg=f"tree {i} split_gain")
     np.testing.assert_array_equal(tb.predict(Xs, raw_score=True),
                                   jb.predict(X, raw_score=True))
     np.testing.assert_array_equal(tb.predict(Xs), jb.predict(X))
     np.testing.assert_allclose(tb.predict(X), tb.predict(Xs), rtol=0,
                                atol=0)
+
+
+def test_efb_hist_from_groups_matches_jax():
+    """The fused learner's EFB most-frequent-bin reconstruction on the
+    planar layout (``_hist_from_groups``: the leaf totals from group 0's
+    bins, then ``per_feature_hist``) has the bits of the JAX fused
+    learner's jitted ``_hist_from_groups`` on random group histograms of
+    ``make_wide_sparse`` data: the totals sum in XLA's reduce order.
+    Its features have fewer than 64 bins, so the split scan's reverse
+    gains fuse 2·g·o first (``scan_sites``)."""
+    import jax
+    from lightgbm_tpu.treelearner.fused import FusedSerialGrower as JFused
+    from lightgbm_tpu_torch.treelearner.fused import FusedSerialGrower
+    X, y = make_wide_sparse(n=400)
+    params = {"objective": "binary", "num_leaves": 15, "verbose": -1,
+              "min_data_in_leaf": 5}
+    jcfg = JConfig.from_params(params)
+    tcfg = TConfig.from_params({**params, "device_type": "cpu"})
+    jds = JDataset.from_matrix(sp.csr_matrix(X), jcfg, label=y)
+    tds = TDataset.from_matrix(sp.csr_matrix(X), tcfg, label=y)
+    jfl, fl = JFused(jds, jcfg), FusedSerialGrower(tds, tcfg, None, "cpu")
+    assert fl._efb_hist is not None and not fl.meta.any_two_scan
+    assert TS.scan_sites(fl.max_num_bin)[1] != "reverse"
+    want_fn = jax.jit(jfl._hist_from_groups)
+    rng = np.random.RandomState(0)
+    shape = (tds.bins.shape[1], tds.group_max_bins, 2)
+    for _ in range(5):
+        gh = (rng.randn(*shape) * rng.rand(*shape[:2], 1) * 10
+              ).astype(np.float32)
+        got = fl._hist_from_groups(torch.as_tensor(gh)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      np.asarray(want_fn(jnp.asarray(gh)))
+                                      .view(np.int32))
 
 
 def test_group_hist_from_flat_matches_jax():

@@ -26,7 +26,7 @@ from lightgbm_tpu_torch.ops import partition as TP
 from lightgbm_tpu_torch.ops import split as TS
 from lightgbm_tpu_torch.treelearner import monotone as TM
 
-from test_torch_train import (BIT_GATES, TREE_FIELDS, _data,
+from test_torch_train import (BIT_GATES, NO_NAN_GATES, TREE_FIELDS, _data,
                               assert_bit_equal_training)
 
 
@@ -376,7 +376,8 @@ def test_host_loop_bit_equal(case):
     extra, rounds = BIT_GATES.get(case, (
         {"monotone_constraints": [1, -1, 0, 0, 0, 0],
          "monotone_constraints_method": "intermediate"}, 3))
-    _, tb = assert_bit_equal_training({**extra, "tpu_fused": False}, rounds)
+    _, tb = assert_bit_equal_training({**extra, "tpu_fused": False}, rounds,
+                                      nan=case not in NO_NAN_GATES)
     assert tb._gbdt._fused is None
 
 

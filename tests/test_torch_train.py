@@ -37,10 +37,13 @@ TREE_FIELDS = ("split_feature", "split_gain", "threshold", "decision_type",
                "internal_count")
 
 
-def _data(seed=0, n=2000):
+def _data(seed=0, n=2000, nan=True):
+    """[n, 6] with NaNs in column 2 (``nan``) and zeros in column 5."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, 6)
-    X[rng.rand(n) < 0.05, 2] = np.nan
+    missing = rng.rand(n) < 0.05
+    if nan:
+        X[missing, 2] = np.nan
     X[:, 5] = np.where(rng.rand(n) < 0.4, 0.0, X[:, 5])
     y = (X[:, 0] + 0.5 * X[:, 1] - 0.3 * np.nan_to_num(X[:, 2]) * X[:, 3]
          + rng.randn(n) * 0.5 > 0).astype(np.float64)
@@ -143,15 +146,34 @@ def test_model_text(trained):
     "lambdarank", "multiclass num_class:3", "multiclassova num_class:3",
     "cross_entropy_lambda"])
 def test_loading_an_untrained_objective_raises(trained, objective):
-    """JAX model text whose objective the port does not train raises and
-    names its ROADMAP item, rather than predicting untransformed raw
-    scores."""
-    jtext = trained[0]["jax"][0].model_to_string()
-    head, sep, rest = jtext.partition("\nobjective=")
-    assert sep
-    text = head + sep + objective + "\n" + rest.split("\n", 1)[1]
-    with pytest.raises(NotImplementedError, match="A9"):
-        tlgb.Booster(params={"device_type": "cpu"}, model_str=text)
+    """JAX model text whose objective the port does not train (ranking)
+    raises and names its ROADMAP item, rather than predicting
+    untransformed raw scores. The objectives of the per-tree path, which
+    raised here until the port trained them, now load: a JAX model of
+    each (3 classes from the label and column 0) predicts bit-equal in
+    the port, raw and transformed."""
+    out, X, _ = trained
+    jtext = out["jax"][0].model_to_string()
+    if objective == "lambdarank":
+        head, sep, rest = jtext.partition("\nobjective=")
+        assert sep
+        text = head + sep + objective + "\n" + rest.split("\n", 1)[1]
+        with pytest.raises(NotImplementedError, match="A9"):
+            tlgb.Booster(params={"device_type": "cpu"}, model_str=text)
+        return
+    _, y = _data()
+    name, _, tok = objective.partition(" ")
+    params = {"objective": name, "num_leaves": 7, "verbose": -1}
+    if tok:
+        params["num_class"] = int(tok.split(":")[1])
+        y = y + (X[:, 0] > 1.0)
+    jb = jlgb.train(params, jlgb.Dataset(X, label=y), num_boost_round=2)
+    tb = tlgb.Booster(params={"device_type": "cpu"},
+                      model_str=jb.model_to_string())
+    assert tb._gbdt.objective.name == name
+    for raw in (True, False):
+        np.testing.assert_array_equal(tb.predict(X, raw_score=raw),
+                                      jb.predict(X, raw_score=raw))
 
 
 def test_booster_from_jax_arrays(trained):
@@ -209,12 +231,14 @@ def test_cuda_without_a_card_raises():
     ({"tpu_fused": False, "use_quantized_grad": True}, None, "host_loop"),
     ({"tree_learner": "voting", "num_machines": 2}, NotImplementedError,
      "A13"),
-    ({"objective": "cross_entropy_lambda"}, NotImplementedError, "A9"),
+    ({"objective": "lambdarank"}, NotImplementedError, "A9"),
 ])
 def test_left_out_options_raise(extra, err, match):
     """Options the port does not train yet raise and name their ROADMAP
-    item; quantized gradients (``err`` None) now train on the learner
-    named by ``match``, with integer histograms."""
+    item (ranking, since cross_entropy_lambda trains on the per-tree
+    path: tests/test_torch_multiclass.py); quantized gradients (``err``
+    None) now train on the learner named by ``match``, with integer
+    histograms."""
     X, y = _data(n=300)
     X[:, 3] = np.abs(np.round(X[:, 3]))
     if err is None:
@@ -286,13 +310,27 @@ BIT_GATES = {
     "quantized_max_delta_step": ({"max_delta_step": 0.3,
                                   "use_quantized_grad": True,
                                   "num_grad_quant_bins": 64}, 4),
+    # fewer bins: the reverse scan's multiply-add site follows the bin
+    # count (ops/split.py scan_sites)
+    "max_bin_15": ({"max_bin": 15}, 4),
+    "max_bin_15_l1": ({"max_bin": 15, "lambda_l1": 0.5}, 4),
+    "max_bin_40_l1": ({"max_bin": 40, "lambda_l1": 0.5}, 4),
+    "max_bin_63": ({"max_bin": 63}, 4),
+    "no_nan_31_leaves": ({"num_leaves": 31}, 4),
+    "no_nan_quantized_63_leaves": ({"num_leaves": 63, "min_data_in_leaf": 5,
+                                    "use_quantized_grad": True}, 4),
 }
+# gates on ``_data(nan=False)``: no feature has a missing type, so no
+# feature takes two scans; the host loop's program folds its forward
+# scan away, the fused program (metadata as arguments) does not
+NO_NAN_GATES = {"no_nan_31_leaves", "no_nan_quantized_63_leaves"}
 
 
-def assert_bit_equal_training(extra, rounds):
-    """Train ``extra`` over PARAMS in both packages on ``_data()``: the
-    same trees, split gains, leaf values and predictions, bit for bit."""
-    X, y = _data()
+def assert_bit_equal_training(extra, rounds, nan=True):
+    """Train ``extra`` over PARAMS in both packages on ``_data(nan=nan)``:
+    the same trees, split gains, leaf values and predictions, bit for
+    bit."""
+    X, y = _data(nan=nan)
     params = {**PARAMS, **extra}
     jb = jlgb.train(dict(params), jlgb.Dataset(X, label=y),
                     num_boost_round=rounds)
@@ -320,5 +358,7 @@ def assert_bit_equal_training(extra, rounds):
 @pytest.mark.parametrize("case", sorted(BIT_GATES))
 def test_fused_learner_bit_equal(case):
     extra, rounds = BIT_GATES[case]
-    _, tb = assert_bit_equal_training(extra, rounds)
+    no_nan = case in NO_NAN_GATES
+    _, tb = assert_bit_equal_training(extra, rounds, nan=not no_nan)
     assert tb._gbdt._fused is not None
+    assert tb._gbdt._fused.meta.any_two_scan != no_nan

@@ -86,6 +86,55 @@ def test_exp_f32_edges(case):
     _check_exp(x)
 
 
+_JLOG1P = jax.jit(jnp.log1p)
+
+
+def _check_log1p(x: np.ndarray) -> None:
+    x = np.ascontiguousarray(x, np.float32)
+    want = np.asarray(_JLOG1P(x))
+    got = XF.log1p_f32(torch.from_numpy(x)).numpy()
+    ok = _same_bits(want, got)
+    assert ok.all(), (x[~ok][:8], want[~ok][:8], got[~ok][:8])
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_log1p_f32_strided_sweep(chunk):
+    """Every 4 * SWEEP_STEP-th float32 bit pattern (about 1M in all),
+    in chunks: both branches, subnormals, infinities, NaNs, x <= -1."""
+    step = 4 * SWEEP_STEP
+    bits = np.arange(chunk * step // 4, 1 << 32, step,
+                     dtype=np.uint64)[chunk::4]
+    _check_log1p(bits.astype(np.uint32).view(np.float32))
+
+
+@pytest.mark.parametrize("case", ["edges", "branch_boundary", "near_zero",
+                                  "exp_range"])
+def test_log1p_f32_edges(case):
+    """log1p_f32 at its edges: -1, 0, inf and NaN; the switch between
+    the rational and the log branch at sqrt(2) - 1; tiny inputs; and
+    log1p(exp(raw)) over the scores cross_entropy_lambda transforms."""
+    if case == "edges":
+        x = np.float32([0.0, -0.0, -1.0, -1.5, np.inf, -np.inf, np.nan,
+                        1.0, 3e38, -0.99999994, 1e-40, -1e-40])
+    elif case == "branch_boundary":
+        x = np.concatenate([_ulps_around(np.sqrt(2.0) - 1.0, 4096),
+                            _ulps_around(1.0 - np.sqrt(2.0), 4096),
+                            _ulps_around(np.sqrt(0.5) - 1.0, 512),
+                            _ulps_around(np.sqrt(2.0) - 1.0 + 1.0, 512)])
+    elif case == "near_zero":
+        x = np.concatenate([np.linspace(-1e-3, 1e-3, 100_001,
+                                        dtype=np.float32),
+                            np.geomspace(1e-38, 1e-3, 100_000,
+                                         dtype=np.float32)])
+    else:
+        raw = np.linspace(-110.0, 90.0, 400_001, dtype=np.float32)
+        x = np.asarray(jax.jit(jnp.exp)(raw))
+        want = np.asarray(jax.jit(lambda v: jnp.log1p(jnp.exp(v)))(raw))
+        got = XF.log1p_f32(XF.exp_f32(torch.from_numpy(raw))).numpy()
+        assert _same_bits(want, got).all()
+    _check_log1p(x)
+
+
 def _exact_fma(a, b, c) -> np.float32:
     """a * b + c rounded once to float32 (round to nearest, ties to
     even), from exact rationals."""
