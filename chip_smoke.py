@@ -63,14 +63,31 @@ Phases, each of which fails the run (no exception is caught):
      objective (the binary log loss in numpy), 3 iterations, B5 + B2,
      held-out AUC above 0.75. Each prints its kernels' launches per
      iteration.
+   - (o)-(s): row sampling and the boosting modes on the per-tree fused
+     path, each tree grown on a bag-ordered state gathered and packed
+     per tree (its build timed by CUDA events) and every row scored by
+     traversal: (o) HIGGS bagging (bagging_fraction 0.8, bagging_freq
+     1), (p) HIGGS GOSS (top_rate 0.2, other_rate 0.1, learning_rate
+     0.25: iterations 4-7 sample 30% of the rows, each sampling round
+     run with CUDA sync debug mode "error", so a host read fails the
+     run), (q) HIGGS DART (drop_rate 0.1, skip_drop 0.5; the unbagged
+     per-tree state; the drop and normalize steps timed), (r) HIGGS RF
+     (bagging_fraction 0.632, bagging_freq 1, feature_fraction 0.8),
+     all B1 + B2 for 8 iterations with held-out AUC above 0.70, and (s)
+     shape (a) with bagging (0.8, freq 1), B5 + B2 over bag-gathered
+     slot planes, 3 iterations.
 4. card vs CPU — the same small training on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
    and with quantized gradients, on (h)'s columns with categorical
    features, with the regression, quantile and MAPE objectives, and
-   with multiclass, multiclassova and a custom objective: trees (bitset
-   pools included), leaf values and predictions must agree (the last
-   three exactly), with prediction early stop off and on for the
-   categorical model.
+   with multiclass, multiclassova and a custom objective, and with
+   bagging, pos/neg bagging, GOSS, DART, RF and multiclass with bagging
+   (both learners), quantized gradients and regression_l1 with bagging
+   (the host loop; these 14 on 30,000 rows): trees (bitset pools
+   included), leaf values and
+   predictions must agree (the per-tree and boosting-mode cases
+   exactly), with prediction early stop off and on for the categorical
+   model.
 
 ``--profile`` instead profiles one iteration of each path
 (``--profile-paths b,h`` of the named ones only; (l)-(n) device rows
@@ -1379,38 +1396,47 @@ def binary_fobj(preds, data):
     return p - data.get_label(), p * (1.0 - p)
 
 
-class refit_timer:
-    """Times each call of the fused learner's percentile refit while
-    active: CUDA events around it on the card (read after the training
-    has synchronized, so the timing adds no blocking read) and host
-    seconds. Entering yields the list of (device ms, host ms) that
-    fills when the context exits."""
+class method_timer:
+    """Times each call of ``cls.<name>`` while active: CUDA events
+    around it on the card (read after the training has synchronized, so
+    the timing adds no blocking read) and host seconds. Entering yields
+    the list of (device ms, host ms) that fills when the context
+    exits. ``debug_sync``: run each call under CUDA sync debug mode
+    "error", so a host read inside it raises."""
+
+    def __init__(self, cls, name, debug_sync=False):
+        self.cls, self.name, self.debug_sync = cls, name, debug_sync
 
     def __enter__(self):
-        from lightgbm_tpu_torch.treelearner import fused
-        self.cls, self.orig = fused.FusedSerialGrower, \
-            fused.FusedSerialGrower._renew_leaf_outputs
+        self.orig = self.cls.__dict__[self.name]
         self.marks, self.out = [], []
-        orig, marks = self.orig, self.marks
+        orig, marks, debug_sync = self.orig, self.marks, self.debug_sync
 
-        def timed(learner, *a, **kw):
-            cuda = learner.device.type == "cuda"
+        def timed(obj, *a, **kw):
+            cuda = torch.cuda.is_available() and getattr(
+                obj, "device", torch.device("cpu")).type == "cuda"
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
                 if cuda else None
             if cuda:
                 ev[0].record()
             t0 = time.perf_counter()
-            res = orig(learner, *a, **kw)
+            if cuda and debug_sync:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = orig(obj, *a, **kw)
+            finally:
+                if cuda and debug_sync:
+                    torch.cuda.set_sync_debug_mode("default")
             host = (time.perf_counter() - t0) * 1e3
             if cuda:
                 ev[1].record()
             marks.append((ev, host))
             return res
-        self.cls._renew_leaf_outputs = timed
+        setattr(self.cls, self.name, timed)
         return self.out
 
     def __exit__(self, *exc):
-        self.cls._renew_leaf_outputs = self.orig
+        setattr(self.cls, self.name, self.orig)
         if self.marks and self.marks[0][0] is not None:
             torch.cuda.synchronize()
         self.out.extend((ev[0].elapsed_time(ev[1]) if ev else host, host)
@@ -1418,14 +1444,96 @@ class refit_timer:
         return False
 
 
+def _ms(marks):
+    """'mean device ms (host ms)' of a method_timer's list."""
+    return (f"{np.mean([m[0] for m in marks]):.3f} ms "
+            f"({np.mean([m[1] for m in marks]):.3f} ms host)")
+
+
+# paths (o)-(s): row sampling and the boosting modes on the per-tree
+# fused path: (key, name, params over HIGGS_PARAMS or WIDE_PARAMS, wide?)
+BAG_PATHS = [
+    ("o", "(o) HIGGS bagging fused",
+     {"bagging_fraction": 0.8, "bagging_freq": 1}, False),
+    ("p", "(p) HIGGS GOSS fused",
+     {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
+      "learning_rate": 0.25}, False),
+    ("q", "(q) HIGGS DART fused",
+     {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.5}, False),
+    ("r", "(r) HIGGS RF fused",
+     {"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+      "feature_fraction": 0.8}, False),
+    ("s", "(s) wide bagging fused",
+     {"bagging_fraction": 0.8, "bagging_freq": 1}, True),
+]
+BAG_WIDE_ITERS = 3                 # path (s)
+BAG_CASE_ROWS = 30_000             # phase 4's boosting-mode cases
+
+
+def bag_paths(args, ds, hX, hy, wide, device="cuda"):
+    """Paths (o)-(s): returns {key: launches}. Each prints the per-tree
+    bag build (gather + pack, CUDA events), the bag's rows, and (p) the
+    sampling rounds, each run under sync debug mode "error"; (q) its
+    drop and normalize steps."""
+    from lightgbm_tpu_torch.boosting import gbdt as G
+    from lightgbm_tpu_torch.treelearner.fused import FusedSerialGrower
+    wds, wX, wy = wide
+    got = {}
+    for key, name, extra, is_wide in BAG_PATHS:
+        t_path = time.perf_counter()
+        params = {**(WIDE_PARAMS if is_wide else HIGGS_PARAMS), **extra}
+        dset, Xh, yh = (wds, wX, wy) if is_wide else (ds, hX, hy)
+        iters = BAG_WIDE_ITERS if is_wide else args.iters
+        expect = (("hist_multival_planar", "partition") if is_wide
+                  else ("hist_planar", "partition"))
+        with method_timer(FusedSerialGrower, "bag_state") as builds, \
+                method_timer(G.GOSS, "_bagging", debug_sync=True) as goss, \
+                method_timer(G.DART, "_dropping_trees") as drops, \
+                method_timer(G.DART, "_normalize") as norms:
+            got[key], booster, _ = run_path(name, params, dset, iters, Xh,
+                                            yh, expect, device)
+        gb = booster._gbdt
+        fl = gb._fused
+        assert fl is not None and not gb._fused_persist, name
+        assert type(gb).__name__ == {"p": "GOSS", "q": "DART",
+                                     "r": "RF"}.get(key, "GBDT"), name
+        if key == "q":
+            assert fl._score_from_partition and not builds, name
+            log(f"{name}: drop step {_ms(drops)}, normalize {_ms(norms)} "
+                f"per iteration; tree weights "
+                f"{[round(w, 5) for w in gb.tree_weight]}")
+        else:
+            assert not fl._score_from_partition, name
+            assert len(builds) == iters, (name, len(builds))
+            log(f"{name}: bag of {gb.bag_data_cnt} of {gb.num_data} rows "
+                f"in the last iteration; per-tree bag build (gather + "
+                f"pack) {_ms(builds)}: " + ", ".join(
+                    f"{b[0]:.3f}" for b in builds))
+        if key == "p":
+            warm = int(1.0 / params["learning_rate"])
+            assert len(goss) == iters, (name, len(goss))
+            assert gb.bag_data_cnt == int(gb.num_data * 0.2) + int(
+                gb.num_data * 0.1), (name, gb.bag_data_cnt)
+            log(f"{name}: {iters - warm} sampling rounds (iterations "
+                f"{warm}-{iters - 1}) under sync debug mode \"error\": no "
+                f"host read; GOSS step {_ms(goss[warm:])} per sampling "
+                f"round")
+        if key == "r":
+            assert gb.average_output and gb.shrinkage_rate == 1.0, name
+        log(f"{name}: {time.perf_counter() - t_path:.1f} s in all")
+    return got
+
+
 def paths(args, report, wide, device="cuda"):
     """Phase 3: the HIGGS fused path and paths (a)-(c), then their
-    quantized twins (d)-(g), then the categorical path (h). Each
-    kernel's ``launches`` in the report is the count from its own
-    path(s)."""
+    quantized twins (d)-(g), the categorical path (h), the regression
+    paths (i)-(k), the per-tree paths (l)-(n) and the row-sampling and
+    boosting-mode paths (o)-(s). Each kernel's ``launches`` in the
+    report is the count from its own path(s)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.treelearner.fused import FusedSerialGrower
     hold = 200_000
     X, y = make_higgs_like(args.rows + hold, 28, seed=0)
     t0 = time.perf_counter()
@@ -1485,7 +1593,8 @@ def paths(args, report, wide, device="cuda"):
         if twin is not None:
             floor = aucs[twin] - QUANT_AUC_SLACK
         metric, fobj = (more + ["auc", None][len(more):])[:2]
-        with refit_timer() as refits:
+        with method_timer(FusedSerialGrower, "_renew_leaf_outputs") \
+                as refits:
             got[key], booster, aucs[key] = run_path(
                 name, params, dset, iters, Xh, yh, expect, device,
                 floor=floor, metric=metric, fobj=fobj)
@@ -1537,10 +1646,12 @@ def paths(args, report, wide, device="cuda"):
         if key in ("i", "j", "k") and device == "cuda":
             profile_iteration(name, booster, device_only=True)
         log(f"{name}: {time.perf_counter() - t_path:.1f} s in all")
-    path_of = {"hist_planar": ["higgs", "h", "i", "j", "k", "l", "m"],
+    got.update(bag_paths(args, ds, hX, hy, wide, device))
+    path_of = {"hist_planar": ["higgs", "h", "i", "j", "k", "l", "m", "o",
+                               "p", "q", "r"],
                "partition": ["higgs", "a", "d", "e", "h", "i", "j", "k",
-                             "l", "m", "n"],
-               "hist_radix": ["b"], "hist_multival_planar": ["a", "n"],
+                             "l", "m", "n", "o", "p", "q", "r", "s"],
+               "hist_radix": ["b"], "hist_multival_planar": ["a", "n", "s"],
                "hist_multival": ["c"], "hist_masked": [],
                "partition_window": [], "hist_planar_q": ["d"],
                "hist_radix_q": ["f"], "hist_masked_q": [],
@@ -1592,6 +1703,35 @@ def card_vs_cpu():
         cases += [(f"fused {name}", obj, data),
                   (f"host loop {name}", {"tpu_fused": False, **obj}, data)]
         exact |= {f"fused {name}", f"host loop {name}"}
+    # row sampling and the boosting modes (both learners), and bagging
+    # where it sends the fused config to the host loop, on the first
+    # BAG_CASE_ROWS rows (the CPU side sets the phase's time)
+    bag = {"bagging_fraction": 0.7, "bagging_freq": 1}
+    m = BAG_CASE_ROWS
+    for name, obj, data in (
+            ("bagging", bag, (X[:m], y[:m])),
+            ("pos/neg bagging", {"pos_bagging_fraction": 0.6,
+                                 "neg_bagging_fraction": 0.8,
+                                 "bagging_freq": 1}, (X[:m], y[:m])),
+            ("GOSS", {"boosting": "goss", "learning_rate": 0.5},
+             (X[:m], y[:m])),
+            ("DART", {"boosting": "dart", "drop_rate": 0.5,
+                      "skip_drop": 0.0}, (X[:m], y[:m])),
+            ("RF", {"boosting": "rf", "bagging_fraction": 0.632,
+                    "bagging_freq": 1, "feature_fraction": 0.8},
+             (X[:m], y[:m])),
+            ("multiclass bagging", {"objective": "multiclass",
+                                    "num_class": 3, **bag},
+             (Xr[:m], y3[:m]))):
+        cases += [(f"fused {name}", obj, data),
+                  (f"host loop {name}", {"tpu_fused": False, **obj}, data)]
+        exact |= {f"fused {name}", f"host loop {name}"}
+    cases += [("host loop quantized bagging", {**QUANT_PARAMS, **bag},
+               (X[:m], y[:m])),
+              ("host loop regression_l1 bagging",
+               {"objective": "regression_l1", **bag}, (Xr[:m], yr[:m]))]
+    exact |= {"host loop quantized bagging",
+              "host loop regression_l1 bagging"}
     for learner, extra, data in cases:
         out = {}
         xs, ys = data
@@ -1612,6 +1752,8 @@ def card_vs_cpu():
             out[dev] = (b._gbdt.models, preds)
         (tg, pg), (tc, pc) = out["cuda"], out["cpu"]
         per_iter = b._gbdt.num_tree_per_iteration
+        if learner.startswith("host loop"):
+            assert b._gbdt._fused is None, learner
         assert len(tg) == len(tc) == 3 * per_iter
         for a, b in zip(tg, tc):
             k = a.num_leaves
@@ -1638,7 +1780,7 @@ def card_vs_cpu():
         ncat = sum(t.num_cat for t in tg)
         if "categorical_feature" in extra:
             assert ncat > 0, f"{learner}: no categorical split"
-        log(f"card vs CPU ({learner}): {n} rows, 3 iterations of "
+        log(f"card vs CPU ({learner}): {len(ys)} rows, 3 iterations of "
             f"{per_iter} trees: trees "
             f"equal ({[t.num_leaves for t in tg]} leaves, {ncat} "
             f"categorical splits), leaf values max |diff| {leaf_diff:.3g}, "

@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .boosting.gbdt import GBDT
+from .boosting.gbdt import GBDT, create_boosting
 from .config import Config
 from .io.dataset import BinnedDataset, _is_sparse
 from .metric.metrics import create_metric
@@ -120,7 +120,8 @@ class Booster:
         self.name_valid_sets: List[str] = []
         self.config = Config.from_params(self.params)
         self.device = resolve_device(self.config)
-        self._gbdt = GBDT(self.device)
+        self._gbdt = (create_boosting(self.config.boosting, self.device)
+                      if train_set is not None else GBDT(self.device))
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be Dataset instance, "

@@ -15,8 +15,18 @@ learner's program (custom objectives, ``cross_entropy_lambda``) take the
 per-tree fused path: one fresh planar state per class tree
 (``FusedSerialGrower.grow_device``) and the score update through each
 row's leaf. Quantized-gradient training (``use_quantized_grad``) runs on
-both learners. DART, GOSS, RF, bagging, rollback and refit are not
-ported yet (ROADMAP A10).
+both learners.
+
+Row sampling re-permutes the rows per iteration: bagging (numpy
+``RandomState``, the JAX package's draws) and GOSS (its device-side
+sampling, ``ops/threefry.py``) hand the learner a ``[bag | oob]``
+permutation; the fused learner then grows each tree on a bag-ordered
+state and scores every row by traversal (``grow_device``). ``DART``
+drops trees from the training score before each iteration and
+normalizes them after; ``RF`` grows every tree from the constant
+initial score and averages the trees' outputs. Rollback, refit,
+``init_model`` and the RNGs' checkpoint state are not ported yet
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -31,6 +41,8 @@ from ..io.dataset import BinnedDataset
 from ..metric.metrics import Metric
 from ..models.tree import Tree
 from ..objective.functions import ObjectiveFunction, create_objective
+from ..ops import split as S
+from ..ops import threefry
 from ..treelearner.fused import (FusedSerialGrower, fused_reject_reason,
                                  port_reject_reason)
 from ..treelearner.serial import SerialTreeGrower
@@ -66,15 +78,21 @@ class _ScoreState:
             init += np.asarray(dataset.metadata.init_score, np.float32
                                ).reshape(num_trees_per_iter, -1)
         self.score = torch.as_tensor(init, device=device)
-        self.bins = None
-        if with_bins:
-            b = dataset.bins
-            self.bins = torch.as_tensor(
-                b if b.dtype == np.uint8 else b.astype(np.int32),
-                device=device)
+        self.bins = dataset.device_bins(device) if with_bins else None
 
     def add_constant(self, val: float, class_id: int) -> None:
         self.score[class_id] += torch.tensor(val, dtype=torch.float32)
+
+    def add_tree(self, tree: Tree, class_id: int, bins: torch.Tensor,
+                 miss_bin, efb) -> None:
+        """score[c] += the tree's float32 leaf values at each row's leaf,
+        found by bin-space traversal of ``bins`` (the JAX package's
+        _ScoreState.add_tree)."""
+        leaf = tree.leaf_index_binned(bins, miss_bin, efb)
+        vals = torch.as_tensor(
+            tree.leaf_value[:tree.num_leaves].astype(np.float32),
+            device=self.score.device)
+        self.score[class_id] += vals[leaf]
 
 
 class GBDT:
@@ -100,6 +118,7 @@ class GBDT:
         self.max_feature_idx = 0
         self._fused = None
         self.tree_learner = None
+        self.average_output = False
 
     # ------------------------------------------------------------------
     def init(self, config: Config, train_data: BinnedDataset,
@@ -127,6 +146,7 @@ class GBDT:
         self._fused = None
         self._fused_state = None     # persistent planar state (device)
         self._score_dirty = False    # train_score stale vs _fused_state
+        self._stop_pending = False   # the last periodic stop verdict
         reason = fused_reject_reason(config, train_data, objective)
         if reason is None:
             self._fused = FusedSerialGrower(train_data, config, objective,
@@ -142,17 +162,26 @@ class GBDT:
                     "single-dispatch tree grower; falling back to the "
                     "host-loop grower (slower per iteration)", reason)
             self.tree_learner = self._create_tree_learner(config, train_data)
-            self._perm = torch.arange(self.num_data, dtype=torch.int64,
-                                      device=self.device)
         # one program per iteration over the persistent state: a
-        # pointwise objective with one tree per iteration; the rest grows
-        # each class tree from row-order gradients (grow_device)
+        # pointwise objective with one tree per iteration and no row
+        # sampling or score surgery (bagging, GOSS, RF, DART); the rest
+        # grows each class tree from row-order gradients (grow_device)
         self._fused_persist = (self._fused is not None
                                and self._fused.persistent_capable
-                               and self.num_tree_per_iteration == 1)
+                               and self._fused._score_from_partition
+                               and self.num_tree_per_iteration == 1
+                               and config.boosting == "gbdt"
+                               and type(self) is GBDT)
         self.train_score = _ScoreState(train_data,
                                        self.num_tree_per_iteration,
                                        self.device)
+        # bagging state (reference GBDT::ResetBaggingConfig,
+        # gbdt.cpp:700): the [bag | oob] row permutation on the device
+        self._bag_rng = np.random.RandomState(config.bagging_seed)
+        self.bag_data_cnt = self.num_data
+        self._full_perm = torch.arange(self.num_data, dtype=torch.int64,
+                                       device=self.device)
+        self._perm = self._full_perm
 
     def _create_tree_learner(self, config: Config,
                              train_data: BinnedDataset):
@@ -198,6 +227,43 @@ class GBDT:
                         "slow convergence", self.objective.name)
         return 0.0
 
+    def _score_tables(self):
+        """(bins, miss_bin, efb) of the training rows on the device, for
+        bin-space traversal: the learner's own."""
+        if self._fused is not None:
+            fl = self._fused
+            return fl.bins_device(), fl.feature_miss_bin, fl._efb_dev
+        tl = self.tree_learner
+        return tl.bins, tl.feature_miss_bin, tl._efb_dev
+
+    def _bagging(self, iteration: int) -> None:
+        """Per-iteration row subsetting (reference GBDT::Bagging,
+        gbdt.cpp:209; pos/neg bagging for binary): the JAX package's
+        numpy draws, in its order; the permutation [bag | oob] goes to
+        the device once per bagging round and is kept between rounds."""
+        cfg = self.config
+        need = cfg.bagging_freq > 0 and (
+            cfg.bagging_fraction < 1.0 or cfg.pos_bagging_fraction < 1.0
+            or cfg.neg_bagging_fraction < 1.0)
+        if not need or iteration % cfg.bagging_freq != 0:
+            return
+        n = self.num_data
+        if cfg.pos_bagging_fraction != 1.0 or cfg.neg_bagging_fraction != 1.0:
+            is_pos = np.asarray(self.train_data.metadata.label) > 0
+            r = self._bag_rng.rand(n)
+            bag = np.flatnonzero(np.where(is_pos,
+                                          r < cfg.pos_bagging_fraction,
+                                          r < cfg.neg_bagging_fraction))
+        else:
+            cnt = max(1, int(n * cfg.bagging_fraction))
+            bag = self._bag_rng.choice(n, size=cnt, replace=False)
+            bag.sort()
+        oob = np.setdiff1d(np.arange(n, dtype=np.int64), bag,
+                           assume_unique=True)
+        self._perm = torch.as_tensor(np.concatenate([bag, oob]),
+                                     dtype=torch.int64, device=self.device)
+        self.bag_data_cnt = len(bag)
+
     def _boosting(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """[K, N] float32 gradients and hessians of the objective from
         the row-order training score (reference GBDT::Boosting,
@@ -213,16 +279,10 @@ class GBDT:
     def _update_score(self, tree: Tree, class_id: int) -> None:
         """reference GBDT::UpdateScore (gbdt.cpp:458): train and valid
         scores of one class by bin-space traversal of the new tree."""
-        tl = self.tree_learner
-        vals = torch.as_tensor(
-            tree.leaf_value[:tree.num_leaves].astype(np.float32),
-            device=self.device)
-        states = [(self.train_score, tl.bins)] + \
-            [(vs, vs.bins) for vs in self.valid_score]
-        for st, bins in states:
-            leaf = tree.leaf_index_binned(bins, tl.feature_miss_bin,
-                                          tl._efb_dev)
-            st.score[class_id] += vals[leaf]
+        bins, miss, efb = self._score_tables()
+        self.train_score.add_tree(tree, class_id, bins, miss, efb)
+        for vs in self.valid_score:
+            vs.add_tree(tree, class_id, vs.bins, miss, efb)
 
     def _renew_tree_output(self, tree: Tree, class_id: int) -> None:
         """The host loop's leaf refit of L1, quantile and MAPE (reference
@@ -239,6 +299,11 @@ class GBDT:
                                           tl._efb_dev).cpu().numpy()
         score = self.train_score.score[class_id].cpu().numpy()
         residual = np.asarray(self.train_data.metadata.label) - score
+        if self.bag_data_cnt < self.num_data:
+            # the bag's rows only (the JAX package's
+            # _renew_tree_output_impl)
+            bag = self._perm[:self.bag_data_cnt].cpu().numpy()
+            leaf_idx, residual = leaf_idx[bag], residual[bag]
         out = obj.renew_tree_output(leaf_idx, residual, tree.num_leaves)
         if out is not None:
             tree.leaf_value[:tree.num_leaves] = out
@@ -263,7 +328,7 @@ class GBDT:
         for c in range(k):
             if self.train_data.num_features > 0:
                 tree = self.tree_learner.grow(grad[c], hess[c], self._perm,
-                                              self.num_data)
+                                              self.bag_data_cnt)
             else:
                 tree = Tree(2)
             if tree.num_leaves > 1:
@@ -298,20 +363,23 @@ class GBDT:
     def _train_one_iter_fused(self, init_scores, grad, hess) -> bool:
         """The per-tree fused path (the JAX package's
         _train_one_iter_fused): per class, ``grow_device`` on the class's
-        row-order gradients, then score[c] += vals[leaf_of_row] with
+        row-order gradients and the iteration's [bag | oob] permutation,
+        then score[c] += vals[leaf_of_row] with
         vals = leaf value x shrinkage in float32 (``PendingTree.
         leaf_values_device``), and the valid scores by bin-space
-        traversal. The JAX package finds an iteration of single leaves
-        only at its periodic stop check and then trims every trailing
-        one; the port reads each tree, so it stops at once with the
-        same model."""
+        traversal. An iteration of single leaves does not end training
+        here: as in the JAX package, training stops only at the periodic
+        check (``_periodic_stop_check``), and the trailing single-leaf
+        iterations are trimmed at the end (``trim_degenerate_tail``).
+        Under row sampling a later bag may split again, so a single-leaf
+        iteration inside the run stays in the model."""
         k = self.num_tree_per_iteration
         fl = self._fused
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         shrink = torch.tensor(self.shrinkage_rate, dtype=torch.float32)
-        leaves = []
         for c in range(k):
-            ta, leaf_of_row = fl.grow_device(grad[c], hess[c])
+            ta, leaf_of_row = fl.grow_device(grad[c], hess[c], self._perm,
+                                             self.bag_data_cnt)
             tree = fl.materialize_tree(ta)
             # + 0.0, as the JAX package adds its pending bias (a -0.0
             # leaf value adds +0.0)
@@ -323,13 +391,44 @@ class GBDT:
             if abs(init_scores[c]) > K_EPSILON:
                 tree.add_bias(init_scores[c])
             self.models.append(tree)
-            leaves.append(tree.num_leaves)
         self.iter += 1
-        if all(v <= 1 for v in leaves):
-            if len(self.models) > k:
-                self.iter -= 1
-            return self._no_more_splits(k)
-        return False
+        return (self.iter % self.STOP_CHECK_EVERY == 0
+                and self._periodic_stop_check(self.models[-k:]))
+
+    # the per-tree fused path's stop-check period (the JAX package's)
+    STOP_CHECK_EVERY = 50
+
+    def _periodic_stop_check(self, trees) -> bool:
+        """The JAX package's pipelined stop check of the per-tree fused
+        path: the verdict of the PREVIOUS check (were its iteration's
+        trees all single leaves?) decides; a positive one trims the
+        trailing single-leaf iterations and stops, unless none trail
+        (later iterations split again) and the model holds more than
+        one iteration. Returns True when training should stop."""
+        stop = self._stop_pending
+        self._stop_pending = all(t.num_leaves <= 1 for t in trees)
+        if not stop:
+            return False
+        if self.trim_degenerate_tail() == 0 \
+                and len(self.models) > self.num_tree_per_iteration:
+            return False
+        log.warning("Stopped training because there are no more leaves "
+                    "that meet the split requirements")
+        return True
+
+    def trim_degenerate_tail(self) -> int:
+        """Delete every trailing iteration whose trees are all single
+        leaves, but the first (the JAX package's _trim_degenerate_tail;
+        their single leaves added 0 to the scores). Returns the count
+        deleted."""
+        k = self.num_tree_per_iteration
+        removed = 0
+        while len(self.models) > k and all(
+                t.num_leaves <= 1 for t in self.models[-k:]):
+            del self.models[-k:]
+            self.iter -= 1
+            removed += 1
+        return removed
 
     def _train_one_iter_persistent(self, init_score: float) -> bool:
         """One iteration of the persistent fused path: gradients, tree
@@ -380,15 +479,19 @@ class GBDT:
         k = self.num_tree_per_iteration
         custom = gradients is not None and hessians is not None
         init_scores = [0.0] * k
-        grad = hess = None
+        self._grad = self._hess = None
         if custom:
-            grad, hess = (torch.as_tensor(
+            self._grad, self._hess = (torch.as_tensor(
                 np.asarray(a, np.float32).reshape(k, self.num_data),
                 device=self.device) for a in (gradients, hessians))
         else:
             init_scores = [self._boost_from_average(c) for c in range(k)]
             if not self._fused_persist:
-                grad, hess = self._boosting()
+                self._grad, self._hess = self._boosting()
+        # after the gradients, as the JAX package (GOSS reweights them)
+        self._bagging(self.iter)
+        grad, hess = self._grad, self._hess
+        self._grad = self._hess = None
         if self._fused is None:
             return self._train_one_iter_host_loop(init_scores, grad, hess)
         if self._fused_persist and not custom:
@@ -415,10 +518,21 @@ class GBDT:
                     rows.append((ds_name, name, m))
                     vals.append(val.reshape(-1).to(torch.float64))
 
+        div = None
+        if self.average_output and self.current_iteration > 0:
+            # averaged output: the scores over the iteration count, a
+            # true float32 division as the JAX package's host divide
+            div = torch.tensor(float(self.current_iteration),
+                               dtype=torch.float32, device=self.device)
+
+        def averaged(score):
+            return score if div is None else score / div
+
         if self.metrics:
-            eval_set("training", self.metrics, self.get_training_score())
+            eval_set("training", self.metrics,
+                     averaged(self.get_training_score()))
         for i, ms in enumerate(self.valid_metrics):
-            eval_set(f"valid_{i}", ms, self.valid_score[i].score)
+            eval_set(f"valid_{i}", ms, averaged(self.valid_score[i].score))
         if not vals:
             return []
         host = torch.cat(vals).cpu().numpy()
@@ -428,6 +542,10 @@ class GBDT:
                         m.bigger_is_better))
             at += v.numel()
         return out
+
+    @property
+    def current_iteration(self) -> int:
+        return len(self.models) // max(self.num_tree_per_iteration, 1)
 
     # ------------------------------------------------------------------
     # prediction
@@ -468,10 +586,12 @@ class GBDT:
         """[k, N] float32 raw scores on the device, dispatched as the JAX
         package's _raw_scores_device: prediction early stop takes the
         walker's early-stopped sums; else the path forest where it
-        covers the model, else the walker."""
+        covers the model, else the walker. An averaged-output model (RF)
+        divides by its iteration count on the device."""
         k = self.num_tree_per_iteration
         xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        if not self._used_models(start_iteration, num_iteration):
+        models = self._used_models(start_iteration, num_iteration)
+        if not models:
             return torch.zeros((k, xt.shape[0]), dtype=torch.float32,
                                device=self.device)
         cfg = self.config
@@ -491,7 +611,14 @@ class GBDT:
             else:
                 parts.append(self._forest(
                     "packed", start_iteration, num_iteration).raw_scores(xc))
-        return torch.cat(parts, dim=1)
+        score = torch.cat(parts, dim=1)
+        if self.average_output:
+            # a true division by a device scalar (a host scalar divisor
+            # is a reciprocal product on the card)
+            score = score / torch.tensor(float(len(models) // k),
+                                         dtype=torch.float32,
+                                         device=self.device)
+        return score
 
     def predict(self, x: np.ndarray, start_iteration: int = 0,
                 num_iteration: int = -1, raw_score: bool = False
@@ -563,6 +690,8 @@ class GBDT:
             lines.append(f"objective={self.objective.to_string()}")
         elif getattr(self, "_loaded_objective", ""):
             lines.append(f"objective={self._loaded_objective}")
+        if self.average_output:
+            lines.append("average_output")
         lines.append("feature_names=" + " ".join(self.feature_names_))
         lines.append("feature_infos=" + " ".join(self._feature_infos()))
         models = self._used_models(start_iteration, num_iteration)
@@ -595,9 +724,7 @@ class GBDT:
                 key, val = line.split("=", 1)
                 kv[key.strip()] = val
             elif line.strip() == "average_output":
-                raise NotImplementedError(
-                    "averaged-output (RF) models are not ported yet "
-                    "(ROADMAP A10)")
+                self.average_output = True
         self.num_tree_per_iteration = int(kv.get("num_tree_per_iteration",
                                                  "1"))
         self._loaded_num_class = int(kv.get("num_class", "1"))
@@ -628,3 +755,212 @@ class GBDT:
         if pstart >= 0:
             self.loaded_parameter = text[pstart + len("\nparameters:"):]\
                 .split("end of parameters")[0].strip()
+
+
+class DART(GBDT):
+    """Dropout boosting (reference dart.hpp:23), as the JAX package's
+    DART: before each iteration the dropped trees leave the training
+    score; after it they are normalized, their leaf values scaled on
+    the host in float64 and each step added to the scores in float32."""
+
+    def init(self, config, train_data, objective, metrics):
+        super().init(config, train_data, objective, metrics)
+        self._drop_rng = np.random.RandomState(config.drop_seed)
+        self.tree_weight: List[float] = []
+        self.sum_weight = 0.0
+        self.drop_index: List[int] = []
+        self.shrinkage_rate = config.learning_rate
+
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
+        if gradients is None or hessians is None:
+            self._dropping_trees()
+        res = super().train_one_iter(gradients, hessians)
+        if not res:
+            self._normalize()
+            if not self.config.uniform_drop:
+                self.tree_weight.append(self.shrinkage_rate)
+                self.sum_weight += self.shrinkage_rate
+        return res
+
+    def _dropping_trees(self) -> None:
+        """Draw the dropped iterations (the drop RNG consumed in loop
+        order, up to ``max_drop``), subtract their trees from the
+        training score and set this iteration's shrinkage."""
+        cfg = self.config
+        self.drop_index = []
+        if self._drop_rng.rand() >= cfg.skip_drop:
+            drop_rate = cfg.drop_rate
+            if not cfg.uniform_drop:
+                if self.tree_weight:
+                    inv_avg = len(self.tree_weight) / self.sum_weight
+                    if cfg.max_drop > 0:
+                        drop_rate = min(drop_rate, cfg.max_drop * inv_avg
+                                        / self.sum_weight)
+                    for i in range(self.iter):
+                        if self._drop_rng.rand() < (drop_rate
+                                                    * self.tree_weight[i]
+                                                    * inv_avg):
+                            self.drop_index.append(i)
+                            if len(self.drop_index) >= cfg.max_drop:
+                                break
+            else:
+                if cfg.max_drop > 0 and self.iter > 0:
+                    drop_rate = min(drop_rate, cfg.max_drop / float(self.iter))
+                for i in range(self.iter):
+                    if self._drop_rng.rand() < drop_rate:
+                        self.drop_index.append(i)
+                        if len(self.drop_index) >= cfg.max_drop:
+                            break
+        k = self.num_tree_per_iteration
+        bins, miss, efb = self._score_tables()
+        for i in self.drop_index:
+            for c in range(k):
+                t = self.models[i * k + c]
+                t.apply_shrinkage(-1.0)
+                self.train_score.add_tree(t, c, bins, miss, efb)
+        lr = cfg.learning_rate
+        if not cfg.xgboost_dart_mode:
+            self.shrinkage_rate = lr / (1.0 + len(self.drop_index))
+        elif not self.drop_index:
+            self.shrinkage_rate = lr
+        else:
+            self.shrinkage_rate = lr / (lr + len(self.drop_index))
+
+    def _normalize(self) -> None:
+        """Scale each dropped tree back in: 1/(k+1) of it joins the
+        valid scores, then -k times that the training score (the
+        xgboost form: the shrinkage, then -k/learning_rate), each factor
+        applied to the float64 leaf values in turn; then the tree
+        weights."""
+        cfg = self.config
+        k_drop = float(len(self.drop_index))
+        k = self.num_tree_per_iteration
+        bins, miss, efb = self._score_tables()
+        for i in self.drop_index:
+            for c in range(k):
+                t = self.models[i * k + c]
+                if not cfg.xgboost_dart_mode:
+                    t.apply_shrinkage(1.0 / (k_drop + 1.0))
+                    for vs in self.valid_score:
+                        vs.add_tree(t, c, vs.bins, miss, efb)
+                    t.apply_shrinkage(-k_drop)
+                else:
+                    t.apply_shrinkage(self.shrinkage_rate)
+                    for vs in self.valid_score:
+                        vs.add_tree(t, c, vs.bins, miss, efb)
+                    t.apply_shrinkage(-k_drop / cfg.learning_rate)
+                self.train_score.add_tree(t, c, bins, miss, efb)
+            if not cfg.uniform_drop:
+                if not cfg.xgboost_dart_mode:
+                    self.sum_weight -= self.tree_weight[i] / (k_drop + 1.0)
+                    self.tree_weight[i] *= k_drop / (k_drop + 1.0)
+                else:
+                    den = k_drop + cfg.learning_rate
+                    self.sum_weight -= self.tree_weight[i] / den
+                    self.tree_weight[i] *= k_drop / den
+
+
+def goss_sample(grad: torch.Tensor, hess: torch.Tensor, seed: int,
+                top_k: int, other_k: int):
+    """One GOSS round on the device (reference goss.hpp:111-147, the JAX
+    package's _goss_sample_device): the top_k rows by sum_c |g·h|,
+    other_k drawn uniformly from the rest (the largest of
+    ``jax.random.uniform``'s draws under PRNGKey(seed), the top rows
+    masked to -1) with their gradients and hessians scaled by
+    (n - top_k) / other_k in float32, and the stable [bag | oob]
+    permutation by destination ranks. Both selections are stable
+    descending sorts: ``jax.lax.top_k`` on the CPU takes equal values
+    in index order, and ``torch.topk`` promises no order among ties.
+    Nothing is read back to the host. grad / hess: [K, n] float32.
+    Returns (grad, hess, perm int64)."""
+    n = grad.shape[1]
+    dev = grad.device
+    # index_fill_ / index_copy_ / scatter_ with device indices and
+    # Python scalars: no host read and no host-to-device copy
+    weight = S.xla_sum(torch.abs(grad * hess).t())              # [n]
+    top_rows = torch.sort(weight, descending=True, stable=True)[1][:top_k]
+    is_top = torch.zeros(n, dtype=torch.bool, device=dev).index_fill_(
+        0, top_rows, True)
+    r = threefry.uniform(threefry.PRNGKey(seed), (n,), device=dev)
+    keys = torch.where(is_top, -1.0, r)
+    sampled = torch.sort(keys, descending=True, stable=True)[1][:other_k]
+    # a float32 factor: exact as the Python float the kernels take
+    mult = float(np.float32((n - top_k) / other_k))
+    grad = grad.index_copy(1, sampled, grad.index_select(1, sampled) * mult)
+    hess = hess.index_copy(1, sampled, hess.index_select(1, sampled) * mult)
+    in_bag = is_top.index_fill(0, sampled, True)
+    bag_rank = torch.cumsum(in_bag.to(torch.int64), 0) - 1
+    oob_rank = top_k + other_k + torch.cumsum((~in_bag).to(torch.int64), 0) - 1
+    dest = torch.where(in_bag, bag_rank, oob_rank)
+    perm = torch.empty(n, dtype=torch.int64, device=dev).scatter_(
+        0, dest, torch.arange(n, dtype=torch.int64, device=dev))
+    return grad, hess, perm
+
+
+class GOSS(GBDT):
+    """Gradient-based One-Side Sampling (reference goss.hpp:25)."""
+
+    def init(self, config, train_data, objective, metrics):
+        super().init(config, train_data, objective, metrics)
+        if config.bagging_freq > 0 and config.bagging_fraction != 1.0:
+            log.fatal("Cannot use bagging in GOSS")
+        if not (config.top_rate > 0 and config.other_rate > 0
+                and config.top_rate + config.other_rate <= 1.0):
+            log.fatal("Invalid top_rate/other_rate for GOSS")
+        log.info("Using GOSS")
+
+    def _bagging(self, iteration: int) -> None:
+        """No sampling while iteration < 1 / learning_rate; then one
+        device-side GOSS round, seeded from the bagging RNG."""
+        cfg = self.config
+        n = self.num_data
+        if iteration < int(1.0 / cfg.learning_rate):
+            self._perm = self._full_perm
+            self.bag_data_cnt = n
+            return
+        top_k = max(1, int(n * cfg.top_rate))
+        other_k = max(1, min(int(n * cfg.other_rate), n - top_k))
+        seed = int(self._bag_rng.randint(1 << 31))
+        self._grad, self._hess, self._perm = goss_sample(
+            self._grad, self._hess, seed, top_k, other_k)
+        self.bag_data_cnt = top_k + other_k
+
+
+class RF(GBDT):
+    """Random forest (reference rf.hpp:25): every tree from the
+    gradients of the constant initial score, no shrinkage, and the
+    trees' outputs averaged."""
+
+    def init(self, config, train_data, objective, metrics):
+        super().init(config, train_data, objective, metrics)
+        self.average_output = True
+        self.shrinkage_rate = 1.0
+        self._rf_base_score = None
+        if not (config.bagging_freq > 0 and config.bagging_fraction < 1.0):
+            log.fatal("Random forest needs bagging_freq > 0 and "
+                      "bagging_fraction < 1")
+
+    def _boosting(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gradients from the constant boost_from_score base, not from
+        the accumulated score."""
+        k = self.num_tree_per_iteration
+        if self._rf_base_score is None:
+            init = np.zeros((k, self.num_data), dtype=np.float32)
+            for c in range(k):
+                init[c] = self.objective.boost_from_score(c)
+            self._rf_base_score = torch.as_tensor(init, device=self.device)
+        if k == 1:
+            g, h = self.objective.get_gradients(self._rf_base_score[0])
+            return g[None, :], h[None, :]
+        return self.objective.get_gradients(self._rf_base_score)
+
+    def _boost_from_average(self, class_id: int) -> float:
+        return 0.0
+
+
+def create_boosting(boosting_type: str, device=None) -> GBDT:
+    """reference Boosting::CreateBoosting (boosting.cpp:35)."""
+    kinds = {"gbdt": GBDT, "dart": DART, "goss": GOSS, "rf": RF}
+    if boosting_type not in kinds:
+        log.fatal("Unknown boosting type %s", boosting_type)
+    return kinds[boosting_type](device)

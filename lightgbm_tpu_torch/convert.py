@@ -64,25 +64,29 @@ def booster_from_jax_arrays(trees: Sequence[Dict[str, np.ndarray]], *,
                             num_tree_per_iteration: int = 1,
                             max_feature_idx: Optional[int] = None,
                             feature_names: Optional[Sequence[str]] = None,
+                            average_output: bool = False,
                             params: Optional[dict] = None) -> Booster:
     """A port Booster holding ``trees`` (a list of dicts of the JAX
     package's Tree fields as numpy). ``objective`` is the model text's
-    objective line; ``params`` picks the device (``device_type``)."""
+    objective line; ``average_output``: the trees' outputs are averaged
+    (a random forest, the JAX booster's ``_gbdt.average_output``);
+    ``params`` picks the device (``device_type``)."""
     built = [tree_from_arrays(t) for t in trees]
     if max_feature_idx is None:
         max_feature_idx = max([int(t.split_feature[:t.num_leaves - 1].max())
                                for t in built if t.num_leaves > 1] or [0])
     if feature_names is None:
         feature_names = [f"Column_{i}" for i in range(max_feature_idx + 1)]
-    head = "\n".join([
-        "tree", "version=v3",
-        f"num_class={num_tree_per_iteration}",
-        f"num_tree_per_iteration={num_tree_per_iteration}",
-        "label_index=0", f"max_feature_idx={max_feature_idx}",
-        f"objective={objective}",
-        "feature_names=" + " ".join(feature_names),
-        "feature_infos=" + " ".join(["none"] * (max_feature_idx + 1))])
-    text = (head + "\ntree_sizes=\n\n"
+    head = ["tree", "version=v3",
+            f"num_class={num_tree_per_iteration}",
+            f"num_tree_per_iteration={num_tree_per_iteration}",
+            "label_index=0", f"max_feature_idx={max_feature_idx}",
+            f"objective={objective}"]
+    if average_output:
+        head.append("average_output")
+    head += ["feature_names=" + " ".join(feature_names),
+             "feature_infos=" + " ".join(["none"] * (max_feature_idx + 1))]
+    text = ("\n".join(head) + "\ntree_sizes=\n\n"
             + "\n".join(f"Tree={i}\n" + t.to_string()
                         for i, t in enumerate(built))
             + "\nend of trees\n")

@@ -99,6 +99,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
             break
         if finished:
             break
+    if booster._gbdt._fused is not None:
+        # the per-tree fused path trains on between its periodic stop
+        # checks: drop the trailing single-leaf iterations, as the JAX
+        # package does at the end of training
+        booster._gbdt.trim_degenerate_tail()
     booster.best_score = {}
     for ds, name, val, _ in evals or []:
         booster.best_score.setdefault(ds, {})[name] = val

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from ..config import Config
 from ..utils import log
@@ -161,6 +162,13 @@ class BinnedDataset:
         if self.efb_trivial:
             return self.max_num_bin
         return int(self.bundles.group_num_bins.max())
+
+    def device_bins(self, device) -> torch.Tensor:
+        """The row-major [N, G] bin codes on ``device``: uint8, or int32
+        for wider codes (torch gathers no uint16)."""
+        b = self.bins
+        return torch.as_tensor(np.ascontiguousarray(
+            b if b.dtype == np.uint8 else b.astype(np.int32)), device=device)
 
     def device_bundle_tables(self, device):
         """(group_of, offset_of, nslots_of, skip_of) int32 tensors on

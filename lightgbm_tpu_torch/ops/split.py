@@ -135,41 +135,64 @@ def _gain_given_output(g, h, cfg: SplitConfig, output, fuse_hoo=False):
 
 def _fuses_hoo(cfg: SplitConfig, site: str) -> bool:
     """Whether XLA:CPU fuses (h + l2)·o·o rather than 2·g·o into the
-    gain's add at ``site`` (jaxlib 0.9.0, held bit for bit against the
-    JAX package's jitted scans; ROADMAP §C). Numerical sites
-    (``scan_sites``): the reverse scan in the plain config from 64 bins
-    (``reverse``), both scans under L1 without monotone constraints up
-    to 16 bins (``narrow``), the
-    forward scan (``forward``) and the reverse scan between 17 and 63
-    bins or where the forward scan is folded away (``reverse_alone``)
-    never; and the parent's gain of a clamped or smoothed output under
-    L1 (``leaf``). Categorical sites: the one-vs-rest gains
-    (``cat_onehot``) and the smoothed parent's gain (``cat_leaf``) under
-    L1; the sorted scans (``cat_sorted``, both directions) never."""
-    if site == "reverse":
-        return not (cfg.lambda_l1 > 0 or cfg.max_delta_step > 0
-                    or cfg.path_smooth > K_EPSILON or cfg.use_monotone)
-    if site == "narrow":
-        return cfg.lambda_l1 > 0 and not cfg.use_monotone
+    gain's add at the parent-gain and categorical sites (jaxlib 0.9.0,
+    held bit for bit against the JAX package's jitted scans; ROADMAP
+    §C): the parent's gain of a clamped or smoothed output under L1
+    (``leaf``), the one-vs-rest gains (``cat_onehot``) and the smoothed
+    parent's gain (``cat_leaf``) under L1; the sorted scans
+    (``cat_sorted``, both directions) never. The numerical scans' sites
+    are ``scan_sites``."""
     if site in ("leaf", "cat_onehot", "cat_leaf"):
         return cfg.lambda_l1 > 0
     return False
 
 
-def scan_sites(num_bins: int, forward_folded: bool = False):
-    """The (forward, reverse) scans' multiply-add sites (``_fuses_hoo``)
-    in a jitted scan over ``num_bins``-bin histograms. ``forward_folded``:
-    XLA folds the forward scan away, as in the host loop's program when
-    no feature takes two scans (the fused program takes the metadata as
-    arguments and keeps both scans). Otherwise the bin count picks the
-    sites, as found by sweeping ``max_bin`` against both JAX programs:
-    ``reverse`` from 64 bins, ``narrow`` for both scans up to 16, and
-    2·g·o first between them (ROADMAP §C, C7 and the open C9)."""
+def scan_sites(cfg: SplitConfig, num_bins: int, forward_folded: bool = False,
+               program: str = "host", quantized: bool = False):
+    """The numerical scans' multiply-add sites in a jitted scan over
+    ``num_bins``-bin histograms: ((forward left, forward right),
+    (reverse left, reverse right)), True where XLA:CPU fuses
+    (h + l2)·o·o into the gain's add (LLVM contracts the add's first
+    operand, whose order its Reassociate ranks set per fusion). Read off
+    the JAX programs' dumped IR (``*.ir-with-opt.ll``) and held bit for
+    bit against both learners (ROADMAP §C, C2, C4, C7, C9).
+
+    ``forward_folded``: XLA folds the forward scan away, as in the host
+    loop's program when no feature takes two scans: 2·g·o everywhere.
+    Above 16 bins the bin count decides: the reverse scan of the plain
+    config (no L1, clamp, smoothing or monotone constraint) puts
+    (h + l2)·o·o first from 64 bins, every other term 2·g·o. Up to 16
+    bins, 2·g·o everywhere without L1; under L1 each fusion has its own
+    order. ``program``: "host" (the host loop's split program), "root"
+    or "pair" (the fused learner's root scan and two-leaf scan, two
+    fusions of one program); ``quantized``: the fused program
+    dequantizes the histogram inside the scan's fusion."""
+    none = (False, False)
     if forward_folded:
-        return "forward", "reverse_alone"
-    if num_bins <= 16:
-        return "narrow", "narrow"
-    return "forward", "reverse" if num_bins >= 64 else "reverse_alone"
+        return none, none
+    if num_bins > 16:
+        plain = not (cfg.lambda_l1 > 0 or cfg.max_delta_step > 0
+                     or cfg.path_smooth > K_EPSILON or cfg.use_monotone)
+        rev = num_bins >= 64 and plain
+        return none, (rev, rev)
+    if not cfg.lambda_l1 > 0:
+        return none, none
+    clamp = cfg.max_delta_step > 0
+    smooth = cfg.path_smooth > K_EPSILON
+    # the L1 orders: the reverse scan (h + l2)·o·o in both terms, the
+    # forward scan in its left term only, unless a row below says
+    # otherwise
+    fwd, rev = (True, False), (True, True)
+    if program == "root" and quantized:
+        fwd, rev = none, none
+    elif program != "root" and (cfg.use_monotone or (
+            program == "pair" and cfg.lambda_l2 > 0)):
+        fwd, rev = none, none
+    elif not cfg.use_monotone and (clamp or smooth):
+        fwd = none
+        if smooth and program == "pair":
+            rev = (True, False)
+    return fwd, rev
 
 
 def leaf_gain(g, h, cnt, cfg: SplitConfig, parent_output):
@@ -255,7 +278,8 @@ def _round_int(x):
 def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
                          cfg: SplitConfig, sum_g, sum_h, num_data,
                          parent_output, cmin, cmax, rand_thresholds=None,
-                         forward_folded=False):
+                         forward_folded=False, program="host",
+                         quantized=False):
     """Best numerical split per feature.
 
     hist: [..., F, B, 2]; sum_g / sum_h (WITHOUT the epsilon bias) /
@@ -263,7 +287,9 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     shape [...]. ``rand_thresholds`` ([F] int32): with
     ``cfg.extra_trees`` the one threshold bin each feature may split at
     (reference USE_RAND). ``forward_folded``: the program's forward
-    scan is folded away (``scan_sites``). Returns a dict of [..., F]
+    scan is folded away; ``program`` / ``quantized``: the JAX program
+    whose multiply-add sites to take (``scan_sites``). Returns a dict of
+    [..., F]
     tensors.
     """
     b_dim = hist.shape[-2]
@@ -304,7 +330,7 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     gain_shift = leaf_gain(sum_g2, sh2, num2, cfg, po2)
     min_gain_shift = gain_shift + cfg.min_gain_to_split          # [...,1,1]
 
-    def eval_dir(lg, lh, lcnt, thr_invalid, site):
+    def eval_dir(lg, lh, lcnt, thr_invalid, sites):
         lh_eff = lh + K_EPSILON
         rg = sum_g2 - lg
         rh = sh2 - lh_eff
@@ -316,9 +342,8 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
               & (rh >= cfg.min_sum_hessian_in_leaf))
         out_l = _calc_output(lg, lh_eff, lcnt, cfg, po2, cmin2, cmax2)
         out_r = _calc_output(rg, rh, rcnt, cfg, po2, cmin2, cmax2)
-        hoo = _fuses_hoo(cfg, site)
-        gain = (_gain_given_output(lg, lh_eff, cfg, out_l, hoo)
-                + _gain_given_output(rg, rh, cfg, out_r, hoo))
+        gain = (_gain_given_output(lg, lh_eff, cfg, out_l, sites[0])
+                + _gain_given_output(rg, rh, cfg, out_r, sites[1]))
         if cfg.use_monotone:
             mono = meta.monotone[:, None]
             viol = (((mono > 0) & (out_l > out_r))
@@ -328,7 +353,8 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
         gain = torch.where(ok, gain, K_MIN_SCORE)
         return gain, out_l, out_r, lg, lh_eff, lcnt
 
-    forward_site, reverse_site = scan_sites(b_dim, forward_folded)
+    forward_site, reverse_site = scan_sites(cfg, b_dim, forward_folded,
+                                            program, quantized)
     # forward scan: missing -> right; only in two-scan mode
     f_res = eval_dir(cl_g, cl_h, cl_cnt, zero_mode & (bin_ar == miss_bin),
                      forward_site)

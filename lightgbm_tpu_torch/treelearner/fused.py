@@ -49,11 +49,17 @@ partition (B2's categorical route); ``materialize_tree`` turns them
 into the tree's inner and raw-category bitset pools.
 
 Objectives without in-state gradients (multiclass and OVA with K trees
-per iteration, cross_entropy_lambda, custom objectives) take the
-per-tree path, ``grow_device``: each tree starts from a fresh state
+per iteration, cross_entropy_lambda, custom objectives) and the boosting
+modes with row sampling or score surgery (bagging, GOSS, RF, DART) take
+the per-tree path, ``grow_device``: each tree starts from a fresh state
 (the cached code planes, the tree's row-order grad / hess, row ids
 0..n-1) without label or score planes, and returns each row's leaf,
-read off the partitioned windows, for the booster's score update.
+read off the partitioned windows, for the booster's score update. Under
+row sampling the state is bag-ordered instead: once per tree the bin
+codes, grad / hess and slot planes are gathered by the [bag | oob]
+permutation and packed, the tree grows on the bag's lanes only, and
+every row's leaf (out-of-bag rows included) comes from bin-space
+traversal of the new tree.
 
 The state is updated IN PLACE (partition, grad/hess and score writes);
 the JAX package keeps it immutable and donates it instead.
@@ -145,8 +151,6 @@ def port_reject_reason(config: Config, dataset: BinnedDataset,
                        objective) -> Optional[str]:
     """What the JAX package trains (on either learner) but the port does
     not yet, each with the ROADMAP item that brings it."""
-    if config.boosting != "gbdt" or bag_active(config):
-        return (f"boosting={config.boosting} / bagging (ROADMAP A10)")
     if config.forcedsplits_filename:
         return "forcedsplits_filename (forced splits, ROADMAP A5)"
     return None
@@ -237,6 +241,10 @@ class FusedSerialGrower:
         else:
             self._code_bits = 8 * int(np.dtype(dataset.bins.dtype).itemsize)
         self.actual_rows = dataset.num_data
+        # the score update reads each row's leaf off the partition only
+        # when every row is in the bag; else it traverses the tree
+        self._score_from_partition = not bag_active(config)
+        self._bins_dev = None
         persist = (objective is not None
                    and objective.persistent_aux() is not None
                    and objective.num_tree_per_iteration == 1)
@@ -338,7 +346,7 @@ class FusedSerialGrower:
                                 flat[-1, 1])
 
     def _scan(self, hist, sum_g, sum_h, count, output, cmin, cmax, mask,
-              qscales=None):
+              qscales=None, program="pair"):
         """Best split of K leaves at once (JAX _scan_leaf /
         _scan_two_leaves). All arguments have a leading [K] axis; returns
         (rec_f [7, K] f32: gain, lg, lh, lout, rg, rh, rout;
@@ -346,11 +354,15 @@ class FusedSerialGrower:
         position), default_left, is_cat, the 8 words of the left
         category bitset). ``qscales``: (grad_scale, hess_scale) when
         ``hist`` holds int32 level sums — the scan itself runs in
-        float32."""
+        float32. ``program``: the root scan ("root") or the two-leaf scan
+        ("pair"), two fusions of the JAX program with their own
+        multiply-add sites (``S.scan_sites``)."""
         if qscales is not None:
             hist = S.dequantize_hist(hist, qscales[0], qscales[1])
         res = S.numerical_split_scan(hist, self.meta, self.split_cfg,
-                                     sum_g, sum_h, count, output, cmin, cmax)
+                                     sum_g, sum_h, count, output, cmin, cmax,
+                                     program=program,
+                                     quantized=qscales is not None)
         if self.any_categorical:
             res = S.merge_categorical(res, hist, self.meta, self.split_cfg,
                                       sum_g, sum_h, count, output, cmin,
@@ -440,7 +452,7 @@ class FusedSerialGrower:
         rf, ri = self._scan(root_hist[None], sum_g[None], sum_h[None],
                             torch.full((1,), n, dtype=i32, device=dev),
                             0.0 * one, NEG_INF * one, -NEG_INF * one,
-                            root_mask[None], qscales)
+                            root_mask[None], qscales, program="root")
 
         best_f = torch.zeros((7, L), dtype=f32, device=dev)
         best_f[0] = NEG_INF
@@ -816,33 +828,76 @@ class FusedSerialGrower:
     def codes_planes(self) -> torch.Tensor:
         """The bin-code planes of the training rows in row order,
         packed on the device once and cached with the multi-value slot
-        planes (``_mv_dev``, None without them): every per-tree state
-        starts from them (the persistent state drops them once built)."""
+        planes (``mv_planes``): every unbagged per-tree state starts
+        from them (the persistent state drops them once built)."""
         if self._codes_planes is None:
-            dev = self.device
             codes = torch.as_tensor(np.ascontiguousarray(self.dataset.bins),
-                                    device=dev)
+                                    device=self.device)
             self._codes_planes = plane.build_codes_planes(codes, self.layout)
-            if self._mv_codes is not None:
-                self._mv_dev = torch.as_tensor(
-                    np.ascontiguousarray(self._mv_codes.T), device=dev)
+        self.mv_planes()
         return self._codes_planes
 
+    def mv_planes(self) -> Optional[torch.Tensor]:
+        """[K, n] int32 slot-major multi-value codes of the training rows
+        on the device (None without the multi-value layout), cached."""
+        if self._mv_dev is None and self._mv_codes is not None:
+            self._mv_dev = torch.as_tensor(
+                np.ascontiguousarray(self._mv_codes.T), device=self.device)
+        return self._mv_dev
+
+    def bins_device(self) -> torch.Tensor:
+        """The row-major [n, G] bin codes of the training rows on the
+        device, uploaded once: the bag branch's gather source and the
+        traversal's input."""
+        if self._bins_dev is None:
+            self._bins_dev = self.dataset.device_bins(self.device)
+        return self._bins_dev
+
     # -- per-tree mode -------------------------------------------------
-    def grow_device(self, grad: torch.Tensor, hess: torch.Tensor):
+    def bag_state(self, grad: torch.Tensor, hess: torch.Tensor,
+                  perm: torch.Tensor) -> torch.Tensor:
+        """The bag-ordered planar state of one tree (the JAX package's
+        grow_device bagging branch): the row-major codes, grad / hess
+        and slot planes gathered by ``perm`` ([bag | oob]) and packed,
+        with ``perm`` as the row ids. One gather per tree, not per
+        split."""
+        bins = self.bins_device()
+        cp = plane.build_codes_planes(bins[perm], self.layout)
+        mv = self.mv_planes()
+        return plane.build_data(
+            self.layout, cp, grad[perm].to(torch.float32),
+            hess[perm].to(torch.float32), rowid=perm,
+            mv=None if mv is None else mv[:, perm])
+
+    def grow_device(self, grad: torch.Tensor, hess: torch.Tensor,
+                    perm: Optional[torch.Tensor] = None,
+                    bag_cnt: Optional[int] = None):
         """One tree from row-order gradients (the JAX package's
-        grow_device, unbagged: ``_grow_tree`` with the score update
-        from the partition). A fresh planar state per tree: the cached
-        code planes, grad / hess [n] float32 in row order, row ids
-        0..n-1 and the slot planes. Returns the tree arrays (host numpy,
-        leaf values before shrinkage) and leaf_of_row [n] int64 on the
-        device: each row's leaf, the lanes' leaves scattered back to row
-        order through the row-id plane."""
+        grow_device). Returns the tree arrays (host numpy, leaf values
+        before shrinkage) and leaf_of_row [n] int64 on the device.
+
+        Unbagged (``_score_from_partition``): a fresh planar state from
+        the cached code planes, grad / hess [n] float32 in row order,
+        row ids 0..n-1 and the slot planes; each row's leaf is its
+        lane's leaf scattered back to row order through the row-id
+        plane. Under row sampling: the bag-ordered state of
+        ``bag_state``, the tree grown on lanes [0, bag_cnt) (root sums
+        from the bag's histogram), and every row's leaf, out-of-bag
+        rows included, by bin-space traversal of the new tree over the
+        full codes."""
         n = self.actual_rows
+        masks = self.feature_masks_for_tree()
+        if not self._score_from_partition:
+            data = self.bag_state(grad, hess, perm)
+            ta, _ = self._grow_tree(data, int(bag_cnt), masks)
+            del data
+            tree = self.materialize_tree(ta)
+            return ta, tree.leaf_index_binned(
+                self.bins_device(), self.feature_miss_bin, self._efb_dev)
         cp = self.codes_planes()
         data = plane.build_data(self.layout, cp, grad.to(torch.float32),
                                 hess.to(torch.float32), mv=self._mv_dev)
-        ta, (win, _) = self._grow_tree(data, n, self.feature_masks_for_tree())
+        ta, (win, _) = self._grow_tree(data, n, masks)
         rowids = data[self.layout.rowid, :n].long()
         leaf_of_row = torch.empty(n, dtype=torch.int64, device=self.device)
         leaf_of_row[rowids] = self._lane_leaf(win, n)

@@ -169,10 +169,7 @@ class SerialTreeGrower:
         """Row-major [N, G] bin matrix on the device (uint8, or int32
         for 16-bit codes), uploaded at first use."""
         if self._bins is None:
-            b = self.dataset.bins
-            t = torch.as_tensor(np.ascontiguousarray(
-                b if b.dtype == np.uint8 else b.astype(np.int32)))
-            self._bins = t.to(self.device)
+            self._bins = self.dataset.device_bins(self.device)
         return self._bins
 
     def _multival_state(self):

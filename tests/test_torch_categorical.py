@@ -265,7 +265,8 @@ GATES = {
     "fused_quantized": ({"use_quantized_grad": True}, None),
     "host_loop_nan_l1": ({"tpu_fused": False, "lambda_l1": 0.5}, _nan_in_cat),
     # no categorical column and no missing value: the host loop's
-    # reverse scan takes the "reverse_alone" multiply-add (ROADMAP §C)
+    # forward scan is folded away and its reverse scan fuses 2·g·o
+    # (ops/split.py scan_sites; ROADMAP §C)
     "host_loop_numerical": ({"tpu_fused": False,
                              "categorical_feature": []}, lambda X: X[:, :4]),
 }

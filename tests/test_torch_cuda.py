@@ -668,16 +668,25 @@ def test_cuda_regression_training_matches_cpu(objective, extra):
         assert np.array_equal(pg, pc)
 
 
-def _grow_device_pair(X, y, params, wide=False):
+def _grow_device_pair(X, y, params, wide=False, bag=None):
     """grow_device's tree arrays and leaf_of_row on the card and on the
-    CPU for the same row-order gradients (random, non-dyadic)."""
+    CPU for the same row-order gradients (random, non-dyadic); ``bag``:
+    the fraction of rows in a random [bag | oob] permutation (the bag
+    branch; ``params`` must turn bagging on)."""
     import scipy.sparse as sp
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.io.dataset import BinnedDataset
     from lightgbm_tpu_torch.treelearner.fused import FusedSerialGrower
     rng = np.random.RandomState(2)
-    g = torch.as_tensor(rng.randn(len(y)).astype(np.float32))
-    h = torch.as_tensor((rng.rand(len(y)) + 0.1).astype(np.float32))
+    n = len(y)
+    g = torch.as_tensor(rng.randn(n).astype(np.float32))
+    h = torch.as_tensor((rng.rand(n) + 0.1).astype(np.float32))
+    perm = cnt = None
+    if bag is not None:
+        cnt = int(n * bag)
+        rows = np.sort(rng.choice(n, cnt, replace=False))
+        perm = torch.as_tensor(np.concatenate(
+            [rows, np.setdiff1d(np.arange(n), rows)]))
     out = []
     for dev in ("cuda", "cpu"):
         cfg = Config.from_params({**params, "tpu_hist_dtype": "float32",
@@ -685,7 +694,8 @@ def _grow_device_pair(X, y, params, wide=False):
         ds = BinnedDataset.from_matrix(sp.csr_matrix(X) if wide else X,
                                        cfg, label=y)
         fl = FusedSerialGrower(ds, cfg, None, dev)
-        ta, leaf = fl.grow_device(g.to(dev), h.to(dev))
+        ta, leaf = fl.grow_device(g.to(dev), h.to(dev),
+                                  None if perm is None else perm.to(dev), cnt)
         out.append((fl, ta, leaf.cpu()))
     return out
 
@@ -749,3 +759,85 @@ def test_multiclass_booster_on_card_equals_cpu():
                                   b.split_feature[:k - 1])
             assert np.array_equal(a.leaf_value[:k], b.leaf_value[:k])
         assert pg.shape == (20_000, 3) and np.array_equal(pg, pc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["dense_B1", "wide_B5"])
+def test_bag_branch_on_card_equals_cpu(wide, monkeypatch):
+    """grow_device's bag branch (the bag-ordered state gathered and
+    packed per tree, B1 or B5 and B2 on the bag's lanes, every row's
+    leaf by traversal) on the card against the CPU: the same tree arrays
+    and leaf_of_row, bit for bit."""
+    _need_card()
+    rng = np.random.RandomState(1)
+    params = {"objective": "binary", "num_leaves": 63, "verbose": -1,
+              "bagging_fraction": 0.8, "bagging_freq": 1}
+    if wide:
+        monkeypatch.setattr(TH, "hist_method",
+                            lambda config, dataset=None: "multival_pallas")
+        from chip_smoke import make_wide_like
+        X, y = make_wide_like(60_000)
+    else:
+        X = rng.randn(60_000, 12)
+        y = (X[:, 0] + rng.randn(60_000) > 0).astype(np.float32)
+    (fg, tg, lg), (fc, tc, lc) = _grow_device_pair(X, y, params, wide,
+                                                   bag=0.8)
+    assert not fg._score_from_partition and not fc._score_from_partition
+    assert tg["n_leaves"] == tc["n_leaves"] > 2
+    for key, v in tg.items():
+        assert np.array_equal(np.asarray(v), np.asarray(tc[key])), key
+    assert torch.equal(lg, lc)
+
+
+@pytest.mark.cuda
+def test_goss_sampling_reads_nothing_back():
+    """One GOSS round on the card under sync debug mode "error" (any
+    host read raises), then bit for bit against the CPU."""
+    _need_card()
+    from lightgbm_tpu_torch.boosting.gbdt import goss_sample
+    rng = np.random.RandomState(3)
+    n = 200_000
+    g = rng.randint(-8, 9, (1, n)).astype(np.float32) / 16
+    h = rng.randint(1, 9, (1, n)).astype(np.float32) / 16
+    dg, dh = torch.as_tensor(g).cuda(), torch.as_tensor(h).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = goss_sample(dg, dh, 12345, n // 5, n // 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = goss_sample(torch.as_tensor(g), torch.as_tensor(h), 12345,
+                       n // 5, n // 10)
+    for a, b in zip(out, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_rf_model_on_card_equals_cpu():
+    """An RF model (averaged output) trained on the CPU predicts the
+    same on the card and on the CPU, raw and transformed, through the
+    path forest and the walker (prediction early stop)."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.RandomState(4)
+    X = rng.randn(20_000, 8)
+    y = (X[:, 0] - X[:, 1] + rng.randn(20_000) > 0).astype(np.float32)
+    b = lgt.train({"boosting": "rf", "bagging_fraction": 0.632,
+                   "bagging_freq": 1, "feature_fraction": 0.8,
+                   "objective": "binary", "device_type": "cpu",
+                   "verbose": -1}, lgt.Dataset(X, label=y),
+                  num_boost_round=5, verbose_eval=False)
+    text = b.model_to_string()
+    assert "average_output" in text
+    for early in (False, True):
+        preds = []
+        for dev in ("cuda", "cpu"):
+            m = lgt.Booster(params={"device_type": dev}, model_str=text)
+            if early:
+                from lightgbm_tpu_torch.config import Config
+                m._gbdt.config = Config.from_params(
+                    {"pred_early_stop": True, "pred_early_stop_margin": 1e9,
+                     "device_type": dev})
+            preds.append((m.predict(X, raw_score=True), m.predict(X)))
+        for a, c in zip(*preds):
+            assert np.array_equal(a, c)

@@ -375,8 +375,9 @@ STOP_CASES = {
 @pytest.mark.parametrize("case", sorted(STOP_CASES))
 def test_no_more_splits_stop_matches_jax(case, fused):
     """An iteration whose trees are all single leaves ends training with
-    the JAX package's model: the port stops at once, the JAX fused
-    learner trims its trailing degenerate iterations at the end of
+    the JAX package's model: the host loops stop at once, the fused
+    learners (the port's per-tree path as the JAX package's) train on
+    and trim their trailing degenerate iterations at the end of
     train(); the model text (but for the device line), the iteration
     count and the predictions are equal."""
     params, label, fobj = STOP_CASES[case]

@@ -501,7 +501,7 @@ def test_efb_hist_from_groups_matches_jax():
     tds = TDataset.from_matrix(sp.csr_matrix(X), tcfg, label=y)
     jfl, fl = JFused(jds, jcfg), FusedSerialGrower(tds, tcfg, None, "cpu")
     assert fl._efb_hist is not None and not fl.meta.any_two_scan
-    assert TS.scan_sites(fl.max_num_bin)[1] != "reverse"
+    assert TS.scan_sites(fl.split_cfg, fl.max_num_bin)[1] == (False, False)
     want_fn = jax.jit(jfl._hist_from_groups)
     rng = np.random.RandomState(0)
     shape = (tds.bins.shape[1], tds.group_max_bins, 2)

@@ -223,8 +223,7 @@ def test_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    ({"bagging_freq": 1, "bagging_fraction": 0.5}, NotImplementedError,
-     "A10"),
+    ({"bagging_freq": 1, "bagging_fraction": 0.5}, None, "fused"),
     ({"use_quantized_grad": True}, None, "fused"),
     ({"forcedsplits_filename": "forced_splits.json"}, NotImplementedError,
      "A5"),
@@ -236,9 +235,9 @@ def test_cuda_without_a_card_raises():
 def test_left_out_options_raise(extra, err, match):
     """Options the port does not train yet raise and name their ROADMAP
     item (ranking, since cross_entropy_lambda trains on the per-tree
-    path: tests/test_torch_multiclass.py); quantized gradients (``err``
-    None) now train on the learner named by ``match``, with integer
-    histograms."""
+    path: tests/test_torch_multiclass.py); bagging and quantized
+    gradients (``err`` None) now train on the learner named by
+    ``match``, the quantized ones with integer histograms."""
     X, y = _data(n=300)
     X[:, 3] = np.abs(np.round(X[:, 3]))
     if err is None:
@@ -246,7 +245,8 @@ def test_left_out_options_raise(extra, err, match):
                        num_boost_round=2, verbose_eval=False)
         gb = b._gbdt
         learner = gb._fused if match == "fused" else gb.tree_learner
-        assert learner is not None and learner._quant
+        assert learner is not None
+        assert learner._quant == bool(extra.get("use_quantized_grad"))
         assert len(gb.models) == 2 and gb.models[0].num_leaves > 2
         assert np.isfinite(b.predict(X)).all()
         return
@@ -320,10 +320,26 @@ BIT_GATES = {
     "no_nan_quantized_63_leaves": ({"num_leaves": 63, "min_data_in_leaf": 5,
                                     "use_quantized_grad": True}, 4),
 }
+# up to 16 bins under L1 each fusion of the JAX programs orders the
+# gain's multiply-add its own way (ops/split.py scan_sites; ROADMAP §C,
+# C9): L1 with a clamp, monotone constraints, smoothing, zero as
+# missing, L2 or quantized gradients at 15 bins, and plain L1 at 16
+C9 = {"min_data_in_leaf": 5, "lambda_l1": 0.5, "max_bin": 15}
+BIT_GATES.update({
+    "c9_max_delta_step": ({**C9, "max_delta_step": 0.3}, 3),
+    "c9_monotone": ({**C9, "monotone_constraints": [1, -1, 0, 0, 0, 0]}, 3),
+    "c9_path_smooth": ({**C9, "path_smooth": 2.0}, 3),
+    "c9_zero_as_missing": ({**C9, "zero_as_missing": True}, 3),
+    "c9_l2": ({**C9, "lambda_l2": 1.0}, 3),
+    "c9_quantized": ({**C9, "use_quantized_grad": True}, 3),
+    "c9_l1_max_bin_16": ({**C9, "max_bin": 16}, 3),
+})
 # gates on ``_data(nan=False)``: no feature has a missing type, so no
-# feature takes two scans; the host loop's program folds its forward
-# scan away, the fused program (metadata as arguments) does not
-NO_NAN_GATES = {"no_nan_31_leaves", "no_nan_quantized_63_leaves"}
+# feature takes two scans (but with zero as missing); the host loop's
+# program folds its forward scan away, the fused program (metadata as
+# arguments) does not
+NO_NAN_GATES = {"no_nan_31_leaves", "no_nan_quantized_63_leaves",
+                "c9_zero_as_missing"}
 
 
 def assert_bit_equal_training(extra, rounds, nan=True):
@@ -361,4 +377,5 @@ def test_fused_learner_bit_equal(case):
     no_nan = case in NO_NAN_GATES
     _, tb = assert_bit_equal_training(extra, rounds, nan=not no_nan)
     assert tb._gbdt._fused is not None
-    assert tb._gbdt._fused.meta.any_two_scan != no_nan
+    assert tb._gbdt._fused.meta.any_two_scan == (
+        not no_nan or extra.get("zero_as_missing", False))
