@@ -73,9 +73,18 @@ Phases, each of which fails the run (no exception is caught):
      run), (q) HIGGS DART (drop_rate 0.1, skip_drop 0.5; the unbagged
      per-tree state; the drop and normalize steps timed), (r) HIGGS RF
      (bagging_fraction 0.632, bagging_freq 1, feature_fraction 0.8),
-     all B1 + B2 for 8 iterations with held-out AUC above 0.70, and (s)
+     all B1 + B2 for 5 iterations with held-out AUC above 0.70, and (s)
      shape (a) with bagging (0.8, freq 1), B5 + B2 over bag-gathered
      slot planes, 3 iterations.
+   - (t) HIGGS forced splits: the HIGGS shape on the persistent fused
+     path with a depth-2 forced-split tree (FORCED_SPLITS), 8
+     iterations; every tree's first three splits must be the forced
+     ones (B1 + B2).
+   - (u) the API: 4 iterations, save_model and Booster(model_file=...)
+     (raw predictions bit-equal), 4 more from init_model (the 4 + 4
+     model's AUC beside 8 straight iterations'), rollback_one_iter, cv
+     over 3 stratified folds (4 iterations), and a 200,000-row CSV read
+     through the csv module into a Dataset, save_binary and back.
 4. card vs CPU — the same small training on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
    and with quantized gradients, on (h)'s columns with categorical
@@ -83,11 +92,12 @@ Phases, each of which fails the run (no exception is caught):
    with multiclass, multiclassova and a custom objective, and with
    bagging, pos/neg bagging, GOSS, DART, RF and multiclass with bagging
    (both learners), quantized gradients and regression_l1 with bagging
-   (the host loop; these 14 on 30,000 rows): trees (bitset pools
-   included), leaf values and
-   predictions must agree (the per-tree and boosting-mode cases
-   exactly), with prediction early stop off and on for the categorical
-   model.
+   (the host loop; these 14 on 30,000 rows), forced splits (persistent,
+   bagging, host loop, quantized) and init_model, rollback_one_iter
+   and refit (30,000 rows): trees (bitset pools included), leaf values
+   and predictions must agree (the per-tree, boosting-mode, forced and
+   API cases exactly), with prediction early stop off and on for the
+   categorical model.
 
 ``--profile`` instead profiles one iteration of each path
 (``--profile-paths b,h`` of the named ones only; (l)-(n) device rows
@@ -105,6 +115,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -1222,13 +1233,16 @@ def held_out_metric(booster, X, y, metric, device):
 
 
 def run_path(name, params, ds, iters, X_hold, y_hold, expect,
-             device="cuda", floor=0.70, metric="auc", fobj=None):
+             device="cuda", floor=0.70, metric="auc", fobj=None,
+             train_kw=None):
     """Train ``iters`` iterations through lightgbm_tpu_torch.train with
     every launch counter set to 0 just before and read just after; fail
     unless each kernel of ``expect`` was launched. Prints seconds and
     host syncs per iteration, launches, the per-iteration bytes bounds
     and the held-out ``metric``, which must be above ``floor`` (AUC) or
-    below it (a loss); returns (launches, booster, metric value)."""
+    below it (a loss); returns (launches, booster, metric value).
+    ``train_kw``: more train() keywords (``init_model``: the model's own
+    trees come first, and only the new ones are counted)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import cuda as K
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -1246,12 +1260,12 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
     marks.append((time.perf_counter(), 0))
     booster = lgt.train({**params, "device_type": device}, ds,
                         num_boost_round=iters, callbacks=[timer],
-                        verbose_eval=False, fobj=fobj)
+                        verbose_eval=False, fobj=fobj, **(train_kw or {}))
     sync()
     launches = dict(K.LAUNCHES)
     gbdt = booster._gbdt
-    trees = gbdt.models
     k = gbdt.num_tree_per_iteration
+    trees = gbdt.models[gbdt.num_init_iteration * k:]
     leaves = [t.num_leaves for t in trees]
     secs = [marks[i][0] - marks[i - 1][0] for i in range(1, len(marks))]
     for i, sec in enumerate(secs, 1):
@@ -1466,8 +1480,156 @@ BAG_PATHS = [
     ("s", "(s) wide bagging fused",
      {"bagging_fraction": 0.8, "bagging_freq": 1}, True),
 ]
+BAG_ITERS = 5                      # paths (o)-(r)
 BAG_WIDE_ITERS = 3                 # path (s)
 BAG_CASE_ROWS = 30_000             # phase 4's boosting-mode cases
+
+
+# path (t): a depth-2 forced-split tree on three HIGGS columns (the root
+# and both of its children), at thresholds inside the columns' ranges
+FORCED_SPLITS = {"feature": 0, "threshold": 0.0,
+                 "left": {"feature": 1, "threshold": 0.25},
+                 "right": {"feature": 2, "threshold": -0.25}}
+API_ITERS = 4                      # path (u): 4 + 4 iterations, cv folds
+CSV_ROWS = 200_000                 # path (u): the CSV file's rows
+
+
+def write_forced_splits(tmp):
+    """The forced-splits file of path (t) and phase 4, in ``tmp``."""
+    path = os.path.join(tmp, "forced_splits.json")
+    with open(path, "w") as fh:
+        json.dump(FORCED_SPLITS, fh)
+    return path
+
+
+def forced_path(args, ds, hX, hy, tmp, device="cuda"):
+    """Path (t): the HIGGS shape on the persistent fused path with
+    FORCED_SPLITS; every tree's first three splits must be the forced
+    ones (B1 + B2 through the forced phase and the gain loop).
+    Returns (launches, held-out AUC)."""
+    name = "(t) HIGGS forced splits fused"
+    params = {**HIGGS_PARAMS,
+              "forcedsplits_filename": write_forced_splits(tmp)}
+    got, booster, auc = run_path(name, params, ds, args.iters, hX, hy,
+                                 ("hist_planar", "partition"), device)
+    gb = booster._gbdt
+    assert gb._fused is not None and gb._fused_persist, name
+    sched = gb._fused._forced_sched
+    assert [(s[0], s[1]) for s in sched] == [(0, 0), (0, 1), (1, 2)], sched
+    mappers = ds.handle.bin_mappers
+    for i, t in enumerate(gb.models):
+        assert list(t.split_feature[:3]) == [0, 1, 2], (name, i)
+        assert (t.left_child[0], t.right_child[0]) == (1, 2), (name, i)
+        for node, (_, f, b) in zip((0, 1, 2), sched):
+            assert t.threshold_in_bin[node] == b, (name, i, node)
+            assert t.threshold[node] == mappers[f].bin_to_value(b)
+    log(f"{name}: every tree's first three splits are the forced ones "
+        f"(features 0, 1, 2 at bins {[s[2] for s in sched]})")
+    return got, auc
+
+
+def api_path(args, X, y, hX, hy, ds, straight_auc, tmp, device="cuda"):
+    """Path (u), the API surface at HIGGS width: 4 iterations, the model
+    saved to a file and loaded again (raw predictions bit-equal), 4 more
+    iterations from it as ``init_model``, one ``rollback_one_iter``,
+    ``cv`` over 3 stratified folds, and a Dataset from a CSV file (the
+    csv module where pandas is missing) through ``save_binary`` and back.
+    Returns {key: launches}."""
+    import lightgbm_tpu_torch as lgt
+    rows = args.rows
+    expect = ("hist_planar", "partition")
+    got = {}
+
+    def raw_dataset():
+        return lgt.Dataset(X[:rows], label=y[:rows], free_raw_data=False,
+                           params={**HIGGS_PARAMS, "device_type": device})
+    t0 = time.perf_counter()
+    got["u1"], first, auc4 = run_path(
+        "(u) API: 4 iterations", HIGGS_PARAMS, raw_dataset(), API_ITERS,
+        hX, hy, expect, device, train_kw={"keep_training_booster": True})
+    model = os.path.join(tmp, "model.txt")
+    t1 = time.perf_counter()
+    first.save_model(model)
+    loaded = lgt.Booster(params={"device_type": device}, model_file=model)
+    t2 = time.perf_counter()
+    a = first.predict(hX, raw_score=True)
+    b = loaded.predict(hX, raw_score=True)
+    assert np.array_equal(a, b), "(u): the loaded model predicts otherwise"
+    log(f"(u) API: save_model + Booster(model_file) {t2 - t1:.2f} s "
+        f"({os.path.getsize(model)} bytes); raw predictions of "
+        f"{len(hX)} held-out rows bit-equal (max |diff| "
+        f"{float(np.abs(a - b).max())})")
+    got["u2"], cont, auc44 = run_path(
+        "(u) API: 4 more from init_model", HIGGS_PARAMS, raw_dataset(),
+        API_ITERS, hX, hy, expect, device,
+        train_kw={"init_model": model, "keep_training_booster": True})
+    gb = cont._gbdt
+    assert gb.num_init_iteration == API_ITERS and len(gb.models) == \
+        2 * API_ITERS, (gb.num_init_iteration, len(gb.models))
+    log(f"(u) API: held-out AUC {auc44:.6f} after 4 + 4 iterations beside "
+        f"{straight_auc:.6f} after {args.iters} straight (diff "
+        f"{auc44 - straight_auc:+.6f}); {auc4:.6f} after the first 4")
+    t3 = time.perf_counter()
+    cont.rollback_one_iter()
+    roll = cont.predict(hX, raw_score=True)
+    assert cont.current_iteration == 2 * API_ITERS - 1
+    assert np.isfinite(roll).all()
+    log(f"(u) API: rollback_one_iter {time.perf_counter() - t3:.3f} s "
+        f"(state synced and dropped); {cont.current_iteration} iterations "
+        f"left")
+    from lightgbm_tpu_torch.ops import cuda as K
+    K.reset_launches()
+    t4 = time.perf_counter()
+    res = lgt.cv({**HIGGS_PARAMS, "metric": "auc", "device_type": device},
+                 ds, num_boost_round=API_ITERS, nfold=3, stratified=True,
+                 seed=0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got["u3"] = dict(K.LAUNCHES)
+    secs = time.perf_counter() - t4
+    mean, std = res["auc-mean"], res["auc-stdv"]
+    assert len(mean) == API_ITERS and 0.70 < mean[-1] <= 1.0, mean
+    log(f"(u) API: cv 3 stratified folds x {API_ITERS} iterations in "
+        f"{secs:.1f} s ({secs / (3 * API_ITERS):.4f} s per fold-iteration, "
+        f"subsets included): AUC mean {mean[-1]:.6f}, stdv {std[-1]:.6f}; "
+        f"per round {[round(m, 6) for m in mean]}")
+    csv_path = os.path.join(tmp, "higgs.csv")
+    # 4 decimals: the text holds the matrix's values exactly
+    Xc = np.round(X[:CSV_ROWS].astype(np.float64), 4)
+    t5 = time.perf_counter()
+    np.savetxt(csv_path, np.column_stack([y[:CSV_ROWS], Xc]),
+               delimiter=",", fmt="%.4f")
+    # the csv module's route, pandas or not (a machine without pandas
+    # takes it)
+    saved = sys.modules.get("pandas")
+    sys.modules["pandas"] = None
+    t6 = time.perf_counter()
+    try:
+        from_csv = lgt.Dataset(csv_path, params={**HIGGS_PARAMS,
+                                                 "device_type": device})
+        from_csv.construct()
+    finally:
+        if saved is None:
+            del sys.modules["pandas"]
+        else:
+            sys.modules["pandas"] = saved
+    t7 = time.perf_counter()
+    bin_path = os.path.join(tmp, "higgs.bin")
+    from_csv.save_binary(bin_path)
+    back = lgt.Dataset(bin_path).construct()
+    t8 = time.perf_counter()
+    h, hb = from_csv.handle, back.handle
+    assert np.array_equal(h.bins, hb.bins)
+    assert np.array_equal(h.metadata.label, hb.metadata.label)
+    mat = lgt.Dataset(Xc, label=y[:CSV_ROWS],
+                      params=HIGGS_PARAMS).construct().handle
+    assert np.array_equal(h.bins, mat.bins), "(u): CSV bins differ"
+    log(f"(u) API: {CSV_ROWS} x 28 CSV written in {t6 - t5:.2f} s, read "
+        f"and binned through the csv module in {t7 - t6:.2f} s (bins equal "
+        f"to the matrix's); save_binary + load {t8 - t7:.2f} s "
+        f"({os.path.getsize(bin_path)} bytes, bins equal)")
+    log(f"(u) API: {time.perf_counter() - t0:.1f} s in all")
+    return got
 
 
 def bag_paths(args, ds, hX, hy, wide, device="cuda"):
@@ -1483,7 +1645,7 @@ def bag_paths(args, ds, hX, hy, wide, device="cuda"):
         t_path = time.perf_counter()
         params = {**(WIDE_PARAMS if is_wide else HIGGS_PARAMS), **extra}
         dset, Xh, yh = (wds, wX, wy) if is_wide else (ds, hX, hy)
-        iters = BAG_WIDE_ITERS if is_wide else args.iters
+        iters = BAG_WIDE_ITERS if is_wide else BAG_ITERS
         expect = (("hist_multival_planar", "partition") if is_wide
                   else ("hist_planar", "partition"))
         with method_timer(FusedSerialGrower, "bag_state") as builds, \
@@ -1647,10 +1809,18 @@ def paths(args, report, wide, device="cuda"):
             profile_iteration(name, booster, device_only=True)
         log(f"{name}: {time.perf_counter() - t_path:.1f} s in all")
     got.update(bag_paths(args, ds, hX, hy, wide, device))
+    with tempfile.TemporaryDirectory() as tmp:
+        got["t"], auc_t = forced_path(args, ds, hX, hy, tmp, device)
+        log(f"(t) HIGGS forced splits fused: held-out AUC {auc_t:.6f} "
+            f"beside HIGGS fused's {aucs['higgs']:.6f} (diff "
+            f"{auc_t - aucs['higgs']:+.6f})")
+        got.update(api_path(args, X, y, hX, hy, ds, aucs["higgs"], tmp,
+                            device))
+    api = ["t", "u1", "u2", "u3"]
     path_of = {"hist_planar": ["higgs", "h", "i", "j", "k", "l", "m", "o",
-                               "p", "q", "r"],
+                               "p", "q", "r"] + api,
                "partition": ["higgs", "a", "d", "e", "h", "i", "j", "k",
-                             "l", "m", "n", "o", "p", "q", "r", "s"],
+                             "l", "m", "n", "o", "p", "q", "r", "s"] + api,
                "hist_radix": ["b"], "hist_multival_planar": ["a", "n", "s"],
                "hist_multival": ["c"], "hist_masked": [],
                "partition_window": [], "hist_planar_q": ["d"],
@@ -1664,13 +1834,14 @@ def paths(args, report, wide, device="cuda"):
 # phase 4: card run against the port's own CPU run
 # ---------------------------------------------------------------------------
 
-def card_vs_cpu():
+def card_vs_cpu(forced_file):
     """Phase 4: the same small training on the card and on the CPU (the
     plain versions), on both learners, float and quantized, on path
     (h)'s columns with categorical features, and with the regression,
-    quantile and MAPE objectives (the percentile refits): trees (bitset
-    pools included), leaf values and predictions, these with prediction
-    early stop off and on for the categorical model."""
+    quantile and MAPE objectives (the percentile refits), the per-tree
+    and boosting-mode cases and forced splits (``forced_file``): trees
+    (bitset pools included), leaf values and predictions, these with
+    prediction early stop off and on for the categorical model."""
     import lightgbm_tpu_torch as lgt
     n = 100_000
     X, y = make_higgs_like(n, 28, seed=3)
@@ -1732,6 +1903,17 @@ def card_vs_cpu():
                {"objective": "regression_l1", **bag}, (Xr[:m], yr[:m]))]
     exact |= {"host loop quantized bagging",
               "host loop regression_l1 bagging"}
+    # forced splits: the persistent path, grow_device under bagging, the
+    # host loop and quantized gradients
+    forced = {"forcedsplits_filename": forced_file}
+    for name, obj in (("fused forced splits", forced),
+                      ("fused forced splits bagging", {**forced, **bag}),
+                      ("host loop forced splits",
+                       {**forced, "tpu_fused": False}),
+                      ("fused forced splits quantized",
+                       {**forced, **QUANT_PARAMS})):
+        cases.append((name, obj, (X[:m], y[:m])))
+        exact.add(name)
     for learner, extra, data in cases:
         out = {}
         xs, ys = data
@@ -1750,6 +1932,9 @@ def card_vs_cpu():
                 preds.append(b.predict(xs[:20_000], raw_score=True))
                 cfg.pred_early_stop = False
             out[dev] = (b._gbdt.models, preds)
+            if "forcedsplits_filename" in extra:
+                assert all(list(t.split_feature[:3]) == [0, 1, 2]
+                           for t in b._gbdt.models), learner
         (tg, pg), (tc, pc) = out["cuda"], out["cpu"]
         per_iter = b._gbdt.num_tree_per_iteration
         if learner.startswith("host loop"):
@@ -1788,6 +1973,67 @@ def card_vs_cpu():
             + ", ".join(f"{float(np.abs(a - b).max()):.3g}"
                         for a, b in zip(pg, pc))
             + (" (early stop off, on)" if len(pg) > 1 else ""))
+
+
+def api_card_vs_cpu(tmp):
+    """Phase 4's API cases on BAG_CASE_ROWS rows, card against CPU:
+    continued training from a saved model (``init_model``),
+    ``rollback_one_iter`` then one more iteration, and ``refit`` on
+    other rows; trees (split gains, leaf values) and raw predictions
+    must be equal, max |diff| 0."""
+    import lightgbm_tpu_torch as lgt
+    m = BAG_CASE_ROWS
+    X, y = make_higgs_like(2 * m, 28, seed=8)
+    Xa, ya, Xb, yb = X[:m], y[:m], X[m:], y[m:]
+    base = {"objective": "binary", "tpu_hist_dtype": "float32",
+            "verbose": -1}
+
+    def init_model(dev):
+        params = {**base, "device_type": dev}
+        first = lgt.train(params, lgt.Dataset(Xa, label=ya),
+                          num_boost_round=2)
+        path = os.path.join(tmp, f"first_{dev}.txt")
+        first.save_model(path)
+        return lgt.train(params, lgt.Dataset(Xa, label=ya,
+                                             free_raw_data=False),
+                         num_boost_round=2, init_model=path)
+
+    def rollback(dev):
+        b = lgt.train({**base, "device_type": dev},
+                      lgt.Dataset(Xa, label=ya), num_boost_round=3,
+                      keep_training_booster=True)
+        b.rollback_one_iter()
+        b.update()
+        return b
+
+    def refit(dev):
+        b = lgt.train({**base, "device_type": dev},
+                      lgt.Dataset(Xa, label=ya), num_boost_round=3)
+        return b.refit(Xb, yb, decay_rate=0.5)
+
+    for name, fn in (("init_model", init_model), ("rollback_one_iter",
+                                                  rollback),
+                     ("refit", refit)):
+        got = {dev: fn(dev) for dev in ("cuda", "cpu")}
+        tg, tc = got["cuda"]._gbdt.models, got["cpu"]._gbdt.models
+        assert len(tg) == len(tc), name
+        for a, b in zip(tg, tc):
+            k = a.num_leaves
+            assert k == b.num_leaves, name
+            for f in ("split_feature", "threshold", "left_child",
+                      "right_child", "split_gain", "leaf_value"):
+                n = k if f.startswith("leaf") else k - 1
+                assert np.array_equal(getattr(a, f)[:n],
+                                      getattr(b, f)[:n]), (name, f)
+        pg = got["cuda"].predict(Xb, raw_score=True)
+        pc = got["cpu"].predict(Xb, raw_score=True)
+        assert np.array_equal(pg, pc), name
+        leaf_diff = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+                        for a, b in zip(tg, tc))
+        log(f"card vs CPU ({name}): {m} rows, {len(tg)} trees equal "
+            f"({[t.num_leaves for t in tg]} leaves), leaf values max "
+            f"|diff| {leaf_diff:.3g}, raw predictions max |diff| "
+            f"{float(np.abs(pg - pc).max()):.3g}")
 
 
 def profile_paths(args, wide):
@@ -1960,7 +2206,9 @@ def main() -> int:
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
     paths(args, report, wide)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
-    card_vs_cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        card_vs_cpu(write_forced_splits(tmp))
+        api_card_vs_cpu(tmp)
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -11,17 +11,20 @@ Entry points run on the card unless the params ask for the CPU
 (``device_type="cpu"``). It trains the binary main path,
 ``train({"objective": "binary"}, Dataset(X, label=y))``, categorical
 columns included, and predicts with the packed forest or the path
-forest.
+forest; ``cv``, continued training (``init_model``), model files and
+text or binary dataset files follow the JAX package's API.
 """
 
 __version__ = "0.1.0"
 
 from .basic import Booster, Dataset, LightGBMError
-from .callback import early_stopping, log_evaluation, record_evaluation
+from .callback import (early_stopping, log_evaluation, print_evaluation,
+                       record_evaluation, record_metrics, reset_parameter)
 from .config import Config
-from .engine import train
+from .engine import CVBooster, cv, train
 
 __all__ = [
-    "Booster", "Config", "Dataset", "LightGBMError", "early_stopping",
-    "log_evaluation", "record_evaluation", "train",
+    "Booster", "CVBooster", "Config", "Dataset", "LightGBMError", "cv",
+    "early_stopping", "log_evaluation", "print_evaluation",
+    "record_evaluation", "record_metrics", "reset_parameter", "train",
 ]

@@ -9,14 +9,15 @@ Booster wraps the GBDT boosting loop. The device comes from the params'
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Optional, Union
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .boosting.gbdt import GBDT, create_boosting
 from .config import Config
-from .io.dataset import BinnedDataset, _is_sparse
+from .io.dataset import BinnedDataset, Metadata, _is_sparse
 from .metric.metrics import create_metric
 from .objective.functions import create_objective
 from .utils.device import resolve_device
@@ -24,8 +25,11 @@ from .utils.log import LightGBMError
 
 
 def _to_2d_numpy(data):
-    """Dense input as a 2-D numpy array; scipy sparse input unchanged
-    (the dataset consumes it column-wise without densifying)."""
+    """Dense input as a 2-D numpy array (a pandas DataFrame through
+    ``_pandas_to_numpy``); scipy sparse input unchanged (the dataset
+    consumes it column-wise without densifying)."""
+    if hasattr(data, "values") and hasattr(data, "dtypes"):   # DataFrame
+        return _pandas_to_numpy(data)
     if _is_sparse(data):
         return data
     arr = np.asarray(data)
@@ -36,13 +40,37 @@ def _to_2d_numpy(data):
     return arr
 
 
+def _pandas_to_numpy(df) -> np.ndarray:
+    """A DataFrame as float64: categorical columns as their codes (NaN
+    for missing), the rest through ``pd.to_numeric``. pandas is imported
+    here only, so the package runs without it."""
+    import pandas as pd
+    out = np.empty(df.shape, dtype=np.float64)
+    for i, col in enumerate(df.columns):
+        s = df[col]
+        if isinstance(s.dtype, pd.CategoricalDtype):
+            out[:, i] = s.cat.codes.astype(np.float64)
+            out[out[:, i] < 0, i] = np.nan
+        else:
+            out[:, i] = pd.to_numeric(s, errors="coerce").astype(np.float64)
+    return out
+
+
+def _label_from_pandas(label):
+    if hasattr(label, "values"):
+        return np.asarray(label.values, dtype=np.float64).reshape(-1)
+    return (None if label is None
+            else np.asarray(label, dtype=np.float64).reshape(-1))
+
+
 class Dataset:
     """Training data container (reference basic.py:909): a dense numpy
-    matrix or a scipy CSR/CSC matrix."""
+    matrix, a pandas DataFrame, a scipy CSR/CSC matrix, or the path of a
+    CSV / TSV / LibSVM text file or of a ``save_binary`` file."""
 
     def __init__(self, data, label=None,
                  reference: Optional["Dataset"] = None, weight=None,
-                 init_score=None,
+                 group=None, init_score=None, silent=False,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
@@ -51,45 +79,108 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = copy.deepcopy(params) if params else {}
         self.free_raw_data = free_raw_data
         self._handle: Optional[BinnedDataset] = None
+        self.used_indices: Optional[np.ndarray] = None
+        self._subset_parent: Optional["Dataset"] = None
 
     def construct(self) -> "Dataset":
         """Lazy construction (reference basic.py:1274)."""
         if self._handle is not None:
             return self
+        if self._subset_parent is not None:
+            return self._construct_subset()
         ref = self.reference.construct() if self.reference is not None \
             else None
+        if isinstance(self.data, str):
+            self._construct_from_file(self.data, ref)
+            return self
         mat = _to_2d_numpy(self.data)
         cfg = Config.from_params(self.params)
-        names = (list(self.feature_name)
-                 if isinstance(self.feature_name, list)
-                 else [f"Column_{i}" for i in range(mat.shape[1])])
-        cat = None
-        if self.categorical_feature not in ("auto", None):
-            cat = [names.index(c) if isinstance(c, str) else int(c)
-                   for c in self.categorical_feature]
-        label = None if self.label is None \
-            else np.asarray(self.label, np.float64).reshape(-1)
+        names = self._resolve_feature_names(mat.shape[1])
+        label = _label_from_pandas(self.label)
         weight = None if self.weight is None \
             else np.asarray(self.weight).reshape(-1)
+        group = None if self.group is None \
+            else np.asarray(self.group).reshape(-1)
         init_score = None if self.init_score is None \
             else np.asarray(self.init_score)
         self._handle = BinnedDataset.from_matrix(
-            mat, cfg, label=label, weight=weight, init_score=init_score,
-            feature_names=names, categorical_feature=cat,
+            mat, cfg, label=label, weight=weight, group=group,
+            init_score=init_score, feature_names=names,
+            categorical_feature=self._resolve_categorical(names),
             reference=None if ref is None else ref._handle)
         if self.free_raw_data:
             self.data = None
         return self
 
+    def _construct_from_file(self, path: str, ref) -> None:
+        """A ``.bin`` file from ``save_binary``, else a text file
+        (io/text_loader.py: the label / weight / group columns and the
+        ``.query`` / ``.weight`` / ``.init`` sidecar files)."""
+        if path.endswith(".bin"):
+            self._handle = BinnedDataset.load_binary(path)
+            return
+        from .io.text_loader import load_text_file
+        cfg = Config.from_params(self.params)
+        if ref is not None and cfg.initscore_filename:
+            # initscore_filename names the TRAINING init file; validation
+            # sets keep the <data>.init sidecar (reference metadata.cpp
+            # LoadInitialScore)
+            cfg = dataclasses.replace(cfg, initscore_filename="")
+        mat, label, weight, group, init_score = load_text_file(path, cfg)
+        names = [f"Column_{i}" for i in range(mat.shape[1])]
+        self._handle = BinnedDataset.from_matrix(
+            mat, cfg, label=label, weight=weight, group=group,
+            init_score=init_score, feature_names=names,
+            categorical_feature=self._resolve_categorical(names),
+            reference=None if ref is None else ref._handle)
+
+    def _resolve_feature_names(self, ncol: int) -> List[str]:
+        if isinstance(self.feature_name, list):
+            return list(self.feature_name)
+        if self.feature_name == "auto" and hasattr(self.data, "columns"):
+            return [str(c) for c in self.data.columns]
+        return [f"Column_{i}" for i in range(ncol)]
+
+    def _resolve_categorical(self, feature_names: List[str]):
+        cat = self.categorical_feature
+        if cat == "auto" or cat is None:
+            if hasattr(self.data, "dtypes"):
+                import pandas as pd
+                return [i for i, _ in enumerate(self.data.columns)
+                        if isinstance(self.data.dtypes.iloc[i],
+                                      pd.CategoricalDtype)]
+            return None
+        out = []
+        for c in cat:
+            if isinstance(c, str):
+                if c in feature_names:
+                    out.append(feature_names.index(c))
+            else:
+                out.append(int(c))
+        return out
+
     @property
     def handle(self) -> Optional[BinnedDataset]:
         return self._handle
+
+    def num_data(self) -> int:
+        self.construct()
+        return self._handle.num_data
+
+    def num_feature(self) -> int:
+        self.construct()
+        return self._handle.num_total_features
+
+    def get_feature_name(self) -> List[str]:
+        self.construct()
+        return list(self._handle.feature_names)
 
     def get_label(self):
         """The label (float32 once constructed), as a custom objective
@@ -97,13 +188,148 @@ class Dataset:
         if self._handle is not None \
                 and self._handle.metadata.label is not None:
             return np.asarray(self._handle.metadata.label)
-        return self.label
+        return _label_from_pandas(self.label)
 
     def get_weight(self):
         if self._handle is not None \
                 and self._handle.metadata.weights is not None:
             return np.asarray(self._handle.metadata.weights)
         return self.weight
+
+    def get_group(self):
+        if self._handle is not None \
+                and self._handle.metadata.query_boundaries is not None:
+            return np.diff(self._handle.metadata.query_boundaries)
+        return self.group
+
+    def get_init_score(self):
+        return self.init_score
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._handle is not None:
+            self._handle.metadata.set_label(_label_from_pandas(label))
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._handle is not None:
+            self._handle.metadata.set_weights(
+                None if weight is None else np.asarray(weight).reshape(-1))
+        return self
+
+    def set_group(self, group) -> "Dataset":
+        self.group = group
+        if self._handle is not None:
+            self._handle.metadata.set_query(
+                None if group is None else np.asarray(group).reshape(-1))
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._handle is not None:
+            self._handle.metadata.set_init_score(
+                None if init_score is None else np.asarray(init_score))
+        return self
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        return {"label": self.set_label, "weight": self.set_weight,
+                "group": self.set_group,
+                "init_score": self.set_init_score}[field_name](data)
+
+    def get_field(self, field_name: str):
+        return {"label": self.get_label, "weight": self.get_weight,
+                "group": self.get_group,
+                "init_score": self.get_init_score}[field_name]()
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, silent=False,
+                     params=None) -> "Dataset":
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score, silent=silent,
+                       params=params or self.params,
+                       free_raw_data=self.free_raw_data)
+
+    def subset(self, used_indices: Sequence[int], params=None) -> "Dataset":
+        """A row subset sharing this dataset's bin mappers (reference
+        Dataset.subset / LGBM_DatasetGetSubset); constructed from the
+        parent's bin codes."""
+        if self.data is None and self._handle is None:
+            raise LightGBMError("Cannot subset a freed dataset")
+        ds = Dataset(self.data, label=self.label, reference=self,
+                     weight=self.weight, group=self.group,
+                     init_score=self.init_score,
+                     feature_name=self.feature_name,
+                     categorical_feature=self.categorical_feature,
+                     params=params or self.params, free_raw_data=False)
+        ds.used_indices = np.asarray(sorted(used_indices), dtype=np.int64)
+        ds._subset_parent = self
+        return ds
+
+    def _construct_subset(self) -> "Dataset":
+        """The subset's BinnedDataset from the parent's bin codes, label,
+        weights and init-score columns (one per class), and its own
+        ``group``."""
+        parent = self._subset_parent.construct()._handle
+        idx = self.used_indices
+        h = BinnedDataset()
+        h.num_data = len(idx)
+        h.num_total_features = parent.num_total_features
+        h.bins = parent.bins[idx]
+        h.bin_mappers = parent.bin_mappers
+        h.real_feature_index = parent.real_feature_index
+        h.inner_feature_index = parent.inner_feature_index
+        h.feature_names = parent.feature_names
+        h.max_bin = parent.max_bin
+        h.bundles = parent.bundles
+        h._monotone_constraints = parent._monotone_constraints
+        pm = parent.metadata
+        h.metadata = Metadata(len(idx))
+        if pm.label is not None:
+            h.metadata.label = pm.label[idx]
+        if pm.weights is not None:
+            h.metadata.weights = pm.weights[idx]
+        if self.group is not None:
+            h.metadata.set_query(np.asarray(self.group))
+        if pm.init_score is not None:
+            isc = pm.init_score.reshape(-1, parent.num_data)
+            h.metadata.init_score = isc[:, idx].reshape(-1)
+        h._measure_occupancy()
+        self._handle = h
+        return self
+
+    def save_binary(self, filename: str) -> "Dataset":
+        self.construct()
+        self._handle.save_binary(filename)
+        return self
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """The columns of ``other`` (same rows) appended to this
+        dataset's (reference Dataset::AddFeaturesFrom, dataset.cpp:1465);
+        the merged codes are per feature, unbundled."""
+        self.construct()
+        other.construct()
+        a, b = self._handle, other._handle
+        if a.num_data != b.num_data:
+            raise LightGBMError(
+                "Cannot add features from a different-size dataset")
+        abins, bbins = a.feature_bins(), b.feature_bins()
+        a.bundles = None
+        if abins.dtype == bbins.dtype:
+            a.bins = np.concatenate([abins, bbins], axis=1)
+        else:
+            a.bins = np.concatenate([abins.astype(np.uint16),
+                                     bbins.astype(np.uint16)], axis=1)
+        a.bin_mappers = list(a.bin_mappers) + list(b.bin_mappers)
+        offset = a.num_total_features
+        a.real_feature_index = list(a.real_feature_index) + \
+            [offset + f for f in b.real_feature_index]
+        a.num_total_features += b.num_total_features
+        a.inner_feature_index = {f: i for i, f in
+                                 enumerate(a.real_feature_index)}
+        a.feature_names = list(a.feature_names) + list(b.feature_names)
+        a._measure_occupancy()
+        return self
 
 
 class Booster:
@@ -147,6 +373,20 @@ class Booster:
             raise TypeError("Need at least one training dataset or model "
                             "file or model string to create booster "
                             "instance")
+
+    # -- pickling: the model text is the state (reference basic.py
+    # Booster.__getstate__); the device side is rebuilt on load
+    def __getstate__(self):
+        return {"model_str": self.model_to_string(num_iteration=-1),
+                "params": self.params,
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score}
+
+    def __setstate__(self, state):
+        self.__init__(params=state.get("params", {}),
+                      model_str=state["model_str"])
+        self.best_iteration = state.get("best_iteration", -1)
+        self.best_score = state.get("best_score", {})
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         if not isinstance(data, Dataset):
@@ -193,6 +433,41 @@ class Booster:
                 f"num_data*num_class ({n * k})")
         return self._gbdt.train_one_iter(grad.reshape(k, n),
                                          hess.reshape(k, n))
+
+    def rollback_one_iter(self) -> "Booster":
+        self._gbdt.rollback_one_iter()
+        return self
+
+    @property
+    def current_iteration(self) -> int:
+        return self._gbdt.current_iteration
+
+    def num_trees(self) -> int:
+        return len(self._gbdt.models)
+
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_tree_per_iteration
+
+    def num_feature(self) -> int:
+        return self._gbdt.max_feature_idx + 1
+
+    def feature_name(self) -> List[str]:
+        return list(self._gbdt.feature_names_)
+
+    def eval(self, data: Dataset, name: str, feval=None) -> list:
+        """The metrics of ``data``: the training set, or the validation
+        set added under ``name``."""
+        if data is self._train_set:
+            return self.eval_train(feval)
+        if name not in self.name_valid_sets:
+            raise LightGBMError(f"No validation set named {name}")
+        return [r for r in self.eval_all(feval) if r[0] == name]
+
+    def eval_train(self, feval=None) -> list:
+        return [r for r in self.eval_all(feval) if r[0] == "training"]
+
+    def eval_valid(self, feval=None) -> list:
+        return [r for r in self.eval_all(feval) if r[0] != "training"]
 
     def eval_all(self, feval=None) -> list:
         """[(dataset_name, metric_name, value, bigger_is_better)] with
@@ -264,6 +539,137 @@ class Booster:
             return np.concatenate(parts, axis=0)
         return run(mat)
 
+    def refit(self, data, label, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """A new booster with this one's trees, their leaf values refit
+        to ``data`` / ``label`` (reference basic.py:2873 Booster.refit;
+        ``GBDT.refit_tree``)."""
+        mat = _to_2d_numpy(data)
+        leaf = self.predict(data, pred_leaf=True)
+        new_params = dict(self.params)
+        new_params["refit_decay_rate"] = decay_rate
+        train = Dataset(mat, label=label, params=new_params,
+                        free_raw_data=False)
+        nb = Booster(new_params, train)
+        nb._gbdt.models = [copy_tree(t) for t in self._gbdt.models]
+        nb._gbdt.refit_tree(leaf)
+        return nb
+
+    def save_model(self, filename: str, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> "Booster":
+        it = self.best_iteration if num_iteration is None else num_iteration
+        self._gbdt.save_model_to_file(
+            filename, start_iteration, it if it and it > 0 else -1,
+            0 if importance_type == "split" else 1)
+        return self
+
+    @classmethod
+    def model_from_string(cls, model_str: str, verbose: bool = True,
+                          params: Optional[Dict[str, Any]] = None
+                          ) -> "Booster":
+        return cls(params=params, model_str=model_str)
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> dict:
+        """The model as JSON-ready dicts (reference
+        GBDT::DumpModel)."""
+        g = self._gbdt
+        it = self.best_iteration if num_iteration is None else num_iteration
+        models = g._used_models(start_iteration, it if it and it > 0 else -1)
+        return {
+            "name": "tree",
+            "version": "v3",
+            "num_class": getattr(g, "_loaded_num_class",
+                                 g.config.num_class if g.config else 1),
+            "num_tree_per_iteration": g.num_tree_per_iteration,
+            "label_index": g.label_idx,
+            "max_feature_idx": g.max_feature_idx,
+            "objective": g.objective.to_string() if g.objective else "",
+            "average_output": g.average_output,
+            "feature_names": list(g.feature_names_),
+            "feature_infos": g._feature_infos(),
+            "tree_info": [dict(tree_index=i, **t.to_json())
+                          for i, t in enumerate(models)],
+        }
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        imp = self._gbdt.feature_importance(
+            0 if importance_type == "split" else 1,
+            iteration if iteration else -1)
+        if importance_type == "split":
+            return imp.astype(np.int32)
+        return imp
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style=False):
+        """numpy's histogram of the thresholds of every numerical split
+        on ``feature`` (reference basic.py:2944)."""
+        fidx = (self.feature_name().index(feature)
+                if isinstance(feature, str) else int(feature))
+        values = np.asarray([
+            float(t.threshold[i]) for t in self._gbdt.models
+            for i in range(t.num_leaves - 1)
+            if int(t.split_feature[i]) == fidx
+            and not t.is_categorical_node(i)])
+        if bins is None:
+            bins = max(min(len(values), 32), 1)
+        hist, edges = np.histogram(values, bins=bins)
+        if xgboost_style:
+            import pandas as pd
+            return pd.DataFrame({"SplitValue": edges[1:], "Count": hist})
+        return hist, edges
+
+    def trees_to_dataframe(self):
+        """One row per node of every tree (reference basic.py:2132);
+        needs pandas, imported here only."""
+        import pandas as pd
+        rows = []
+        fn = self.feature_name()
+
+        def child(ti, c):
+            return f"{ti}-S{c}" if c >= 0 else f"{ti}-L{~c}"
+        for ti, t in enumerate(self._gbdt.models):
+            for i in range(t.num_leaves - 1):
+                rows.append({
+                    "tree_index": ti, "node_depth": None,
+                    "node_index": f"{ti}-S{i}",
+                    "left_child": child(ti, t.left_child[i]),
+                    "right_child": child(ti, t.right_child[i]),
+                    "parent_index": None,
+                    "split_feature": fn[int(t.split_feature[i])],
+                    "split_gain": float(t.split_gain[i]),
+                    "threshold": float(t.threshold[i]),
+                    "decision_type": ("==" if t.is_categorical_node(i)
+                                      else "<="),
+                    "missing_direction": ("left" if t.default_left(i)
+                                          else "right"),
+                    "missing_type": ["None", "Zero", "NaN"][
+                        t.missing_type(i)],
+                    "value": float(t.internal_value[i]),
+                    "weight": float(t.internal_weight[i]),
+                    "count": int(t.internal_count[i]),
+                })
+            for leaf in range(t.num_leaves):
+                rows.append({
+                    "tree_index": ti, "node_depth": None,
+                    "node_index": f"{ti}-L{leaf}",
+                    "left_child": None, "right_child": None,
+                    "parent_index": None, "split_feature": None,
+                    "split_gain": None, "threshold": None,
+                    "decision_type": None, "missing_direction": None,
+                    "missing_type": None,
+                    "value": float(t.leaf_value[leaf]),
+                    "weight": float(t.leaf_weight[leaf]),
+                    "count": int(t.leaf_count[leaf]),
+                })
+        return pd.DataFrame(rows)
+
+    def free_dataset(self) -> "Booster":
+        self._train_set = None
+        return self
+
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0,
                         importance_type: str = "split") -> str:
@@ -271,6 +677,15 @@ class Booster:
         return self._gbdt.save_model_to_string(
             start_iteration, it if it and it > 0 else -1,
             0 if importance_type == "split" else 1)
+
+
+def copy_tree(tree):
+    """A copy of ``tree`` whose leaf and internal values can change
+    without touching the original's."""
+    t = copy.copy(tree)
+    t.leaf_value = tree.leaf_value.copy()
+    t.internal_value = tree.internal_value.copy()
+    return t
 
 
 __all__ = ["Booster", "Dataset", "LightGBMError"]

@@ -24,9 +24,10 @@ permutation; the fused learner then grows each tree on a bag-ordered
 state and scores every row by traversal (``grow_device``). ``DART``
 drops trees from the training score before each iteration and
 normalizes them after; ``RF`` grows every tree from the constant
-initial score and averages the trees' outputs. Rollback, refit,
-``init_model`` and the RNGs' checkpoint state are not ported yet
-(ROADMAP).
+initial score and averages the trees' outputs. Continued training
+(``init_model``: the old trees prepended, ``num_init_iteration``
+counting them), rollback and refit follow the JAX package; the RNGs'
+checkpoint state is not ported yet (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -43,8 +44,7 @@ from ..models.tree import Tree
 from ..objective.functions import ObjectiveFunction, create_objective
 from ..ops import split as S
 from ..ops import threefry
-from ..treelearner.fused import (FusedSerialGrower, fused_reject_reason,
-                                 port_reject_reason)
+from ..treelearner.fused import FusedSerialGrower, fused_reject_reason
 from ..treelearner.serial import SerialTreeGrower
 from ..utils import log
 from ..utils.device import resolve_device
@@ -105,6 +105,12 @@ class GBDT:
                        else resolve_device(Config()))
         self.models: List[Tree] = []
         self.iter = 0
+        # iterations loaded from a model (continued training)
+        self.num_init_iteration = 0
+        # bumped where trees change in place (rollback, refit): part of
+        # the cached forests' key
+        self._pred_revision = 0
+        self._fused_state = None
         self.config: Optional[Config] = None
         self.train_data: Optional[BinnedDataset] = None
         self.objective: Optional[ObjectiveFunction] = None
@@ -140,9 +146,6 @@ class GBDT:
             objective.init(train_data.metadata, self.num_data)
         for m in self.metrics:
             m.init(train_data.metadata, self.num_data)
-        port = port_reject_reason(config, train_data, objective)
-        if port is not None:
-            raise NotImplementedError(f"not ported yet: {port}")
         self._fused = None
         self._fused_state = None     # persistent planar state (device)
         self._score_dirty = False    # train_score stale vs _fused_state
@@ -226,6 +229,62 @@ class GBDT:
             log.warning("Disabling boost_from_average in %s may cause the "
                         "slow convergence", self.objective.name)
         return 0.0
+
+    def _invalidate_fused_state(self) -> None:
+        """After a direct change of the training score (rollback,
+        refit): sync the persistent state's scores back and drop the
+        state; the next iteration rebuilds it from the scores."""
+        if self._fused_state is not None:
+            self.get_training_score()
+            self._fused_state = None
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's trees, their leaf values subtracted
+        from the training and validation scores (reference
+        GBDT::RollbackOneIter, gbdt.cpp:421)."""
+        self._invalidate_fused_state()
+        if self.iter <= 0:
+            return
+        self._pred_revision += 1
+        k = self.num_tree_per_iteration
+        bins, miss, efb = self._score_tables()
+        for c in range(k):
+            tree = self.models[len(self.models) - k + c]
+            tree.apply_shrinkage(-1.0)
+            self.train_score.add_tree(tree, c, bins, miss, efb)
+            for vs in self.valid_score:
+                vs.add_tree(tree, c, vs.bins, miss, efb)
+        del self.models[-k:]
+        self.iter -= 1
+
+    def refit_tree(self, tree_leaf_prediction: np.ndarray) -> None:
+        """Refit the leaf values of the existing trees to this booster's
+        gradients (reference GBDT::RefitTree, gbdt.cpp:266): per tree,
+        float64 bincount sums of the rows' gradients by leaf on the
+        host, the new output blended into the old by
+        ``refit_decay_rate``, then the tree's score update."""
+        cfg = self.config
+        leaf_pred = np.asarray(tree_leaf_prediction, dtype=np.int64)
+        self._pred_revision += 1
+        self._invalidate_fused_state()
+        grad, hess = (t.cpu().numpy() for t in self._boosting())
+        k = self.num_tree_per_iteration
+        for i, tree in enumerate(self.models):
+            c = i % k
+            lp = leaf_pred[:, i]
+            nl = tree.num_leaves
+            gs = np.bincount(lp, weights=grad[c], minlength=nl)
+            hs = np.bincount(lp, weights=hess[c], minlength=nl)
+            for leaf in range(nl):
+                g, h = gs[leaf], hs[leaf]
+                if cfg.lambda_l1 > 0:
+                    g = np.sign(g) * max(0.0, abs(g) - cfg.lambda_l1)
+                new_out = -g / (h + cfg.lambda_l2)
+                tree.set_leaf_value(
+                    leaf, cfg.refit_decay_rate * tree.leaf_value[leaf]
+                    + (1.0 - cfg.refit_decay_rate) * new_out
+                    * self.shrinkage_rate)
+            self._update_score(tree, c)
 
     def _score_tables(self):
         """(bins, miss_bin, efb) of the training rows on the device, for
@@ -568,7 +627,8 @@ class GBDT:
         from ..models.forest import PackedForest
         from ..models.pathforest import PathForest, build_path_tables
         models = self._used_models(start_iteration, num_iteration)
-        key = (kind, start_iteration, num_iteration, len(self.models))
+        key = (kind, start_iteration, num_iteration, len(self.models),
+               self._pred_revision)
         cache = getattr(self, "_forest_cache", {})
         if key not in cache:
             k = self.num_tree_per_iteration
@@ -715,6 +775,13 @@ class GBDT:
         tail.append("end of parameters")
         return "\n".join(lines) + "\n" + body + "\n" + "\n".join(tail) + "\n"
 
+    def save_model_to_file(self, filename: str, start_iteration: int = 0,
+                           num_iteration: int = -1,
+                           importance_type: int = 0) -> None:
+        with open(filename, "w") as fh:
+            fh.write(self.save_model_to_string(start_iteration, num_iteration,
+                                               importance_type))
+
     def load_model_from_string(self, text: str) -> None:
         """reference GBDT::LoadModelFromString (gbdt_model_text.cpp:410)."""
         head, _, _ = text.partition("\ntree_sizes=")
@@ -751,6 +818,7 @@ class GBDT:
             self.objective = create_objective(Config.from_params(params))
         self.models = parse_tree_blocks(text)
         self.iter = len(self.models) // max(self.num_tree_per_iteration, 1)
+        self.num_init_iteration = self.iter
         pstart = text.find("\nparameters:")
         if pstart >= 0:
             self.loaded_parameter = text[pstart + len("\nparameters:"):]\
@@ -761,7 +829,9 @@ class DART(GBDT):
     """Dropout boosting (reference dart.hpp:23), as the JAX package's
     DART: before each iteration the dropped trees leave the training
     score; after it they are normalized, their leaf values scaled on
-    the host in float64 and each step added to the scores in float32."""
+    the host in float64 and each step added to the scores in float32.
+    Only this run's iterations drop: their indices are offset by
+    ``num_init_iteration`` past the trees of an ``init_model``."""
 
     def init(self, config, train_data, objective, metrics):
         super().init(config, train_data, objective, metrics)
@@ -800,7 +870,8 @@ class DART(GBDT):
                         if self._drop_rng.rand() < (drop_rate
                                                     * self.tree_weight[i]
                                                     * inv_avg):
-                            self.drop_index.append(i)
+                            self.drop_index.append(
+                                self.num_init_iteration + i)
                             if len(self.drop_index) >= cfg.max_drop:
                                 break
             else:
@@ -808,7 +879,7 @@ class DART(GBDT):
                     drop_rate = min(drop_rate, cfg.max_drop / float(self.iter))
                 for i in range(self.iter):
                     if self._drop_rng.rand() < drop_rate:
-                        self.drop_index.append(i)
+                        self.drop_index.append(self.num_init_iteration + i)
                         if len(self.drop_index) >= cfg.max_drop:
                             break
         k = self.num_tree_per_iteration
@@ -851,13 +922,15 @@ class DART(GBDT):
                     t.apply_shrinkage(-k_drop / cfg.learning_rate)
                 self.train_score.add_tree(t, c, bins, miss, efb)
             if not cfg.uniform_drop:
+                # the weights of this run's iterations only
+                j = i - self.num_init_iteration
                 if not cfg.xgboost_dart_mode:
-                    self.sum_weight -= self.tree_weight[i] / (k_drop + 1.0)
-                    self.tree_weight[i] *= k_drop / (k_drop + 1.0)
+                    self.sum_weight -= self.tree_weight[j] / (k_drop + 1.0)
+                    self.tree_weight[j] *= k_drop / (k_drop + 1.0)
                 else:
                     den = k_drop + cfg.learning_rate
-                    self.sum_weight -= self.tree_weight[i] / den
-                    self.tree_weight[i] *= k_drop / den
+                    self.sum_weight -= self.tree_weight[j] / den
+                    self.tree_weight[j] *= k_drop / den
 
 
 def goss_sample(grad: torch.Tensor, hess: torch.Tensor, seed: int,

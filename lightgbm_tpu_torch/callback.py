@@ -1,17 +1,20 @@
-"""Training callbacks: the subset of the JAX package's callback.py the
-main path calls — ``log_evaluation``,
-``record_evaluation`` and ``early_stopping`` — with the reference
-package's contract (factories returning callables with
+"""Training callbacks, the port of the JAX package's callback.py:
+``print_evaluation`` (alias ``log_evaluation``), ``record_evaluation``,
+``record_metrics``, ``reset_parameter`` and ``early_stopping``, with the
+reference package's contract (factories returning callables with
 ``order``/``before_iteration`` attributes, invoked with a
 ``CallbackEnv``; ``early_stopping`` signals via ``EarlyStopException``).
+The callbacks' checkpoint state waits for the robustness slice
+(ROADMAP A14).
 
 Evaluation entries are tuples ``(dataset_name, metric_name, value,
-is_higher_better)``.
+is_higher_better[, stdv])``: ``cv`` adds the standard deviation.
 """
 from __future__ import annotations
 
+import time
 from collections import OrderedDict, namedtuple
-from typing import Callable, List
+from typing import Callable, Dict, List
 
 from .utils import log
 
@@ -31,8 +34,18 @@ CallbackEnv = namedtuple(
      "evaluation_result_list"])
 
 
-def _joined(entries) -> str:
-    return "\t".join(f"{e[0]}'s {e[1]}: {e[2]:g}" for e in entries)
+def _entry_text(entry, with_stdv: bool = True) -> str:
+    """'<dataset>'s <metric>: <value>[ + <stdv>]' for a 4/5-tuple."""
+    if len(entry) not in (4, 5):
+        raise ValueError("Wrong metric value")
+    head = f"{entry[0]}'s {entry[1]}: {entry[2]:g}"
+    if len(entry) == 5 and with_stdv:
+        head += f" + {entry[4]:g}"
+    return head
+
+
+def _joined(entries, with_stdv: bool = True) -> str:
+    return "\t".join(_entry_text(e, with_stdv) for e in entries)
 
 
 class _EvalLogger:
@@ -40,8 +53,9 @@ class _EvalLogger:
 
     order = 10
 
-    def __init__(self, period: int) -> None:
+    def __init__(self, period: int, show_stdv: bool) -> None:
         self.period = period
+        self.show_stdv = show_stdv
 
     def __call__(self, env: CallbackEnv) -> None:
         if self.period <= 0 or not env.evaluation_result_list:
@@ -49,11 +63,14 @@ class _EvalLogger:
         if (env.iteration + 1) % self.period:
             return
         log.info("[%d]\t%s", env.iteration + 1,
-                 _joined(env.evaluation_result_list))
+                 _joined(env.evaluation_result_list, self.show_stdv))
 
 
-def log_evaluation(period: int = 1) -> Callable:
-    return _EvalLogger(period)
+def print_evaluation(period: int = 1, show_stdv: bool = True) -> Callable:
+    return _EvalLogger(period, show_stdv)
+
+
+log_evaluation = print_evaluation
 
 
 class _EvalRecorder:
@@ -79,6 +96,82 @@ def record_evaluation(eval_result: dict) -> Callable:
     if not isinstance(eval_result, dict):
         raise TypeError("eval_result should be a dictionary")
     return _EvalRecorder(eval_result)
+
+
+class _MetricsRecorder:
+    """Appends one record per iteration into a user-owned list: the
+    iteration, the host wall time since the previous record and the
+    evaluation metrics (the JAX package's record without an active
+    telemetry registry; ROADMAP A16 brings the registry)."""
+
+    order = 25
+
+    def __init__(self, store: list) -> None:
+        self.store = store
+        self._started = False
+        self._t_prev = None
+
+    def __call__(self, env: CallbackEnv) -> None:
+        if not self._started:
+            self.store.clear()
+            self._started = True
+        now = time.perf_counter()
+        dt = 0.0 if self._t_prev is None else now - self._t_prev
+        self._t_prev = now
+        self.store.append({
+            "iteration": env.iteration,
+            "t_iter_s": round(dt, 6),
+            "metrics": {f"{e[0]}/{e[1]}": float(e[2])
+                        for e in env.evaluation_result_list or []},
+        })
+
+
+def record_metrics(metrics_result: list) -> Callable:
+    """Callback collecting one record per iteration into
+    ``metrics_result``."""
+    if not isinstance(metrics_result, list):
+        raise TypeError("metrics_result should be a list")
+    return _MetricsRecorder(metrics_result)
+
+
+class _ParamScheduler:
+    """Re-applies parameters before each iteration from per-key
+    schedules (a list indexed by round, or a callable of the round
+    index); a new learning_rate becomes the booster's shrinkage."""
+
+    order = 10
+    before_iteration = True
+
+    def __init__(self, schedules: Dict) -> None:
+        self.schedules = schedules
+
+    @staticmethod
+    def _value_at(key: str, spec, round_idx: int, total: int):
+        if isinstance(spec, list):
+            if len(spec) != total:
+                raise ValueError(f"Length of list {key!r} has to equal to "
+                                 "'num_boost_round'")
+            return spec[round_idx]
+        if callable(spec):
+            return spec(round_idx)
+        raise ValueError("Only list and callable values are supported "
+                         "as a mapping from boosting round index to new "
+                         "parameter value")
+
+    def __call__(self, env: CallbackEnv) -> None:
+        round_idx = env.iteration - env.begin_iteration
+        total = env.end_iteration - env.begin_iteration
+        updates = {k: self._value_at(k, v, round_idx, total)
+                   for k, v in self.schedules.items()}
+        if not updates:
+            return
+        if "learning_rate" in updates:
+            env.model._gbdt.shrinkage_rate = float(updates["learning_rate"])
+        env.model.params.update(updates)
+
+
+def reset_parameter(**kwargs) -> Callable:
+    return _ParamScheduler(kwargs)
 
 
 class _MetricState:
@@ -109,9 +202,16 @@ class _EarlyStopper:
         self.first_metric_only = first_metric_only
         self.verbose = verbose
         self.states: List[_MetricState] = []
+        self.active = True
         self.first_metric = ""
 
     def _setup(self, env: CallbackEnv) -> None:
+        boosting = [env.params.get(k, "") for k in
+                    ("boosting", "boosting_type", "boost")]
+        if "dart" in boosting:
+            self.active = False
+            log.warning("Early stopping is not available in dart mode")
+            return
         if not env.evaluation_result_list:
             raise ValueError("For early stopping, at least one dataset and "
                              "eval metric is required for evaluation")
@@ -133,8 +233,10 @@ class _EarlyStopper:
         raise EarlyStopException(state.best_round, state.best_entries)
 
     def __call__(self, env: CallbackEnv) -> None:
-        if not self.states:
+        if not self.states and self.active:
             self._setup(env)
+        if not self.active:
+            return
         is_last = env.iteration == env.end_iteration - 1
         for state, entry in zip(self.states, env.evaluation_result_list):
             if state.best_entries is None or state.improved(entry[2]):

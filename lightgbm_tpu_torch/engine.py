@@ -1,16 +1,25 @@
-"""``train`` — the training entry point (reference engine.py:18), main-path
-subset of the JAX package's engine.py: a synchronous loop over
-boosting iterations with validation sets, evaluation callbacks, early
-stopping, custom objectives (``fobj``) and custom metrics (``feval``).
-``cv``, init_model and checkpointing are not ported yet (ROADMAP
-A6/A14)."""
+"""Training entry points ``train`` and ``cv`` (reference engine.py:18,
+:394), the port of the JAX package's engine.py: a synchronous loop over
+boosting iterations with validation sets, callbacks (before and after
+each iteration), early stopping, custom objectives (``fobj``) and
+metrics (``feval``), continued training from ``init_model``,
+``learning_rates``, and ``cv`` over k boosters on subsets of one
+dataset. The JAX package's checkpoint, resume, warm-up and telemetry
+branches are not ported yet (ROADMAP A14-A16).
+"""
 from __future__ import annotations
 
+import collections
 import copy
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 from . import callback as callback_mod
-from .basic import Booster, Dataset
+from .basic import Booster, Dataset, LightGBMError, copy_tree
+from .config import Config
+from .utils import log
+from .utils.timer import global_timer
 
 _NUM_ROUND_KEYS = ("num_iterations", "num_iteration", "n_iter", "num_tree",
                    "num_trees", "num_round", "num_rounds", "num_boost_round",
@@ -19,33 +28,101 @@ _EARLY_STOP_KEYS = ("early_stopping_round", "early_stopping_rounds",
                     "early_stopping", "n_iter_no_change")
 
 
+def _resolve_num_boost_round(params: Dict[str, Any], default: int) -> int:
+    for k in _NUM_ROUND_KEYS:
+        if k in params:
+            return int(params.pop(k))
+    return default
+
+
+def _resolve_early_stopping(params: Dict[str, Any],
+                            explicit: Optional[int]) -> Optional[int]:
+    for k in _EARLY_STOP_KEYS:
+        if k in params:
+            return int(params.pop(k))
+    return explicit
+
+
+def _split_callbacks(cbs):
+    """(before-iteration, after-iteration) callbacks, each in order."""
+    before = {cb for cb in cbs if getattr(cb, "before_iteration", False)}
+    after = set(cbs) - before
+
+    def order(s):
+        return sorted(s, key=lambda cb: getattr(cb, "order", 0))
+    return order(before), order(after)
+
+
+def _init_scores_from(model: Booster, data) -> np.ndarray:
+    """The raw scores of ``model`` on the raw rows ``data``, class-major
+    flat with several classes (a Dataset's init_score layout)."""
+    raw = model.predict(data, raw_score=True)
+    return raw.T.reshape(-1) if raw.ndim == 2 else raw
+
+
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100, valid_sets=None, valid_names=None,
-          fobj=None, feval=None,
+          fobj=None, feval=None, init_model=None,
+          feature_name="auto", categorical_feature="auto",
           early_stopping_rounds: Optional[int] = None, evals_result=None,
-          verbose_eval=True, callbacks=None) -> Booster:
+          verbose_eval=True, learning_rates=None,
+          keep_training_booster: bool = False, callbacks=None) -> Booster:
     """Train a booster; params are the JAX package's (and LightGBM's)
     keys and aliases, plus ``device_type`` "cuda" (default) or "cpu".
     ``fobj(preds, train_set) -> (grad, hess)`` replaces the objective
     (``objective`` becomes "none"); ``feval(preds, dataset)`` returns
     (name, value, is_higher_better) or a list of them, appended to each
-    dataset's evaluation results."""
+    dataset's evaluation results. ``init_model`` (a model file's path or
+    a Booster) continues training: the training and validation scores
+    start from its raw predictions on the raw rows (so their Datasets
+    need ``free_raw_data=False``), and its trees lead the new model's.
+    ``learning_rates``: a list per round, or a function of the round.
+    The training Dataset is released at the end unless
+    ``keep_training_booster``. ``timetag`` (or LGBM_TPU_TIMETAG) logs
+    the host time of the construction and of the iterations."""
     params = copy.deepcopy(params) if params else {}
-    if fobj is not None:
-        params["objective"] = "none"
-    for k in _NUM_ROUND_KEYS:
-        if k in params:
-            num_boost_round = int(params.pop(k))
-            break
+    num_boost_round = _resolve_num_boost_round(params, num_boost_round)
     if num_boost_round <= 0:
         raise ValueError("num_boost_round should be greater than zero.")
-    for k in _EARLY_STOP_KEYS:
-        if k in params:
-            early_stopping_rounds = int(params.pop(k))
-            break
+    early_stopping_rounds = _resolve_early_stopping(params,
+                                                    early_stopping_rounds)
     first_metric_only = bool(params.get("first_metric_only", False))
+    if fobj is not None:
+        params["objective"] = "none"
+    if feature_name != "auto":
+        train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
 
-    booster = Booster(params=params, train_set=train_set)
+    predictor = None
+    if isinstance(init_model, str):
+        predictor = Booster(
+            params={"device_type": Config.from_params(params).device_type},
+            model_file=init_model)
+    elif isinstance(init_model, Booster):
+        predictor = init_model
+    if predictor is not None and train_set.init_score is None:
+        # reference basic.py _set_init_score_by_predictor:1019; through
+        # set_init_score, so a Dataset constructed already takes it too
+        if train_set.data is None:
+            raise LightGBMError("Cannot continue training when the raw data "
+                                "was freed; pass free_raw_data=False")
+        train_set.set_init_score(_init_scores_from(predictor,
+                                                   train_set.data))
+
+    if any(Config.resolve_alias(k) == "timetag" for k in params):
+        # the phase table of named scopes (utils/timer.py), per train()
+        global_timer.set_enabled(Config.from_params(params).timetag)
+    with global_timer.scope("dataset construction + learner build"):
+        booster = Booster(params=params, train_set=train_set)
+    if predictor is not None:
+        gb = booster._gbdt
+        gb.models = [copy_tree(t) for t in predictor._gbdt.models] \
+            + gb.models
+        gb.num_init_iteration = (len(predictor._gbdt.models)
+                                 // predictor._gbdt.num_tree_per_iteration)
+        gb.iter = 0
+
     valid_contain_train = False
     train_name = "training"
     if valid_sets is not None:
@@ -59,26 +136,39 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 if valid_names is not None:
                     train_name = valid_names[i]
                 continue
+            if predictor is not None and vs.init_score is None \
+                    and vs.data is not None:
+                vs.set_init_score(_init_scores_from(predictor, vs.data))
             booster.add_valid(vs, valid_names[i] if valid_names is not None
                               else f"valid_{i}")
 
     cbs = set(callbacks) if callbacks else set()
     if verbose_eval is True:
-        cbs.add(callback_mod.log_evaluation())
+        cbs.add(callback_mod.print_evaluation())
     elif isinstance(verbose_eval, int) and verbose_eval is not False:
-        cbs.add(callback_mod.log_evaluation(verbose_eval))
+        cbs.add(callback_mod.print_evaluation(verbose_eval))
     if early_stopping_rounds is not None and early_stopping_rounds > 0:
         cbs.add(callback_mod.early_stopping(early_stopping_rounds,
                                             first_metric_only,
                                             verbose=bool(verbose_eval)))
+    if learning_rates is not None:
+        cbs.add(callback_mod.reset_parameter(learning_rate=learning_rates))
     if evals_result is not None:
         cbs.add(callback_mod.record_evaluation(evals_result))
-    cbs = sorted(cbs, key=lambda cb: getattr(cb, "order", 0))
+    cbs_before, cbs_after = _split_callbacks(cbs)
     want_eval = valid_contain_train or bool(booster.name_valid_sets)
+
+    def env(i, evals):
+        return callback_mod.CallbackEnv(
+            model=booster, params=params, iteration=i, begin_iteration=0,
+            end_iteration=num_boost_round, evaluation_result_list=evals)
 
     evals: list = []
     for i in range(num_boost_round):
-        finished = booster.update(fobj=fobj)
+        for cb in cbs_before:
+            cb(env(i, None))
+        with global_timer.scope("boosting iteration"):
+            finished = booster.update(fobj=fobj)
         evals = []
         if want_eval:
             for ds, name, val, bib in booster.eval_all(feval):
@@ -88,11 +178,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     ds = train_name
                 evals.append((ds, name, val, bib))
         try:
-            for cb in cbs:
-                cb(callback_mod.CallbackEnv(
-                    model=booster, params=params, iteration=i,
-                    begin_iteration=0, end_iteration=num_boost_round,
-                    evaluation_result_list=evals))
+            for cb in cbs_after:
+                cb(env(i, evals))
         except callback_mod.EarlyStopException as e:
             booster.best_iteration = e.best_iteration + 1
             evals = e.best_score
@@ -107,7 +194,189 @@ def train(params: Dict[str, Any], train_set: Dataset,
     booster.best_score = {}
     for ds, name, val, _ in evals or []:
         booster.best_score.setdefault(ds, {})[name] = val
+    if global_timer.enabled and global_timer.acc:
+        log.info("%s", global_timer.report())
+        global_timer.reset()
+    if not keep_training_booster:
+        booster.free_dataset()
     return booster
 
 
-__all__ = ["train"]
+class CVBooster:
+    """The boosters of a cross-validation, one per fold (reference
+    engine.py:280); a method called on it runs on every booster and
+    returns their results as a list."""
+
+    def __init__(self) -> None:
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+
+    def _append(self, booster: Booster) -> None:
+        self.boosters.append(booster)
+
+    def __getattr__(self, name: str):
+        def handler_function(*args, **kwargs):
+            return [getattr(b, name)(*args, **kwargs) for b in self.boosters]
+        return handler_function
+
+
+def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict,
+                  seed: int, fpreproc=None, stratified: bool = True,
+                  shuffle: bool = True, eval_train_metric: bool = False
+                  ) -> CVBooster:
+    """One booster per fold, each on a subset of ``full_data`` with the
+    fold's rows as its validation set: ``folds`` given (index pairs or
+    a scikit-learn splitter), else whole queries per fold when the data
+    has groups, else stratified by label, else plain, all from
+    ``RandomState(seed)`` draws in the JAX package's order."""
+    full_data = full_data.construct()
+    num_data = full_data.num_data()
+    group = full_data.get_group()
+    if folds is not None:
+        if not hasattr(folds, "__iter__") and not hasattr(folds, "split"):
+            raise AttributeError(
+                "folds should be a generator or iterator of (train_idx, "
+                "test_idx) tuples or scikit-learn splitter")
+        if hasattr(folds, "split"):
+            folds = folds.split(X=np.empty(num_data),
+                                y=full_data.get_label(), groups=None)
+    elif group is not None:
+        ng = len(group)
+        rng = np.random.RandomState(seed)
+        gidx = rng.permutation(ng) if shuffle else np.arange(ng)
+        bounds = np.concatenate([[0], np.cumsum(group)]).astype(np.int64)
+        folds = []
+        for part in np.array_split(gidx, nfold):
+            test_idx = (np.concatenate([np.arange(bounds[g], bounds[g + 1])
+                                        for g in sorted(part.tolist())])
+                        if len(part) else np.empty(0, np.int64))
+            folds.append((np.setdiff1d(np.arange(num_data), test_idx),
+                          test_idx))
+    elif stratified:
+        label = full_data.get_label()
+        rng = np.random.RandomState(seed)
+        assign = np.empty(num_data, dtype=np.int64)
+        for c in np.unique(label):
+            rows = np.flatnonzero(label == c)
+            if shuffle:
+                rng.shuffle(rows)
+            assign[rows] = np.arange(len(rows)) % nfold
+        folds = [(np.flatnonzero(assign != k), np.flatnonzero(assign == k))
+                 for k in range(nfold)]
+    else:
+        rng = np.random.RandomState(seed)
+        idx = rng.permutation(num_data) if shuffle else np.arange(num_data)
+        folds = [(np.setdiff1d(np.arange(num_data), p), np.sort(p))
+                 for p in np.array_split(idx, nfold)]
+
+    ret = CVBooster()
+    for train_idx, test_idx in folds:
+        train_sub = full_data.subset(np.sort(train_idx))
+        valid_sub = full_data.subset(np.sort(test_idx))
+        if group is not None:
+            bounds = np.concatenate([[0], np.cumsum(group)]).astype(np.int64)
+            qid = np.searchsorted(bounds, np.arange(num_data),
+                                  side="right") - 1
+            tq, vq = qid[np.sort(train_idx)], qid[np.sort(test_idx)]
+            train_sub.group = np.bincount(tq)[np.unique(tq)]
+            valid_sub.group = np.bincount(vq)[np.unique(vq)]
+        tparams = params
+        if fpreproc is not None:
+            train_sub, valid_sub, tparams = fpreproc(
+                train_sub, valid_sub, copy.deepcopy(params))
+        booster = Booster(tparams, train_sub)
+        if eval_train_metric:
+            booster.add_valid(train_sub, "train")
+        booster.add_valid(valid_sub, "valid")
+        ret._append(booster)
+    return ret
+
+
+def _agg_cv_result(raw_results, eval_train_metric: bool = False):
+    """Per metric across the folds: ("cv_agg", key, mean,
+    is_higher_better, stdv)."""
+    cvmap = collections.OrderedDict()
+    metric_type = {}
+    for one_result in raw_results:
+        for one_line in one_result:
+            key = (f"{one_line[0]} {one_line[1]}" if eval_train_metric
+                   else one_line[1])
+            metric_type[key] = one_line[3]
+            cvmap.setdefault(key, []).append(one_line[2])
+    return [("cv_agg", k, float(np.mean(v)), metric_type[k],
+             float(np.std(v))) for k, v in cvmap.items()]
+
+
+def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
+       folds=None, nfold: int = 5, stratified: bool = True,
+       shuffle: bool = True, metrics=None, fobj=None, feval=None,
+       init_model=None, feature_name="auto", categorical_feature="auto",
+       early_stopping_rounds: Optional[int] = None, fpreproc=None,
+       verbose_eval=None, show_stdv: bool = True, seed: int = 0,
+       callbacks=None, eval_train_metric: bool = False,
+       return_cvbooster: bool = False) -> Dict[str, Any]:
+    """k-fold cross-validation (reference engine.py:394): one booster
+    per fold (``_make_n_folds``), all updated each round; returns
+    {"<metric>-mean": [...], "<metric>-stdv": [...]} per round (plus
+    "cvbooster" with ``return_cvbooster``). ``init_model``,
+    ``feature_name`` and ``categorical_feature`` are accepted and, as
+    in the JAX package, not used."""
+    params = copy.deepcopy(params) if params else {}
+    num_boost_round = _resolve_num_boost_round(params, num_boost_round)
+    early_stopping_rounds = _resolve_early_stopping(params,
+                                                    early_stopping_rounds)
+    first_metric_only = params.get("first_metric_only", False)
+    if fobj is not None:
+        params["objective"] = "none"
+    if metrics is not None:
+        params["metric"] = metrics
+    if params.get("objective") in ("lambdarank", "rank_xendcg"):
+        stratified = False
+
+    results = collections.defaultdict(list)
+    cvfolds = _make_n_folds(train_set, folds, nfold, params, seed, fpreproc,
+                            stratified, shuffle, eval_train_metric)
+    cbs = set(callbacks) if callbacks else set()
+    if early_stopping_rounds is not None and early_stopping_rounds > 0:
+        cbs.add(callback_mod.early_stopping(early_stopping_rounds,
+                                            first_metric_only, verbose=False))
+    if verbose_eval is True:
+        cbs.add(callback_mod.print_evaluation(show_stdv=show_stdv))
+    elif isinstance(verbose_eval, int) and verbose_eval is not False:
+        cbs.add(callback_mod.print_evaluation(verbose_eval, show_stdv))
+    cbs_before, cbs_after = _split_callbacks(cbs)
+
+    def env(i, evals):
+        return callback_mod.CallbackEnv(
+            model=cvfolds, params=params, iteration=i, begin_iteration=0,
+            end_iteration=num_boost_round, evaluation_result_list=evals)
+
+    for i in range(num_boost_round):
+        for cb in cbs_before:
+            cb(env(i, None))
+        for b in cvfolds.boosters:
+            b.update(fobj=fobj)
+        raw = [b.eval_valid(feval)
+               + (b.eval_train(feval) if eval_train_metric else [])
+               for b in cvfolds.boosters]
+        res = _agg_cv_result(raw, eval_train_metric)
+        for _, key, mean, _, std in res:
+            results[f"{key}-mean"].append(mean)
+            results[f"{key}-stdv"].append(std)
+        try:
+            for cb in cbs_after:
+                cb(env(i, res))
+        except callback_mod.EarlyStopException as e:
+            cvfolds.best_iteration = e.best_iteration + 1
+            for bst in cvfolds.boosters:
+                bst.best_iteration = cvfolds.best_iteration
+            for k in results:
+                results[k] = results[k][:cvfolds.best_iteration]
+            break
+    out = dict(results)
+    if return_cvbooster:
+        out["cvbooster"] = cvfolds
+    return out
+
+
+__all__ = ["CVBooster", "cv", "train"]

@@ -22,6 +22,7 @@ finding is not ported yet (ROADMAP A13).
 """
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -63,13 +64,14 @@ def _reject_inf_feature(vals: np.ndarray, names, f: int) -> None:
 
 class Metadata:
     """Per-row training metadata (reference: src/io/metadata.cpp):
-    label, weights, init scores."""
+    label, weights, query boundaries, init scores."""
 
     def __init__(self, num_data: int) -> None:
         self.num_data = num_data
         self.label: Optional[np.ndarray] = None
         self.weights: Optional[np.ndarray] = None
         self.init_score: Optional[np.ndarray] = None
+        self.query_boundaries: Optional[np.ndarray] = None
 
     def set_label(self, label: Optional[np.ndarray]) -> None:
         if label is None:
@@ -109,6 +111,24 @@ class Metadata:
             log.fatal("init_score contains non-finite values; scores must "
                       "be finite")
         self.init_score = init_score
+
+    def set_query(self, group: Optional[np.ndarray]) -> None:
+        """``group``: per-query sizes (the reference's group field), kept
+        as boundaries (reference metadata.cpp query_boundaries_)."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        group = np.asarray(group, dtype=np.int64).reshape(-1)
+        if group.sum() != self.num_data:
+            log.fatal("Sum of query counts (%d) != num_data (%d)",
+                      int(group.sum()), self.num_data)
+        self.query_boundaries = np.concatenate(
+            [[0], np.cumsum(group)]).astype(np.int32)
+
+    @property
+    def num_queries(self) -> int:
+        return (0 if self.query_boundaries is None
+                else len(self.query_boundaries) - 1)
 
 
 class BinnedDataset:
@@ -191,6 +211,7 @@ class BinnedDataset:
     def from_matrix(cls, data: np.ndarray, config: Config,
                     label: Optional[np.ndarray] = None,
                     weight: Optional[np.ndarray] = None,
+                    group: Optional[np.ndarray] = None,
                     init_score: Optional[np.ndarray] = None,
                     feature_names: Optional[Sequence[str]] = None,
                     categorical_feature: Optional[Sequence[int]] = None,
@@ -225,6 +246,7 @@ class BinnedDataset:
         ds.metadata = Metadata(n)
         ds.metadata.set_label(label)
         ds.metadata.set_weights(weight)
+        ds.metadata.set_query(group)
         ds.metadata.set_init_score(init_score)
         ds.max_bin = config.max_bin
 
@@ -407,11 +429,119 @@ class BinnedDataset:
         self.occupancy = measure_occupancy(self.bins)
 
     # ------------------------------------------------------------------
-    def create_valid(self, data, label=None, weight=None,
+    def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None) -> "BinnedDataset":
         return BinnedDataset.from_matrix(
-            data, Config(), label=label, weight=weight,
+            data, Config(), label=label, weight=weight, group=group,
             init_score=init_score, reference=self)
+
+    def feature_bins(self) -> np.ndarray:
+        """The per-feature bin matrix [N, F_used] on the host: ``bins``
+        itself without bundling, else each feature's codes decoded out
+        of its bundle column (``Dataset.add_features_from``)."""
+        if self.efb_trivial:
+            return self.bins
+        bt = self.bundles
+        f_used = len(self.bin_mappers)
+        dtype = (np.uint8 if all(m.num_bin <= 256 for m in self.bin_mappers)
+                 else np.uint16)
+        out = np.empty((self.num_data, f_used), dtype=dtype)
+        for f in range(f_used):
+            codes = self.bins[:, bt.group_of[f]].astype(np.int32)
+            rel = codes - bt.offset_of[f]
+            inband = (rel >= 0) & (rel < bt.nslots_of[f])
+            dec = rel + (rel >= bt.skip_of[f])
+            out[:, f] = np.where(inband, dec, bt.skip_of[f]).astype(dtype)
+        return out
+
+    # --- binary file (reference Dataset::SaveBinaryFile, dataset.cpp:890)
+    def save_binary(self, filename: str) -> None:
+        """The JAX package's ``LGTPU1`` file: a JSON header (mappers,
+        bundle groups, the codes' dtype), then the [N, G] bin codes
+        every device layout is built from (the planar code planes and
+        the multi-value slot planes alike), then the metadata."""
+        header = {
+            "num_data": self.num_data,
+            "num_total_features": self.num_total_features,
+            "real_feature_index": self.real_feature_index,
+            "feature_names": self.feature_names,
+            "max_bin": self.max_bin,
+            "monotone_constraints": self._monotone_constraints,
+            "bin_mappers": [m.to_dict() for m in self.bin_mappers],
+            "bundle_groups": None if self.efb_trivial else self.bundles.groups,
+            "bins_dtype": str(self.bins.dtype),
+            "has_label": self.metadata.label is not None,
+            "has_weights": self.metadata.weights is not None,
+            "has_query": self.metadata.query_boundaries is not None,
+            "has_init_score": self.metadata.init_score is not None,
+        }
+        md = self.metadata
+        with open(filename, "wb") as fh:
+            hdr = json.dumps(header).encode()
+            fh.write(b"LGTPU1\n")
+            fh.write(len(hdr).to_bytes(8, "little"))
+            fh.write(hdr)
+            fh.write(self.bins.tobytes())
+            if md.label is not None:
+                fh.write(md.label.astype(np.float32).tobytes())
+            if md.weights is not None:
+                fh.write(md.weights.astype(np.float32).tobytes())
+            if md.query_boundaries is not None:
+                qb = md.query_boundaries.astype(np.int32)
+                fh.write(len(qb).to_bytes(8, "little"))
+                fh.write(qb.tobytes())
+            if md.init_score is not None:
+                isc = md.init_score.astype(np.float64)
+                fh.write(len(isc).to_bytes(8, "little"))
+                fh.write(isc.tobytes())
+
+    @classmethod
+    def load_binary(cls, filename: str) -> "BinnedDataset":
+        """A dataset from a ``save_binary`` file (either package's)."""
+        with open(filename, "rb") as fh:
+            if fh.readline() != b"LGTPU1\n":
+                log.fatal("%s is not a lightgbm_tpu binary dataset file",
+                          filename)
+            hdr_len = int.from_bytes(fh.read(8), "little")
+            header = json.loads(fh.read(hdr_len).decode())
+            ds = cls()
+            ds.num_data = n = header["num_data"]
+            ds.num_total_features = header["num_total_features"]
+            ds.real_feature_index = list(header["real_feature_index"])
+            ds.inner_feature_index = {f: i for i, f in
+                                      enumerate(ds.real_feature_index)}
+            ds.feature_names = list(header["feature_names"])
+            ds.max_bin = header["max_bin"]
+            ds._monotone_constraints = list(header["monotone_constraints"])
+            ds.bin_mappers = [BinMapper.from_dict(d)
+                              for d in header["bin_mappers"]]
+            groups = header.get("bundle_groups")
+            if groups:
+                ds.bundles = BundleTables(
+                    [list(g) for g in groups],
+                    [m.num_bin for m in ds.bin_mappers],
+                    [m.most_freq_bin for m in ds.bin_mappers])
+            dtype = np.dtype(header["bins_dtype"])
+            g = len(groups) if groups else len(ds.bin_mappers)
+            ds.bins = np.frombuffer(fh.read(n * g * dtype.itemsize),
+                                    dtype=dtype).reshape(n, g).copy()
+            ds.metadata = md = Metadata(n)
+
+            def read(dt, count):
+                return np.frombuffer(fh.read(np.dtype(dt).itemsize * count),
+                                     dtype=dt).copy()
+            if header["has_label"]:
+                md.label = read(np.float32, n)
+            if header["has_weights"]:
+                md.weights = read(np.float32, n)
+            if header["has_query"]:
+                md.query_boundaries = read(
+                    np.int32, int.from_bytes(fh.read(8), "little"))
+            if header["has_init_score"]:
+                md.init_score = read(
+                    np.float64, int.from_bytes(fh.read(8), "little"))
+        ds._measure_occupancy()
+        return ds
 
     def monotone_constraint(self, inner_feature: int) -> int:
         if not self._monotone_constraints:

@@ -147,6 +147,55 @@ def _fuses_hoo(cfg: SplitConfig, site: str) -> bool:
     return False
 
 
+# The L1 multiply-add sites at 16 bins or fewer, by program and by the
+# config's set of the options that move them: clamp (max_delta_step),
+# smooth (path_smooth), mono (monotone constraints), l2 (lambda_l2),
+# quant (quantized gradients, which only the root scan dequantizes in
+# its fusion). Each entry lists the option sets whose sites are the
+# key's (forward left, forward right, reverse left, reverse right), 1
+# where (h + l2)·o·o is fused; "-" is L1 alone. Read off the dumped IR
+# (C9) and fitted per program against the JAX trees node by node (C11);
+# every set of up to three options is held bit for bit by the slow
+# ``test_option_combinations_bit_equal`` sweep (ROADMAP §C).
+_L1_SITES = {
+    "host": {
+        "1011": "- l2",
+        "1000": "mono+l2 clamp+mono+l2",
+        "0011": "clamp smooth clamp+smooth clamp+l2",
+        "0010": "smooth+l2 clamp+smooth+l2",
+        "0000": "mono clamp+mono smooth+mono clamp+smooth+mono "
+                "smooth+mono+l2 clamp+smooth+mono+l2",
+    },
+    "pair": {
+        "1011": "-",
+        "1000": "mono+l2 clamp+mono+l2",
+        "0011": "clamp",
+        "0010": "smooth clamp+smooth",
+        "0000": "mono l2 clamp+mono clamp+l2 smooth+mono smooth+l2 "
+                "clamp+smooth+mono clamp+smooth+l2 smooth+mono+l2 "
+                "clamp+smooth+mono+l2",
+    },
+    "root": {
+        "1011": "- mono l2 clamp+mono smooth+mono mono+l2 "
+                "clamp+smooth+mono clamp+mono+l2",
+        "0011": "clamp smooth clamp+smooth clamp+l2 clamp+quant "
+                "smooth+quant clamp+smooth+quant clamp+mono+quant "
+                "clamp+l2+quant smooth+mono+quant smooth+l2+quant "
+                "clamp+smooth+mono+quant clamp+smooth+l2+quant",
+        "0010": "smooth+l2 clamp+smooth+l2 smooth+mono+l2 "
+                "clamp+smooth+mono+l2",
+        "0000": "quant mono+quant l2+quant mono+l2+quant "
+                "clamp+mono+l2+quant smooth+mono+l2+quant "
+                "clamp+smooth+mono+l2+quant",
+    },
+}
+_L1_SITE_TABLE = {
+    (program, frozenset(o for o in opts.split("+") if o != "-")):
+        ((bits[0] == "1", bits[1] == "1"), (bits[2] == "1", bits[3] == "1"))
+    for program, rows in _L1_SITES.items()
+    for bits, sets in rows.items() for opts in sets.split()}
+
+
 def scan_sites(cfg: SplitConfig, num_bins: int, forward_folded: bool = False,
                program: str = "host", quantized: bool = False):
     """The numerical scans' multiply-add sites in a jitted scan over
@@ -155,44 +204,35 @@ def scan_sites(cfg: SplitConfig, num_bins: int, forward_folded: bool = False,
     (h + l2)·o·o into the gain's add (LLVM contracts the add's first
     operand, whose order its Reassociate ranks set per fusion). Read off
     the JAX programs' dumped IR (``*.ir-with-opt.ll``) and held bit for
-    bit against both learners (ROADMAP §C, C2, C4, C7, C9).
+    bit against both learners (ROADMAP §C, C2, C4, C7, C9, C11).
 
     ``forward_folded``: XLA folds the forward scan away, as in the host
     loop's program when no feature takes two scans: 2·g·o everywhere.
     Above 16 bins the bin count decides: the reverse scan of the plain
     config (no L1, clamp, smoothing or monotone constraint) puts
     (h + l2)·o·o first from 64 bins, every other term 2·g·o. Up to 16
-    bins, 2·g·o everywhere without L1; under L1 each fusion has its own
-    order. ``program``: "host" (the host loop's split program), "root"
-    or "pair" (the fused learner's root scan and two-leaf scan, two
-    fusions of one program); ``quantized``: the fused program
-    dequantizes the histogram inside the scan's fusion."""
+    bins, 2·g·o everywhere without L1; under L1 the sites of the
+    config's option set in its program, ``_L1_SITES``. ``program``:
+    "host" (the host loop's split program), "root" or "pair" (the fused
+    learner's root scan and two-leaf scan, two fusions of one program);
+    ``quantized``: the fused program dequantizes the histogram inside
+    the scan's fusion."""
     none = (False, False)
     if forward_folded:
         return none, none
     if num_bins > 16:
         plain = not (cfg.lambda_l1 > 0 or cfg.max_delta_step > 0
                      or cfg.path_smooth > K_EPSILON or cfg.use_monotone)
-        rev = num_bins >= 64 and plain
+        rev = num_bins >= _SCAN_FUSION_BINS and plain
         return none, (rev, rev)
     if not cfg.lambda_l1 > 0:
         return none, none
-    clamp = cfg.max_delta_step > 0
-    smooth = cfg.path_smooth > K_EPSILON
-    # the L1 orders: the reverse scan (h + l2)·o·o in both terms, the
-    # forward scan in its left term only, unless a row below says
-    # otherwise
-    fwd, rev = (True, False), (True, True)
-    if program == "root" and quantized:
-        fwd, rev = none, none
-    elif program != "root" and (cfg.use_monotone or (
-            program == "pair" and cfg.lambda_l2 > 0)):
-        fwd, rev = none, none
-    elif not cfg.use_monotone and (clamp or smooth):
-        fwd = none
-        if smooth and program == "pair":
-            rev = (True, False)
-    return fwd, rev
+    opts = {name for name, on in (
+        ("clamp", cfg.max_delta_step > 0),
+        ("smooth", cfg.path_smooth > K_EPSILON),
+        ("mono", cfg.use_monotone), ("l2", cfg.lambda_l2 > 0),
+        ("quant", quantized and program == "root")) if on}
+    return _L1_SITE_TABLE[program, frozenset(opts)]
 
 
 def leaf_gain(g, h, cnt, cfg: SplitConfig, parent_output):
@@ -275,11 +315,17 @@ def _round_int(x):
     return torch.floor(x + 0.5).to(torch.int32)
 
 
+# from this bin count the JAX programs scan each feature in a fusion of
+# their own shape: the reverse scan's (h + l2)·o·o site of the plain
+# config (``scan_sites``) and the hoisted leaf totals (``sum_levels``)
+_SCAN_FUSION_BINS = 64
+
+
 def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
                          cfg: SplitConfig, sum_g, sum_h, num_data,
                          parent_output, cmin, cmax, rand_thresholds=None,
                          forward_folded=False, program="host",
-                         quantized=False):
+                         quantized=False, sum_levels=None):
     """Best numerical split per feature.
 
     hist: [..., F, B, 2]; sum_g / sum_h (WITHOUT the epsilon bias) /
@@ -288,10 +334,19 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     ``cfg.extra_trees`` the one threshold bin each feature may split at
     (reference USE_RAND). ``forward_folded``: the program's forward
     scan is folded away; ``program`` / ``quantized``: the JAX program
-    whose multiply-add sites to take (``scan_sites``). Returns a dict of
-    [..., F]
-    tensors.
+    whose multiply-add sites to take (``scan_sites``).
+    ``sum_levels``: (grad level total, grad scale, hess level total,
+    hess scale) as float32 leaf scalars when the leaf totals are the
+    products of an integer histogram's totals and the scales, as in the
+    fused learner's quantized root scan. Below 64 bins the JAX program
+    computes each product inside the scan fusion's loop, where LLVM
+    contracts it into the subtraction that follows (sum_g - x as one
+    FMA, sum_h + 2·eps as another); from 64 bins a differently shaped
+    fusion hoists the product out of the loop, rounded (ROADMAP §C,
+    C10). Returns a dict of [..., F] tensors.
     """
+    if hist.shape[-2] >= _SCAN_FUSION_BINS:
+        sum_levels = None
     b_dim = hist.shape[-2]
     dev = hist.device
 
@@ -300,6 +355,15 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
 
     sum_g2, num2 = e2(sum_g), e2(num_data)
     sh2 = e2(sum_h) + 2 * K_EPSILON
+    if sum_levels is None:
+        def g_less(x):          # sum_g - x
+            return sum_g2 - x
+    else:
+        lg_tot, g_scale, lh_tot, h_scale = (e2(v) for v in sum_levels)
+
+        def g_less(x):
+            return fma_f32(g_scale, lg_tot, -x)
+        sh2 = fma_f32(h_scale, lh_tot, 2 * K_EPSILON)
     po2, cmin2, cmax2 = e2(parent_output), e2(cmin), e2(cmax)
     bin_ar = torch.arange(b_dim, dtype=torch.int32, device=dev)[None, :]
     nb = meta.num_bin[:, None]                                    # [F,1]
@@ -332,7 +396,7 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
 
     def eval_dir(lg, lh, lcnt, thr_invalid, sites):
         lh_eff = lh + K_EPSILON
-        rg = sum_g2 - lg
+        rg = g_less(lg)
         rh = sh2 - lh_eff
         rcnt = num2 - lcnt
         ok = (thr_ok & ~thr_invalid
@@ -364,7 +428,7 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     r_rg = tot_g - cl_g
     r_rh = tot_h - cl_h + K_EPSILON
     r_rcnt = tot_cnt - cl_cnt
-    r_lg = sum_g2 - r_rg
+    r_lg = g_less(r_rg)
     r_lh = sh2 - r_rh - K_EPSILON          # eval_dir re-adds K_EPSILON
     r_lcnt = num2 - r_rcnt
     r_res = eval_dir(r_lg, r_lh, r_lcnt, zero_mode & (bin_ar == miss_bin - 1),
@@ -390,6 +454,12 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     sum_g1 = torch.as_tensor(sum_g, device=dev)[..., None]
     sum_h1 = torch.as_tensor(sum_h, device=dev)[..., None]
     num1 = torch.as_tensor(num_data, device=dev)[..., None]
+    right_g, right_h = sum_g1 - lg, sum_h1 + K_EPSILON - lh
+    if sum_levels is not None:
+        lg_tot, g_scale, lh_tot, h_scale = (torch.as_tensor(
+            v, device=dev)[..., None] for v in sum_levels)
+        right_g = fma_f32(g_scale, lg_tot, -lg)
+        right_h = fma_f32(h_scale, lh_tot, K_EPSILON) - lh
     gain_out = torch.where(found, (best_gain - min_gain_shift[..., 0])
                            * meta.penalty, K_MIN_SCORE)
     return {
@@ -400,8 +470,8 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
         "left_sum_hessian": lh - K_EPSILON,
         "left_count": lcnt,
         "left_output": out_l,
-        "right_sum_gradient": sum_g1 - lg,
-        "right_sum_hessian": sum_h1 + K_EPSILON - lh,
+        "right_sum_gradient": right_g,
+        "right_sum_hessian": right_h,
         "right_count": num1 - lcnt,
         "right_output": out_r,
         "found": found,

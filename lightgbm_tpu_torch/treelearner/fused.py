@@ -61,6 +61,13 @@ permutation and packed, the tree grows on the bag's lanes only, and
 every row's leaf (out-of-bag rows included) comes from bin-space
 traversal of the new tree.
 
+Forced splits (``forcedsplits_filename``) run first in every tree: a
+breadth-first schedule of (leaf slot, feature, threshold bin) built on
+the host once (``_forced_schedule``), each split's sums taken from its
+leaf's pooled histogram (``_forced_phase``), then the same partition,
+histogram and scans as a gain-driven split; the first skipped split
+ends the phase.
+
 The state is updated IN PLACE (partition, grad/hess and score writes);
 the JAX package keeps it immutable and donates it instead.
 """
@@ -83,6 +90,8 @@ from ..ops import quantize as Q
 from ..ops import split as S
 from ..ops import threefry
 from ..ops.xla_float import f32_value, fma_f32
+from ..utils import log
+from .serial import _load_forced_splits
 
 NEG_INF = float("-inf")
 
@@ -144,15 +153,6 @@ def fused_reject_reason(config: Config, dataset: BinnedDataset,
                     "refit outside the persistent path)")
     if dataset.num_features == 0:
         return "dataset has no usable features"
-    return None
-
-
-def port_reject_reason(config: Config, dataset: BinnedDataset,
-                       objective) -> Optional[str]:
-    """What the JAX package trains (on either learner) but the port does
-    not yet, each with the ROADMAP item that brings it."""
-    if config.forcedsplits_filename:
-        return "forcedsplits_filename (forced splits, ROADMAP A5)"
     return None
 
 
@@ -284,6 +284,7 @@ class FusedSerialGrower:
         self._use_hist_pool = pool_mb <= 0 or need <= pool_mb * 1024 * 1024
         self._col_rng = np.random.RandomState(config.feature_fraction_seed)
         self._mask_ones = None
+        self._forced_sched = self._forced_schedule(config, dataset)
         # quantized-gradient training: the grad plane carries packed
         # (qg << 16 | qh) words and the histogram pool exact int32 level
         # sums; a host-side iteration counter picks each iteration's
@@ -295,6 +296,85 @@ class FusedSerialGrower:
                                 if self._quant else None)
         # blocking host reads (device -> host) taken by the learner
         self.syncs = 0
+
+    def _forced_schedule(self, config: Config, dataset: BinnedDataset):
+        """The user's forced splits as a breadth-first schedule of (leaf
+        slot, inner feature, threshold bin), built on the host (the JAX
+        package's, reference ForceSplits, serial_tree_learner.cpp:427):
+        the slots replay the learner's slot assignment (the split leaf
+        keeps its slot, the right child takes slot n_leaves); the
+        threshold bin is ``value_to_bin`` clamped to num_bin - 2. None
+        without forced splits."""
+        if not config.forcedsplits_filename:
+            return None
+        forced = _load_forced_splits(config.forcedsplits_filename)
+        sched = []
+        queue = [(forced, 0)] if forced is not None else []
+        nl = 1
+        while queue and nl < self.num_leaves:
+            node, slot = queue.pop(0)
+            rf = node.get("feature")
+            if rf is None:
+                continue
+            inner = dataset.inner_feature_index.get(int(rf))
+            if inner is None:
+                log.warning("Forced split on unused feature %s ignored", rf)
+                continue
+            m = dataset.bin_mappers[inner]
+            tb = int(m.value_to_bin(float(node["threshold"])))
+            sched.append((slot, inner, max(0, min(tb, m.num_bin - 2))))
+            right_slot = nl
+            nl += 1
+            if isinstance(node.get("left"), dict):
+                queue.append((node["left"], slot))
+            if isinstance(node.get("right"), dict):
+                queue.append((node["right"], right_slot))
+        return sched or None
+
+    def _forced_phase(self, split, pool, leaf_f, leaf_i, qscales) -> None:
+        """The forced splits of one tree, before the gain-driven loop
+        (the JAX package's ``forced_step``): each scheduled split's left
+        sums come from the pooled histogram of its leaf at the forced
+        feature, its children's outputs from ``_calc_output``, its gain
+        is 0.0 and its default direction right. One read per split
+        brings the verdict and the leaf's window; the first split
+        skipped (an empty side by hessian mass, or an empty leaf) ends
+        the phase, since the later slots assumed it. The schedule holds
+        at most num_leaves - 1 splits and each adds one leaf, so the
+        JAX package's leaf-count check always passes here."""
+        dev = self.device
+        f32, i32, i64 = torch.float32, torch.int32, torch.int64
+        eps = S.K_EPSILON
+        cfg = self.split_cfg
+        for leaf, feat, thr in self._forced_sched:
+            hist = pool[leaf, feat]                                # [B, 2]
+            if qscales is not None:
+                # the scans' int -> float32 boundary
+                hist = S.dequantize_hist(hist, qscales[0], qscales[1])
+            bidx = torch.arange(hist.shape[0], device=dev)
+            sel = bidx <= thr
+            miss = int(self.miss_bin_np[feat])
+            if miss >= 0:
+                sel = sel & (bidx != miss)
+            lg, lh = S.xla_sum((sel.to(f32)[:, None] * hist).t())
+            sum_g, sum_h = leaf_f[0, leaf], leaf_f[1, leaf]
+            rg, rh = sum_g - lg, sum_h - lh
+            cnt = leaf_i[1, leaf]
+            cntf = cnt.to(f32) / (sum_h + 2 * eps)
+            lcnt = torch.floor(fma_f32(lh, cntf, 0.5)).to(i32)
+            out = [S._calc_output(g_, h_ + eps, c_, cfg, leaf_f[2, leaf],
+                                  leaf_f[3, leaf], leaf_f[4, leaf])
+                   for g_, h_, c_ in ((lg, lh, lcnt), (rg, rh, cnt - lcnt))]
+            rec = torch.stack([torch.zeros((), dtype=f32, device=dev),
+                               lg, lh, out[0], rg, rh, out[1]])
+            rec_i = torch.zeros(4 + plane.CAT_WORDS, dtype=i32, device=dev)
+            rec_i[0], rec_i[1] = feat, thr
+            ok = (lh > 1e-9) & (rh > 1e-9) & (cnt > 0)
+            ok, start, count = self._read(torch.stack(
+                [ok.to(i64), leaf_i[0, leaf].to(i64), cnt.to(i64)]))
+            if not ok:
+                return
+            split(leaf, start, count, 0, rec, rec_i)
 
     # ------------------------------------------------------------------
     def _read(self, t: torch.Tensor) -> list:
@@ -346,7 +426,7 @@ class FusedSerialGrower:
                                 flat[-1, 1])
 
     def _scan(self, hist, sum_g, sum_h, count, output, cmin, cmax, mask,
-              qscales=None, program="pair"):
+              qscales=None, program="pair", sum_levels=None):
         """Best split of K leaves at once (JAX _scan_leaf /
         _scan_two_leaves). All arguments have a leading [K] axis; returns
         (rec_f [7, K] f32: gain, lg, lh, lout, rg, rh, rout;
@@ -356,13 +436,16 @@ class FusedSerialGrower:
         ``hist`` holds int32 level sums — the scan itself runs in
         float32. ``program``: the root scan ("root") or the two-leaf scan
         ("pair"), two fusions of the JAX program with their own
-        multiply-add sites (``S.scan_sites``)."""
+        multiply-add sites (``S.scan_sites``). ``sum_levels``: the leaf
+        totals as level totals and scales (``S.numerical_split_scan``).
+        """
         if qscales is not None:
             hist = S.dequantize_hist(hist, qscales[0], qscales[1])
         res = S.numerical_split_scan(hist, self.meta, self.split_cfg,
                                      sum_g, sum_h, count, output, cmin, cmax,
                                      program=program,
-                                     quantized=qscales is not None)
+                                     quantized=qscales is not None,
+                                     sum_levels=sum_levels)
         if self.any_categorical:
             res = S.merge_categorical(res, hist, self.meta, self.split_cfg,
                                       sum_g, sum_h, count, output, cmin,
@@ -443,16 +526,20 @@ class FusedSerialGrower:
         # leaf totals from feature 0's bins: exact integer sums times the
         # scales, or float32 sums in the JAX package's (XLA's) order —
         # the same bits on the card and the CPU
+        levels = None
         if qscales is not None:
-            sum_g = root_hist[0, :, 0].sum().to(f32) * qscales[0]
-            sum_h = root_hist[0, :, 1].sum().to(f32) * qscales[1]
+            lev_g, lev_h = root_hist[0].sum(dim=0).to(f32)
+            sum_g, sum_h = lev_g * qscales[0], lev_h * qscales[1]
+            levels = tuple(v[None] for v in (lev_g, qscales[0], lev_h,
+                                             qscales[1]))
         else:
             sum_g, sum_h = S.xla_sum(root_hist[0].t())
         one = torch.ones(1, dtype=f32, device=dev)
         rf, ri = self._scan(root_hist[None], sum_g[None], sum_h[None],
                             torch.full((1,), n, dtype=i32, device=dev),
                             0.0 * one, NEG_INF * one, -NEG_INF * one,
-                            root_mask[None], qscales, program="root")
+                            root_mask[None], qscales, program="root",
+                            sum_levels=levels)
 
         best_f = torch.zeros((7, L), dtype=f32, device=dev)
         best_f[0] = NEG_INF
@@ -488,18 +575,13 @@ class FusedSerialGrower:
         leaf_depth = np.zeros(L, np.int32)
 
         n_leaves = 1
-        while n_leaves < L:
-            gains = best_f[0]
-            if depth_ok is not None:
-                gains = torch.where(depth_ok, gains, NEG_INF)
-            best = torch.argmax(gains)
-            probe = torch.stack([best, (gains[best] > 0.0).to(torch.int64),
-                                 leaf_i[0, best].to(torch.int64),
-                                 leaf_i[1, best].to(torch.int64),
-                                 best_i[3, best].to(torch.int64)])
-            leaf, cont, start, count, is_cat = self._read(probe)
-            if not cont:
-                break
+
+        def split(leaf, start, count, is_cat, rec, rec_i):
+            """Split ``leaf`` (window ``start``, ``count``) by the record
+            rec (f32 [7]: gain, lg, lh, lout, rg, rh, rout) / rec_i (i32:
+            feature, threshold bin, default_left, is_cat, 8 bitset words)
+            and scan both children (the JAX package's ``body``)."""
+            nonlocal data, n_leaves
             node, new = n_leaves - 1, n_leaves
 
             parent = leaf_parent[leaf]
@@ -511,18 +593,17 @@ class FusedSerialGrower:
             t_left[node] = ~leaf
             t_right[node] = ~new
             t_i[0, node] = leaf_i[1, leaf]
-            t_i[1:, node] = best_i[:, leaf]
-            t_f[0, node] = best_f[0, leaf]
+            t_i[1:, node] = rec_i
+            t_f[0, node] = rec[0]
             t_f[1, node] = leaf_f[2, leaf]
             t_f[2, node] = leaf_f[1, leaf]
 
             # --- partition the leaf's window in place ---
-            feat = best_i[0, leaf]
-            cat_route = ({"is_cat": best_i[3, leaf],
-                          "cat_bitset": best_i[4:, leaf]}
+            feat = rec_i[0]
+            cat_route = ({"is_cat": rec_i[3], "cat_bitset": rec_i[4:]}
                          if self.any_categorical else {})
             rscal = plane.route_scalars(
-                self.layout, feat, best_i[1, leaf], best_i[2, leaf],
+                self.layout, feat, rec_i[1], rec_i[2],
                 self.feature_miss_bin[feat], self._efb_dev, device=dev,
                 **cat_route)
             data, nleft = plane.partition(data, self.layout, start, count,
@@ -535,7 +616,6 @@ class FusedSerialGrower:
                                          max_count=count)
 
             # --- children bookkeeping ---
-            rec = best_f[:, leaf]
             leaf_i[0, new] = start + nleft
             leaf_i[1, leaf] = nleft
             leaf_i[1, new] = nright
@@ -593,6 +673,23 @@ class FusedSerialGrower:
             best_i[:, leaf] = ri[:, 0]
             best_i[:, new] = ri[:, 1]
             n_leaves += 1
+
+        if self._forced_sched is not None:
+            self._forced_phase(split, pool, leaf_f, leaf_i, qscales)
+        while n_leaves < L:
+            gains = best_f[0]
+            if depth_ok is not None:
+                gains = torch.where(depth_ok, gains, NEG_INF)
+            best = torch.argmax(gains)
+            probe = torch.stack([best, (gains[best] > 0.0).to(torch.int64),
+                                 leaf_i[0, best].to(torch.int64),
+                                 leaf_i[1, best].to(torch.int64),
+                                 best_i[3, best].to(torch.int64)])
+            leaf, cont, start, count, is_cat = self._read(probe)
+            if not cont:
+                break
+            split(leaf, start, count, is_cat, best_f[:, leaf].clone(),
+                  best_i[:, leaf].clone())
 
         k, ni = n_leaves, n_leaves - 1
         renew = (self.objective.persistent_renew_spec()

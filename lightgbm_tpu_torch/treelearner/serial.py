@@ -25,8 +25,13 @@ tree's gradients once (ops/quantize.py, the JAX package's threefry keys);
 the leaf histograms then run the kernels' int32 modes, the pool and the
 subtraction stay exact, and ``dequantize_hist`` runs at the split scan.
 With ``quant_train_renew_leaf`` the leaf values are refit from the float
-gradient sums. Forced splits (ROADMAP A5) are not ported; the booster
-refuses them before a grower is built.
+gradient sums.
+
+Forced splits (``forcedsplits_filename``, reference
+SerialTreeLearner::ForceSplits) run breadth-first before the best-first
+loop: each takes its leaf's pooled histogram of the forced feature to
+the host in one read and sums the left side there in float64, as the
+JAX package does.
 """
 from __future__ import annotations
 
@@ -160,6 +165,9 @@ class SerialTreeGrower:
         self._quant = bool(config.use_quantized_grad)
         self._qscales = None
         self._quant_tree_idx = 0
+        self._qscales_host = None
+        self._forced_splits = _load_forced_splits(
+            config.forcedsplits_filename)
         # blocking device -> host reads taken by the learner
         self.syncs = 0
 
@@ -330,15 +338,19 @@ class SerialTreeGrower:
             gsh, hsh, sg, sh = self._read(torch.stack(
                 [gs.to(torch.float64), hs.to(torch.float64),
                  *root.hist[0].sum(dim=0).to(torch.float64)]))
+            self._qscales_host = (gsh, hsh)
             root.sum_g, root.sum_h = sg * gsh, sh * hsh
         else:
             root.sum_g, root.sum_h = self._read(S.xla_sum(root.hist[0].t()))
         leaves: Dict[int, _Leaf] = {0: root}
-        root.best = self._compute_best(
-            root, tree_mask, set() if self._interaction_sets else None,
-            rand_thr)
-        if not self._keep_hists:
-            root.hist = None
+        if self._forced_splits is not None:
+            perm = self._apply_forced_splits(tree, leaves, perm, grad, hess)
+        for leaf in leaves.values():
+            leaf.best = self._compute_best(
+                leaf, tree_mask, set() if self._interaction_sets else None,
+                rand_thr)
+            if not self._keep_hists:
+                leaf.hist = None
 
         for _ in range(cfg.num_leaves - 1 - tree.num_nodes):
             # pick the globally-best leaf (reference ArgMax at :188)
@@ -599,6 +611,88 @@ class SerialTreeGrower:
         if self._cegb_enabled:
             self._cegb_coupled_used[fi] = True
         return new_perm
+
+    def _apply_forced_splits(self, tree: Tree, leaves: Dict[int, _Leaf],
+                             perm, grad, hess):
+        """Apply the user's forced splits breadth-first before the
+        best-first loop (reference SerialTreeLearner::ForceSplits,
+        serial_tree_learner.cpp:427; the sums at a fixed threshold as in
+        GatherInfoForThreshold, feature_histogram.hpp:515), as the JAX
+        package's ``_apply_forced_splits``: the leaf's histogram of the
+        forced feature comes to the host in one read and its left side
+        is summed there in float64. Returns the new permutation."""
+        cfg = self.config
+        eps = S.K_EPSILON
+        q = [(self._forced_splits, 0)]
+        while q and tree.num_leaves < cfg.num_leaves:
+            node, lid = q.pop(0)
+            real_f = node.get("feature")
+            if real_f is None:
+                continue
+            inner = self.dataset.inner_feature_index.get(int(real_f))
+            if inner is None:
+                log.warning("Forced split on unused feature %s ignored",
+                            real_f)
+                continue
+            leaf = leaves[lid]
+            mapper = self.dataset.bin_mappers[inner]
+            thr_bin = int(mapper.value_to_bin(float(node["threshold"])))
+            thr_bin = max(0, min(thr_bin, mapper.num_bin - 2))
+            if leaf.hist is None:       # the pool-capped mode dropped it
+                leaf.hist = self._leaf_hist(perm, leaf.start, leaf.count,
+                                            grad, hess)
+            hist = np.asarray(self._read(leaf.hist[inner].to(torch.float64)),
+                              dtype=np.float64)                  # [B, 2]
+            if self._quant:
+                # level sums -> float units, as leaf.sum_g / sum_h
+                hist = hist * np.asarray(self._qscales_host, np.float64)
+            miss = int(self.feature_miss_bin[inner])
+            sel = np.arange(hist.shape[0]) <= thr_bin
+            if miss >= 0:
+                sel = sel & (np.arange(hist.shape[0]) != miss)
+            lg = float(hist[sel, 0].sum())
+            lh = float(hist[sel, 1].sum()) + eps
+            rg = leaf.sum_g - lg
+            rh = leaf.sum_h + 2 * eps - lh
+            cnt_factor = leaf.count / (leaf.sum_h + 2 * eps)
+            lcnt = int(np.floor(hist[sel, 1].sum() * cnt_factor + 0.5))
+            l1, l2 = cfg.lambda_l1, cfg.lambda_l2
+
+            def out(g, h):
+                s = np.sign(g) * max(0.0, abs(g) - l1) if l1 > 0 else g
+                return -s / (h + l2)
+
+            leaf.best = {
+                "feature": inner, "gain": 0.0, "threshold": thr_bin,
+                "default_left": False,
+                "left_sum_gradient": lg, "left_sum_hessian": lh - eps,
+                "left_count": lcnt, "left_output": out(lg, lh),
+                "right_sum_gradient": rg, "right_sum_hessian": rh - eps,
+                "right_count": leaf.count - lcnt,
+                "right_output": out(rg, rh),
+            }
+            right_leaf = tree.num_leaves    # the id Tree.split assigns
+            perm = self._split_leaf(tree, leaves, lid, perm, grad, hess,
+                                    np.ones(self.num_features, dtype=bool),
+                                    None)
+            if isinstance(node.get("left"), dict):
+                q.append((node["left"], lid))
+            if isinstance(node.get("right"), dict):
+                q.append((node["right"], right_leaf))
+        return perm
+
+
+def _load_forced_splits(filename: str):
+    """The forcedsplits_filename JSON (reference serial_tree_learner
+    constructor, serial_tree_learner.cpp:36-44), or None."""
+    if not filename:
+        return None
+    try:
+        with open(filename) as fh:
+            return json.load(fh)
+    except (OSError, ValueError) as e:
+        log.warning("Cannot load forced splits from %s: %s", filename, e)
+        return None
 
 
 def _parse_interaction_constraints(spec, dataset: BinnedDataset):

@@ -841,3 +841,107 @@ def test_rf_model_on_card_equals_cpu():
             preds.append((m.predict(X, raw_score=True), m.predict(X)))
         for a, c in zip(*preds):
             assert np.array_equal(a, c)
+
+
+def _card_and_cpu_models(params, X, y, rounds=3, **train_kw):
+    """The same training on the card and on the CPU: (models, booster)
+    per device."""
+    import lightgbm_tpu_torch as lgt
+    out = []
+    for dev in ("cuda", "cpu"):
+        b = lgt.train({"verbose": -1, "tpu_hist_dtype": "float32",
+                       **params, "device_type": dev},
+                      lgt.Dataset(X, label=y, free_raw_data=False),
+                      num_boost_round=rounds, verbose_eval=False,
+                      **{k: (v(dev) if callable(v) else v)
+                         for k, v in train_kw.items()})
+        out.append((b._gbdt.models, b))
+    return out
+
+
+def _assert_same_models(tg, tc):
+    assert len(tg) == len(tc)
+    for a, b in zip(tg, tc):
+        k = a.num_leaves
+        assert k == b.num_leaves
+        for f in ("split_feature", "threshold", "split_gain"):
+            assert np.array_equal(getattr(a, f)[:k - 1],
+                                  getattr(b, f)[:k - 1]), f
+        assert np.array_equal(a.leaf_value[:k], b.leaf_value[:k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {}, {"bagging_fraction": 0.8, "bagging_freq": 1},
+    {"use_quantized_grad": True}, {"tpu_fused": False}],
+    ids=["persistent", "bagging", "quantized", "host_loop"])
+def test_forced_splits_on_card_equal_cpu(extra, tmp_path):
+    """Forced splits on the card (the fused forced phase through B2 and
+    B1, or the host loop's B4) against the CPU, bit for bit."""
+    _need_card()
+    import json
+    rng = np.random.RandomState(6)
+    X = rng.randn(30_000, 10)
+    y = (X[:, 0] + X[:, 3] * X[:, 4] + rng.randn(30_000) > 0
+         ).astype(np.float32)
+    path = str(tmp_path / "forced.json")
+    with open(path, "w") as fh:
+        json.dump({"feature": 3, "threshold": 0.0,
+                   "left": {"feature": 4, "threshold": 0.5},
+                   "right": {"feature": 0, "threshold": -0.25}}, fh)
+    (tg, bg), (tc, bc) = _card_and_cpu_models(
+        {"objective": "binary", "num_leaves": 63,
+         "forcedsplits_filename": path, **extra}, X, y)
+    _assert_same_models(tg, tc)
+    assert all(list(t.split_feature[:3]) == [3, 4, 0] for t in tg)
+    assert np.array_equal(bg.predict(X, raw_score=True),
+                          bc.predict(X, raw_score=True))
+
+
+@pytest.mark.cuda
+def test_model_file_round_trip_on_card(tmp_path):
+    """save_model, then Booster(model_file=...) on the card: raw
+    predictions bit-equal to the booster that wrote the file."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.RandomState(7)
+    X = rng.randn(20_000, 8)
+    y = (X[:, 0] - X[:, 1] + rng.randn(20_000) > 0).astype(np.float32)
+    b = lgt.train({"objective": "binary", "verbose": -1,
+                   "device_type": "cuda"}, lgt.Dataset(X, label=y),
+                  num_boost_round=5, verbose_eval=False)
+    path = str(tmp_path / "model.txt")
+    b.save_model(path)
+    loaded = lgt.Booster(params={"device_type": "cuda"}, model_file=path)
+    assert np.array_equal(loaded.predict(X, raw_score=True),
+                          b.predict(X, raw_score=True))
+    assert loaded.model_to_string() == b.model_to_string()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner", ["fused", "host_loop"])
+def test_init_model_on_card_equals_cpu(learner, tmp_path):
+    """Continued training from a model file on the card against the
+    CPU: the same trees and raw predictions, bit for bit."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.RandomState(8)
+    X = rng.randn(20_000, 8)
+    y = (X[:, 0] * X[:, 1] + rng.randn(20_000) > 0).astype(np.float32)
+    params = {"objective": "binary", "num_leaves": 31,
+              "tpu_fused": learner == "fused"}
+
+    def first_model(dev):
+        b = lgt.train({**params, "verbose": -1, "device_type": dev,
+                       "tpu_hist_dtype": "float32"},
+                      lgt.Dataset(X, label=y), num_boost_round=2,
+                      verbose_eval=False)
+        path = str(tmp_path / f"first_{dev}.txt")
+        b.save_model(path)
+        return path
+    (tg, bg), (tc, bc) = _card_and_cpu_models(params, X, y, rounds=2,
+                                              init_model=first_model)
+    assert len(tg) == 4
+    _assert_same_models(tg, tc)
+    assert np.array_equal(bg.predict(X, raw_score=True),
+                          bc.predict(X, raw_score=True))

@@ -5,6 +5,7 @@ the port's kernels). Trees must be structurally equal, leaf values and
 predictions within 1e-5, AUC within 1e-6; a model carried across from
 the JAX package predicts within 1e-6."""
 import ast
+import itertools
 import os
 
 import numpy as np
@@ -225,21 +226,29 @@ def test_cuda_without_a_card_raises():
 @pytest.mark.parametrize("extra,err,match", [
     ({"bagging_freq": 1, "bagging_fraction": 0.5}, None, "fused"),
     ({"use_quantized_grad": True}, None, "fused"),
-    ({"forcedsplits_filename": "forced_splits.json"}, NotImplementedError,
-     "A5"),
+    ({"forcedsplits_filename": "forced_splits.json"}, None, "fused"),
+    ({"forcedsplits_filename": "forced_splits.json", "tpu_fused": False},
+     None, "host_loop"),
     ({"tpu_fused": False, "use_quantized_grad": True}, None, "host_loop"),
     ({"tree_learner": "voting", "num_machines": 2}, NotImplementedError,
      "A13"),
     ({"objective": "lambdarank"}, NotImplementedError, "A9"),
 ])
-def test_left_out_options_raise(extra, err, match):
+def test_left_out_options_raise(extra, err, match, tmp_path):
     """Options the port does not train yet raise and name their ROADMAP
     item (ranking, since cross_entropy_lambda trains on the per-tree
-    path: tests/test_torch_multiclass.py); bagging and quantized
-    gradients (``err`` None) now train on the learner named by
-    ``match``, the quantized ones with integer histograms."""
+    path: tests/test_torch_multiclass.py); bagging, quantized gradients
+    and forced splits (``err`` None) now train on the learner named by
+    ``match``, the quantized ones with integer histograms, the forced
+    ones with the file's root split (tests/test_torch_forced.py holds
+    them against the JAX package)."""
     X, y = _data(n=300)
     X[:, 3] = np.abs(np.round(X[:, 3]))
+    if "forcedsplits_filename" in extra:
+        path = str(tmp_path / extra["forcedsplits_filename"])
+        with open(path, "w") as fh:
+            fh.write('{"feature": 1, "threshold": 0.0}')
+        extra = {**extra, "forcedsplits_filename": path}
     if err is None:
         b = tlgb.train({**PARAMS, **extra}, tlgb.Dataset(X, label=y),
                        num_boost_round=2, verbose_eval=False)
@@ -249,6 +258,8 @@ def test_left_out_options_raise(extra, err, match):
         assert learner._quant == bool(extra.get("use_quantized_grad"))
         assert len(gb.models) == 2 and gb.models[0].num_leaves > 2
         assert np.isfinite(b.predict(X)).all()
+        if "forcedsplits_filename" in extra:
+            assert all(int(t.split_feature[0]) == 1 for t in gb.models)
         return
     with pytest.raises(err, match=match):
         tlgb.train({**PARAMS, **extra}, tlgb.Dataset(X, label=y),
@@ -334,12 +345,40 @@ BIT_GATES.update({
     "c9_quantized": ({**C9, "use_quantized_grad": True}, 3),
     "c9_l1_max_bin_16": ({**C9, "max_bin": 16}, 3),
 })
+# option pairs under L1 at 16 bins or fewer, which the one-option rows
+# of scan_sites did not compose into (ROADMAP §C, C11): L2 with
+# monotone constraints (and with smoothing too), L2 with smoothing, a
+# clamp or smoothing with quantized gradients
+BIT_GATES.update({
+    "c11_l2_monotone": ({**C9, "lambda_l2": 1.0,
+                         "monotone_constraints": [1, -1, 0, 0, 0, 0]}, 3),
+    "c11_l2_path_smooth": ({**C9, "lambda_l2": 1.0, "path_smooth": 2.0}, 3),
+    "c11_l2_monotone_path_smooth": ({**C9, "lambda_l2": 1.0,
+                                     "path_smooth": 2.0,
+                                     "monotone_constraints":
+                                     [1, -1, 0, 0, 0, 0]}, 3),
+    "c11_max_delta_step_quantized_16": ({**C9, "max_bin": 16,
+                                         "max_delta_step": 0.3,
+                                         "use_quantized_grad": True}, 3),
+})
+# quantized gradients under L1, where the quantized root scan's leaf
+# totals (level total x scale) meet the scan in one multiply-add
+# (ROADMAP §C, C10)
+C10 = {"min_data_in_leaf": 5, "lambda_l1": 0.5, "use_quantized_grad": True}
+BIT_GATES.update({
+    "c10_quantized_17_no_nan": ({**C10, "max_bin": 17}, 3),
+    "c10_quantized_31": ({**C10, "max_bin": 31}, 3),
+    "c10_path_smooth_quantized_15": ({**C10, "max_bin": 15,
+                                      "path_smooth": 2.0}, 3),
+    "c10_path_smooth_quantized_31": ({**C10, "max_bin": 31,
+                                      "path_smooth": 2.0}, 3),
+})
 # gates on ``_data(nan=False)``: no feature has a missing type, so no
 # feature takes two scans (but with zero as missing); the host loop's
 # program folds its forward scan away, the fused program (metadata as
 # arguments) does not
 NO_NAN_GATES = {"no_nan_31_leaves", "no_nan_quantized_63_leaves",
-                "c9_zero_as_missing"}
+                "c9_zero_as_missing", "c10_quantized_17_no_nan"}
 
 
 def assert_bit_equal_training(extra, rounds, nan=True):
@@ -369,6 +408,36 @@ def assert_bit_equal_training(extra, rounds, nan=True):
     np.testing.assert_array_equal(tb.predict(X, raw_score=True),
                                   jb.predict(X, raw_score=True))
     return jb, tb
+
+
+# every pair and triple of {clamp 0.3, smoothing 2, monotone [1, -1, 0,
+# 0, 0, 0], L2 1, quantized gradients} under L1 0.5 at 15 and 16 bins,
+# with and without the NaN column, on the fused learner (persistent),
+# the host loop and the per-tree path under bagging (ROADMAP §C, C11)
+_SWEEP_OPTIONS = {"clamp": {"max_delta_step": 0.3},
+                  "smooth": {"path_smooth": 2.0},
+                  "mono": {"monotone_constraints": [1, -1, 0, 0, 0, 0]},
+                  "l2": {"lambda_l2": 1.0},
+                  "quant": {"use_quantized_grad": True}}
+_SWEEP_LEARNERS = {"fused": {}, "host_loop": {"tpu_fused": False},
+                   "bagging": {"bagging_fraction": 0.8, "bagging_freq": 1}}
+C11_SWEEP = [
+    pytest.param({**C9, "max_bin": bins,
+                  **{k: v for o in combo for k, v in
+                     _SWEEP_OPTIONS[o].items()},
+                  **_SWEEP_LEARNERS[learner]}, nan,
+                 id=f"{'+'.join(combo)}-{bins}-{'nan' if nan else 'no_nan'}"
+                    f"-{learner}")
+    for k in (2, 3)
+    for combo in itertools.combinations(sorted(_SWEEP_OPTIONS), k)
+    for bins in (15, 16) for nan in (True, False)
+    for learner in sorted(_SWEEP_LEARNERS)]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("extra,nan", C11_SWEEP)
+def test_option_combinations_bit_equal(extra, nan):
+    assert_bit_equal_training(extra, 3, nan=nan)
 
 
 @pytest.mark.parametrize("case", sorted(BIT_GATES))
