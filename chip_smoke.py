@@ -41,8 +41,7 @@ Phases, each of which fails the run (no exception is caught):
    - (h) HIGGS-cat fused: the HIGGS shape plus 4 categorical columns
      (3, 24, 100 and 250 levels, Zipf-like, 1% NaN in the 100-level
      one) on the fused learner (B1 + B2, whose categorical bitset route
-     must launch), then one profiled iteration (kernels, device busy
-     share);
+     must launch);
    - (i)-(k): the HIGGS columns with a regression label (score plus
      N(0, 1) noise) on the fused learner (B1 + B2): (i) the default
      objective (no objective key: regression, metric l2), (j) quantile
@@ -50,14 +49,13 @@ Phases, each of which fails the run (no exception is caught):
      percentile refit (unweighted; weighted, as MAPE's weight plane
      carries its label weights), timed per iteration with CUDA events;
      each held-out metric must beat its floor (0.8 x the label variance;
-     the constant 0.9-quantile's and the constant median's loss); each
-     takes one profiled iteration.
+     the constant 0.9-quantile's and the constant median's loss).
    - (l)-(n): the per-tree fused path (``grow_device``: a fresh planar
      state per class tree from row-order gradients, the score update
      through each row's leaf): (l) HIGGS-multiclass fused, the HIGGS
      columns with 5 classes (the quintiles of (i)'s label), multiclass,
-     5 iterations (25 trees), B1 + B2, held-out multi_logloss below the
-     constant predictor's ln 5; (m) the same data with multiclassova, 3
+     3 iterations (15 trees), B1 + B2, held-out multi_logloss below the
+     constant predictor's ln 5; (m) the same data with multiclassova, 2
      iterations, held-out multi_error below the constant predictor's
      0.8; (n) shape (a) (multi-value layout, P = 128) with a custom
      objective (the binary log loss in numpy), 3 iterations, B5 + B2,
@@ -77,31 +75,52 @@ Phases, each of which fails the run (no exception is caught):
      shape (a) with bagging (0.8, freq 1), B5 + B2 over bag-gathered
      slot planes, 3 iterations.
    - (t) HIGGS forced splits: the HIGGS shape on the persistent fused
-     path with a depth-2 forced-split tree (FORCED_SPLITS), 8
+     path with a depth-2 forced-split tree (FORCED_SPLITS), 5
      iterations; every tree's first three splits must be the forced
      ones (B1 + B2).
-   - (u) the API: 4 iterations, save_model and Booster(model_file=...)
-     (raw predictions bit-equal), 4 more from init_model (the 4 + 4
-     model's AUC beside 8 straight iterations'), rollback_one_iter, cv
+   - (u) the API: 2 iterations, save_model and Booster(model_file=...)
+     (raw predictions bit-equal), 3 more from init_model (the 2 + 3
+     model's held-out AUC within 5e-4 of the HIGGS path's after 5
+     straight), rollback_one_iter, cv
      over 3 stratified folds (4 iterations), and a 200,000-row CSV read
      through the csv module into a Dataset, save_binary and back.
-4. card vs CPU — the same small training on cuda and on cpu (the plain
+   - (v) MSLR lambdarank: MSLR-WEB10K Fold 1's shape (make_rank_like:
+     136 dense columns, 723,412 training rows in 6,000 queries of 1 to
+     1,250 documents, labels 0-4 in MSLR's shares; 1,000 held-out
+     queries), objective=lambdarank, metric ndcg at 1, 3, 5 and 10, 255
+     leaves and bins, 5 iterations on the per-tree fused path (B1 +
+     B2); the ranking gradient timed by CUDA events; the held-out
+     ndcg@10 must beat a random ordering's (numpy). (w) the same data
+     with rank_xendcg, 3 iterations.
+   - (x) the rest of the API: LGBMRanker on (v)'s first 1,000 queries
+     with an eval set and eval_group, then predict; LGBMClassifier on
+     200,000 HIGGS rows (predict_proba equal to Booster.predict);
+     pred_contrib on 2,000 rows of its model (each row summing to its
+     raw score within 1e-6, timed: a host recursion); the command line
+     through subprocess (``python -m lightgbm_tpu_torch`` task=train
+     on a 200,000-row CSV, task=predict equal to Booster.predict of the
+     model file, task=convert_model a non-empty C++ file).
+4. card vs CPU — the same small training (100,000 rows; 30,000 from the
+   boosting-mode cases on) on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
    and with quantized gradients, on (h)'s columns with categorical
    features, with the regression, quantile and MAPE objectives, and
    with multiclass, multiclassova and a custom objective, and with
    bagging, pos/neg bagging, GOSS, DART, RF and multiclass with bagging
    (both learners), quantized gradients and regression_l1 with bagging
-   (the host loop; these 14 on 30,000 rows), forced splits (persistent,
-   bagging, host loop, quantized) and init_model, rollback_one_iter
-   and refit (30,000 rows): trees (bitset pools included), leaf values
-   and predictions must agree (the per-tree, boosting-mode, forced and
+   (the host loop), forced splits (persistent, bagging, host loop,
+   quantized), lambdarank and rank_xendcg on both learners and
+   lambdarank with quantized gradients (the host loop; 250 MSLR-shaped
+   queries), quantized tweedie and quantized weighted regression on the
+   fused learner, and init_model, rollback_one_iter and refit: trees
+   (bitset pools included), leaf values and predictions must agree (the
+   per-tree, boosting-mode, forced, ranking, quantized-regression and
    API cases exactly), with prediction early stop off and on for the
    categorical model.
 
 ``--profile`` instead profiles one iteration of each path
-(``--profile-paths b,h`` of the named ones only; (l)-(n) device rows
-only).
+(``--profile-paths b,h`` of the named ones only; (l)-(n) and (v) device
+rows only; (v) also one call of its ranking gradient alone).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -187,6 +206,77 @@ def make_higgs_cat_like(n, seed=0, scale=2.4):
         X[:, 28 + j] = cat
     y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-s))).astype(np.float32)
     return X, y, list(range(28, 28 + len(CAT_LEVELS)))
+
+
+# MSLR-WEB10K Fold 1, the standard public learning-to-rank set: 136
+# dense columns, 723,412 training rows in 6,000 queries (sizes 1 to
+# ~1,250), graded relevance 0-4 in about these shares
+RANK_COLS = 136
+RANK_TRAIN_ROWS = 723_412
+RANK_TRAIN_QUERIES = 6_000
+RANK_HOLD_QUERIES = 1_000
+RANK_MAX_QUERY = 1_250
+RANK_LABEL_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
+
+
+def rank_sizes(queries, rows, rng, max_size=RANK_MAX_QUERY):
+    """``queries`` query sizes summing to ``rows``: log-normal around the
+    mean, from 1 (the first two queries) to ``max_size`` (the third)."""
+    assert rows >= max_size + queries - 1, (rows, queries, max_size)
+    mean = rows / queries
+    sizes = rng.lognormal(np.log(mean) - 0.405, 0.9, queries)
+    sizes = np.clip(np.round(sizes * rows / sizes.sum()), 1, max_size)
+    sizes = sizes.astype(np.int64)
+    sizes[:2], sizes[2] = 1, max_size
+    rest = np.arange(3, queries)
+    while sizes.sum() != rows:
+        diff = int(rows - sizes.sum())
+        pick = rng.choice(rest, size=min(abs(diff), len(rest)),
+                          replace=False)
+        sizes[pick] = np.clip(sizes[pick] + np.sign(diff), 1, max_size)
+    return sizes
+
+
+def make_rank_like(queries, rows, seed=0, cols=RANK_COLS,
+                   max_size=RANK_MAX_QUERY):
+    """MSLR-shaped synthetic ranking data: ``rows`` x ``cols`` float32
+    columns in ``queries`` queries (``rank_sizes``), relevance labels
+    0-4 in RANK_LABEL_SHARES within each query, taken from the ranks of
+    a noisy score, one fixed linear function of 12 columns for every
+    seed (the top 1% of a query label 4, the next 2% label 3, ...).
+    Returns X, y, sizes."""
+    rng = np.random.RandomState(seed)
+    sizes = rank_sizes(queries, rows, rng, max_size)
+    X = np.random.default_rng(seed).standard_normal((rows, cols),
+                                                    dtype=np.float32)
+    w = np.random.RandomState(0).randn(12).astype(np.float32)
+    s = X[:, :12] @ w + rng.randn(rows).astype(np.float32) * 1.5
+    qid = np.repeat(np.arange(queries), sizes)
+    start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    order = np.lexsort((-s, qid))
+    pct = (np.arange(rows) - start[qid[order]]) / sizes[qid[order]]
+    cuts = np.cumsum(RANK_LABEL_SHARES[::-1])[:-1]     # 0.01, 0.03, ...
+    y = np.empty(rows, np.float32)
+    y[order] = 4 - np.searchsorted(cuts, pct, side="right")
+    return X, y, sizes
+
+
+def ndcg_np(k, y, scores, sizes):
+    """Mean NDCG@k over the queries in plain numpy (gains 2^label - 1,
+    discount 1 / log2(rank + 2); a query without a relevant document
+    counts 1), independent of the port's metric."""
+    disc = 1.0 / np.log2(np.arange(k) + 2.0)
+    total, start = 0.0, 0
+    for size in sizes:
+        lab = y[start:start + size].astype(np.int64)
+        sc = scores[start:start + size]
+        start += size
+        kk = min(k, size)
+        ideal = np.sum((2.0 ** np.sort(lab)[::-1][:kk] - 1) * disc[:kk])
+        got = np.sum((2.0 ** lab[np.argsort(-sc, kind="stable")][:kk] - 1)
+                     * disc[:kk])
+        total += got / ideal if ideal > 0 else 1.0
+    return total / len(sizes)
 
 
 def make_wide_like(rows, nvars=72, ncats=8, seed=7):
@@ -1211,30 +1301,36 @@ def iteration_bounds_ms(gbdt, trees):
             part_b / n / HBM_BYTES_PER_S * 1e3)
 
 
-def held_out_metric(booster, X, y, metric, device):
+def held_out_metric(booster, X, y, metric, device, group=None):
     """``metric`` (the port's own, computed on ``device``) of the
     booster's predictions on held-out rows ([N] raw scores, or [N, K]
-    with K classes)."""
+    with K classes); a ranking metric at k (``ndcg@10``) reads the
+    queries' sizes ``group``."""
     from lightgbm_tpu_torch.metric.metrics import create_metric
     gbdt = booster._gbdt
     k = gbdt.num_tree_per_iteration
     raw = booster.predict(X, raw_score=True)
     assert raw.shape == ((len(y),) if k == 1 else (len(y), k))
     assert np.isfinite(raw).all()
-    m = create_metric(metric, gbdt.config)
+    m = create_metric(metric.split("@")[0], gbdt.config)
 
     class _Meta:
         label, weights = y, None
+        query_boundaries = (None if group is None else
+                            np.concatenate([[0], np.cumsum(group)]))
     m.init(_Meta, len(y))
     obj = gbdt.objective if metric != "auc" else None
     score = torch.as_tensor(raw.T if k > 1 else raw, device=device)
-    val = m.eval_device(score, obj)[0][1]
-    return float(m.finish(val.reshape(-1).to(torch.float64).cpu().numpy()))
+    rows = m.eval_device(score, obj)
+    name, val = next(r for r in rows if r[0] == metric) if "@" in metric \
+        else rows[0]
+    return float(m.finish(val.reshape(-1).to(torch.float64).cpu().numpy(),
+                          name))
 
 
 def run_path(name, params, ds, iters, X_hold, y_hold, expect,
              device="cuda", floor=0.70, metric="auc", fobj=None,
-             train_kw=None):
+             train_kw=None, hold_group=None):
     """Train ``iters`` iterations through lightgbm_tpu_torch.train with
     every launch counter set to 0 just before and read just after; fail
     unless each kernel of ``expect`` was launched. Prints seconds and
@@ -1242,7 +1338,9 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
     and the held-out ``metric``, which must be above ``floor`` (AUC) or
     below it (a loss); returns (launches, booster, metric value).
     ``train_kw``: more train() keywords (``init_model``: the model's own
-    trees come first, and only the new ones are counted)."""
+    trees come first, and only the new ones are counted). A ranking
+    ``metric`` (``ndcg@10``, above its floor) reads the held-out queries'
+    sizes ``hold_group``."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import cuda as K
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -1277,7 +1375,8 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
         for k in expect:
             assert launches[k] > 0, f"{name}: kernel {k} never launched"
     hb, pb = iteration_bounds_ms(gbdt, trees)
-    val = held_out_metric(booster, X_hold, y_hold, metric, device)
+    val = held_out_metric(booster, X_hold, y_hold, metric, device,
+                          hold_group)
     log(f"{name}: launches {json.dumps(launches)}; leaves per tree "
         f"{leaves}; histogram rows per tree "
         f"{[window_rows(t)[0] for t in trees]}; per-iteration bytes bound "
@@ -1288,7 +1387,7 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
         f"{(marks[-1][1] - marks[0][1]) / iters:.1f} host syncs/iteration")
     log(f"{name}: launches per iteration " + json.dumps(
         {key: round(launches[key] / iters, 1) for key in expect}))
-    if metric == "auc":
+    if metric == "auc" or metric.startswith("ndcg@"):
         assert floor < val <= 1.0, (name, val)
     else:
         assert 0.0 <= val < floor, (name, val, floor)
@@ -1378,9 +1477,9 @@ MC_PARAMS = {"num_leaves": 255, "max_bin": 255, "num_class": 5,
              "verbose": -1}
 # (key, name, objective, held-out metric, its bound, iterations)
 MC_PATHS = [("l", "(l) HIGGS-multiclass fused", "multiclass",
-             "multi_logloss", float(np.log(5.0)), 5),
+             "multi_logloss", float(np.log(5.0)), 3),
             ("m", "(m) HIGGS-multiclassova fused", "multiclassova",
-             "multi_error", 0.8, 3)]
+             "multi_error", 0.8, 2)]
 FOBJ_ITERS = 3                     # path (n)
 
 
@@ -1415,8 +1514,10 @@ class method_timer:
     around it on the card (read after the training has synchronized, so
     the timing adds no blocking read) and host seconds. Entering yields
     the list of (device ms, host ms) that fills when the context
-    exits. ``debug_sync``: run each call under CUDA sync debug mode
-    "error", so a host read inside it raises."""
+    exits. A call runs on the card where its object's ``device``, else
+    its first tensor argument's, is a CUDA device. ``debug_sync``: run
+    each call under CUDA sync debug mode "error", so a host read inside
+    it raises."""
 
     def __init__(self, cls, name, debug_sync=False):
         self.cls, self.name, self.debug_sync = cls, name, debug_sync
@@ -1427,8 +1528,10 @@ class method_timer:
         orig, marks, debug_sync = self.orig, self.marks, self.debug_sync
 
         def timed(obj, *a, **kw):
-            cuda = torch.cuda.is_available() and getattr(
-                obj, "device", torch.device("cpu")).type == "cuda"
+            dev = getattr(obj, "device", None) or next(
+                (x.device for x in a if isinstance(x, torch.Tensor)), None)
+            cuda = torch.cuda.is_available() and dev is not None \
+                and dev.type == "cuda"
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
                 if cuda else None
             if cuda:
@@ -1482,7 +1585,11 @@ BAG_PATHS = [
 ]
 BAG_ITERS = 5                      # paths (o)-(r)
 BAG_WIDE_ITERS = 3                 # path (s)
+PHASE4_ROWS = 100_000              # phase 4's first cases
 BAG_CASE_ROWS = 30_000             # phase 4's boosting-mode cases
+RANK_CASE_ROWS = 30_000            # phase 4's ranking cases: rows,
+RANK_CASE_QUERIES = 250            # queries, and the largest query (the
+RANK_CASE_MAX_QUERY = 512          # CPU side's pair program sets the time)
 
 
 # path (t): a depth-2 forced-split tree on three HIGGS columns (the root
@@ -1490,7 +1597,7 @@ BAG_CASE_ROWS = 30_000             # phase 4's boosting-mode cases
 FORCED_SPLITS = {"feature": 0, "threshold": 0.0,
                  "left": {"feature": 1, "threshold": 0.25},
                  "right": {"feature": 2, "threshold": -0.25}}
-API_ITERS = 4                      # path (u): 4 + 4 iterations, cv folds
+API_ITERS = 4                      # path (u): cv's iterations per fold
 CSV_ROWS = 200_000                 # path (u): the CSV file's rows
 
 
@@ -1529,14 +1636,20 @@ def forced_path(args, ds, hX, hy, tmp, device="cuda"):
 
 
 def api_path(args, X, y, hX, hy, ds, straight_auc, tmp, device="cuda"):
-    """Path (u), the API surface at HIGGS width: 4 iterations, the model
-    saved to a file and loaded again (raw predictions bit-equal), 4 more
-    iterations from it as ``init_model``, one ``rollback_one_iter``,
-    ``cv`` over 3 stratified folds, and a Dataset from a CSV file (the
-    csv module where pandas is missing) through ``save_binary`` and back.
+    """Path (u), the API surface at HIGGS width: half of ``args.iters``
+    iterations, the model saved to a file and loaded again (raw
+    predictions bit-equal), the other iterations from it as
+    ``init_model`` (the held-out AUC must be the HIGGS path's after
+    ``args.iters`` straight, ``straight_auc``, within 5e-4: continuing
+    from the file is training on), one ``rollback_one_iter``, ``cv``
+    over 3 stratified folds, and a Dataset from a CSV file (the csv
+    module where pandas is missing) through ``save_binary`` and back.
     Returns {key: launches}."""
     import lightgbm_tpu_torch as lgt
     rows = args.rows
+    first = args.iters // 2
+    more = args.iters - first
+    assert first >= 1, "(u) takes at least 2 iterations"
     expect = ("hist_planar", "partition")
     got = {}
 
@@ -1544,35 +1657,38 @@ def api_path(args, X, y, hX, hy, ds, straight_auc, tmp, device="cuda"):
         return lgt.Dataset(X[:rows], label=y[:rows], free_raw_data=False,
                            params={**HIGGS_PARAMS, "device_type": device})
     t0 = time.perf_counter()
-    got["u1"], first, auc4 = run_path(
-        "(u) API: 4 iterations", HIGGS_PARAMS, raw_dataset(), API_ITERS,
+    got["u1"], booster, auc_first = run_path(
+        f"(u) API: {first} iterations", HIGGS_PARAMS, raw_dataset(), first,
         hX, hy, expect, device, train_kw={"keep_training_booster": True})
     model = os.path.join(tmp, "model.txt")
     t1 = time.perf_counter()
-    first.save_model(model)
+    booster.save_model(model)
     loaded = lgt.Booster(params={"device_type": device}, model_file=model)
     t2 = time.perf_counter()
-    a = first.predict(hX, raw_score=True)
+    a = booster.predict(hX, raw_score=True)
     b = loaded.predict(hX, raw_score=True)
     assert np.array_equal(a, b), "(u): the loaded model predicts otherwise"
     log(f"(u) API: save_model + Booster(model_file) {t2 - t1:.2f} s "
         f"({os.path.getsize(model)} bytes); raw predictions of "
         f"{len(hX)} held-out rows bit-equal (max |diff| "
         f"{float(np.abs(a - b).max())})")
-    got["u2"], cont, auc44 = run_path(
-        "(u) API: 4 more from init_model", HIGGS_PARAMS, raw_dataset(),
-        API_ITERS, hX, hy, expect, device,
+    got["u2"], cont, auc_cont = run_path(
+        f"(u) API: {more} more from init_model", HIGGS_PARAMS,
+        raw_dataset(), more, hX, hy, expect, device,
         train_kw={"init_model": model, "keep_training_booster": True})
     gb = cont._gbdt
-    assert gb.num_init_iteration == API_ITERS and len(gb.models) == \
-        2 * API_ITERS, (gb.num_init_iteration, len(gb.models))
-    log(f"(u) API: held-out AUC {auc44:.6f} after 4 + 4 iterations beside "
-        f"{straight_auc:.6f} after {args.iters} straight (diff "
-        f"{auc44 - straight_auc:+.6f}); {auc4:.6f} after the first 4")
+    assert gb.num_init_iteration == first and len(gb.models) == \
+        args.iters, (gb.num_init_iteration, len(gb.models))
+    log(f"(u) API: held-out AUC {auc_cont:.6f} after {first} + {more} "
+        f"iterations beside {straight_auc:.6f} after {args.iters} straight "
+        f"(diff {auc_cont - straight_auc:+.6f}); {auc_first:.6f} after the "
+        f"first {first}")
+    assert abs(auc_cont - straight_auc) < 5e-4, \
+        "(u): continued training does not match straight training"
     t3 = time.perf_counter()
     cont.rollback_one_iter()
     roll = cont.predict(hX, raw_score=True)
-    assert cont.current_iteration == 2 * API_ITERS - 1
+    assert cont.current_iteration == args.iters - 1
     assert np.isfinite(roll).all()
     log(f"(u) API: rollback_one_iter {time.perf_counter() - t3:.3f} s "
         f"(state synced and dropped); {cont.current_iteration} iterations "
@@ -1629,6 +1745,193 @@ def api_path(args, X, y, hX, hy, ds, straight_auc, tmp, device="cuda"):
         f"to the matrix's); save_binary + load {t8 - t7:.2f} s "
         f"({os.path.getsize(bin_path)} bytes, bins equal)")
     log(f"(u) API: {time.perf_counter() - t0:.1f} s in all")
+    return got
+
+
+# paths (v)-(x): ranking on MSLR-shaped data and the rest of the API
+RANK_PARAMS = {"num_leaves": 255, "max_bin": 255, "metric": "ndcg",
+               "eval_at": [1, 3, 5, 10], "verbose": -1}
+# (key, name, objective, iterations)
+RANK_PATHS = [("v", "(v) MSLR lambdarank fused", "lambdarank", 5),
+              ("w", "(w) MSLR rank_xendcg fused", "rank_xendcg", 3)]
+RANKER_QUERIES = 1_000             # path (x): LGBMRanker's training queries
+CLF_ROWS = 200_000                 # path (x): LGBMClassifier, CLI CSV rows
+API_REST_ITERS = 4                 # path (x): iterations of each model
+CONTRIB_ROWS = 2_000               # path (x): pred_contrib rows
+
+
+def rank_data(device, queries=RANK_TRAIN_QUERIES, rows=RANK_TRAIN_ROWS,
+              hold_queries=RANK_HOLD_QUERIES):
+    """Paths (v)-(w)'s data: make_rank_like's training queries as a
+    constructed Dataset with its query sizes, and held-out queries at
+    the same mean size. Returns (ds, X, y, sizes, hX, hy, hsizes)."""
+    import lightgbm_tpu_torch as lgt
+    t0 = time.perf_counter()
+    X, y, sizes = make_rank_like(queries, rows, seed=11)
+    hrows = int(round(rows / queries * hold_queries))
+    hX, hy, hsizes = make_rank_like(hold_queries, hrows, seed=12)
+    t1 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, group=sizes,
+                     params={**RANK_PARAMS, "objective": "lambdarank",
+                             "device_type": device})
+    ds.construct()
+    shares = np.bincount(y.astype(np.int64), minlength=5) / len(y)
+    log(f"MSLR-shaped: {rows} x {X.shape[1]} in {queries} queries (sizes "
+        f"{int(sizes.min())}-{int(sizes.max())}, mean {sizes.mean():.1f}), "
+        f"made in {t1 - t0:.2f} s, binned in {time.perf_counter() - t1:.2f} "
+        f"s (host); label shares {np.round(shares, 4).tolist()}; held out "
+        f"{hrows} rows in {hold_queries} queries")
+    return ds, X, y, sizes, hX, hy, hsizes
+
+
+def rank_paths(args, data, device="cuda"):
+    """Paths (v) and (w): lambdarank and rank_xendcg on MSLR-shaped data
+    through the per-tree fused path (B1 + B2). Each prints its seconds
+    and host syncs per iteration, B1 / B2 launches per iteration, the
+    ranking gradient's time per iteration (CUDA events around
+    ``get_gradients``) and held-out ndcg@1/3/5/10; the held-out ndcg@10
+    must beat that of a random ordering of the same rows (numpy).
+    Returns {key: launches}."""
+    from lightgbm_tpu_torch.objective import rank as R
+    ds, X, y, sizes, hX, hy, hsizes = data
+    rng = np.random.RandomState(13)
+    rand10 = ndcg_np(10, hy, rng.rand(len(hy)), hsizes)
+    log(f"MSLR-shaped: held-out ndcg@10 of a random ordering {rand10:.6f} "
+        f"(numpy)")
+    got = {}
+    for key, name, objective, iters in RANK_PATHS:
+        t0 = time.perf_counter()
+        with method_timer(R.RankingObjective, "get_gradients") as grads:
+            got[key], booster, val = run_path(
+                name, {**RANK_PARAMS, "objective": objective}, ds, iters,
+                hX, hy, ("hist_planar", "partition"), device, floor=rand10,
+                metric="ndcg@10", hold_group=hsizes)
+        gb = booster._gbdt
+        assert gb._fused is not None and not gb._fused_persist, name
+        assert gb.objective.name == objective and len(grads) == iters
+        obj = gb.objective
+        buckets = sorted({m for m, _ in obj._chunks})
+        log(f"{name}: ranking gradient {_ms(grads)} per iteration over "
+            f"{obj.num_queries} queries in buckets {buckets} "
+            f"({len(obj._chunks)} chunks, {len(obj._batches)} batches): "
+            + ", ".join(f"{g[0]:.3f}" for g in grads))
+        raw = booster.predict(hX, raw_score=True)
+        ndcg = {k: held_out_metric(booster, hX, hy, f"ndcg@{k}", device,
+                                   hsizes) for k in (1, 3, 5, 10)}
+        np_ndcg10 = ndcg_np(10, hy, raw, hsizes)
+        assert abs(np_ndcg10 - ndcg[10]) < 1e-9, (np_ndcg10, ndcg[10])
+        log(f"{name}: held-out " + ", ".join(
+            f"ndcg@{k} {v:.6f}" for k, v in ndcg.items())
+            + f" (numpy ndcg@10 {np_ndcg10:.6f}; random ordering "
+            f"{rand10:.6f}); {time.perf_counter() - t0:.1f} s in all")
+    return got
+
+
+def api_rest_path(args, rank, X, y, tmp, device="cuda"):
+    """Path (x), the rest of the API: LGBMRanker.fit on the first
+    RANKER_QUERIES queries of (v)'s data with an eval set and its
+    groups, then predict; LGBMClassifier on CLF_ROWS HIGGS rows
+    (predict_proba equal to Booster.predict); pred_contrib on
+    CONTRIB_ROWS rows of the classifier's model (each row sums to its
+    raw score within 1e-6); and the command line through subprocess:
+    ``python -m lightgbm_tpu_torch task=train`` on a CLF_ROWS-row CSV,
+    ``task=predict`` (equal to Booster.predict of the same model file,
+    as the CLI prints it) and ``task=convert_model`` (a non-empty C++
+    file). Returns {key: launches}."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda as K
+    got = {}
+    t0 = time.perf_counter()
+    _, rX, ry, rsizes, hX, hy, hsizes = rank
+    nr = int(np.sum(rsizes[:RANKER_QUERIES]))
+    nh = int(np.sum(hsizes[:200]))
+    K.reset_launches()
+    ranker = lgt.LGBMRanker(n_estimators=API_REST_ITERS, num_leaves=255,
+                            max_bin=255, eval_at=[1, 3, 5, 10],
+                            device_type=device)
+    ranker.fit(rX[:nr], ry[:nr], group=rsizes[:RANKER_QUERIES],
+               eval_set=[(hX[:nh], hy[:nh])], eval_group=[hsizes[:200]])
+    pr = ranker.predict(hX[:nh])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got["x1"] = dict(K.LAUNCHES)
+    ev = ranker.evals_result_["valid_0"]
+    assert np.isfinite(pr).all() and len(ev["ndcg@10"]) == API_REST_ITERS
+    log(f"(x) LGBMRanker: {nr} rows in {RANKER_QUERIES} queries, "
+        f"{API_REST_ITERS} iterations with an eval set of 200 queries in "
+        f"{time.perf_counter() - t0:.1f} s; eval ndcg@10 per iteration "
+        f"{[round(v, 6) for v in ev['ndcg@10']]}; B1 / B2 launches "
+        f"{got['x1']['hist_planar']} / {got['x1']['partition']}")
+    t1 = time.perf_counter()
+    K.reset_launches()
+    clf = lgt.LGBMClassifier(n_estimators=API_REST_ITERS, num_leaves=255,
+                             max_bin=255, device_type=device)
+    clf.fit(X[:CLF_ROWS], y[:CLF_ROWS])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got["x2"] = dict(K.LAUNCHES)
+    proba = clf.predict_proba(X[:CLF_ROWS])
+    direct = clf.booster_.predict(X[:CLF_ROWS])
+    assert np.array_equal(proba[:, 1], direct), "(x): predict_proba"
+    assert np.array_equal(proba[:, 0], 1.0 - direct)
+    labels = clf.predict(X[:CLF_ROWS])
+    log(f"(x) LGBMClassifier: {CLF_ROWS} rows, {API_REST_ITERS} iterations "
+        f"in {time.perf_counter() - t1:.1f} s; predict_proba equal to "
+        f"Booster.predict; accuracy {np.mean(labels == y[:CLF_ROWS]):.6f}; "
+        f"B1 / B2 launches {got['x2']['hist_planar']} / "
+        f"{got['x2']['partition']}")
+    t2 = time.perf_counter()
+    xc = X[:CONTRIB_ROWS]
+    contrib = clf.booster_.predict(xc, pred_contrib=True)
+    secs = time.perf_counter() - t2
+    raw = clf.booster_.predict(xc, raw_score=True)
+    err = float(np.abs(contrib.sum(axis=1) - raw).max())
+    assert contrib.shape == (CONTRIB_ROWS, X.shape[1] + 1) and err < 1e-6
+    log(f"(x) pred_contrib: {CONTRIB_ROWS} rows x {API_REST_ITERS} trees of "
+        f"255 leaves in {secs:.2f} s (host recursion); rows sum to the raw "
+        f"score within {err:.3g}")
+    t3 = time.perf_counter()
+    csv_path = os.path.join(tmp, "cli.csv")
+    Xc = np.round(X[:CLF_ROWS].astype(np.float64), 4)
+    np.savetxt(csv_path, np.column_stack([y[:CLF_ROWS], Xc]),
+               delimiter=",", fmt="%.4f")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    model = os.path.join(tmp, "cli_model.txt")
+    pred = os.path.join(tmp, "cli_pred.txt")
+    cpp = os.path.join(tmp, "cli_model.cpp")
+    common = [f"data={csv_path}", "label_column=0", f"device_type={device}",
+              "verbosity=-1"]
+    secs = {}
+    for task, extra in (
+            ("train", ["objective=binary", "num_leaves=255", "max_bin=255",
+                       f"num_iterations={API_REST_ITERS}",
+                       f"output_model={model}"]),
+            ("predict", [f"input_model={model}", f"output_result={pred}"]),
+            ("convert_model", [f"input_model={model}",
+                               f"convert_model={cpp}"])):
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                              f"task={task}"] + common + extra, env=env,
+                             cwd=tmp, capture_output=True, text=True,
+                             timeout=600)
+        secs[task] = time.perf_counter() - t
+        assert res.returncode == 0, (task, res.stdout[-2000:],
+                                     res.stderr[-2000:])
+    want = lgt.Booster(params={"device_type": device},
+                       model_file=model).predict(Xc)
+    with open(pred) as fh:
+        lines = [ln.strip() for ln in fh]
+    assert lines == [f"{v:g}" for v in want], "(x): CLI predictions"
+    assert os.path.getsize(cpp) > 0
+    log(f"(x) CLI: train / predict / convert_model on a {CLF_ROWS}-row CSV "
+        f"in " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+        + f" (each a process of its own); predictions equal to "
+        f"Booster.predict of the model file as printed; C++ file "
+        f"{os.path.getsize(cpp)} bytes; {time.perf_counter() - t3:.1f} s "
+        f"with the CSV")
+    log(f"(x) the rest of the API: {time.perf_counter() - t0:.1f} s in all")
     return got
 
 
@@ -1689,9 +1992,10 @@ def bag_paths(args, ds, hX, hy, wide, device="cuda"):
 def paths(args, report, wide, device="cuda"):
     """Phase 3: the HIGGS fused path and paths (a)-(c), then their
     quantized twins (d)-(g), the categorical path (h), the regression
-    paths (i)-(k), the per-tree paths (l)-(n) and the row-sampling and
-    boosting-mode paths (o)-(s). Each kernel's ``launches`` in the
-    report is the count from its own path(s)."""
+    paths (i)-(k), the per-tree paths (l)-(n), the row-sampling and
+    boosting-mode paths (o)-(s), forced splits (t), the API (u), ranking
+    (v)-(w) and the rest of the API (x). Each kernel's ``launches`` in
+    the report is the count from its own path(s)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.ops import histogram as H
@@ -1790,11 +2094,6 @@ def paths(args, report, wide, device="cuda"):
             if device == "cuda":
                 assert got[key]["partition_cat"] > 0, \
                     f"{name}: B2's categorical route never launched"
-                t_prof = time.perf_counter()
-                profile_iteration(name, booster, device_only=True)
-                log(f"{name}: profiled iteration took "
-                    f"{time.perf_counter() - t_prof:.1f} s with the "
-                    f"profiler's own work")
         if key in ("j", "k"):
             spec = gb.objective.persistent_renew_spec()
             assert gb._fused is not None and spec is not None, name
@@ -1805,8 +2104,6 @@ def paths(args, report, wide, device="cuda"):
                 f"({np.mean([r[1] for r in refits]):.3f} ms host time), "
                 f"{iters} refits: " + ", ".join(
                     f"{r[0]:.3f}" for r in refits))
-        if key in ("i", "j", "k") and device == "cuda":
-            profile_iteration(name, booster, device_only=True)
         log(f"{name}: {time.perf_counter() - t_path:.1f} s in all")
     got.update(bag_paths(args, ds, hX, hy, wide, device))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1816,7 +2113,11 @@ def paths(args, report, wide, device="cuda"):
             f"{auc_t - aucs['higgs']:+.6f})")
         got.update(api_path(args, X, y, hX, hy, ds, aucs["higgs"], tmp,
                             device))
-    api = ["t", "u1", "u2", "u3"]
+        rank = rank_data(device)
+        got.update(rank_paths(args, rank, device))
+        got.update(api_rest_path(args, rank, X, y, tmp, device))
+        del rank
+    api = ["t", "u1", "u2", "u3", "v", "w", "x1", "x2"]
     path_of = {"hist_planar": ["higgs", "h", "i", "j", "k", "l", "m", "o",
                                "p", "q", "r"] + api,
                "partition": ["higgs", "a", "d", "e", "h", "i", "j", "k",
@@ -1839,11 +2140,12 @@ def card_vs_cpu(forced_file):
     plain versions), on both learners, float and quantized, on path
     (h)'s columns with categorical features, and with the regression,
     quantile and MAPE objectives (the percentile refits), the per-tree
-    and boosting-mode cases and forced splits (``forced_file``): trees
-    (bitset pools included), leaf values and predictions, these with
-    prediction early stop off and on for the categorical model."""
+    and boosting-mode cases, forced splits (``forced_file``), ranking
+    and C12's quantized tweedie and weighted regression: trees (bitset
+    pools included), leaf values and predictions, these with prediction
+    early stop off and on for the categorical model."""
     import lightgbm_tpu_torch as lgt
-    n = 100_000
+    n = PHASE4_ROWS
     X, y = make_higgs_like(n, 28, seed=3)
     Xc, yc, cats = make_higgs_cat_like(n, seed=6)
     Xr, yr = make_higgs_reg_like(n, 28, seed=3)
@@ -1914,15 +2216,39 @@ def card_vs_cpu(forced_file):
                        {**forced, **QUANT_PARAMS})):
         cases.append((name, obj, (X[:m], y[:m])))
         exact.add(name)
+    # ranking on both learners (quantized gradients send it to the host
+    # loop), on RANK_CASE_ROWS MSLR-shaped rows in RANK_CASE_QUERIES
+    # queries, and C12's inputs: quantized tweedie and quantized
+    # weighted regression on the fused learner
+    rX, ry, rsizes = make_rank_like(RANK_CASE_QUERIES, RANK_CASE_ROWS,
+                                    seed=14, max_size=RANK_CASE_MAX_QUERY)
+    ranked = (rX, ry, {"group": rsizes})
+    for name in ("lambdarank", "rank_xendcg"):
+        cases += [(f"fused {name}", {"objective": name}, ranked),
+                  (f"host loop {name}", {"objective": name,
+                                         "tpu_fused": False}, ranked)]
+        exact |= {f"fused {name}", f"host loop {name}"}
+    cases.append(("host loop lambdarank quantized",
+                  {"objective": "lambdarank", **QUANT_PARAMS}, ranked))
+    rng = np.random.RandomState(15)
+    y_tw = (np.exp(0.3 * yr[:m]) * (rng.rand(m) < 0.7)).astype(np.float32)
+    cases += [("fused tweedie quantized",
+               {"objective": "tweedie", "tweedie_variance_power": 1.3,
+                **QUANT_PARAMS}, (Xr[:m], y_tw)),
+              ("fused weighted regression quantized",
+               {"objective": "regression", **QUANT_PARAMS},
+               (Xr[:m], yr[:m], {"weight": rng.rand(m) + 0.5}))]
+    exact |= {"host loop lambdarank quantized", "fused tweedie quantized",
+              "fused weighted regression quantized"}
     for learner, extra, data in cases:
         out = {}
-        xs, ys = data
+        xs, ys, ds_kw = (data + ({},))[:3]
         extra = dict(extra)
         fobj = extra.pop("fobj", None)
         for dev in ("cuda", "cpu"):
             params = {"objective": "binary", "tpu_hist_dtype": "float32",
                       "verbose": -1, "device_type": dev, **extra}
-            b = lgt.train(params, lgt.Dataset(xs, label=ys),
+            b = lgt.train(params, lgt.Dataset(xs, label=ys, **ds_kw),
                           num_boost_round=3, verbose_eval=False, fobj=fobj)
             preds = [b.predict(xs[:20_000])]
             if "categorical_feature" in extra:
@@ -1939,6 +2265,8 @@ def card_vs_cpu(forced_file):
         per_iter = b._gbdt.num_tree_per_iteration
         if learner.startswith("host loop"):
             assert b._gbdt._fused is None, learner
+        else:
+            assert b._gbdt._fused is not None, learner
         assert len(tg) == len(tc) == 3 * per_iter
         for a, b in zip(tg, tc):
             k = a.num_leaves
@@ -2070,6 +2398,10 @@ def profile_paths(args, wide):
                   for k, name, obj, *_ in MC_PATHS]
     cases.append(("n", "(n) wide custom-objective fused",
                   {**WIDE_PARAMS, "objective": "none"}, wds))
+    if "v" in keep:
+        key, name, objective, _ = RANK_PATHS[0]
+        cases.append((key, name, {**RANK_PARAMS, "objective": objective},
+                      rank_data("cuda")[0]))
     for key, name, params, ds in cases:
         if key not in keep:
             continue
@@ -2077,8 +2409,49 @@ def profile_paths(args, wide):
         fobj = binary_fobj if key == "n" else None
         booster.update(fobj=fobj)          # warm: state built, first tree
         # the per-tree paths' K x 255 splits: device rows only
-        profile_iteration(name, booster, device_only=key in ("l", "m", "n"),
-                          fobj=fobj)
+        profile_iteration(name, booster,
+                          device_only=key in ("l", "m", "n", "v"), fobj=fobj)
+        if key == "v":
+            profile_gradient(name, booster)
+
+
+def _device_rows(prof):
+    """[(device us, count, name)] of a profile's device-side rows
+    (kernels, memcpy, memset), largest first: operator rows repeat their
+    kernels' time."""
+    rows_ = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows_.append((dev_us, evt.count, evt.key))
+    return sorted(rows_, reverse=True)
+
+
+def profile_gradient(name, booster):
+    """One ranking-gradient call (``get_gradients`` on the booster's
+    training scores) alone under torch.profiler: wall and device busy
+    time, kernel launches, and the top kernels."""
+    gbdt = booster._gbdt
+    score = gbdt.get_training_score()[0]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gbdt.objective.get_gradients(score)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows_ = _device_rows(prof)
+    assert rows_, f"profile {name}: the profiler saw no device work"
+    busy = sum(r[0] for r in rows_) / 1e6
+    log(f"profile {name} ranking gradient: wall {wall * 1e3:.1f} ms, "
+        f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(r[1] for r in rows_)} kernels")
+    for dev_us, count, key in rows_[:8]:
+        log(f"profile {name} ranking gradient: {dev_us / 1e3:9.3f} ms  "
+            f"{count:6d}x  {key[:80]}")
 
 
 def profile_iteration(name, booster, device_only=False, fobj=None):
@@ -2100,17 +2473,7 @@ def profile_iteration(name, booster, device_only=False, fobj=None):
         booster.update(fobj=fobj)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows_ = []
-    for evt in prof.key_averages():
-        # device-side rows only (kernels, memcpy, memset): operator
-        # rows repeat their kernels' time
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows_.append((dev_us, evt.count, evt.key))
-    rows_.sort(reverse=True)
+    rows_ = _device_rows(prof)
     assert rows_, f"profile {name}: the profiler saw no device work"
     busy = sum(r[0] for r in rows_) / 1e6
     fam = {"hist": 0.0, "partition": 0.0, "other": 0.0}
@@ -2140,9 +2503,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="training rows of the HIGGS-shaped paths (HIGGS "
                     "has 10.5M)")
-    ap.add_argument("--iters", type=int, default=8,
-                    help="iterations of the HIGGS fused path, (d), (h) "
-                    "and (i)-(k)")
+    ap.add_argument("--iters", type=int, default=5,
+                    help="iterations of the HIGGS fused path, (d), (h), "
+                    "(i)-(k) and (t), and of (u)'s two trainings together")
     ap.add_argument("--wide-rows", type=int, default=1_048_576,
                     help="training rows of shape (a) (the bench.py wide "
                     "sidecar's own default)")
@@ -2154,7 +2517,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
     ap.add_argument("--profile-paths",
-                    default="higgs,a,b,c,d,e,f,g,h,i,j,k,l,m,n",
+                    default="higgs,a,b,c,d,e,f,g,h,i,j,k,l,m,n,v",
                     help="comma-separated paths --profile profiles")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -8,11 +8,18 @@ Hopper (csrc/), built with nvcc at first use; every kernel has a plain
 PyTorch version beside it that runs on the CPU.
 
 Entry points run on the card unless the params ask for the CPU
-(``device_type="cpu"``). It trains the binary main path,
-``train({"objective": "binary"}, Dataset(X, label=y))``, categorical
+(``device_type="cpu"``). It trains every objective of the JAX package
+on one device (binary, the regression family, cross-entropy,
+multiclass, custom objectives, and ranking: ``lambdarank`` and
+``rank_xendcg`` with the ``ndcg`` / ``map`` metrics), categorical
 columns included, and predicts with the packed forest or the path
-forest; ``cv``, continued training (``init_model``), model files and
-text or binary dataset files follow the JAX package's API.
+forest; ``cv``, continued training (``init_model``), model files, text
+or binary dataset files, SHAP contributions (``pred_contrib``), C++
+code generation, the scikit-learn wrappers, the plotting functions and
+the command line (``python -m lightgbm_tpu_torch config=train.conf``)
+follow the JAX package's API. scikit-learn, matplotlib and graphviz are
+optional: the estimators fall back to standalone bases, and the
+plotting functions import their libraries when called.
 """
 
 __version__ = "0.1.0"
@@ -23,8 +30,15 @@ from .callback import (early_stopping, log_evaluation, print_evaluation,
 from .config import Config
 from .engine import CVBooster, cv, train
 
+from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
+from .plotting import (create_tree_digraph, plot_importance, plot_metric,
+                       plot_split_value_histogram, plot_tree)
+
 __all__ = [
     "Booster", "CVBooster", "Config", "Dataset", "LightGBMError", "cv",
     "early_stopping", "log_evaluation", "print_evaluation",
     "record_evaluation", "record_metrics", "reset_parameter", "train",
+    "LGBMClassifier", "LGBMModel", "LGBMRanker", "LGBMRegressor",
+    "create_tree_digraph", "plot_importance", "plot_metric",
+    "plot_split_value_histogram", "plot_tree",
 ]

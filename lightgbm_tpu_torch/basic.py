@@ -512,12 +512,9 @@ class Booster:
                 num_iteration: Optional[int] = -1,
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False) -> np.ndarray:
-        """Scores, raw scores, or with ``pred_leaf`` the [N, T] leaf
-        index of every row in every tree."""
-        if pred_contrib:
-            raise NotImplementedError(
-                "pred_contrib is not ported yet (ROADMAP A12: "
-                "models/shap.py)")
+        """Scores, raw scores, with ``pred_leaf`` the [N, T] leaf index
+        of every row in every tree, or with ``pred_contrib`` the SHAP
+        contributions (``GBDT.predict_contrib``)."""
         if num_iteration is None:
             num_iteration = -1
         mat = _to_2d_numpy(data)
@@ -526,6 +523,9 @@ class Booster:
             if pred_leaf:
                 return self._gbdt.predict_leaf_index(m, start_iteration,
                                                      num_iteration)
+            if pred_contrib:
+                return self._gbdt.predict_contrib(m, start_iteration,
+                                                  num_iteration)
             return self._gbdt.predict(m, start_iteration, num_iteration,
                                       raw_score=raw_score)
         if _is_sparse(mat):

@@ -568,14 +568,18 @@ class GBDT:
         bigger_is_better), computed on the device and brought to the
         host in ONE read (the multiclass metrics' per-row inputs too,
         which ``Metric.finish`` completes there)."""
-        rows, vals = [], []
+        rows, vals, srcs = [], [], []
 
         def eval_set(ds_name, metrics, score):
             for m in metrics:
                 sc = score if m.all_classes else score[0]
                 for name, val in m.eval_device(sc, self.objective):
-                    rows.append((ds_name, name, m))
-                    vals.append(val.reshape(-1).to(torch.float64))
+                    # entries that share a tensor (a ranking metric's
+                    # k values) read it once
+                    if not srcs or val is not srcs[-1]:
+                        srcs.append(val)
+                        vals.append(val.reshape(-1).to(torch.float64))
+                    rows.append((ds_name, name, m, len(vals) - 1))
 
         div = None
         if self.average_output and self.current_iteration > 0:
@@ -595,12 +599,9 @@ class GBDT:
         if not vals:
             return []
         host = torch.cat(vals).cpu().numpy()
-        out, at = [], 0
-        for (d, n, m), v in zip(rows, vals):
-            out.append((d, n, m.finish(host[at:at + v.numel()]),
-                        m.bigger_is_better))
-            at += v.numel()
-        return out
+        at = np.cumsum([0] + [v.numel() for v in vals])
+        return [(d, n, m.finish(host[at[i]:at[i + 1]], n),
+                 m.bigger_is_better) for d, n, m, i in rows]
 
     @property
     def current_iteration(self) -> int:
@@ -691,6 +692,23 @@ class GBDT:
             score = self.objective.convert_output(score.t()).t()
         out = score.to(torch.float64).cpu().numpy()
         return out[0] if k == 1 else out.T
+
+    def predict_contrib(self, x: np.ndarray, start_iteration: int = 0,
+                        num_iteration: int = -1) -> np.ndarray:
+        """SHAP values (reference Tree::PredictContrib, the TreeSHAP
+        recursion of tree.cpp; ``models/shap.py``), per tree on the host
+        in float64: [N, F + 1], the last column the expected value; with
+        K trees per iteration each class's F + 1 columns side by side."""
+        from ..models.shap import tree_shap
+        xx = np.asarray(x, dtype=np.float64)
+        k = self.num_tree_per_iteration
+        out = np.zeros((k, xx.shape[0], self.max_feature_idx + 2))
+        for i, tree in enumerate(self._used_models(start_iteration,
+                                                   num_iteration)):
+            out[i % k] += tree_shap(tree, xx)
+        if k == 1:
+            return out[0]
+        return np.concatenate([out[c] for c in range(k)], axis=1)
 
     def predict_leaf_index(self, x: np.ndarray, start_iteration: int = 0,
                            num_iteration: int = -1) -> np.ndarray:
@@ -813,8 +831,8 @@ class GBDT:
                     params["reg_sqrt"] = True
             if name in ("multiclass", "multiclassova"):
                 params["num_class"] = self._loaded_num_class
-            # an objective the port does not train raises (ROADMAP A9):
-            # predict() would otherwise return untransformed raw scores
+            # the objective's output transform for predict() (ranking
+            # objectives load too: their scores are raw)
             self.objective = create_objective(Config.from_params(params))
         self.models = parse_tree_blocks(text)
         self.iter = len(self.models) // max(self.num_tree_per_iteration, 1)

@@ -28,8 +28,10 @@ product and a stable sort. The port computes their per-row inputs on the
 device (the probability of each row's class, each row's top-k error,
 the raw scores) and finishes with the same numpy code on the host
 (``finish``), so the values are the JAX package's. Every metric of an
-evaluation rides one host read (``GBDT.eval_at_iter``). Ranking metrics
-are not ported yet (ROADMAP A9).
+evaluation rides one host read (``GBDT.eval_at_iter``). The ranking
+metrics (rank_metric.hpp: ``ndcg``, ``map`` at each ``eval_at`` k) read
+the scores on the host, as the JAX package does, and finish in its
+float64 numpy code.
 """
 from __future__ import annotations
 
@@ -100,9 +102,10 @@ class Metric:
         tensor, or the per-row input of ``finish``."""
         raise NotImplementedError
 
-    def finish(self, host: np.ndarray) -> float:
-        """The value from the host copy (float64) of what
-        ``eval_device`` returned."""
+    def finish(self, host: np.ndarray, name: Optional[str] = None
+               ) -> float:
+        """The value of entry ``name`` from the host copy (float64) of
+        the tensor ``eval_device`` returned for it."""
         return float(host[0])
 
     def _avg(self, loss: np.ndarray) -> float:
@@ -373,7 +376,7 @@ class MultiLoglossMetric(Metric):
         lab = self._label_idx(p.device)
         return [(self.name, torch.gather(p, 1, lab)[:, 0])]
 
-    def finish(self, host):
+    def finish(self, host, name=None):
         p = host.astype(np.float32) if self._f32 else host
         loss = -np.log(np.maximum(np.clip(p, 1e-15, 1.0), 1e-308))
         return self._avg(loss)
@@ -391,7 +394,7 @@ class MultiErrorMetric(MultiLoglossMetric):
         k = max(1, self.config.multi_error_top_k)
         return [(self.name, (rank >= k).to(torch.float64))]
 
-    def finish(self, host):
+    def finish(self, host, name=None):
         return self._avg(host)
 
 
@@ -412,7 +415,7 @@ class AucMuMetric(Metric):
         self._shape = tuple(score.shape)
         return [(self.name, score.reshape(-1))]
 
-    def finish(self, host):
+    def finish(self, host, name=None):
         s = host.reshape(self._shape)
         nc = self.config.num_class
         lab = self.label.astype(np.int64)
@@ -473,6 +476,68 @@ class CrossEntropyLambdaMetric(Metric):
         return [(self.name, _sum_dev(loss) / loss.shape[0])]
 
 
+# --- ranking (rank_metric.hpp) --------------------------------------------
+
+class _RankMetric(Metric):
+    """A per-query ranking metric at each ``eval_at`` k, averaged over
+    the queries. ``eval_device`` returns one entry per k, all of them
+    the same float64 scores (read to the host once, with the other
+    metrics); ``finish`` runs the JAX package's numpy loop for the
+    entry's k."""
+    bigger_is_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log.fatal("%s metric requires query information",
+                      self.name.upper())
+        self.boundaries = np.asarray(metadata.query_boundaries)
+        self.eval_at = list(self.config.eval_at)
+
+    def eval_device(self, score, objective=None):
+        s = score.to(torch.float64)
+        return [(f"{self.name}@{k}", s) for k in self.eval_at]
+
+    def finish(self, host, name=None):
+        k, s = int(name.rsplit("@", 1)[1]), host
+        total = 0.0
+        for q in range(len(self.boundaries) - 1):
+            b, e = self.boundaries[q], self.boundaries[q + 1]
+            total += self.query_value(k, self.label[b:e], s[b:e])
+        return float(total / (len(self.boundaries) - 1))
+
+    def query_value(self, k: int, label: np.ndarray,
+                    score: np.ndarray) -> float:
+        raise NotImplementedError
+
+
+class NDCGMetric(_RankMetric):
+    name = "ndcg"
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        from ..objective.rank import DCGCalculator
+        self.dcg = DCGCalculator(self.config.label_gain)
+
+    def query_value(self, k, label, score):
+        maxdcg = self.dcg.cal_max_dcg_at_k(k, label)
+        if maxdcg <= 0:
+            return 1.0
+        return self.dcg.cal_dcg_at_k(k, label, score) / maxdcg
+
+
+class MapMetric(_RankMetric):
+    name = "map"
+
+    def query_value(self, k, label, score):
+        lab = (label > 0).astype(np.float64)
+        rel = lab[np.argsort(-score, kind="stable")]
+        prec = np.cumsum(rel) / (np.arange(len(rel)) + 1.0)
+        kk = min(k, len(rel))
+        npos = rel[:kk].sum()
+        return float(np.sum(prec[:kk] * rel[:kk]) / max(npos, 1.0))
+
+
 _REGISTRY = {
     "l2": L2Metric,
     "rmse": RMSEMetric,
@@ -494,6 +559,8 @@ _REGISTRY = {
     "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kldiv": KLDivMetric,
+    "ndcg": NDCGMetric,
+    "map": MapMetric,
 }
 
 
@@ -501,7 +568,6 @@ def create_metric(name: str, config: Config) -> Optional[Metric]:
     cls = _REGISTRY.get(name)
     if cls is None:
         if name not in ("", "custom"):
-            log.warning("Metric %s is not ported yet (ROADMAP A9), ignored",
-                        name)
+            log.warning("Unknown metric type name: %s", name)
         return None
     return cls(config)

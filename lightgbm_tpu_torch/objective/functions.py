@@ -25,8 +25,9 @@ persistent learner's state, take the per-tree path: ``multiclass``
 (softmax over the K class scores; multiclass_objective.hpp:24),
 ``multiclassova`` (K binary objectives, one per class; :186) and
 ``cross_entropy_lambda`` (xentropy_objective.hpp:185). Their
-``get_gradients`` takes the [K, N] (or [N]) row-order scores. Ranking is
-not ported yet.
+``get_gradients`` takes the [K, N] (or [N]) row-order scores. So do
+the ranking objectives (``lambdarank``, ``rank_xendcg``:
+objective/rank.py), over the queries of the dataset's groups.
 """
 from __future__ import annotations
 
@@ -145,6 +146,12 @@ class ObjectiveFunction:
 
     def persistent_grads(self, score, label, weight):
         raise NotImplementedError
+
+    def quantized_grads(self, score, label, weight):
+        """``persistent_grads`` as the fused learner's quantized
+        iteration computes them: the same ops, but that program can
+        contract them differently (tweedie, ROADMAP §C C12)."""
+        return self.persistent_grads(score, label, weight)
 
     def persistent_renew_spec(self):
         """(alpha, weighted) for the fused learner's in-program leaf
@@ -439,6 +446,11 @@ class RegressionTweedie(RegressionPoisson):
     def persistent_grads(self, score, label, weight):
         return _weigh(*self._tweedie_grads(score, label, False), weight)
 
+    def quantized_grads(self, score, label, weight):
+        # the quantized iteration contracts the gradient, as the jitted
+        # get_gradients does (C12)
+        return _weigh(*self._tweedie_grads(score, label, True), weight)
+
 
 # ---------------------------------------------------------------------------
 # binary (reference binary_objective.hpp:21)
@@ -706,8 +718,9 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     if name == "custom":
         return None
     if name in ("lambdarank", "rank_xendcg"):
-        raise NotImplementedError(
-            f"objective {name!r} is not ported yet (ranking, ROADMAP A9)")
+        from .rank import LambdarankNDCG, RankXENDCG
+        return (LambdarankNDCG if name == "lambdarank"
+                else RankXENDCG)(config)
     cls = _REGISTRY.get(name)
     if cls is None:
         log.fatal("Unknown objective type name: %s", name)

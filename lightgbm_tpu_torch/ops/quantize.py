@@ -74,7 +74,12 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     def scale(vmax, qmax):
         v = torch.clamp(torch.as_tensor(vmax, dtype=torch.float32,
                                         device=grad.device), min=1e-35)
-        return v * f32_reciprocal(qmax) if reciprocal else v / qmax
+        if reciprocal:
+            return v * f32_reciprocal(qmax)
+        # a tensor divisor: torch divides a CUDA tensor by a Python
+        # number as a product with its reciprocal
+        return v / torch.tensor(float(qmax), dtype=torch.float32,
+                                device=v.device)
     gscale, hscale = scale(grad_max, qmax_g), scale(hess_max, qmax_h)
     sg = grad / gscale
     sh = hess / hscale

@@ -343,10 +343,12 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     contracts it into the subtraction that follows (sum_g - x as one
     FMA, sum_h + 2·eps as another); from 64 bins a differently shaped
     fusion hoists the product out of the loop, rounded (ROADMAP §C,
-    C10). Returns a dict of [..., F] tensors.
+    C10). The record's right totals, taken after the scan, contract the
+    product at every bin count (C12). Returns a dict of [..., F]
+    tensors.
     """
-    if hist.shape[-2] >= _SCAN_FUSION_BINS:
-        sum_levels = None
+    loop_levels = sum_levels if hist.shape[-2] < _SCAN_FUSION_BINS \
+        else None
     b_dim = hist.shape[-2]
     dev = hist.device
 
@@ -355,11 +357,11 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
 
     sum_g2, num2 = e2(sum_g), e2(num_data)
     sh2 = e2(sum_h) + 2 * K_EPSILON
-    if sum_levels is None:
+    if loop_levels is None:
         def g_less(x):          # sum_g - x
             return sum_g2 - x
     else:
-        lg_tot, g_scale, lh_tot, h_scale = (e2(v) for v in sum_levels)
+        lg_tot, g_scale, lh_tot, h_scale = (e2(v) for v in loop_levels)
 
         def g_less(x):
             return fma_f32(g_scale, lg_tot, -x)

@@ -735,7 +735,9 @@ class FusedSerialGrower:
         score = plane.get_f32(data, Ly.score)
         label = plane.get_f32(data, Ly.label)
         weight = plane.get_f32(data, Ly.weight) if Ly.weight >= 0 else None
-        g, h = self.objective.persistent_grads(score, label, weight)
+        grads = (self.objective.quantized_grads if self._quant
+                 else self.objective.persistent_grads)
+        g, h = grads(score, label, weight)
         realm = torch.arange(Ly.num_lanes, device=self.device) < n
         return torch.where(realm, g, 0.0), torch.where(realm, h, 0.0)
 

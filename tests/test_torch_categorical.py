@@ -462,9 +462,13 @@ def _assert_carried_across(jb, X):
 
 
 def test_pred_contrib_raises():
-    X, y = _num_data(n=300)
-    tb = tlgb.train({"objective": "binary", "verbose": -1,
-                     "device_type": "cpu"}, tlgb.Dataset(X, label=y),
-                    num_boost_round=1, verbose_eval=False)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tb.predict(X, pred_contrib=True)
+    """``pred_contrib`` on the categorical model: the JAX package's
+    float64 TreeSHAP values, exactly, on 200 rows with NaN in the
+    categorical columns; each row sums to its raw score."""
+    jb, tb, X = _model("categorical")
+    x = X[:200]
+    got = tb.predict(x, pred_contrib=True)
+    np.testing.assert_array_equal(got, jb.predict(x, pred_contrib=True))
+    assert got.shape == (200, X.shape[1] + 1)
+    np.testing.assert_allclose(got.sum(axis=1),
+                               tb.predict(x, raw_score=True), atol=1e-6)

@@ -945,3 +945,67 @@ def test_init_model_on_card_equals_cpu(learner, tmp_path):
     _assert_same_models(tg, tc)
     assert np.array_equal(bg.predict(X, raw_score=True),
                           bc.predict(X, raw_score=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["lambdarank", "rank_xendcg"])
+def test_ranking_gradients_on_card_equal_cpu(objective):
+    """The ranking gradients on the card against the CPU, bit for bit,
+    for every bucket size chip_smoke.py's MSLR-shaped data produces (8 to
+    2048 documents; a query of one document, the ends of each bucket),
+    on random scores, on tied scores, and with signed zeros."""
+    _need_card()
+    import types
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objective.rank import LambdarankNDCG, RankXENDCG
+    sizes = [1, 5, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 256, 257, 512,
+             513, 1024, 1025, 1250, 2048] + list(
+                 np.random.RandomState(0).randint(1, 300, 60))
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    rng = np.random.RandomState(1)
+    n = int(bounds[-1])
+    meta = types.SimpleNamespace(
+        label=rng.randint(0, 5, n).astype(np.float64), weights=None,
+        query_boundaries=bounds)
+    cls = LambdarankNDCG if objective == "lambdarank" else RankXENDCG
+    objs = {}
+    for dev in ("cuda", "cpu"):
+        objs[dev] = cls(Config.from_params({"objective": objective,
+                                            "device_type": dev}))
+        objs[dev].init(meta, n)
+    assert sorted({m for m, _ in objs["cpu"]._chunks}) == [
+        8, 16, 32, 64, 128, 256, 512, 1024, 2048]
+    s = (rng.randn(n) * 2).astype(np.float32)
+    k = np.arange(n) % 3
+    signed = np.where(k == 0, np.float32(-0.0),
+                      np.where(k == 1, np.float32(0.0), s))
+    for scores in (s, np.zeros(n, np.float32), signed.astype(np.float32)):
+        gg, hg = objs["cuda"].get_gradients(torch.as_tensor(scores).cuda())
+        gc, hc = objs["cpu"].get_gradients(torch.as_tensor(scores))
+        assert torch.equal(gg.cpu().view(torch.int32), gc.view(torch.int32))
+        assert torch.equal(hg.cpu().view(torch.int32), hc.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins", [4, 8, 16])
+def test_quantize_gradients_on_card_equal_cpu(bins):
+    """The quantization pass on the card against the CPU, bit for bit,
+    scales included, in both forms (the host loop's true division by the
+    level count, the fused learner's product with its reciprocal), on
+    maxima that the two forms round apart."""
+    _need_card()
+    from lightgbm_tpu_torch.ops import threefry
+    rng = np.random.RandomState(bins)
+    for trial in range(20):
+        g = torch.as_tensor((rng.randn(10_000) * rng.rand()).astype(
+            np.float32))
+        h = torch.as_tensor((rng.rand(10_000) * rng.rand()).astype(
+            np.float32))
+        key = threefry.PRNGKey(trial)
+        for reciprocal in (False, True):
+            got = TQ.quantize_gradients(g.cuda(), h.cuda(), bins,
+                                        key, reciprocal=reciprocal)
+            want = TQ.quantize_gradients(g, h, bins, key,
+                                         reciprocal=reciprocal)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), (trial, reciprocal)

@@ -162,13 +162,20 @@ def test_cross_entropy_lambda_gradients_bit_equal(weighted):
 
 def test_create_objective_for_custom_and_ranking():
     """``objective=none`` (a custom objective) has no objective
-    function; ranking still raises and names ROADMAP A9."""
+    function; the ranking names and their aliases give the ranking
+    objectives, as in the JAX package."""
     for name in ("none", "custom", "null"):
         assert port_objective(TConfig.from_params(
             {"objective": name, "device_type": "cpu"})) is None
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_objective(TConfig.from_params({"objective": "lambdarank",
-                                            "device_type": "cpu"}))
+    for name, want in (("lambdarank", "lambdarank"),
+                       ("rank_xendcg", "rank_xendcg"),
+                       ("xendcg", "rank_xendcg")):
+        obj = port_objective(TConfig.from_params({"objective": name,
+                                                  "device_type": "cpu"}))
+        jobj = jax_objective(JConfig.from_params({"objective": name}))
+        assert obj.name == jobj.name == want
+        assert obj.need_group and jobj.need_group
+        assert obj.persistent_aux() is None
 
 
 # ---------------------------------------------------------------------------

@@ -259,13 +259,24 @@ def test_training_bit_equal(case, fused):
         assert [m.name for m in tb._gbdt.metrics] == ["l2"]
 
 
-@pytest.mark.parametrize("objective", ["regression", "regression_l1"])
-def test_quantized_training_bit_equal(objective):
+# case: objective, its params, weighted
+QUANT_GATES = {
+    "regression": ("regression", {}, False),
+    "regression_l1": ("regression_l1", {}, True),
+    # C12 (ROADMAP §C): the quantized program's tweedie gradient and the
+    # root record's right totals
+    "tweedie": ("tweedie", {"tweedie_variance_power": 1.3}, False),
+    "regression_weighted": ("regression", {}, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUANT_GATES))
+def test_quantized_training_bit_equal(case):
     """use_quantized_grad on the fused learner: L2 keeps the quantized
     search's leaf outputs, L1 (weighted) takes its percentile refit."""
+    objective, extra, weighted = QUANT_GATES[case]
     _, tb = assert_regression_bit_equal(
-        objective, {"use_quantized_grad": True}, objective != "regression",
-        True)
+        objective, {"use_quantized_grad": True, **extra}, weighted, True)
     assert tb._gbdt._fused._quant
 
 

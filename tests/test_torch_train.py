@@ -147,28 +147,23 @@ def test_model_text(trained):
     "lambdarank", "multiclass num_class:3", "multiclassova num_class:3",
     "cross_entropy_lambda"])
 def test_loading_an_untrained_objective_raises(trained, objective):
-    """JAX model text whose objective the port does not train (ranking)
-    raises and names its ROADMAP item, rather than predicting
-    untransformed raw scores. The objectives of the per-tree path, which
-    raised here until the port trained them, now load: a JAX model of
-    each (3 classes from the label and column 0) predicts bit-equal in
-    the port, raw and transformed."""
+    """JAX model text of each of these objectives loads in the port: a
+    JAX model of each (ranking with ten queries; 3 classes from the
+    label and column 0) predicts bit-equal in the port, raw and
+    transformed."""
     out, X, _ = trained
-    jtext = out["jax"][0].model_to_string()
-    if objective == "lambdarank":
-        head, sep, rest = jtext.partition("\nobjective=")
-        assert sep
-        text = head + sep + objective + "\n" + rest.split("\n", 1)[1]
-        with pytest.raises(NotImplementedError, match="A9"):
-            tlgb.Booster(params={"device_type": "cpu"}, model_str=text)
-        return
     _, y = _data()
     name, _, tok = objective.partition(" ")
     params = {"objective": name, "num_leaves": 7, "verbose": -1}
+    group = None
     if tok:
         params["num_class"] = int(tok.split(":")[1])
         y = y + (X[:, 0] > 1.0)
-    jb = jlgb.train(params, jlgb.Dataset(X, label=y), num_boost_round=2)
+    if name == "lambdarank":
+        group = np.full(10, len(y) // 10)
+        group[-1] += len(y) - group.sum()
+    jb = jlgb.train(params, jlgb.Dataset(X, label=y, group=group),
+                    num_boost_round=2)
     tb = tlgb.Booster(params={"device_type": "cpu"},
                       model_str=jb.model_to_string())
     assert tb._gbdt.objective.name == name
@@ -197,7 +192,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 20
     names = {os.path.relpath(f, REPO) for f in files}
     for mod in ("treelearner/serial.py", "treelearner/monotone.py",
-                "ops/partition.py", "ops/multival.py", "ops/cuda.py"):
+                "ops/partition.py", "ops/multival.py", "ops/cuda.py",
+                "objective/rank.py", "models/shap.py", "models/codegen.py",
+                "sklearn.py", "plotting.py", "cli.py", "__main__.py"):
         assert os.path.join("lightgbm_tpu_torch", mod) in names, mod
     for path in files:
         tree = ast.parse(open(path).read(), path)
@@ -232,16 +229,16 @@ def test_cuda_without_a_card_raises():
     ({"tpu_fused": False, "use_quantized_grad": True}, None, "host_loop"),
     ({"tree_learner": "voting", "num_machines": 2}, NotImplementedError,
      "A13"),
-    ({"objective": "lambdarank"}, NotImplementedError, "A9"),
+    ({"objective": "lambdarank"}, None, "fused"),
 ])
 def test_left_out_options_raise(extra, err, match, tmp_path):
     """Options the port does not train yet raise and name their ROADMAP
-    item (ranking, since cross_entropy_lambda trains on the per-tree
-    path: tests/test_torch_multiclass.py); bagging, quantized gradients
-    and forced splits (``err`` None) now train on the learner named by
+    item (several devices, A13); bagging, quantized gradients, forced
+    splits and ranking (``err`` None) now train on the learner named by
     ``match``, the quantized ones with integer histograms, the forced
-    ones with the file's root split (tests/test_torch_forced.py holds
-    them against the JAX package)."""
+    ones with the file's root split, ranking over ten queries on the
+    per-tree path (tests/test_torch_forced.py and
+    tests/test_torch_rank.py hold them against the JAX package)."""
     X, y = _data(n=300)
     X[:, 3] = np.abs(np.round(X[:, 3]))
     if "forcedsplits_filename" in extra:
@@ -250,7 +247,9 @@ def test_left_out_options_raise(extra, err, match, tmp_path):
             fh.write('{"feature": 1, "threshold": 0.0}')
         extra = {**extra, "forcedsplits_filename": path}
     if err is None:
-        b = tlgb.train({**PARAMS, **extra}, tlgb.Dataset(X, label=y),
+        group = [30] * 10 if extra.get("objective") == "lambdarank" else None
+        b = tlgb.train({**PARAMS, **extra},
+                       tlgb.Dataset(X, label=y, group=group),
                        num_boost_round=2, verbose_eval=False)
         gb = b._gbdt
         learner = gb._fused if match == "fused" else gb.tree_learner
