@@ -54,7 +54,7 @@ Phases, each of which fails the run (no exception is caught):
      state per class tree from row-order gradients, the score update
      through each row's leaf): (l) HIGGS-multiclass fused, the HIGGS
      columns with 5 classes (the quintiles of (i)'s label), multiclass,
-     3 iterations (15 trees), B1 + B2, held-out multi_logloss below the
+     2 iterations (10 trees), B1 + B2, held-out multi_logloss below the
      constant predictor's ln 5; (m) the same data with multiclassova, 2
      iterations, held-out multi_error below the constant predictor's
      0.8; (n) shape (a) (multi-value layout, P = 128) with a custom
@@ -88,7 +88,7 @@ Phases, each of which fails the run (no exception is caught):
      136 dense columns, 723,412 training rows in 6,000 queries of 1 to
      1,250 documents, labels 0-4 in MSLR's shares; 1,000 held-out
      queries), objective=lambdarank, metric ndcg at 1, 3, 5 and 10, 255
-     leaves and bins, 5 iterations on the per-tree fused path (B1 +
+     leaves and bins, 4 iterations on the per-tree fused path (B1 +
      B2); the ranking gradient timed by CUDA events; the held-out
      ndcg@10 must beat a random ordering's (numpy). (w) the same data
      with rank_xendcg, 3 iterations.
@@ -100,6 +100,25 @@ Phases, each of which fails the run (no exception is caught):
      through subprocess (``python -m lightgbm_tpu_torch`` task=train
      on a 200,000-row CSV, task=predict equal to Booster.predict of the
      model file, task=convert_model a non-empty C++ file).
+3b. multi-GPU — MG_WORLD = 2 ranks spawned with torch.multiprocessing
+   (a FileStore rendezvous; NCCL for the card's tensors with gloo for the
+   host's when there are two cards, rank r on cuda:r; on one card gloo
+   carries both ranks on cuda:0, the CUDA tensors staged through host
+   memory; the backend, ranks and cards are printed). Each rank runs:
+   - (y) HIGGS data-parallel fused: the HIGGS path's data and params
+     with tree_learner=data (the persistent FusedDataParallelGrower:
+     B1 + B2 over each rank's 1,000,000 rows, one reduction of the
+     smaller child's histogram per split) for --iters iterations; every
+     rank's model text must be equal and the held-out AUC within 2e-3
+     of the one-card HIGGS path's; prints s/iteration, host syncs, the
+     reductions' calls, bytes and CUDA-event time per iteration, B1 / B2
+     launches per rank per iteration and peak memory per rank;
+   - (z) every parallel learner on 100,000 rows, 5 iterations, on the
+     card and on the CPU in the same group: the persistent and the
+     bagged (per-tree) fused data-parallel learner, multiclass (5
+     classes), quantized gradients, the host-loop data-parallel,
+     voting (top_k 5) and feature-parallel learners; each case's
+     model equal on every rank, and card == CPU as phase 4 holds it.
 4. card vs CPU — the same small training (100,000 rows; 30,000 from the
    boosting-mode cases on) on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
@@ -118,7 +137,9 @@ Phases, each of which fails the run (no exception is caught):
    API cases exactly), with prediction early stop off and on for the
    categorical model.
 
-``--profile`` instead profiles one iteration of each path
+``--multi-gpu-only`` runs phase 1 and phase 3b alone (no AUC
+comparison) and prints no result. ``--profile`` instead profiles one
+iteration of each path
 (``--profile-paths b,h`` of the named ones only; (l)-(n) and (v) device
 rows only; (v) also one call of its ranking gradient alone).
 
@@ -1477,7 +1498,7 @@ MC_PARAMS = {"num_leaves": 255, "max_bin": 255, "num_class": 5,
              "verbose": -1}
 # (key, name, objective, held-out metric, its bound, iterations)
 MC_PATHS = [("l", "(l) HIGGS-multiclass fused", "multiclass",
-             "multi_logloss", float(np.log(5.0)), 3),
+             "multi_logloss", float(np.log(5.0)), 2),
             ("m", "(m) HIGGS-multiclassova fused", "multiclassova",
              "multi_error", 0.8, 2)]
 FOBJ_ITERS = 3                     # path (n)
@@ -1752,11 +1773,11 @@ def api_path(args, X, y, hX, hy, ds, straight_auc, tmp, device="cuda"):
 RANK_PARAMS = {"num_leaves": 255, "max_bin": 255, "metric": "ndcg",
                "eval_at": [1, 3, 5, 10], "verbose": -1}
 # (key, name, objective, iterations)
-RANK_PATHS = [("v", "(v) MSLR lambdarank fused", "lambdarank", 5),
+RANK_PATHS = [("v", "(v) MSLR lambdarank fused", "lambdarank", 4),
               ("w", "(w) MSLR rank_xendcg fused", "rank_xendcg", 3)]
 RANKER_QUERIES = 1_000             # path (x): LGBMRanker's training queries
 CLF_ROWS = 200_000                 # path (x): LGBMClassifier, CLI CSV rows
-API_REST_ITERS = 4                 # path (x): iterations of each model
+API_REST_ITERS = 3                 # path (x): iterations of each model
 CONTRIB_ROWS = 2_000               # path (x): pred_contrib rows
 
 
@@ -2129,6 +2150,245 @@ def paths(args, report, wide, device="cuda"):
                "hist_multival_planar_q": ["e"], "hist_multival_q": ["g"]}
     for r in report:
         r["launches"] = sum(got[p][r["name"]] for p in path_of[r["name"]])
+    return aucs["higgs"]
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the multi-GPU learners, one process per rank
+# ---------------------------------------------------------------------------
+
+MG_WORLD = 2                       # ranks of paths (y) and (z)
+MG_CASE_ITERS = 5                  # path (z): iterations of each case
+# path (z): (name, params over the binary default, data, kernels on the
+# card, learner class)
+MG_CASES = [
+    ("fused persistent", {"tree_learner": "data"}, "bin",
+     ("hist_planar", "partition"), "FusedDataParallelGrower"),
+    ("fused bagging", {"tree_learner": "data", "bagging_fraction": 0.8,
+                       "bagging_freq": 1}, "bin",
+     ("hist_planar", "partition"), "FusedDataParallelGrower"),
+    ("fused multiclass", {"tree_learner": "data", "objective": "multiclass",
+                          "num_class": 5}, "mc5",
+     ("hist_planar", "partition"), "FusedDataParallelGrower"),
+    ("fused quantized", {"tree_learner": "data", **QUANT_PARAMS}, "bin",
+     ("hist_planar_q", "partition"), "FusedDataParallelGrower"),
+    ("host loop data", {"tree_learner": "data", "tpu_fused": False}, "bin",
+     ("hist_radix",), "DataParallelTreeGrower"),
+    ("host loop voting", {"tree_learner": "voting", "top_k": 5}, "bin",
+     ("hist_radix",), "VotingParallelTreeGrower"),
+    ("host loop feature", {"tree_learner": "feature"}, "bin",
+     ("hist_radix",), "FeatureParallelTreeGrower"),
+]
+
+
+def mg_backend(device="cuda"):
+    """(backend, card of rank r): NCCL for the card's tensors with gloo
+    for the host's when there are MG_WORLD cards, rank r on cuda:r; on
+    one card NCCL cannot hold two ranks, so gloo carries both (the CUDA
+    tensors through host memory), both ranks on cuda:0."""
+    if device == "cuda" and torch.cuda.device_count() >= MG_WORLD:
+        return "cpu:gloo,cuda:nccl", lambda r: r
+    return "gloo", lambda r: 0
+
+
+def _mg_rank(rank, world, backend, store_path, out_dir, cfg):
+    """One rank of phase 3b: join the group through the file store, run
+    the paths and pickle their results to ``out_dir/<rank>.pkl``."""
+    import pickle
+    import torch.distributed as dist
+    sys.path.insert(0, cfg["here"])
+    if rank > 0:
+        # rank 0 reports; the others' results reach the parent
+        sys.stdout = open(os.devnull, "w")
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    card = rank if backend != "gloo" else 0
+    if cfg["device"] == "cuda":
+        torch.cuda.set_device(card)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        out = {"card": card, "y": _mg_path_y(rank, cfg),
+               "z": _mg_path_z(rank, cfg)}
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mg_path_y(rank, cfg):
+    """Path (y) on one rank: the HIGGS shape at full width through
+    ``tree_learner=data`` (the persistent FusedDataParallelGrower, B1 +
+    B2 over the rank's rows, one reduction of the smaller child's
+    histogram per split), timed per iteration by run_path."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import network
+    rows, hold, iters = cfg["rows"], cfg["hold"], cfg["iters"]
+    device = cfg["device"]
+    X, y = make_higgs_like(rows + hold, 28, seed=0)
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:rows], label=y[:rows],
+                     params={**HIGGS_PARAMS, "device_type": device})
+    ds.construct()
+    t_bin = time.perf_counter() - t0
+    network.reset_stats()
+    network.set_timing(True)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    name = f"(y) HIGGS data-parallel fused, rank {rank}"
+    launches, booster, auc = run_path(
+        name, {**HIGGS_PARAMS, "tree_learner": "data"}, ds, iters,
+        X[rows:], y[rows:], ("hist_planar", "partition"), device)
+    coll_ms = network.timed_ms()
+    network.set_timing(False)
+    gb = booster._gbdt
+    fl = gb._fused
+    assert type(fl).__name__ == "FusedDataParallelGrower", type(fl)
+    assert gb._fused_persist, name
+    return dict(text=booster.model_to_string(), auc=auc,
+                launches=launches, bin_s=t_bin, rows=fl.n_valid,
+                syncs=fl.syncs, calls=network.STATS["calls"],
+                bytes=network.STATS["bytes"], coll_ms=coll_ms,
+                peak=(torch.cuda.max_memory_allocated()
+                      if device == "cuda" else 0), iters=iters)
+
+
+def _mg_path_z(rank, cfg):
+    """Path (z) on one rank: every parallel learner on MG_CASE_ITERS
+    iterations of cfg["case_rows"] rows, once on the card and once on
+    the CPU (the plain versions) in the same group; per case and device
+    the model text, predictions on 20,000 rows, the learner and the
+    card's launches."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda as K
+    n = cfg["case_rows"]
+    X, y = make_higgs_like(n, 28, seed=3)
+    _, yr = make_higgs_reg_like(n, 28, seed=3)
+    data = {"bin": y, "mc5": np.digitize(
+        yr, np.quantile(yr, [0.2, 0.4, 0.6, 0.8])).astype(np.float32)}
+    out = {}
+    for name, extra, label, _, _ in MG_CASES:
+        for key, dev in (("cuda", cfg["device"]), ("cpu", "cpu")):
+            K.reset_launches()
+            t0 = time.perf_counter()
+            b = lgt.train({"objective": "binary", "tpu_hist_dtype": "float32",
+                           "verbose": -1, "device_type": dev, **extra},
+                          lgt.Dataset(X, label=data[label]),
+                          num_boost_round=MG_CASE_ITERS, verbose_eval=False)
+            gb = b._gbdt
+            learner = gb._fused if gb._fused is not None else gb.tree_learner
+            out[name, key] = dict(
+                text=b.model_to_string(), pred=b.predict(X[:20_000]),
+                learner=type(learner).__name__, launches=dict(K.LAUNCHES),
+                secs=time.perf_counter() - t0)
+    return out
+
+
+def multi_gpu_paths(args, higgs_auc, device="cuda", hold=200_000,
+                    case_rows=PHASE4_ROWS):
+    """Phase 3b: paths (y) and (z) in MG_WORLD ranks spawned here (the
+    library uses the group it is given; this script picks the backend).
+    (y): every rank's model text is the same and the held-out AUC is
+    within 2e-3 of ``higgs_auc`` (the one-card HIGGS path's after as many
+    iterations; None: not checked); prints s/iteration, host syncs, the
+    reductions' bytes and CUDA-event time per iteration, B1 / B2 launches
+    per rank per iteration and peak memory per rank. (z): each case's
+    model equal on every rank, and card == CPU as phase 4 holds them.
+    Returns rank 0's launches of (y). ``device="cpu"`` rehearses both
+    paths on the CPU (a gloo group, the CPU run twice), at ``hold``
+    held-out rows of (y) and ``case_rows`` rows of (z)."""
+    import pickle
+    backend, card_of = mg_backend(device)
+    cards = sorted({card_of(r) for r in range(MG_WORLD)})
+    log(f"multi-GPU: backend {backend}, {MG_WORLD} ranks on "
+        f"{len(cards)} card(s) {cards} of {torch.cuda.device_count()}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = dict(here=here, rows=args.rows, hold=hold, iters=args.iters,
+               case_rows=case_rows, device=device)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(
+            _mg_rank, args=(MG_WORLD, backend, os.path.join(tmp, "store"),
+                            tmp, cfg), nprocs=MG_WORLD, join=True)
+        res = []
+        for r in range(MG_WORLD):
+            with open(os.path.join(tmp, f"{r}.pkl"), "rb") as fh:
+                res.append(pickle.load(fh))
+    log(f"multi-GPU: {time.perf_counter() - t0:.1f} s for paths (y) and "
+        f"(z) in {MG_WORLD} ranks")
+    ys = [r["y"] for r in res]
+    for r, yr in enumerate(ys):
+        it = yr["iters"]
+        log(f"(y) rank {r} (cuda:{res[r]['card']}): {yr['rows']} rows, "
+            f"binned in {yr['bin_s']:.2f} s (host); "
+            f"{yr['syncs'] / it:.1f} host syncs/iteration; reductions "
+            f"{yr['calls'] / it:.1f} calls, {yr['bytes'] / it:.0f} "
+            f"bytes and {yr['coll_ms'] / it:.3f} ms (CUDA events) per "
+            f"iteration; B1 {yr['launches']['hist_planar'] / it:.1f}, "
+            f"B2 {yr['launches']['partition'] / it:.1f} launches per "
+            f"iteration; peak memory {yr['peak'] / 2 ** 20:.1f} MiB")
+        assert yr["text"] == ys[0]["text"], f"(y) rank {r}'s model differs"
+        assert yr["auc"] == ys[0]["auc"], (r, yr["auc"], ys[0]["auc"])
+    if higgs_auc is not None:
+        log(f"(y) held-out AUC {ys[0]['auc']:.6f} beside the one-card "
+            f"HIGGS path's {higgs_auc:.6f} (diff "
+            f"{ys[0]['auc'] - higgs_auc:+.6f}); models equal on "
+            f"{MG_WORLD} ranks")
+        assert abs(ys[0]["auc"] - higgs_auc) <= 2e-3, \
+            ("(y) AUC", ys[0]["auc"], higgs_auc)
+    zs = [r["z"] for r in res]
+    for name, _, _, expect, learner in MG_CASES:
+        g, c = zs[0][name, "cuda"], zs[0][name, "cpu"]
+        for z in zs[1:]:
+            for dev in ("cuda", "cpu"):
+                assert z[name, dev]["text"] == zs[0][name, dev]["text"], \
+                    f"(z) {name} on {dev}: the ranks' models differ"
+        assert g["learner"] == c["learner"] == learner, (name, g, c)
+        if device == "cuda":
+            for k in expect:
+                assert g["launches"][k] > 0, \
+                    f"(z) {name}: {k} not launched"
+        tg = _card_trees(g["text"])
+        tc = _card_trees(c["text"])
+        assert len(tg) == len(tc)
+        for a, b in zip(tg, tc):
+            k = a.num_leaves
+            assert k == b.num_leaves, (name, k, b.num_leaves)
+            for f in ("split_feature", "threshold", "decision_type",
+                      "left_child", "right_child"):
+                assert np.array_equal(getattr(a, f)[:k - 1],
+                                      getattr(b, f)[:k - 1]), (name, f)
+            np.testing.assert_allclose(a.leaf_value[:k],
+                                       b.leaf_value[:k], rtol=0,
+                                       atol=1e-6)
+        np.testing.assert_allclose(g["pred"], c["pred"], rtol=0,
+                                   atol=1e-6)
+        log(f"(z) {name} ({learner}): {cfg['case_rows']} rows, "
+            f"{MG_CASE_ITERS} iterations on {MG_WORLD} ranks: models "
+            f"equal on every rank; card == CPU: trees equal "
+            f"({[t.num_leaves for t in tg]} leaves), tree blocks of "
+            f"the model text "
+            f"{'identical' if _tree_text(g) == _tree_text(c) else 'differ'}"
+            f", "
+            f"predictions max |diff| "
+            f"{float(np.abs(g['pred'] - c['pred']).max()):.3g}; "
+            f"{g['secs']:.1f} s on the card, {c['secs']:.1f} s on the "
+            f"CPU; card launches "
+            + json.dumps({k: g["launches"][k] for k in expect}))
+    return ys[0]["launches"]
+
+
+def _tree_text(run):
+    """The Tree= blocks of a run's model text (its parameter echo names
+    the device)."""
+    t = run["text"]
+    return t[t.index("Tree=0"):t.index("end of trees")]
+
+
+def _card_trees(text):
+    """The host Trees of a model text."""
+    from lightgbm_tpu_torch.boosting.gbdt import parse_tree_blocks
+    return parse_tree_blocks(text)
 
 
 # ---------------------------------------------------------------------------
@@ -2514,6 +2774,9 @@ def main() -> int:
                     help="iterations of path (b)")
     ap.add_argument("--wide-host-iters", type=int, default=2,
                     help="iterations of path (c)")
+    ap.add_argument("--multi-gpu-only", action="store_true",
+                    help="build, then only the multi-GPU paths (y) and (z)"
+                    " (no AUC comparison), and exit without a result")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
     ap.add_argument("--profile-paths",
@@ -2547,6 +2810,9 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"build {name}: {line.strip()}")
 
+    if args.multi_gpu_only:
+        multi_gpu_paths(args, None)
+        return 0     # prints no smoke result
     dev = torch.device("cuda")
     wide = wide_data(args.wide_rows, 100_000, "cuda")
     check_xla_float(dev)
@@ -2567,8 +2833,13 @@ def main() -> int:
     check_quant_multival(dev, report, codes, lay.total_bins)
     del codes
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
-    paths(args, report, wide)
+    higgs_auc = paths(args, report, wide)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    y_launches = multi_gpu_paths(args, higgs_auc)
+    for r in report:
+        if r["name"] in ("hist_planar", "partition"):
+            r["launches"] += y_launches[r["name"]]
+    log(f"phase 3b done at {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         card_vs_cpu(write_forced_splits(tmp))
         api_card_vs_cpu(tmp)

@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from . import network
 from .boosting.gbdt import GBDT, create_boosting
 from .config import Config
 from .io.dataset import BinnedDataset, Metadata, _is_sparse
@@ -387,6 +388,27 @@ class Booster:
                       model_str=state["model_str"])
         self.best_iteration = state.get("best_iteration", -1)
         self.best_score = state.get("best_score", {})
+
+    def set_network(self, machines, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        """Multi-process wiring (reference basic.py:2093 set_network ->
+        LGBM_NetworkInit, c_api.cpp:2262): the default
+        ``torch.distributed`` group, with the rank found from the machine
+        list (network.py ``ensure_distributed``); ``machines`` is a
+        "host:port,..." string or a list of such entries."""
+        if isinstance(machines, (list, set, tuple)):
+            machines = ",".join(str(m) for m in machines)
+        network.ensure_distributed(machines, num_machines,
+                                   time_out=listen_time_out,
+                                   device_type=self.config.device_type)
+        return self
+
+    def free_network(self) -> "Booster":
+        """A no-op kept for the reference's API (basic.py
+        free_network): the process group belongs to the process, and
+        other boosters may use it."""
+        return self
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         if not isinstance(data, Dataset):

@@ -6,7 +6,12 @@ one-tree-per-iteration loop (GBDT::TrainOneIter, gbdt.cpp:337) on the
 fused learner's persistent state or, for every config the fused learner
 turns away, on the host-loop SerialTreeGrower, metric evaluation,
 prediction, and the model text (gbdt_model_text.cpp:306
-SaveModelToString / :410 LoadModelFromString).
+SaveModelToString / :410 LoadModelFromString). Across the ranks of a
+``torch.distributed`` group (network.py), ``tree_learner=data`` takes
+the fused learner per rank (``FusedDataParallelGrower``) where the
+serial config is eligible for it, and data, voting and feature
+otherwise take the host-loop parallel learners
+(treelearner/parallel.py); every rank keeps the whole training score.
 
 Each iteration hands the learner's tree to the host right away, so
 ``models`` holds plain host Trees. Objectives that grow K trees per
@@ -31,11 +36,13 @@ checkpoint state is not ported yet (ROADMAP A14).
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import network
 from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import BinnedDataset
@@ -154,7 +161,18 @@ class GBDT:
         if reason is None:
             self._fused = FusedSerialGrower(train_data, config, objective,
                                             self.device)
-        else:
+        elif config.tree_learner == "data" and network.world_size() > 1:
+            # the fused learner per rank, its histograms summed over the
+            # process group: the persistent path when eligible, else the
+            # per-tree path (bagging, multiclass, custom objectives)
+            cfg_serial = copy.copy(config)
+            cfg_serial.tree_learner = "serial"
+            reason = fused_reject_reason(cfg_serial, train_data, objective)
+            if reason is None:
+                from ..treelearner.parallel import FusedDataParallelGrower
+                self._fused = FusedDataParallelGrower(
+                    train_data, config, objective, self.device)
+        if self._fused is None:
             if self.device.type == "cuda" and reason != "tpu_fused=false" \
                     and config.tree_learner in ("serial", "data"):
                 # name the responsible option: the host-loop grower takes
@@ -189,15 +207,20 @@ class GBDT:
     def _create_tree_learner(self, config: Config,
                              train_data: BinnedDataset):
         """The host-loop learner (reference TreeLearner::
-        CreateTreeLearner): the serial grower on one device."""
+        CreateTreeLearner): the serial grower on one device, a parallel
+        learner (treelearner/parallel.py) across the ranks of the
+        process group, one device per rank."""
         if config.tree_learner not in ("serial", "feature", "data",
                                        "voting"):
             log.fatal("Unknown tree learner type %s", config.tree_learner)
         if config.tree_learner != "serial":
-            if config.num_machines > 1 or config.tpu_mesh_shape:
-                raise NotImplementedError(
-                    f"not ported yet: tree_learner={config.tree_learner} "
-                    "across devices (ROADMAP A13)")
+            from ..treelearner.parallel import (build_mesh,
+                                                create_parallel_learner)
+            world, _ = build_mesh(config)
+            if world > 1:
+                return create_parallel_learner(config.tree_learner,
+                                               train_data, config,
+                                               self.device)
             log.warning("Only one machine/chip: using serial tree learner")
         return SerialTreeGrower(train_data, config, self.device)
 

@@ -113,7 +113,11 @@ def check_ported(config: Config) -> None:
 
 def run_train(config: Config, params: Dict[str, str]) -> None:
     import lightgbm_tpu_torch as lgb
+    from .engine import _ensure_network
 
+    # the network keys (num_machines, machines, time_out) set up the
+    # process group before any dataset is built, as train() does
+    _ensure_network(params)
     train_set = lgb.Dataset(config.data, params=dict(params))
     valid_sets = []
     valid_names = []

@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from . import callback as callback_mod
+from . import network
 from .basic import Booster, Dataset, LightGBMError, copy_tree
 from .config import Config
 from .utils import log
@@ -60,6 +61,22 @@ def _init_scores_from(model: Booster, data) -> np.ndarray:
     return raw.T.reshape(-1) if raw.ndim == 2 else raw
 
 
+def _ensure_network(params: Dict[str, Any]) -> None:
+    """The process wiring before any dataset is built, so the bin
+    mappers' gather and the learners see the group (reference
+    Application::InitTrain calls Network::Init first,
+    application.cpp:164-175). The network keys' aliases resolve through
+    Config."""
+    net = Config.from_params({
+        k: v for k, v in params.items()
+        if Config.resolve_alias(k) in ("num_machines", "machines",
+                                       "time_out", "device_type")})
+    if net.num_machines > 1:
+        network.ensure_distributed(net.machines, net.num_machines,
+                                   time_out=net.time_out,
+                                   device_type=net.device_type)
+
+
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100, valid_sets=None, valid_names=None,
           fobj=None, feval=None, init_model=None,
@@ -79,8 +96,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
     ``learning_rates``: a list per round, or a function of the round.
     The training Dataset is released at the end unless
     ``keep_training_booster``. ``timetag`` (or LGBM_TPU_TIMETAG) logs
-    the host time of the construction and of the iterations."""
+    the host time of the construction and of the iterations.
+    ``num_machines`` > 1 sets up the process group first (network.py
+    ``ensure_distributed``, from ``machines`` or the environment)."""
     params = copy.deepcopy(params) if params else {}
+    _ensure_network(params)
     num_boost_round = _resolve_num_boost_round(params, num_boost_round)
     if num_boost_round <= 0:
         raise ValueError("num_boost_round should be greater than zero.")
@@ -322,6 +342,7 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     ``feature_name`` and ``categorical_feature`` are accepted and, as
     in the JAX package, not used."""
     params = copy.deepcopy(params) if params else {}
+    _ensure_network(params)
     num_boost_round = _resolve_num_boost_round(params, num_boost_round)
     early_stopping_rounds = _resolve_early_stopping(params,
                                                     early_stopping_rounds)

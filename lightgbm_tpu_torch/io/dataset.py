@@ -17,8 +17,11 @@ dataset.cpp:50-302), so the device matrix is [N, num_groups] with
 num_groups << num_features on sparse data.
 
 scipy CSR/CSC inputs are consumed without densifying the raw floats:
-only the bundled bin-code matrix is materialized. Distributed bin
-finding is not ported yet (ROADMAP A13).
+only the bundled bin-code matrix is materialized. With num_machines > 1
+in a process group of more than one rank the bin mappers come from the
+distributed protocol of io/distributed.py (each rank bins its share of
+the features, the mappers are all-gathered), bit-identical to
+single-machine construction.
 """
 from __future__ import annotations
 
@@ -28,9 +31,11 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import network
 from ..config import Config
 from ..utils import log
-from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, K_ZERO_THRESHOLD, BinMapper
+from .binning import BinMapper
+from .distributed import distributed_find_bin_mappers, find_bins_for_features
 from .efb import BundleTables, build_bundles, bundle_eligible
 
 
@@ -264,9 +269,6 @@ class BinnedDataset:
             ds.bundles = reference.bundles
             ds._apply_mappers(data)
             return ds
-        if config.num_machines > 1:
-            raise NotImplementedError(
-                "distributed bin finding is not ported yet (ROADMAP A13)")
 
         if categorical_feature is None:
             categorical_feature = _parse_categorical(
@@ -297,24 +299,15 @@ class BinnedDataset:
             return np.arange(sample_cnt), sample[:, f]
 
         # --- per-feature bin finding (DatasetLoader::ConstructBinMappers) ---
-        mappers: List[BinMapper] = []
-        for f in range(total_features):
-            _, col = sample_col_nonzeros(f)
-            nonzero = col[(np.abs(col) > K_ZERO_THRESHOLD) | np.isnan(col)]
-            m = BinMapper()
-            if config.max_bin_by_feature and f < len(config.max_bin_by_feature):
-                mb = config.max_bin_by_feature[f]
-            else:
-                mb = config.max_bin
-            m.find_bin(nonzero, sample_cnt, mb,
-                       min_data_in_bin=config.min_data_in_bin,
-                       min_split_data=config.min_data_in_leaf,
-                       pre_filter=config.feature_pre_filter,
-                       bin_type=(BIN_CATEGORICAL if f in cat_set
-                                 else BIN_NUMERICAL),
-                       use_missing=config.use_missing,
-                       zero_as_missing=config.zero_as_missing)
-            mappers.append(m)
+        if config.num_machines > 1 and network.is_active():
+            # the distributed protocol (reference dataset_loader.cpp:
+            # 917-990): each rank bins its own features over the whole
+            # sample, then the mappers are all-gathered
+            mappers = distributed_find_bin_mappers(sample, config, cat_set)
+        else:
+            mappers = [m for _, m in find_bins_for_features(
+                sample, range(total_features), config, sample_cnt, cat_set,
+                pre_filter=config.feature_pre_filter)]
 
         used = [f for f in range(total_features) if not mappers[f].is_trivial]
         if not used:

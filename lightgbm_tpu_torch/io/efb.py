@@ -34,6 +34,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.split import xla_sum
 from ..utils import log
 from .binning import BIN_CATEGORICAL
 
@@ -236,6 +237,9 @@ def per_feature_hist(group_hist: torch.Tensor, hist_tables, sum_g, sum_h
     Reconstructs each bundled feature's most-frequent-bin entry as
     leaf_total - sum(other bins) — the reference's FixHistogram
     (dataset.cpp:1410) using the leaf sums the split scan already has.
+    The bins are summed in XLA's windowed reduce order (``xla_sum``), as
+    the JAX package's programs sum them (its data-parallel programs
+    tell the orders apart; ROADMAP §C, C13).
     """
     gather_idx, valid, mfb_oh, _ = hist_tables
     flat = group_hist.reshape(-1, 2)
@@ -246,7 +250,7 @@ def per_feature_hist(group_hist: torch.Tensor, hist_tables, sum_g, sum_h
                                          device=fh.device),
                          torch.as_tensor(sum_h, dtype=fh.dtype,
                                          device=fh.device)])    # [2]
-    rest = fh.sum(dim=1).to(fh.dtype)                           # [F, 2]
+    rest = xla_sum(fh.transpose(1, 2)).to(fh.dtype)            # [F, 2]
     fill = total[None, :] - rest                                # [F, 2]
     return fh + mfb_oh[..., None].to(fh.dtype) * fill[:, None, :]
 

@@ -70,6 +70,16 @@ ends the phase.
 
 The state is updated IN PLACE (partition, grad/hess and score writes);
 the JAX package keeps it immutable and donates it instead.
+
+The data-parallel learner (treelearner/parallel.py
+``FusedDataParallelGrower``) runs this class per rank over the rank's
+own rows. Its collective seams are ``_psum`` / ``_psum_max``, identities
+here: the root histogram and row count, each split's left count and
+smaller-child histogram (the larger one too without a histogram pool),
+the refit sums and the quantization maxima. Leaf windows stay local;
+the leaf counts that the scans, the tree and the smaller-child choice
+read are global (row 2 of ``leaf_i``), so every rank picks the same
+splits.
 """
 from __future__ import annotations
 
@@ -177,10 +187,11 @@ def _leaf_steps_sum(e: torch.Tensor) -> torch.Tensor:
 
 class FusedSerialGrower:
     """Owns the planar state's layout and grows one tree per iteration
-    on ``device``."""
+    on ``device``. ``num_rows``: the rows of the state, when it holds
+    one rank's share of the dataset (the data-parallel learner)."""
 
     def __init__(self, dataset: BinnedDataset, config: Config, objective,
-                 device) -> None:
+                 device, num_rows: Optional[int] = None) -> None:
         self.dataset = dataset
         self.config = config
         self.objective = objective
@@ -240,7 +251,11 @@ class FusedSerialGrower:
             self._code_bits = 4
         else:
             self._code_bits = 8 * int(np.dtype(dataset.bins.dtype).itemsize)
-        self.actual_rows = dataset.num_data
+        self.actual_rows = (dataset.num_data if num_rows is None
+                            else int(num_rows))
+        # the rows of the persistent state that hold data (the rank's
+        # own rows under the data-parallel learner)
+        self.n_valid = self.actual_rows
         # the score update reads each row's leaf off the partition only
         # when every row is in the bag; else it traverses the tree
         self._score_from_partition = not bag_active(config)
@@ -359,7 +374,7 @@ class FusedSerialGrower:
             lg, lh = S.xla_sum((sel.to(f32)[:, None] * hist).t())
             sum_g, sum_h = leaf_f[0, leaf], leaf_f[1, leaf]
             rg, rh = sum_g - lg, sum_h - lh
-            cnt = leaf_i[1, leaf]
+            cnt = leaf_i[2, leaf]
             cntf = cnt.to(f32) / (sum_h + 2 * eps)
             lcnt = torch.floor(fma_f32(lh, cntf, 0.5)).to(i32)
             out = [S._calc_output(g_, h_ + eps, c_, cfg, leaf_f[2, leaf],
@@ -371,7 +386,8 @@ class FusedSerialGrower:
             rec_i[0], rec_i[1] = feat, thr
             ok = (lh > 1e-9) & (rh > 1e-9) & (cnt > 0)
             ok, start, count = self._read(torch.stack(
-                [ok.to(i64), leaf_i[0, leaf].to(i64), cnt.to(i64)]))
+                [ok.to(i64), leaf_i[0, leaf].to(i64),
+                 leaf_i[1, leaf].to(i64)]))
             if not ok:
                 return
             split(leaf, start, count, 0, rec, rec_i)
@@ -381,6 +397,24 @@ class FusedSerialGrower:
         """One blocking device -> host read (counted)."""
         self.syncs += 1
         return t.tolist()
+
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks of the data-parallel learner (reference
+        Network::Allreduce of histogram buffers,
+        data_parallel_tree_learner.cpp:169): the identity on one
+        device."""
+        return x
+
+    def _psum_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Maximum over the ranks: the identity on one device."""
+        return x
+
+    @property
+    def _zero_hist(self) -> torch.Tensor:
+        """The [F, B, 2] histogram of an empty window."""
+        return torch.zeros((self.num_features, self.max_num_bin, 2),
+                           dtype=torch.int32 if self._quant
+                           else torch.float32, device=self.device)
 
     def _hist_from_groups(self, ghist: torch.Tensor) -> torch.Tensor:
         """Group-level [G, Bg, 2] -> per-feature [F, B, 2] (EFB
@@ -398,6 +432,10 @@ class FusedSerialGrower:
         on the CPU. ``start``/``count`` may be device scalars, bounded by
         ``max_count``."""
         Ly = self.layout
+        if (count if max_count is None else max_count) == 0:
+            # a window no rank row reaches (a data-parallel rank without
+            # rows of the leaf): no launch
+            return self._zero_hist
         if self._hist_method == "multival_pallas":
             return self._leaf_hist_multival(data, start, count, max_count)
         nbins = (self.group_max_bin if self._efb_hist is not None
@@ -509,8 +547,10 @@ class FusedSerialGrower:
     def _grow_tree(self, data: torch.Tensor, n: int,
                    feature_mask: torch.Tensor, qscales=None) -> Dict:
         """Grow one tree over the planar state (partitioned in place).
-        Returns the tree arrays as host numpy plus the device leaf
-        windows and outputs the score update needs. ``qscales``:
+        Returns the tree arrays as host numpy (the leaf counts global,
+        ``leaf_count_local`` this rank's) plus the device leaf windows
+        [3, k] (start, local count, global count) and outputs the score
+        update needs. ``qscales``:
         (grad_scale, hess_scale) 0-d tensors when the grad plane holds
         packed quantized levels: the pool and the subtraction then stay
         in exact int32, dequantized at the scan."""
@@ -522,7 +562,8 @@ class FusedSerialGrower:
         bynode = feature_mask.dim() == 2
         root_mask = feature_mask[0] if bynode else feature_mask
 
-        root_hist = self._leaf_hist(data, 0, n)
+        root_hist = self._psum(self._leaf_hist(data, 0, n))
+        n_g = self._psum(torch.tensor(n, dtype=i32, device=dev))
         # leaf totals from feature 0's bins: exact integer sums times the
         # scales, or float32 sums in the JAX package's (XLA's) order —
         # the same bits on the card and the CPU
@@ -536,7 +577,7 @@ class FusedSerialGrower:
             sum_g, sum_h = S.xla_sum(root_hist[0].t())
         one = torch.ones(1, dtype=f32, device=dev)
         rf, ri = self._scan(root_hist[None], sum_g[None], sum_h[None],
-                            torch.full((1,), n, dtype=i32, device=dev),
+                            n_g[None],
                             0.0 * one, NEG_INF * one, -NEG_INF * one,
                             root_mask[None], qscales, program="root",
                             sum_levels=levels)
@@ -552,9 +593,11 @@ class FusedSerialGrower:
         leaf_f[1, 0] = sum_h
         leaf_f[3] = NEG_INF
         leaf_f[4] = -NEG_INF
-        # per-leaf rows: window start, window count
-        leaf_i = torch.zeros((2, L), dtype=i32, device=dev)
+        # per-leaf rows: window start, window count, global row count
+        # (the window count summed over the ranks)
+        leaf_i = torch.zeros((3, L), dtype=i32, device=dev)
         leaf_i[1, 0] = n
+        leaf_i[2, 0] = n_g
         pool = None
         if self._use_hist_pool:
             pool = torch.zeros((L, F, B, 2), dtype=root_hist.dtype,
@@ -592,7 +635,7 @@ class FusedSerialGrower:
                     t_right[parent] = node
             t_left[node] = ~leaf
             t_right[node] = ~new
-            t_i[0, node] = leaf_i[1, leaf]
+            t_i[0, node] = leaf_i[2, leaf]
             t_i[1:, node] = rec_i
             t_f[0, node] = rec[0]
             t_f[1, node] = leaf_f[2, leaf]
@@ -606,19 +649,30 @@ class FusedSerialGrower:
                 self.layout, feat, rec_i[1], rec_i[2],
                 self.feature_miss_bin[feat], self._efb_dev, device=dev,
                 **cat_route)
-            data, nleft = plane.partition(data, self.layout, start, count,
-                                          rscal, cat=bool(is_cat))
+            if count > 0:
+                data, nleft = plane.partition(data, self.layout, start,
+                                              count, rscal, cat=bool(is_cat))
+            else:
+                # no row of this leaf on this rank
+                nleft = torch.zeros((), dtype=i32, device=dev)
             nright = count - nleft
-            left_smaller = nleft <= nright
+            # the smaller child by the GLOBAL counts: every rank
+            # histograms the same child, so the sums and the subtraction
+            # stay coherent
+            nleft_g = self._psum(nleft)
+            nright_g = leaf_i[2, leaf] - nleft_g
+            left_smaller = nleft_g <= nright_g
             s_start = start + torch.where(left_smaller, 0, nleft)
             s_count = torch.where(left_smaller, nleft, nright)
-            hist_small = self._leaf_hist(data, s_start, s_count,
-                                         max_count=count)
+            hist_small = self._psum(self._leaf_hist(data, s_start, s_count,
+                                                    max_count=count))
 
             # --- children bookkeeping ---
             leaf_i[0, new] = start + nleft
             leaf_i[1, leaf] = nleft
             leaf_i[1, new] = nright
+            leaf_i[2, leaf] = nleft_g
+            leaf_i[2, new] = nright_g
             leaf_f[0:3, new] = rec[4:7]
             leaf_f[0:3, leaf] = rec[1:4]
             if self.use_monotone:
@@ -646,10 +700,10 @@ class FusedSerialGrower:
             if pool is not None:
                 hist_large = pool[leaf] - hist_small
             else:
-                hist_large = self._leaf_hist(
+                hist_large = self._psum(self._leaf_hist(
                     data, start + torch.where(left_smaller, nleft, 0),
                     torch.where(left_smaller, nright, nleft),
-                    max_count=count)
+                    max_count=count))
             hist_left = torch.where(left_smaller, hist_small, hist_large)
             hist_right = torch.where(left_smaller, hist_large, hist_small)
             if pool is not None:
@@ -663,7 +717,7 @@ class FusedSerialGrower:
                 torch.stack([hist_left, hist_right]),
                 torch.stack([leaf_f[0, leaf], leaf_f[0, new]]),
                 torch.stack([leaf_f[1, leaf], leaf_f[1, new]]),
-                torch.stack([nleft, nright]),
+                torch.stack([nleft_g, nright_g]),
                 torch.stack([leaf_f[2, leaf], leaf_f[2, new]]),
                 torch.stack([leaf_f[3, leaf], leaf_f[3, new]]),
                 torch.stack([leaf_f[4, leaf], leaf_f[4, new]]), mask2,
@@ -705,18 +759,21 @@ class FusedSerialGrower:
             leaf_f[2, :k] = self._renew_quant_leaves(
                 data, n, leaf_i[:, :k], leaf_f[:, :k])
         # ONE read for the finished tree: every value array as float64
-        # (int32 and float32 values are exact in it)
+        # (int32 and float32 values are exact in it), the leaf counts
+        # global and local
         flat = torch.cat([t_f[:, :ni].reshape(-1).to(torch.float64),
                           t_i[:, :ni].reshape(-1).to(torch.float64),
                           leaf_f[:3, :k].reshape(-1).to(torch.float64),
+                          leaf_i[2, :k].to(torch.float64),
                           leaf_i[1, :k].to(torch.float64)])
         host = np.asarray(self._read(flat), dtype=np.float64)
         ri_rows = t_i.shape[0]
         tf = host[:3 * ni].reshape(3, ni)
         ti = host[3 * ni:(3 + ri_rows) * ni].reshape(ri_rows, ni
                                                       ).astype(np.int64)
-        lf = host[(3 + ri_rows) * ni:(3 + ri_rows) * ni + 3 * k].reshape(3, k)
-        lcnt = host[(3 + ri_rows) * ni + 3 * k:].astype(np.int64)
+        at = (3 + ri_rows) * ni
+        lf = host[at:at + 3 * k].reshape(3, k)
+        lcnt = host[at + 3 * k:at + 4 * k].astype(np.int64)
         ta = dict(
             n_leaves=k, internal_count=ti[0],
             split_feature=ti[1], threshold_bin=ti[2],
@@ -725,7 +782,8 @@ class FusedSerialGrower:
             split_gain=tf[0], internal_value=tf[1], internal_weight=tf[2],
             left_child=t_left[:ni].copy(), right_child=t_right[:ni].copy(),
             leaf_value=lf[2], leaf_weight=lf[1], leaf_count=lcnt,
-            leaf_depth=leaf_depth[:k].copy())
+            leaf_depth=leaf_depth[:k].copy(),
+            leaf_count_local=host[at + 4 * k:].astype(np.int64))
         return ta, (leaf_i[:, :k], leaf_f[2, :k])
 
     def _raw_grads(self, data: torch.Tensor, n: int):
@@ -759,7 +817,7 @@ class FusedSerialGrower:
         (the JAX package's _renew_leaf_outputs, the reference's
         RegressionL1loss::RenewTreeOutput and Percentile /
         WeightedPercentileFun, regression_objective.hpp:23-88,249).
-        win: [2, k] window start / count. Leaves without rows get 0.
+        Leaves without rows get 0.
 
         No sort: each residual maps to a monotone 32-bit key (its
         float bits, sign-flipped), carried as int64 in [0, 2^32), and
@@ -774,12 +832,19 @@ class FusedSerialGrower:
         then snaps it to a data key with integer rank bisections. As in
         the JAX package, under exact ties the weighted rule counts a
         tie block as one mass, and may pick a neighbouring value where
-        the reference walks the sorted rows."""
+        the reference walks the sorted rows.
+
+        ``win`` [3, k]: each leaf's local window (start, count) and its
+        global count ([2, k] on one device: the counts are equal). Under the data-parallel learner every count and
+        weight sum is summed over the ranks (``_psum``), each rank's
+        empty windows zeroed first, and the ranks are the global
+        counts'."""
         Ly = self.layout
         dev = self.device
         i64 = torch.int64
         mask32 = 0xFFFFFFFF
-        start, cnt = win[0].long(), win[1].long()
+        start, cnt_local = win[0].long(), win[1].long()
+        cnt = win[-1].long()
         lanes = Ly.num_lanes
         realm = torch.arange(lanes, device=dev) < n
         resid = plane.get_f32(data, Ly.label) - plane.get_f32(data, Ly.score)
@@ -788,7 +853,7 @@ class FusedSerialGrower:
         ukey = torch.where(bits < 0, ~u & mask32, u | 0x80000000)
         lane_leaf = torch.zeros(lanes, dtype=i64, device=dev)
         lane_leaf[:n] = self._lane_leaf(win, n)
-        ends = torch.clamp(start + cnt, min=1) - 1
+        ends = torch.clamp(start + cnt_local, min=1) - 1
         sidx = torch.clamp(start, min=1) - 1
 
         def seg_sums(c):
@@ -809,7 +874,8 @@ class FusedSerialGrower:
             lo = torch.where(start > 0, cs[..., sidx],
                              torch.zeros_like(cs[..., sidx]))
             raw = cs[..., ends] - lo
-            raw = torch.where(cnt > 0, raw, torch.zeros_like(raw))
+            raw = self._psum(torch.where(cnt_local > 0, raw,
+                                         torch.zeros_like(raw)))
             return raw if raw.dtype == torch.float32 else raw.to(i64)
 
         def bisect(pred, shape):
@@ -902,9 +968,10 @@ class FusedSerialGrower:
         the rounding error. The raw gradients come from the final
         state's score / label planes (values unchanged by the growth,
         only lane-permuted with the rows); each leaf's window sum is a
-        difference of one prefix sum in XLA's order. win: [2, k] window
-        start / count; leaf_f: [5, k] sum_g, sum_h, output, cmin,
-        cmax."""
+        difference of one prefix sum in XLA's order, summed over the
+        ranks under the data-parallel learner. win: [3, k] window start /
+        local count / global count; leaf_f: [5, k] sum_g, sum_h, output,
+        cmin, cmax."""
         g, h = self._raw_grads(data, n)
         start, count = win[0].long(), win[1].long()
         ends = torch.clamp(start + count, min=1) - 1
@@ -913,7 +980,7 @@ class FusedSerialGrower:
         def seg_sums(c):
             cs = S._prefix_sum(c)
             lo = torch.where(start > 0, cs[sidx], 0.0)
-            return torch.where(count > 0, cs[ends] - lo, 0.0)
+            return self._psum(torch.where(count > 0, cs[ends] - lo, 0.0))
 
         sg, sh = seg_sums(g), seg_sums(h)
         cfg = self.split_cfg
@@ -922,7 +989,7 @@ class FusedSerialGrower:
         if cfg.max_delta_step > 0:
             out = torch.clamp(out, -cfg.max_delta_step, cfg.max_delta_step)
         out = torch.minimum(torch.maximum(out, leaf_f[3]), leaf_f[4])
-        return torch.where(count > 0, out, leaf_f[2])
+        return torch.where(win[-1] > 0, out, leaf_f[2])
 
     def codes_planes(self) -> torch.Tensor:
         """The bin-code planes of the training rows in row order,
@@ -1032,17 +1099,21 @@ class FusedSerialGrower:
         (GBDT::TrainOneIter, gbdt.cpp:337). Returns the tree arrays
         (host numpy, leaf values before shrinkage)."""
         Ly = self.layout
-        n = self.actual_rows
+        n = self.n_valid
         g, h = self._raw_grads(data, n)
         qscales = None
         if self._quant:
             # one quantization pass per iteration, keyed by fold_in of
-            # the base key with the iteration counter
+            # the base key with the iteration counter; the maxima agree
+            # over the ranks, so every rank quantizes on one grid and the
+            # int32 histogram sums stay coherent
             key = threefry.fold_in(self._quant_base_key, self._quant_iter)
             self._quant_iter += 1
             qg, qh, gs, hs = Q.quantize_gradients(
                 g, h, self.config.num_grad_quant_bins, key,
-                stochastic=self.config.stochastic_rounding, reciprocal=True)
+                stochastic=self.config.stochastic_rounding,
+                grad_max=self._psum_max(torch.max(torch.abs(g))),
+                hess_max=self._psum_max(torch.max(h)), reciprocal=True)
             qscales = (gs, hs)
             plane.set_gh_packed(data, Ly,
                                 plane.i32_as_f32(Q.pack_gh(qg, qh)))
@@ -1054,7 +1125,7 @@ class FusedSerialGrower:
 
         vals = leaf_out * torch.tensor(shrinkage, dtype=torch.float32)
         s = plane.get_f32(data, Ly.score, n)
-        s.add_(self._score_add(win, vals, ta["leaf_count"], n))
+        s.add_(self._score_add(win, vals, ta["leaf_count_local"], n))
         # always, as the JAX package: adding 0.0 turns a -0.0 score to +0.0
         s.add_(torch.tensor(bias, dtype=torch.float32, device=s.device))
         return ta
@@ -1062,8 +1133,9 @@ class FusedSerialGrower:
     def _score_add(self, win, vals, leaf_count, n: int) -> torch.Tensor:
         """[n] score increment by window (every lane of leaf l's window
         gets leaf l's value; no gather, no scatter) with the bits of the
-        JAX package's ``_score_add_by_pos``: over the leaves with rows,
-        sorted by window start, the differences of consecutive values
+        JAX package's ``_score_add_by_pos``: over the leaves with rows
+        here (``leaf_count``: the local counts on the host), sorted by
+        window start, the differences of consecutive values
         summed over ``num_leaves`` terms in XLA's reduce order. One
         [leaves, num_leaves] table gives each leaf its value."""
         keep = torch.as_tensor(np.nonzero(np.asarray(leaf_count) > 0)[0],

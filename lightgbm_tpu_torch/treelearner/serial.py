@@ -216,17 +216,33 @@ class SerialTreeGrower:
                 return ghist
             return per_feature_hist(ghist, self._efb_hist, flat[-1, 0],
                                     flat[-1, 1])
-        method = self.hist_method    # None: float32 plain path (CPU)
+        return self._efb_expand(self._group_hist(perm, start, count, grad,
+                                                 hess))
+
+    def _group_hist(self, perm, start, count, grad, hess) -> torch.Tensor:
+        """One leaf's histogram over the bin matrix's columns: [G, Bg, 2]
+        in bundle space under EFB (G << F columns), else [F, B, 2]."""
+        nbins = (self.group_max_bin if self._efb_hist is not None
+                 else self.max_num_bin)
+        # method None: the float32 plain path (CPU)
+        return H.leaf_histogram(self._grow_bins, perm, start, count, grad,
+                                hess, None, nbins, method=self.hist_method)
+
+    def _efb_expand(self, ghist: torch.Tensor) -> torch.Tensor:
+        """Bundle space -> per-feature [F, B, 2] by the FixHistogram
+        most-frequent-bin reconstruction (the identity without EFB)."""
         if self._efb_hist is None:
-            return H.leaf_histogram(self.bins, perm, start, count, grad,
-                                    hess, None, self.max_num_bin,
-                                    method=method)
-        # bundle-space histogram over G << F columns, then gather to
-        # per-feature space with FixHistogram mfb reconstruction
-        ghist = H.leaf_histogram(self.bins, perm, start, count, grad, hess,
-                                 None, self.group_max_bin, method=method)
-        total = ghist[0].sum(dim=0)       # every row in one code
+            return ghist
+        # every row in one code of group 0: the leaf totals, in XLA's
+        # order as the JAX package's programs sum them
+        total = S.xla_sum(ghist[0].t())
         return per_feature_hist(ghist, self._efb_hist, total[0], total[1])
+
+    @property
+    def _grow_bins(self) -> torch.Tensor:
+        """The bin matrix that histograms read: every row here (one
+        rank's rows under the data-parallel learner)."""
+        return self.bins
 
     # ------------------------------------------------------------------
     def _feature_mask_tree(self) -> np.ndarray:
@@ -433,38 +449,14 @@ class SerialTreeGrower:
                 np.where(self._monotone_np != 0, fac, 1.0)
                 .astype(np.float32), device=dev)
 
-        def f32(x):
-            return torch.tensor(x, dtype=torch.float32, device=dev)
         hist = leaf.hist
         if self._qscales is not None:
             # integer level sums meet float arithmetic here and only here
             # (sum_g / sum_h are already dequantized leaf totals)
             hist = S.dequantize_hist(hist, *self._qscales)
-        res = S.best_split(
-            hist, self.meta, self.split_cfg, f32(leaf.sum_g),
-            f32(leaf.sum_h), torch.tensor(leaf.count, dtype=torch.int32,
-                                          device=dev),
-            f32(leaf.output), f32(leaf.cmin), f32(leaf.cmax),
-            feature_mask=torch.as_tensor(mask, device=dev),
-            rand_thresholds=rand_thr, cegb_delta=self._cegb_delta(leaf),
-            gain_scale=scale)
-        f = res["best_feature"].to(torch.int64)
-        # ONE read for the packed split record: floats as float64 and
-        # the integer fields (exact in float64), then the categorical
-        # block (family, used bins, the sorted bin order)
-        parts = [torch.stack([
-            res["best_gain"].to(torch.float64),
-            *(res[k][f].to(torch.float64) for k in (
-                "left_sum_gradient", "left_sum_hessian", "left_output",
-                "right_sum_gradient", "right_sum_hessian",
-                "right_output", "threshold", "default_left",
-                "left_count", "right_count", "found")),
-            f.to(torch.float64)])]
-        if self.any_categorical:
-            parts += [torch.stack([res["cat_family"][f],
-                                   res["cat_used_bin"][f]]).to(torch.float64),
-                      res["cat_sorted_order"][f].to(torch.float64)]
-        v = self._read(torch.cat(parts))
+        v = self._read(self._best_record(
+            hist, self.meta, leaf, torch.as_tensor(mask, device=dev),
+            rand_thr, self._cegb_delta(leaf), scale))
         if drop_after:
             leaf.hist = None
         if not v[11] or not np.isfinite(v[0]) or v[0] <= 0.0:
@@ -482,6 +474,40 @@ class SerialTreeGrower:
             best["cat_used_bin"] = int(v[14])
             best["cat_sorted_order"] = [int(o) for o in v[15:]]
         return best
+
+    def _best_record(self, hist, meta, leaf: _Leaf, mask, rand_thr,
+                     cegb_delta, scale, feature_ids=None) -> torch.Tensor:
+        """The leaf's best split over the features of ``hist`` as one
+        float64 record: gain, the left and right sums and outputs,
+        threshold, default_left, the counts, found, the feature (its
+        index in ``feature_ids`` when given, the inner feature id
+        otherwise), then the categorical block (family, used bins, the
+        sorted bin order). Integer fields are exact in float64."""
+        dev = self.device
+
+        def f32(x):
+            return torch.tensor(x, dtype=torch.float32, device=dev)
+        res = S.best_split(
+            hist, meta, self.split_cfg, f32(leaf.sum_g), f32(leaf.sum_h),
+            torch.tensor(leaf.count, dtype=torch.int32, device=dev),
+            f32(leaf.output), f32(leaf.cmin), f32(leaf.cmax),
+            feature_mask=mask, rand_thresholds=rand_thr,
+            cegb_delta=cegb_delta, gain_scale=scale)
+        f = res["best_feature"].to(torch.int64)
+        feat = f if feature_ids is None else feature_ids[f]
+        parts = [torch.stack([
+            res["best_gain"].to(torch.float64),
+            *(res[k][f].to(torch.float64) for k in (
+                "left_sum_gradient", "left_sum_hessian", "left_output",
+                "right_sum_gradient", "right_sum_hessian",
+                "right_output", "threshold", "default_left",
+                "left_count", "right_count", "found")),
+            feat.to(torch.float64)])]
+        if self.any_categorical:
+            parts += [torch.stack([res["cat_family"][f],
+                                   res["cat_used_bin"][f]]).to(torch.float64),
+                      res["cat_sorted_order"][f].to(torch.float64)]
+        return torch.cat(parts)
 
     @staticmethod
     def _cat_bins(best: dict) -> List[int]:

@@ -1,6 +1,10 @@
 """Device selection: entry points run on CUDA unless the caller asks
 for the CPU (``device_type="cpu"``). Asking for CUDA on a machine
-without a card raises; nothing falls back to the CPU quietly."""
+without a card raises; nothing falls back to the CPU quietly. The card
+is the current CUDA device: under ``torchrun`` (``LOCAL_RANK`` set),
+network.py ``ensure_distributed`` makes it ``cuda:{LOCAL_RANK}`` when
+it sets up the group; a caller that sets up the group sets the device
+too."""
 from __future__ import annotations
 
 import torch

@@ -1009,3 +1009,101 @@ def test_quantize_gradients_on_card_equal_cpu(bins):
                                          reciprocal=reciprocal)
             for a, b in zip(got, want):
                 assert torch.equal(a.cpu(), b), (trial, reciprocal)
+
+
+def _torchrun_data():
+    rng = np.random.RandomState(7)
+    X = rng.randn(20_000, 8).astype(np.float32)
+    y = (X[:, 0] + 0.4 * X[:, 1] ** 2 + 0.2 * rng.randn(20_000) > 0.3)
+    return X, y.astype(np.float32)
+
+
+def _torchrun_rank(rank, world, port, out_dir, device):
+    """One process as ``torchrun --nproc_per_node=world`` starts it: the
+    group comes from the environment through ``lgt.train``'s own
+    ``ensure_distributed`` (NCCL on the card, rank r on
+    ``cuda:{LOCAL_RANK}``; gloo on the CPU)."""
+    import os
+    import pickle
+    import torch.distributed as dist
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import network
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    X, y = _torchrun_data()
+    # float32 histogram inputs: the card's default rounds grad / hess to
+    # bfloat16, the CPU's plain path never does
+    b = lgt.train({"objective": "binary", "tree_learner": "data",
+                   "num_machines": world, "num_leaves": 15, "verbose": -1,
+                   "tpu_hist_dtype": "float32", "device_type": device},
+                  lgt.Dataset(X, label=y), num_boost_round=5,
+                  verbose_eval=False)
+    out = dict(text=b.model_to_string(), pred=b.predict(X[:2_000]),
+               backend=network.backend(), world=network.world_size(),
+               device=str(b.device),
+               learner=type(b._gbdt._fused).__name__)
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def _tree_fields(text):
+    """{key: [line per tree]} of the model text's tree blocks."""
+    body = text[text.index("Tree=0"):text.index("end of trees")]
+    out = {}
+    for line in body.splitlines():
+        key, sep, val = line.partition("=")
+        if sep and key != "Tree":
+            out.setdefault(key, []).append(val)
+    return out
+
+
+@pytest.mark.cuda
+def test_torchrun_data_parallel_on_cards(tmp_path):
+    """The README's launch, one process per card with the group set up
+    by ``lgt.train`` itself (``num_machines`` and torchrun's
+    environment), at D = min(cards, 4): NCCL, rank r on cuda:r, the
+    fused data-parallel learner; every rank's model is equal, and the
+    same launch on the CPU (gloo) gives the same trees, leaf values and
+    predictions within 1e-6."""
+    import pickle
+    import socket
+    _need_card()
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("needs two cards: NCCL holds one rank per card")
+    from lightgbm_tpu_torch.ops import cuda as K
+    K.build_all()  # once, before the ranks load the libraries
+    res = {}
+    for device in ("cuda", "cpu"):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        out_dir = tmp_path / device
+        out_dir.mkdir()
+        torch.multiprocessing.spawn(
+            _torchrun_rank, args=(world, port, str(out_dir), device),
+            nprocs=world, join=True)
+        res[device] = []
+        for r in range(world):
+            with open(out_dir / f"{r}.pkl", "rb") as fh:
+                res[device].append(pickle.load(fh))
+    for r, got in enumerate(res["cuda"]):
+        assert (got["backend"], got["world"], got["device"]) == \
+            ("nccl", world, f"cuda:{r}")
+        assert got["learner"] == "FusedDataParallelGrower"
+    assert {c["backend"] for c in res["cpu"]} == {"gloo"}
+    for dev in ("cuda", "cpu"):
+        for got in res[dev][1:]:
+            assert got["text"] == res[dev][0]["text"], dev
+    card, cpu = (_tree_fields(res[d][0]["text"]) for d in ("cuda", "cpu"))
+    for key in ("num_leaves", "split_feature", "threshold",
+                "decision_type", "left_child", "right_child"):
+        assert card[key] == cpu[key], key
+    for a, b in zip(card["leaf_value"], cpu["leaf_value"]):
+        np.testing.assert_allclose(np.array(a.split(), float),
+                                   np.array(b.split(), float), rtol=0,
+                                   atol=1e-6)
+    np.testing.assert_allclose(res["cuda"][0]["pred"], res["cpu"][0]["pred"],
+                               rtol=0, atol=1e-6)

@@ -194,7 +194,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for mod in ("treelearner/serial.py", "treelearner/monotone.py",
                 "ops/partition.py", "ops/multival.py", "ops/cuda.py",
                 "objective/rank.py", "models/shap.py", "models/codegen.py",
-                "sklearn.py", "plotting.py", "cli.py", "__main__.py"):
+                "sklearn.py", "plotting.py", "cli.py", "__main__.py",
+                "network.py", "io/distributed.py",
+                "treelearner/parallel.py"):
         assert os.path.join("lightgbm_tpu_torch", mod) in names, mod
     for path in files:
         tree = ast.parse(open(path).read(), path)
@@ -227,18 +229,19 @@ def test_cuda_without_a_card_raises():
     ({"forcedsplits_filename": "forced_splits.json", "tpu_fused": False},
      None, "host_loop"),
     ({"tpu_fused": False, "use_quantized_grad": True}, None, "host_loop"),
-    ({"tree_learner": "voting", "num_machines": 2}, NotImplementedError,
-     "A13"),
+    ({"tree_learner": "voting", "num_machines": 2}, None, "host_loop"),
     ({"objective": "lambdarank"}, None, "fused"),
 ])
 def test_left_out_options_raise(extra, err, match, tmp_path):
     """Options the port does not train yet raise and name their ROADMAP
-    item (several devices, A13); bagging, quantized gradients, forced
-    splits and ranking (``err`` None) now train on the learner named by
-    ``match``, the quantized ones with integer histograms, the forced
-    ones with the file's root split, ranking over ten queries on the
-    per-tree path (tests/test_torch_forced.py and
-    tests/test_torch_rank.py hold them against the JAX package)."""
+    item (``err``; none is left here); bagging, quantized gradients,
+    forced splits, ranking and a parallel tree learner (``err`` None)
+    train on the learner named by ``match``, the quantized ones with
+    integer histograms, the forced ones with the file's root split,
+    ranking over ten queries on the per-tree path, voting with
+    num_machines 2 in one process (no process group) on the serial host
+    loop (tests/test_torch_forced.py, tests/test_torch_rank.py and
+    tests/test_torch_parallel.py hold them against the JAX package)."""
     X, y = _data(n=300)
     X[:, 3] = np.abs(np.round(X[:, 3]))
     if "forcedsplits_filename" in extra:
