@@ -54,9 +54,9 @@ Phases, each of which fails the run (no exception is caught):
      state per class tree from row-order gradients, the score update
      through each row's leaf): (l) HIGGS-multiclass fused, the HIGGS
      columns with 5 classes (the quintiles of (i)'s label), multiclass,
-     2 iterations (10 trees), B1 + B2, held-out multi_logloss below the
-     constant predictor's ln 5; (m) the same data with multiclassova, 2
-     iterations, held-out multi_error below the constant predictor's
+     1 iteration (5 trees), B1 + B2, held-out multi_logloss below the
+     constant predictor's ln 5; (m) the same data with multiclassova, 1
+     iteration, held-out multi_error below the constant predictor's
      0.8; (n) shape (a) (multi-value layout, P = 128) with a custom
      objective (the binary log loss in numpy), 3 iterations, B5 + B2,
      held-out AUC above 0.75. Each prints its kernels' launches per
@@ -66,23 +66,23 @@ Phases, each of which fails the run (no exception is caught):
      per tree (its build timed by CUDA events) and every row scored by
      traversal: (o) HIGGS bagging (bagging_fraction 0.8, bagging_freq
      1), (p) HIGGS GOSS (top_rate 0.2, other_rate 0.1, learning_rate
-     0.25: iterations 4-7 sample 30% of the rows, each sampling round
+     0.5: iteration 2 on samples 30% of the rows, each sampling round
      run with CUDA sync debug mode "error", so a host read fails the
      run), (q) HIGGS DART (drop_rate 0.1, skip_drop 0.5; the unbagged
      per-tree state; the drop and normalize steps timed), (r) HIGGS RF
      (bagging_fraction 0.632, bagging_freq 1, feature_fraction 0.8),
-     all B1 + B2 for 5 iterations with held-out AUC above 0.70, and (s)
+     all B1 + B2 for 3 iterations with held-out AUC above 0.70, and (s)
      shape (a) with bagging (0.8, freq 1), B5 + B2 over bag-gathered
      slot planes, 3 iterations.
    - (t) HIGGS forced splits: the HIGGS shape on the persistent fused
-     path with a depth-2 forced-split tree (FORCED_SPLITS), 5
+     path with a depth-2 forced-split tree (FORCED_SPLITS), 3
      iterations; every tree's first three splits must be the forced
      ones (B1 + B2).
-   - (u) the API: 2 iterations, save_model and Booster(model_file=...)
-     (raw predictions bit-equal), 3 more from init_model (the 2 + 3
-     model's held-out AUC within 5e-4 of the HIGGS path's after 5
+   - (u) the API: 1 iteration, save_model and Booster(model_file=...)
+     (raw predictions bit-equal), 2 more from init_model (the 1 + 2
+     model's held-out AUC within 5e-4 of the HIGGS path's after 3
      straight), rollback_one_iter, cv
-     over 3 stratified folds (4 iterations), and a 200,000-row CSV read
+     over 3 stratified folds (2 iterations), and a 200,000-row CSV read
      through the csv module into a Dataset, save_binary and back.
    - (v) MSLR lambdarank: MSLR-WEB10K Fold 1's shape (make_rank_like:
      136 dense columns, 723,412 training rows in 6,000 queries of 1 to
@@ -91,14 +91,14 @@ Phases, each of which fails the run (no exception is caught):
      leaves and bins, 4 iterations on the per-tree fused path (B1 +
      B2); the ranking gradient timed by CUDA events; the held-out
      ndcg@10 must beat a random ordering's (numpy). (w) the same data
-     with rank_xendcg, 3 iterations.
+     with rank_xendcg, 2 iterations.
    - (x) the rest of the API: LGBMRanker on (v)'s first 1,000 queries
      with an eval set and eval_group, then predict; LGBMClassifier on
-     200,000 HIGGS rows (predict_proba equal to Booster.predict);
-     pred_contrib on 2,000 rows of its model (each row summing to its
+     50,000 HIGGS rows (predict_proba equal to Booster.predict);
+     pred_contrib on 500 rows of its model (each row summing to its
      raw score within 1e-6, timed: a host recursion); the command line
      through subprocess (``python -m lightgbm_tpu_torch`` task=train
-     on a 200,000-row CSV, task=predict equal to Booster.predict of the
+     on a 50,000-row CSV, task=predict equal to Booster.predict of the
      model file, task=convert_model a non-empty C++ file).
 3b. multi-GPU — MG_WORLD = 2 ranks spawned with torch.multiprocessing
    (a FileStore rendezvous; NCCL for the card's tensors with gloo for the
@@ -113,13 +113,14 @@ Phases, each of which fails the run (no exception is caught):
      of the one-card HIGGS path's; prints s/iteration, host syncs, the
      reductions' calls, bytes and CUDA-event time per iteration, B1 / B2
      launches per rank per iteration and peak memory per rank;
-   - (z) every parallel learner on 100,000 rows, 5 iterations, on the
+   - (z) every parallel learner on 50,000 rows, 2 iterations, on the
      card and on the CPU in the same group: the persistent and the
      bagged (per-tree) fused data-parallel learner, multiclass (5
      classes), quantized gradients, the host-loop data-parallel,
      voting (top_k 5) and feature-parallel learners; each case's
      model equal on every rank, and card == CPU as phase 4 holds it.
-4. card vs CPU — the same small training (100,000 rows; 30,000 from the
+4. card vs CPU — the same small training of 2 iterations (50,000 rows;
+   30,000 from the
    boosting-mode cases on) on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
    and with quantized gradients, on (h)'s columns with categorical
@@ -137,8 +138,38 @@ Phases, each of which fails the run (no exception is caught):
    API cases exactly), with prediction early stop off and on for the
    categorical model.
 
+5. robustness — checkpoint and resume, fault injection
+   (``LGBM_TPU_FAULT_PLAN``), the hang watchdog and the numeric
+   sentinels (lightgbm_tpu_torch/robust/):
+   - (aa) chaos resume: the HIGGS path's data and params (2,000,000 x
+     28, 255 leaves and bins) on the persistent fused learner (B1 + B2),
+     a checkpoint every 2 iterations; a child process importing only the
+     port is killed by SIGKILL entering iteration 5 (return code -9, the
+     drill and not a failure), a second child resumes from the
+     checkpoint of iteration 4 and finishes 8 iterations; its model text
+     must equal an uninterrupted run's on the card byte for byte. Prints
+     the checkpoint's bytes, its save ms (wall clock around ``save``),
+     the resume's load and restore ms and the iteration time;
+   - (ab) resume in process on 100,000 rows (63 leaves): the host loop
+     (B4), quantized gradients (B1q + B2), bagging with
+     feature_fraction, GOSS, DART, multiclass and early stopping with a
+     valid set, each 1 iteration into a checkpoint directory and then 2
+     in a second train() call, byte-equal to the uninterrupted run;
+   - (ac) numeric_sentinels on 100,000 rows: train.iteration:nan@3 on
+     the host loop and sentinel.check:nan@3 on the fused learner, each
+     one tree fewer than the clean run with finite predictions and the
+     card's model text equal to the CPU's; then 3 iterations of the
+     HIGGS path with sentinels on and off, whose learner host syncs and
+     syncing CUDA calls (sync debug mode "warn") per iteration must be
+     equal;
+   - (ad) train.iteration:hang=3.0@4 against hang_timeout=1.2 on
+     100,000 rows: without auto_resume it must raise HangTimeout (the
+     only exception the smoke catches), with auto_resume and a
+     checkpoint directory it must equal the clean run byte for byte.
+
 ``--multi-gpu-only`` runs phase 1 and phase 3b alone (no AUC
-comparison) and prints no result. ``--profile`` instead profiles one
+comparison) and prints no result; ``--robust-only`` runs phase 1 and
+phase 5 alone and prints no result. ``--profile`` instead profiles one
 iteration of each path
 (``--profile-paths b,h`` of the named ones only; (l)-(n) and (v) device
 rows only; (v) also one call of its ranking gradient alone).
@@ -1463,6 +1494,8 @@ def cat_data(rows, hold, device):
 # paths (i)-(k): the HIGGS columns with a regression label; (i) has no
 # objective key (the default regression, metric l2)
 REG_PARAMS = {"num_leaves": 255, "max_bin": 255, "verbose": -1}
+# (i)-(k): 4 iterations clear (i)'s l2 floor (0.8 x the label variance)
+REG_ITERS = 4
 REG_PATHS = [("i", "(i) HIGGS-reg fused", {}, "l2"),
              ("j", "(j) HIGGS-quantile fused",
               {"objective": "quantile", "alpha": 0.9}, "quantile"),
@@ -1498,9 +1531,9 @@ MC_PARAMS = {"num_leaves": 255, "max_bin": 255, "num_class": 5,
              "verbose": -1}
 # (key, name, objective, held-out metric, its bound, iterations)
 MC_PATHS = [("l", "(l) HIGGS-multiclass fused", "multiclass",
-             "multi_logloss", float(np.log(5.0)), 2),
+             "multi_logloss", float(np.log(5.0)), 1),
             ("m", "(m) HIGGS-multiclassova fused", "multiclassova",
-             "multi_error", 0.8, 2)]
+             "multi_error", 0.8, 1)]
 FOBJ_ITERS = 3                     # path (n)
 
 
@@ -1595,7 +1628,7 @@ BAG_PATHS = [
      {"bagging_fraction": 0.8, "bagging_freq": 1}, False),
     ("p", "(p) HIGGS GOSS fused",
      {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
-      "learning_rate": 0.25}, False),
+      "learning_rate": 0.5}, False),
     ("q", "(q) HIGGS DART fused",
      {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.5}, False),
     ("r", "(r) HIGGS RF fused",
@@ -1604,9 +1637,10 @@ BAG_PATHS = [
     ("s", "(s) wide bagging fused",
      {"bagging_fraction": 0.8, "bagging_freq": 1}, True),
 ]
-BAG_ITERS = 5                      # paths (o)-(r)
+BAG_ITERS = 3                      # paths (o)-(r)
 BAG_WIDE_ITERS = 3                 # path (s)
-PHASE4_ROWS = 100_000              # phase 4's first cases
+PHASE4_ROWS = 50_000               # phase 4's first cases, (z)
+PHASE4_ITERS = 2                   # phase 4: iterations of each case
 BAG_CASE_ROWS = 30_000             # phase 4's boosting-mode cases
 RANK_CASE_ROWS = 30_000            # phase 4's ranking cases: rows,
 RANK_CASE_QUERIES = 250            # queries, and the largest query (the
@@ -1618,7 +1652,7 @@ RANK_CASE_MAX_QUERY = 512          # CPU side's pair program sets the time)
 FORCED_SPLITS = {"feature": 0, "threshold": 0.0,
                  "left": {"feature": 1, "threshold": 0.25},
                  "right": {"feature": 2, "threshold": -0.25}}
-API_ITERS = 4                      # path (u): cv's iterations per fold
+API_ITERS = 2                      # path (u): cv's iterations per fold
 CSV_ROWS = 200_000                 # path (u): the CSV file's rows
 
 
@@ -1773,12 +1807,12 @@ def api_path(args, X, y, hX, hy, ds, straight_auc, tmp, device="cuda"):
 RANK_PARAMS = {"num_leaves": 255, "max_bin": 255, "metric": "ndcg",
                "eval_at": [1, 3, 5, 10], "verbose": -1}
 # (key, name, objective, iterations)
-RANK_PATHS = [("v", "(v) MSLR lambdarank fused", "lambdarank", 4),
-              ("w", "(w) MSLR rank_xendcg fused", "rank_xendcg", 3)]
+RANK_PATHS = [("v", "(v) MSLR lambdarank fused", "lambdarank", 3),
+              ("w", "(w) MSLR rank_xendcg fused", "rank_xendcg", 2)]
 RANKER_QUERIES = 1_000             # path (x): LGBMRanker's training queries
-CLF_ROWS = 200_000                 # path (x): LGBMClassifier, CLI CSV rows
+CLF_ROWS = 50_000                  # path (x): LGBMClassifier, CLI CSV rows
 API_REST_ITERS = 3                 # path (x): iterations of each model
-CONTRIB_ROWS = 2_000               # path (x): pred_contrib rows
+CONTRIB_ROWS = 500                 # path (x): pred_contrib rows
 
 
 def rank_data(device, queries=RANK_TRAIN_QUERIES, rows=RANK_TRAIN_ROWS,
@@ -2062,7 +2096,7 @@ def paths(args, report, wide, device="cuda"):
          args.wide_host_iters, wX, wy, ("hist_multival_q",), 0.0, "c"),
         ("h", "(h) HIGGS-cat fused", cat_params, cds, args.iters, cX, cy,
          ("hist_planar", "partition"), 0.70, None),
-    ] + [(key, name, {**REG_PARAMS, **extra}, rds, args.iters, rX, ry,
+    ] + [(key, name, {**REG_PARAMS, **extra}, rds, REG_ITERS, rX, ry,
           ("hist_planar", "partition"), reg_floors[metric], None, metric)
          for key, name, extra, metric in REG_PATHS]
     mds, mX, my = mc_data(args.rows, hold, device)
@@ -2158,7 +2192,7 @@ def paths(args, report, wide, device="cuda"):
 # ---------------------------------------------------------------------------
 
 MG_WORLD = 2                       # ranks of paths (y) and (z)
-MG_CASE_ITERS = 5                  # path (z): iterations of each case
+MG_CASE_ITERS = 2                  # path (z): iterations of each case
 # path (z): (name, params over the binary default, data, kernels on the
 # card, learner class)
 MG_CASES = [
@@ -2509,7 +2543,8 @@ def card_vs_cpu(forced_file):
             params = {"objective": "binary", "tpu_hist_dtype": "float32",
                       "verbose": -1, "device_type": dev, **extra}
             b = lgt.train(params, lgt.Dataset(xs, label=ys, **ds_kw),
-                          num_boost_round=3, verbose_eval=False, fobj=fobj)
+                          num_boost_round=PHASE4_ITERS, verbose_eval=False,
+                          fobj=fobj)
             preds = [b.predict(xs[:20_000])]
             if "categorical_feature" in extra:
                 cfg = b._gbdt.config
@@ -2527,7 +2562,7 @@ def card_vs_cpu(forced_file):
             assert b._gbdt._fused is None, learner
         else:
             assert b._gbdt._fused is not None, learner
-        assert len(tg) == len(tc) == 3 * per_iter
+        assert len(tg) == len(tc) == PHASE4_ITERS * per_iter
         for a, b in zip(tg, tc):
             k = a.num_leaves
             assert k == b.num_leaves, (learner, k, b.num_leaves)
@@ -2553,7 +2588,8 @@ def card_vs_cpu(forced_file):
         ncat = sum(t.num_cat for t in tg)
         if "categorical_feature" in extra:
             assert ncat > 0, f"{learner}: no categorical split"
-        log(f"card vs CPU ({learner}): {len(ys)} rows, 3 iterations of "
+        log(f"card vs CPU ({learner}): {len(ys)} rows, {PHASE4_ITERS} "
+            f"iterations of "
             f"{per_iter} trees: trees "
             f"equal ({[t.num_leaves for t in tg]} leaves, {ncat} "
             f"categorical splits), leaf values max |diff| {leaf_diff:.3g}, "
@@ -2622,6 +2658,397 @@ def api_card_vs_cpu(tmp):
             f"({[t.num_leaves for t in tg]} leaves), leaf values max "
             f"|diff| {leaf_diff:.3g}, raw predictions max |diff| "
             f"{float(np.abs(pg - pc).max()):.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: robustness — checkpoint and resume, fault injection, the hang
+# watchdog and the numeric sentinels
+# ---------------------------------------------------------------------------
+
+CHAOS_ITERS = 8                    # (aa): iterations of each training
+CHAOS_KILL = 5                     # (aa): the child dies entering this one
+ROBUST_ROWS = 100_000              # (ab)-(ad): training rows
+# (ab)-(ad): 63 leaves keep an iteration well inside (ad)'s 1.2 s
+# hang_timeout (the JAX tests' margins) on a 100,000-row state
+ROBUST_PARAMS = {**HIGGS_PARAMS, "num_leaves": 63}
+ROBUST_ITERS = 2                   # (ab): iterations (half, then all)
+SENTINEL_ITERS = 4                 # (ac): iterations of each drill
+SENTINEL_SYNC_ITERS = 3            # (ac): HIGGS iterations, sentinels on/off
+HANG_ITERS = 5                     # (ad): iterations of each run
+
+# the child of (aa): imports only the port, trains from the saved rows,
+# and prints the resume's load and restore times (ms) as JSON
+_CHAOS_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch import engine
+x_path, y_path, ckpt_dir, params, iters, out = sys.argv[1:7]
+params = json.loads(params)
+times = {}
+
+def timed(name, fn):
+    def run(*a, **kw):
+        if params["device_type"] == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        if params["device_type"] == "cuda":
+            torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return res
+    return run
+
+load = engine.CheckpointManager.load_latest
+engine.CheckpointManager.load_latest = (
+    lambda self: timed("load_ms", load)(self))
+engine._checkpoint_restore = timed("restore_ms", engine._checkpoint_restore)
+bst = lgt.train(params, lgt.Dataset(np.load(x_path), label=np.load(y_path)),
+                num_boost_round=int(iters), verbose_eval=False,
+                checkpoint_dir=ckpt_dir)
+assert "jax" not in sys.modules and "lightgbm_tpu" not in sys.modules
+with open(out, "w") as fh:
+    fh.write(bst.model_to_string())
+print(json.dumps(times))
+"""
+
+
+def _timed_calls(cls, name, out, sync):
+    """Wrap ``cls.name`` so each call appends its wall ms to ``out``
+    (the stream synchronized before and after); returns the original."""
+    orig = getattr(cls, name)
+
+    def run(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        res = orig(*a, **kw)
+        sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return res
+    setattr(cls, name, run)
+    return orig
+
+
+def syncs_per_iteration(train, device="cuda"):
+    """Per iteration of ``train(callback)``: (the learner's blocking host
+    reads, the syncing CUDA calls). The calls are counted under CUDA
+    sync debug mode "warn", where every call that waits for the card (a
+    device-to-host copy, ``.item()``, ...) warns; ``callback`` marks the
+    end of each iteration."""
+    import warnings
+    marks = [(0, 0)]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def calls():
+            return sum("synchroniz" in str(w.message).lower()
+                       for w in caught)
+
+        def mark(env):
+            gb = env.model._gbdt
+            marks.append((calls(), (gb._fused or gb.tree_learner).syncs))
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            train(mark)
+        finally:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    return [(b[1] - a[1], b[0] - a[0]) for a, b in zip(marks, marks[1:])]
+
+
+def chaos_resume(args, tmp, device="cuda"):
+    """(aa): the HIGGS path's data and params on the persistent fused
+    learner, checkpointed every 2 iterations: a child process importing
+    only the port is killed by SIGKILL entering iteration CHAOS_KILL, a
+    second child resumes from the newest checkpoint and finishes
+    CHAOS_ITERS iterations; its model text must equal an uninterrupted
+    run's in this process byte for byte. Returns the launches of the
+    uninterrupted run."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import engine
+    from lightgbm_tpu_torch.ops import cuda as K
+    from lightgbm_tpu_torch.robust.checkpoint import CheckpointManager
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    X, y = make_higgs_like(args.rows, 28, seed=0)
+    x_path, y_path = os.path.join(tmp, "X.npy"), os.path.join(tmp, "y.npy")
+    np.save(x_path, X)
+    np.save(y_path, y)
+    params = {**HIGGS_PARAMS, "checkpoint_interval": 2,
+              "device_type": device}
+    saves, captures, marks = [], [], []
+
+    def timer(env):
+        sync()
+        marks.append(time.perf_counter())
+    orig_save = _timed_calls(CheckpointManager, "save", saves, sync)
+    orig_capture = _timed_calls(engine, "_checkpoint_capture", captures,
+                                sync)
+    ds = lgt.Dataset(X, label=y)
+    K.reset_launches()
+    marks.append(time.perf_counter())
+    try:
+        straight = lgt.train(dict(params), ds, num_boost_round=CHAOS_ITERS,
+                             verbose_eval=False, callbacks=[timer],
+                             checkpoint_dir=os.path.join(tmp, "ck_straight"))
+    finally:
+        sync()
+        launches = dict(K.LAUNCHES)
+        CheckpointManager.save = orig_save
+        engine._checkpoint_capture = orig_capture
+    for key in ("hist_planar", "partition"):
+        assert device != "cuda" or launches[key] > 0, f"(aa): {key}"
+    assert straight._gbdt._fused_persist, "(aa): not the persistent path"
+    secs = np.diff(marks)
+    here = os.path.dirname(os.path.abspath(__file__))
+    ck = os.path.join(tmp, "ck_chaos")
+    out = os.path.join(tmp, "chaos_model.txt")
+    env = dict(os.environ, PYTHONPATH=here,
+               LGBM_TPU_FAULT_PLAN=f"train.iteration:sigkill@{CHAOS_KILL}")
+    argv = [sys.executable, "-c", _CHAOS_CHILD, x_path, y_path, ck,
+            json.dumps(params), str(CHAOS_ITERS), out]
+    t0 = time.perf_counter()
+    killed = subprocess.run(argv, env=env, cwd=here, capture_output=True,
+                            text=True, timeout=600)
+    t_killed = time.perf_counter() - t0
+    # SIGKILL is the drill, not a failure of the smoke
+    assert killed.returncode == -9, (killed.returncode, killed.stderr[-2000:])
+    assert not os.path.exists(out)
+    names = sorted(os.listdir(ck))
+    assert names == ["ckpt_0000001.lgbckpt", "ckpt_0000003.lgbckpt"], names
+    size = os.path.getsize(os.path.join(ck, names[-1]))
+    env.pop("LGBM_TPU_FAULT_PLAN")
+    t0 = time.perf_counter()
+    resumed = subprocess.run(argv, env=env, cwd=here, capture_output=True,
+                             text=True, timeout=600)
+    t_resumed = time.perf_counter() - t0
+    assert resumed.returncode == 0, resumed.stderr[-4000:]
+    times = json.loads(resumed.stdout.strip().splitlines()[-1])
+    with open(out) as fh:
+        text = fh.read()
+    assert "restore_ms" in times, "(aa): the second child did not resume"
+    assert text == straight.model_to_string(), \
+        "(aa): the resumed model text differs from the uninterrupted run's"
+    log(f"(aa) chaos resume: {args.rows} x 28, {CHAOS_ITERS} iterations, "
+        f"checkpoint every 2; child 1 killed by SIGKILL entering iteration "
+        f"{CHAOS_KILL} after {t_killed:.1f} s (return code "
+        f"{killed.returncode}), child 2 resumed from {names[-1]} and "
+        f"finished in {t_resumed:.1f} s: model text byte-equal to the "
+        f"uninterrupted run ({len(text)} bytes, {len(straight._gbdt.models)} "
+        f"trees)")
+    log(f"(aa) checkpoint {size} bytes; save "
+        + ", ".join(f"{s:.1f}" for s in saves) + " ms (wall clock around "
+        f"save; the capture before it " + ", ".join(f"{c:.1f}"
+                                                   for c in captures)
+        + f" ms); resume: load {times['load_ms']:.1f} ms, restore "
+        f"{times['restore_ms']:.1f} ms; iteration {np.mean(secs):.4f} s "
+        f"(" + ", ".join(f"{s:.3f}" for s in secs) + ")")
+    return launches
+
+
+def _robust_data(n, hold):
+    """(ab)-(ad)'s rows: the HIGGS shape (binary label) and its
+    regression label's terciles (3 classes), plus held-out rows."""
+    X, y = make_higgs_like(n + hold, 28, seed=3)
+    _, yr = make_higgs_reg_like(n + hold, 28, seed=3)
+    y3 = np.digitize(yr, np.quantile(yr, [1 / 3, 2 / 3])).astype(np.float32)
+    return X, y, y3
+
+
+def resume_cases(tmp, device="cuda", rows=ROBUST_ROWS):
+    """(ab): per case, ROBUST_ITERS // 2 iterations into a checkpoint
+    directory, then ROBUST_ITERS in a second train() call: the model text
+    must equal the uninterrupted run's byte for byte. Returns each
+    case's launches (both calls)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda as K
+    hold = 20_000
+    X, y, y3 = _robust_data(rows, hold)
+    Xt, yt, y3t = X[:rows], y[:rows], y3[:rows]
+    bag = {"bagging_fraction": 0.7, "bagging_freq": 1}
+    cases = [
+        ("host loop", {"tpu_fused": False}, yt, ("hist_radix",)),
+        ("quantized", QUANT_PARAMS, yt, ("hist_planar_q", "partition")),
+        ("bagging + feature_fraction", {**bag, "feature_fraction": 0.8},
+         yt, ("hist_planar", "partition")),
+        # learning_rate 1: GOSS samples from iteration 1 on
+        ("GOSS", {"boosting": "goss", "learning_rate": 1.0}, yt,
+         ("hist_planar", "partition")),
+        ("DART", {"boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0},
+         yt, ("hist_planar", "partition")),
+        ("multiclass", {"objective": "multiclass", "num_class": 3}, y3t,
+         ("hist_planar", "partition")),
+        ("early stopping", {"metric": "binary_logloss",
+                            "early_stopping_round": 2}, yt,
+         ("hist_planar", "partition")),
+    ]
+    # one Dataset per label set, binned once and reused by every training
+    data = {id(yt): lgt.Dataset(Xt, label=yt),
+            id(y3t): lgt.Dataset(Xt, label=y3t)}
+    valid_set = data[id(yt)].create_valid(X[rows:], label=y[rows:])
+    got = {}
+    for i, (name, extra, labels, expect) in enumerate(cases):
+        d = os.path.join(tmp, f"ck_ab{i}")
+        params = {**ROBUST_PARAMS, **extra, "checkpoint_interval": 1,
+                  "device_type": device}
+        valid = "early_stopping_round" in extra
+
+        def run(rounds, ckpt_dir):
+            kw = ({"valid_sets": [valid_set], "evals_result": {}}
+                  if valid else {})
+            return lgt.train(dict(params), data[id(labels)],
+                             num_boost_round=rounds, verbose_eval=False,
+                             checkpoint_dir=ckpt_dir, **kw), kw
+        t0 = time.perf_counter()
+        K.reset_launches()
+        run(ROBUST_ITERS // 2, d)
+        resumed, kw_r = run(ROBUST_ITERS, d)
+        got[name] = dict(K.LAUNCHES)
+        straight, kw_s = run(ROBUST_ITERS, None)
+        assert resumed.model_to_string() == straight.model_to_string(), \
+            f"(ab) {name}: the resumed model differs"
+        if valid:
+            assert kw_r["evals_result"] == kw_s["evals_result"], name
+        for key in expect:
+            assert device != "cuda" or got[name][key] > 0, (name, key)
+        log(f"(ab) resume {name}: {rows} rows, {ROBUST_ITERS // 2} then "
+            f"{ROBUST_ITERS} iterations: byte-equal to the uninterrupted "
+            f"run ({resumed.num_trees()} trees; "
+            + ", ".join(f"{k} {got[name][k]}" for k in expect)
+            + f" launches; {time.perf_counter() - t0:.1f} s)")
+    return got
+
+
+def sentinel_drills(args, device="cuda", rows=ROBUST_ROWS):
+    """(ac): numeric_sentinels on ``rows`` rows under a NaN fault plan —
+    the host loop's gradient plane (train.iteration:nan@3) and the
+    fused learner's leaf check (sentinel.check:nan@3): one tree fewer
+    than the clean run, finite predictions, and the card's model text
+    equal to the CPU's (float32 histogram inputs, as phase 4). Then the
+    HIGGS path, SENTINEL_SYNC_ITERS iterations with sentinels on and
+    off: the learner's host syncs and the syncing CUDA calls per
+    iteration must be equal. Returns the launches of the drills."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda as K
+    from lightgbm_tpu_torch.robust import install_plan
+    X, y, _ = _robust_data(rows, 0)
+    got = {}
+    for key, name, extra, plan, expect in (
+            ("ac1", "host loop NaN gradient", {"tpu_fused": False},
+             "train.iteration:nan@3", ("hist_radix",)),
+            ("ac2", "fused leaf sentinel", {}, "sentinel.check:nan@3",
+             ("hist_planar", "partition"))):
+        texts = {}
+        for dev, fault in ((device, plan), (device, None), ("cpu", plan)):
+            params = {**ROBUST_PARAMS, **extra, "numeric_sentinels": True,
+                      "tpu_hist_dtype": "float32", "device_type": dev}
+            install_plan(fault)
+            if dev == device and fault:
+                K.reset_launches()
+            try:
+                b = lgt.train(params, lgt.Dataset(X, label=y),
+                              num_boost_round=SENTINEL_ITERS,
+                              verbose_eval=False)
+            finally:
+                install_plan(None)
+            if dev == device and fault:
+                got[key] = dict(K.LAUNCHES)
+                p = b.predict(X[:20_000])
+                assert np.isfinite(p).all(), name
+            texts[(dev, fault)] = (b.model_to_string(), b.num_trees())
+        (card, n_card), (clean, n_clean) = (texts[(device, plan)],
+                                            texts[(device, None)])
+        cpu, n_cpu = texts[("cpu", plan)]
+        assert n_card == n_clean - 1 == n_cpu, (name, n_card, n_clean, n_cpu)
+        assert _tree_text({"text": card}) == _tree_text({"text": cpu}), \
+            f"(ac) {name}: card and CPU model texts differ"
+        for k in expect:
+            assert device != "cuda" or got[key][k] > 0, (name, k)
+        log(f"(ac) {name} ({plan}): {rows} rows, {SENTINEL_ITERS} "
+            f"iterations: {n_card} trees against the clean run's {n_clean},"
+            f" predictions finite, model text card == CPU")
+    hX, hy = make_higgs_like(args.rows, 28, seed=0)
+    ds = lgt.Dataset(hX, label=hy)
+    ds.construct()
+    per_iter = {}
+    for on in (False, True):
+        per_iter[on] = syncs_per_iteration(lambda mark: lgt.train(
+            {**HIGGS_PARAMS, "numeric_sentinels": on, "device_type": device},
+            ds, num_boost_round=SENTINEL_SYNC_ITERS, verbose_eval=False,
+            callbacks=[mark]), device)
+    log(f"(ac) HIGGS {args.rows} x 28, {SENTINEL_SYNC_ITERS} iterations "
+        f"(learner host syncs, syncing CUDA calls) per iteration: with "
+        f"sentinels {per_iter[True]}, without {per_iter[False]} (the first "
+        f"iteration's calls include one-time set-up)")
+    # the learner's reads in every iteration, every call after the first
+    assert [r[0] for r in per_iter[True]] == \
+        [r[0] for r in per_iter[False]], per_iter
+    assert per_iter[True][1:] == per_iter[False][1:], per_iter
+    return got
+
+
+def hang_drills(tmp, device="cuda", rows=ROBUST_ROWS):
+    """(ad): train.iteration:hang=3.0@4 against hang_timeout=1.2 (the
+    JAX tests' margins) on ``rows`` rows: without auto_resume it must
+    raise HangTimeout (the one exception this smoke catches); with
+    auto_resume and a checkpoint directory the model text must equal
+    the clean run's byte for byte. Returns the launches of the healed
+    run."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda as K
+    from lightgbm_tpu_torch.robust import HangTimeout, install_plan
+    X, y, _ = _robust_data(rows, 0)
+    params = {**ROBUST_PARAMS, "checkpoint_interval": 2, "hang_timeout": 1.2,
+              "device_type": device}
+    plan = "train.iteration:hang=3.0@4"
+
+    def run(extra, ckpt_dir=None, fault=None):
+        install_plan(fault)
+        try:
+            return lgt.train({**params, **extra}, lgt.Dataset(X, label=y),
+                             num_boost_round=HANG_ITERS, verbose_eval=False,
+                             checkpoint_dir=ckpt_dir)
+        finally:
+            install_plan(None)
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        run({}, fault=plan)
+    except HangTimeout as e:
+        raised = e.diagnosis
+    assert raised is not None, "(ad): the hang raised no HangTimeout"
+    t_raise = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    K.reset_launches()
+    healed = run({"auto_resume": True}, os.path.join(tmp, "ck_ad"), plan)
+    launches = dict(K.LAUNCHES)
+    t_heal = time.perf_counter() - t0
+    clean = run({})
+    assert healed.model_to_string() == clean.model_to_string(), \
+        "(ad): the auto-resumed model differs from the clean run's"
+    log(f"(ad) hang drill ({plan}, hang_timeout 1.2 s): raised HangTimeout "
+        f"after {t_raise:.1f} s, stall_class {raised['stall_class']!r}, "
+        f"phase {raised['phase']!r}, iteration {raised['iteration']}; with "
+        f"auto_resume: byte-equal to the clean run ({healed.num_trees()} "
+        f"trees, {t_heal:.1f} s)")
+    return launches
+
+
+def robust_paths(args, report, device="cuda"):
+    """Phase 5: (aa) the chaos resume at full width, (ab) resume in
+    process, (ac) the sentinel drills and their syncs, (ad) the hang
+    drills. Adds each kernel's launches on these paths to ``report``."""
+    t0 = time.perf_counter()
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        got["aa"] = chaos_resume(args, tmp, device)
+        got.update(resume_cases(tmp, device))
+        got.update(sentinel_drills(args, device))
+        got["ad"] = hang_drills(tmp, device)
+    for r in report:
+        r["launches"] += sum(g.get(r["name"], 0) for g in got.values())
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
 
 def profile_paths(args, wide):
@@ -2763,20 +3190,23 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="training rows of the HIGGS-shaped paths (HIGGS "
                     "has 10.5M)")
-    ap.add_argument("--iters", type=int, default=5,
+    ap.add_argument("--iters", type=int, default=3,
                     help="iterations of the HIGGS fused path, (d), (h), "
-                    "(i)-(k) and (t), and of (u)'s two trainings together")
+                    "(t) and (y), and of (u)'s two trainings together")
     ap.add_argument("--wide-rows", type=int, default=1_048_576,
                     help="training rows of shape (a) (the bench.py wide "
                     "sidecar's own default)")
-    ap.add_argument("--wide-iters", type=int, default=5)
-    ap.add_argument("--host-iters", type=int, default=3,
+    ap.add_argument("--wide-iters", type=int, default=3)
+    ap.add_argument("--host-iters", type=int, default=2,
                     help="iterations of path (b)")
     ap.add_argument("--wide-host-iters", type=int, default=2,
                     help="iterations of path (c)")
     ap.add_argument("--multi-gpu-only", action="store_true",
                     help="build, then only the multi-GPU paths (y) and (z)"
                     " (no AUC comparison), and exit without a result")
+    ap.add_argument("--robust-only", action="store_true",
+                    help="build, then only phase 5 (robustness), and exit "
+                    "without a result")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
     ap.add_argument("--profile-paths",
@@ -2813,6 +3243,9 @@ def main() -> int:
     if args.multi_gpu_only:
         multi_gpu_paths(args, None)
         return 0     # prints no smoke result
+    if args.robust_only:
+        robust_paths(args, [])
+        return 0     # prints no smoke result
     dev = torch.device("cuda")
     wide = wide_data(args.wide_rows, 100_000, "cuda")
     check_xla_float(dev)
@@ -2843,6 +3276,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         card_vs_cpu(write_forced_splits(tmp))
         api_card_vs_cpu(tmp)
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    robust_paths(args, report)
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

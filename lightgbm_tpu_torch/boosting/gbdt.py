@@ -31,8 +31,18 @@ drops trees from the training score before each iteration and
 normalizes them after; ``RF`` grows every tree from the constant
 initial score and averages the trees' outputs. Continued training
 (``init_model``: the old trees prepended, ``num_init_iteration``
-counting them), rollback and refit follow the JAX package; the RNGs'
-checkpoint state is not ported yet (ROADMAP A14).
+counting them), rollback and refit follow the JAX package.
+
+Robustness (robust/): ``checkpoint_state`` / ``restore_checkpoint_state``
+carry everything a resumed run needs to finish byte-identical to the
+uninterrupted one — every RNG stream, the bag permutation, the float32
+scores, and on the persistent fused path the state's lane order (the
+rowid and score planes, never row-order scores). With
+``numeric_sentinels`` the gradient planes and each new tree's leaf
+values are checked for non-finite and overflowed values; the verdicts
+ride reads the loop already makes, and a trip quarantines the
+iteration's trees (``quarantine_iter``: every score rebuilt from the
+surviving trees).
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ from ..models.tree import Tree
 from ..objective.functions import ObjectiveFunction, create_objective
 from ..ops import split as S
 from ..ops import threefry
+from ..robust.sentinel import NumericSentinel, read_verdicts
 from ..treelearner.fused import FusedSerialGrower, fused_reject_reason
 from ..treelearner.serial import SerialTreeGrower
 from ..utils import log
@@ -58,6 +69,19 @@ from ..utils.device import resolve_device
 
 K_EPSILON = 1e-15
 K_MODEL_VERSION = "v3"
+
+
+def _pack_rng(rng: np.random.RandomState) -> dict:
+    kind, keys, pos, has_gauss, cached = rng.get_state()
+    return {"kind": kind, "keys": np.asarray(keys, dtype=np.uint32),
+            "pos": int(pos), "has_gauss": int(has_gauss),
+            "cached": float(cached)}
+
+
+def _unpack_rng(rng: np.random.RandomState, state: dict) -> None:
+    rng.set_state((state["kind"], np.asarray(state["keys"], np.uint32),
+                   int(state["pos"]), int(state["has_gauss"]),
+                   float(state["cached"])))
 
 
 def parse_tree_blocks(text: str) -> List[Tree]:
@@ -132,6 +156,18 @@ class GBDT:
         self._fused = None
         self.tree_learner = None
         self.average_output = False
+        # the degraded-mode ladder (robust/sentinel.py): rung 1 clears
+        # _pipeline (this loop is synchronous already), rung 2
+        # _device_eval (metrics on a host copy of the scores); the rungs
+        # taken, in order
+        self._pipeline = False
+        self._device_eval = True
+        self.degraded_rungs: List[str] = []
+        # numeric-health sentinels (robust/sentinel.py; made by init
+        # under numeric_sentinels) and the train.iteration:nan/overflow
+        # drill's pending poison
+        self._sentinel: Optional[NumericSentinel] = None
+        self._poison_next = None
 
     # ------------------------------------------------------------------
     def init(self, config: Config, train_data: BinnedDataset,
@@ -196,6 +232,10 @@ class GBDT:
         self.train_score = _ScoreState(train_data,
                                        self.num_tree_per_iteration,
                                        self.device)
+        if config.numeric_sentinels:
+            self._sentinel = NumericSentinel(
+                overflow_limit=config.sentinel_overflow_limit,
+                max_trips=config.sentinel_max_trips)
         # bagging state (reference GBDT::ResetBaggingConfig,
         # gbdt.cpp:700): the [bag | oob] row permutation on the device
         self._bag_rng = np.random.RandomState(config.bagging_seed)
@@ -393,7 +433,10 @@ class GBDT:
     def _no_more_splits(self, k: int) -> bool:
         """The stop of an iteration whose K trees are all single leaves
         (reference gbdt.cpp:389-407): its trees go unless they are the
-        model's first. Returns True (training stops)."""
+        model's first. Returns True (training stops), or False when the
+        sentinel quarantined the iteration instead."""
+        if self._quarantine_degenerate_iter(k):
+            return False
         log.warning("Stopped training because there are no more leaves "
                     "that meet the split requirements")
         if len(self.models) > k:
@@ -429,8 +472,158 @@ class GBDT:
             self.models.append(tree)
         if not should_continue:
             return self._no_more_splits(k)
+        self._sentinel_check_trees(
+            [np.asarray(t.leaf_value[:max(t.num_leaves, 1)], np.float32)
+             for t in self.models[-k:]])
         self.iter += 1
         return False
+
+    # ------------------------------------------------------------------
+    # numeric-health sentinels and quarantine (robust/sentinel.py)
+    # ------------------------------------------------------------------
+    def _apply_grad_poison(self) -> None:
+        """The ``train.iteration:nan``/``overflow`` drill: poison one
+        gradient element, so the corruption flows through histograms,
+        split finding and leaf values as real divergence would (the
+        sentinel must catch it downstream)."""
+        mode, self._poison_next = self._poison_next, None
+        if mode is None or self._grad is None:
+            return
+        self._grad = self._grad.clone()
+        self._grad[0, 0] = float("nan") if mode == "nan" else 2e30
+        log.warning("fault injection: poisoned the gradient plane with %s "
+                    "at iteration %d", mode, self.iter)
+
+    def _sentinel_check_grads(self) -> None:
+        """Health checks of the gradient and hessian planes, reduced on
+        their device; the verdicts ride the next read the loop makes.
+        The persistent fused path computes its gradients inside the
+        learner and is covered by its leaf-value checks."""
+        if self._sentinel is None or self._grad is None:
+            return
+        self._sentinel.dispatch([self._grad, self._hess], self.iter)
+
+    def _sentinel_check_trees(self, leaf_values, defer: bool = False
+                              ) -> None:
+        """Health checks of this iteration's new trees, judged on the
+        host copy of their leaf values the loop holds already (no read).
+        ``defer``: the fused paths' verdicts wait in the queue for the
+        next read, as the JAX package's device-resident trees' do, so a
+        trip is acted on at the same iteration."""
+        if self._sentinel is not None:
+            self._sentinel.dispatch(leaf_values, self.iter, defer=defer)
+
+    def _quarantine_degenerate_iter(self, k: int) -> bool:
+        """An iteration of single leaves is also the signature of a
+        poisoned gradient plane (NaN gains reject every split). Before
+        calling it convergence, resolve the pending verdicts; when THIS
+        iteration's check tripped, discard its trees and keep training
+        — the next iteration recomputes clean gradients from the
+        untouched scores."""
+        if self._sentinel is None:
+            return False
+        self.sentinel_drain()
+        trips = self._sentinel.pop_trips()
+        mine = [t for t in trips if t[0] == self.iter]
+        others = [t for t in trips if t[0] != self.iter]
+        if others:
+            # earlier iterations' trips go back to the recovery policy
+            self._sentinel._trips_out = others + self._sentinel._trips_out
+        if not mine:
+            return False
+        del self.models[-k:]
+        if not self.models:
+            # iteration 0's boost_from_average constant was folded into
+            # the scores before its trees were discarded
+            self._rebuild_scores()
+        log.warning(
+            "numeric sentinel: quarantined the tree(s) of iteration %d "
+            "(%s gradient plane); training continues", self.iter,
+            mine[0][1])
+        return True
+
+    def quarantine_iter(self, iteration: int) -> bool:
+        """Discard the trees of one (0-based) iteration a sentinel
+        flagged, then REBUILD every score from the surviving trees.
+        Rolling back by subtraction would re-read the poisoned leaf
+        values (NaN - NaN = NaN); the rebuild never reads them."""
+        k = self.num_tree_per_iteration
+        idx = iteration - self.num_init_iteration
+        if idx < 0 or (idx + 1) * k > len(self.models):
+            return False
+        self._pred_revision += 1
+        del self.models[idx * k:(idx + 1) * k]
+        self._on_quarantine(idx)
+        self.iter -= 1
+        # the persistent state carries the poisoned scores: it is
+        # rebuilt from the fresh training score next iteration
+        self._fused_state = None
+        self._score_dirty = False
+        self._rebuild_scores()
+        return True
+
+    def _on_quarantine(self, idx: int) -> None:
+        """Boosting-mode hook: drop per-iteration side state of the
+        quarantined (relative) iteration ``idx``."""
+
+    def _rebuild_scores(self) -> None:
+        """Every training and validation score afresh from the
+        surviving trees (the init scores re-applied by _ScoreState; the
+        boost_from_average constant lives in the first trees' bias)."""
+        k = self.num_tree_per_iteration
+        self.train_score = _ScoreState(self.train_data, k, self.device)
+        fresh = []
+        for vs in self.valid_score:
+            nvs = _ScoreState(vs.dataset, k, self.device)
+            nvs.bins = vs.bins
+            fresh.append(nvs)
+        self.valid_score = fresh
+        bins, miss, efb = self._score_tables()
+        for i, tree in enumerate(self.models):
+            self.train_score.add_tree(tree, i % k, bins, miss, efb)
+            for vs in self.valid_score:
+                vs.add_tree(tree, i % k, vs.bins, miss, efb)
+
+    def _sentinel_resolve(self, extra=None):
+        """Resolve the pending verdicts in the read of ``extra`` (float64
+        tensors the caller reads anyway; see ``read_verdicts``). Returns
+        the host values of ``extra``."""
+        sent = self._sentinel
+        pending = sent.take_pending() if sent is not None else []
+        values, host = read_verdicts(pending, extra)
+        if pending:
+            sent.resolve(pending, values)
+        return host
+
+    def sentinel_drain(self) -> None:
+        """Force-resolve the pending verdicts (end of training, before
+        a quarantine decision); in steady state they ride the loop's
+        reads instead."""
+        if self._sentinel is not None and self._sentinel.has_pending:
+            self._sentinel_resolve()
+
+    def process_sentinel_trips(self) -> bool:
+        """Quarantine every iteration a sentinel flagged since the last
+        call. Returns True when the trips reached the escalation
+        threshold (the engine then rolls back to the last checkpoint
+        and steps down the degraded-mode ladder)."""
+        sent = self._sentinel
+        if sent is None:
+            return False
+        flagged: Dict[int, str] = {}
+        for iteration, kind in sent.pop_trips():
+            flagged.setdefault(iteration, kind)
+        # highest iteration first: quarantining an iteration shifts
+        # every LATER iteration's position in self.models
+        for iteration in sorted(flagged, reverse=True):
+            if self.quarantine_iter(iteration):
+                log.warning(
+                    "numeric sentinel: quarantined the tree(s) of "
+                    "iteration %d (%s detected in leaf values); "
+                    "training continues on the healthy forest",
+                    iteration, flagged[iteration])
+        sent.poll_quant_tripwire()
+        return sent.trips >= sent.max_trips
 
     def _update_valid_scores(self, tree: Tree, vals: torch.Tensor,
                              class_id: int) -> None:
@@ -459,9 +652,11 @@ class GBDT:
         fl = self._fused
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         shrink = torch.tensor(self.shrinkage_rate, dtype=torch.float32)
+        leaf_values = []
         for c in range(k):
             ta, leaf_of_row = fl.grow_device(grad[c], hess[c], self._perm,
                                              self.bag_data_cnt)
+            leaf_values.append(np.asarray(ta["leaf_value"], np.float32))
             tree = fl.materialize_tree(ta)
             # + 0.0, as the JAX package adds its pending bias (a -0.0
             # leaf value adds +0.0)
@@ -473,6 +668,7 @@ class GBDT:
             if abs(init_scores[c]) > K_EPSILON:
                 tree.add_bias(init_scores[c])
             self.models.append(tree)
+        self._sentinel_check_trees(leaf_values, defer=True)
         self.iter += 1
         return (self.iter % self.STOP_CHECK_EVERY == 0
                 and self._periodic_stop_check(self.models[-k:]))
@@ -487,6 +683,9 @@ class GBDT:
         trailing single-leaf iterations and stops, unless none trail
         (later iterations split again) and the model holds more than
         one iteration. Returns True when training should stop."""
+        # the stop check's read resolves the pending sentinel verdicts,
+        # as the JAX package's does
+        self.sentinel_drain()
         stop = self._stop_pending
         self._stop_pending = all(t.num_leaves <= 1 for t in trees)
         if not stop:
@@ -542,7 +741,13 @@ class GBDT:
         if abs(init_score) > K_EPSILON:
             tree.add_bias(init_score)
         self.models.append(tree)
+        self._sentinel_check_trees(
+            [np.asarray(ta["leaf_value"], np.float32)], defer=True)
         self.iter += 1
+        if self.iter % self.STOP_CHECK_EVERY == 0:
+            # the JAX package's periodic stop check reads here, and the
+            # pending verdicts with it
+            self.sentinel_drain()
         return False
 
     def get_training_score(self) -> torch.Tensor:
@@ -570,6 +775,8 @@ class GBDT:
             init_scores = [self._boost_from_average(c) for c in range(k)]
             if not self._fused_persist:
                 self._grad, self._hess = self._boosting()
+                self._apply_grad_poison()
+        self._sentinel_check_grads()
         # after the gradients, as the JAX package (GOSS reweights them)
         self._bagging(self.iter)
         grad, hess = self._grad, self._hess
@@ -584,6 +791,113 @@ class GBDT:
             self.get_training_score()
             self._fused_state = None
         return self._train_one_iter_fused(init_scores, grad, hess)
+
+    # ------------------------------------------------------------------
+    # checkpoint and resume (robust/checkpoint.py)
+    # ------------------------------------------------------------------
+    def checkpoint_state(self) -> Dict:
+        """The loop state beyond the model text that an interrupted run
+        needs to continue bit-identically, under the JAX package's keys:
+        every host RNG stream, the bag permutation, and the float32
+        scores (restored as they are: recomputing them from the trees
+        would change the accumulation order). The persistent fused
+        path saves its state's rowid and score planes instead of
+        row-order scores, since its lane order is numeric state."""
+        k = self.num_tree_per_iteration
+        st: Dict = {
+            "iter": int(self.iter),
+            "num_init_iteration": int(self.num_init_iteration),
+            "shrinkage_rate": float(self.shrinkage_rate),
+            # the JAX package's keys; every class trains, and its
+            # best_iter stays 0
+            "class_need_train": [True] * k,
+            "bag_data_cnt": int(self.bag_data_cnt),
+            "bag_rng": _pack_rng(self._bag_rng),
+            "best_iter": 0,
+        }
+        if self._perm is not self._full_perm:
+            st["perm"] = self._perm.to(torch.int32).cpu().numpy()
+        tl = self.tree_learner
+        if getattr(tl, "_col_rng", None) is not None:
+            st["tl_col_rng"] = _pack_rng(tl._col_rng)
+        if getattr(tl, "_extra_rng", None) is not None:
+            st["tl_extra_rng"] = _pack_rng(tl._extra_rng)
+        if self._fused is not None:
+            st["fused_col_rng"] = _pack_rng(self._fused._col_rng)
+            st["quant_iter"] = int(self._fused._quant_iter)
+        if self._fused_state is not None:
+            rowid, score_bits = self._fused.persistent_lane_state(
+                self._fused_state)
+            st["fused_lane_rowid"] = rowid
+            st["fused_lane_score"] = score_bits
+        else:
+            st["train_score"] = self.get_training_score().cpu().numpy()
+        st["valid_scores"] = [vs.score.cpu().numpy()
+                              for vs in self.valid_score]
+        if self._stop_pending:
+            st["stop_pending"] = True
+        return st
+
+    def restore_checkpoint_state(self, state: Dict, model_text: str) -> None:
+        """Inverse of checkpoint_state on a booster built on the same
+        dataset and config (freshly, or live: a watchdog auto-resume or
+        a sentinel rollback restores mid-run)."""
+        self._pred_revision += 1
+        self._stop_pending = bool(state.get("stop_pending"))
+        if self._sentinel is not None:
+            self._sentinel.drop_pending()
+        self.models = parse_tree_blocks(model_text)
+        # the text drops the bin-space fields that score surgery (DART,
+        # rollback, quarantine) traverses with: re-link every tree
+        for t in self.models:
+            t.relink_to_dataset(self.train_data)
+        self.iter = int(state["iter"])
+        self.num_init_iteration = int(state.get("num_init_iteration", 0))
+        self.shrinkage_rate = float(
+            state.get("shrinkage_rate", self.shrinkage_rate))
+        self.bag_data_cnt = int(state.get("bag_data_cnt", self.num_data))
+        if "bag_rng" in state:
+            _unpack_rng(self._bag_rng, state["bag_rng"])
+        self._perm = self._full_perm
+        if "perm" in state:
+            self._perm = torch.as_tensor(np.asarray(state["perm"]),
+                                         dtype=torch.int64,
+                                         device=self.device)
+        tl = self.tree_learner
+        for key, attr in (("tl_col_rng", "_col_rng"),
+                          ("tl_extra_rng", "_extra_rng")):
+            if key in state and getattr(tl, attr, None) is not None:
+                _unpack_rng(getattr(tl, attr), state[key])
+        if self._fused is not None:
+            if "fused_col_rng" in state:
+                _unpack_rng(self._fused._col_rng, state["fused_col_rng"])
+            self._fused._quant_iter = int(state.get("quant_iter", 0))
+        if "fused_lane_rowid" in state:
+            if not self._fused_persist:
+                log.fatal(
+                    "Checkpoint holds fused persistent-path state but the "
+                    "current configuration selected a different tree grower; "
+                    "refusing to resume (delete the checkpoint directory or "
+                    "restore the original parameters)")
+            self._fused_state = self._fused.restore_persistent_state(
+                state["fused_lane_rowid"], state["fused_lane_score"])
+            self._score_dirty = True
+        elif "train_score" in state:
+            self.train_score.score = torch.as_tensor(
+                np.asarray(state["train_score"], np.float32),
+                device=self.device)
+            self._fused_state = None
+            self._score_dirty = False
+        vs_arrays = state.get("valid_scores", [])
+        if len(vs_arrays) != len(self.valid_score):
+            log.warning(
+                "Checkpoint has %d valid-set score arrays but the resumed "
+                "train() call wired %d valid sets; resumed eval metrics may "
+                "not match the uninterrupted run",
+                len(vs_arrays), len(self.valid_score))
+        for vs, arr in zip(self.valid_score, vs_arrays):
+            vs.score = torch.as_tensor(np.asarray(arr, np.float32),
+                                       device=self.device)
 
     # ------------------------------------------------------------------
     def eval_at_iter(self) -> List[Tuple[str, str, float, bool]]:
@@ -612,16 +926,22 @@ class GBDT:
                                dtype=torch.float32, device=self.device)
 
         def averaged(score):
-            return score if div is None else score / div
+            return score if div is None else score / div.to(score.device)
+
+        def on_eval_device(score):
+            # the degraded ladder's device_eval rung: a host copy
+            return score if self._device_eval else score.cpu()
 
         if self.metrics:
             eval_set("training", self.metrics,
-                     averaged(self.get_training_score()))
+                     averaged(on_eval_device(self.get_training_score())))
         for i, ms in enumerate(self.valid_metrics):
-            eval_set(f"valid_{i}", ms, averaged(self.valid_score[i].score))
+            eval_set(f"valid_{i}", ms,
+                     averaged(on_eval_device(self.valid_score[i].score)))
+        # the pending sentinel verdicts ride the same read
+        host = self._sentinel_resolve(vals)
         if not vals:
             return []
-        host = torch.cat(vals).cpu().numpy()
         at = np.cumsum([0] + [v.numel() for v in vals])
         return [(d, n, m.finish(host[at[i]:at[i + 1]], n),
                  m.bigger_is_better) for d, n, m, i in rows]
@@ -881,6 +1201,28 @@ class DART(GBDT):
         self.sum_weight = 0.0
         self.drop_index: List[int] = []
         self.shrinkage_rate = config.learning_rate
+
+    def checkpoint_state(self) -> Dict:
+        st = super().checkpoint_state()
+        st["dart"] = {"drop_rng": _pack_rng(self._drop_rng),
+                      "tree_weight": [float(w) for w in self.tree_weight],
+                      "sum_weight": float(self.sum_weight)}
+        return st
+
+    def restore_checkpoint_state(self, state: Dict, model_text: str) -> None:
+        super().restore_checkpoint_state(state, model_text)
+        d = state.get("dart")
+        if d:
+            _unpack_rng(self._drop_rng, d["drop_rng"])
+            self.tree_weight = [float(w) for w in d["tree_weight"]]
+            self.sum_weight = float(d["sum_weight"])
+            self.drop_index = []
+
+    def _on_quarantine(self, idx: int) -> None:
+        # keep the dropout weights aligned with the surviving forest
+        if idx < len(self.tree_weight):
+            self.sum_weight -= self.tree_weight[idx]
+            del self.tree_weight[idx]
 
     def train_one_iter(self, gradients=None, hessians=None) -> bool:
         if gradients is None or hessians is None:

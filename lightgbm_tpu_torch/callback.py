@@ -4,8 +4,11 @@
 reference package's contract (factories returning callables with
 ``order``/``before_iteration`` attributes, invoked with a
 ``CallbackEnv``; ``early_stopping`` signals via ``EarlyStopException``).
-The callbacks' checkpoint state waits for the robustness slice
-(ROADMAP A14).
+``record_evaluation`` and ``early_stopping`` carry a ``checkpoint_key``
+and hand their state to a training checkpoint
+(``checkpoint_state`` / ``restore_checkpoint_state``, the JAX
+package's), so a resumed run records and stops as the uninterrupted
+one would.
 
 Evaluation entries are tuples ``(dataset_name, metric_name, value,
 is_higher_better[, stdv])``: ``cv`` adds the standard deviation.
@@ -78,6 +81,7 @@ class _EvalRecorder:
     result[dataset_name][metric_name] -> list of values per iteration."""
 
     order = 20
+    checkpoint_key = "record_evaluation"
 
     def __init__(self, store: dict) -> None:
         self.store = store
@@ -90,6 +94,19 @@ class _EvalRecorder:
         for entry in env.evaluation_result_list:
             series = self.store.setdefault(entry[0], OrderedDict())
             series.setdefault(entry[1], []).append(entry[2])
+
+    # -- checkpoint and resume (robust/checkpoint.py) --------------------
+    def checkpoint_state(self) -> dict:
+        return {"store": {ds: {m: list(v) for m, v in series.items()}
+                          for ds, series in self.store.items()},
+                "started": self._started}
+
+    def restore_checkpoint_state(self, state: dict) -> None:
+        self.store.clear()
+        for ds, series in state.get("store", {}).items():
+            self.store[ds] = OrderedDict(
+                (m, list(v)) for m, v in series.items())
+        self._started = bool(state.get("started", True))
 
 
 def record_evaluation(eval_result: dict) -> Callable:
@@ -195,6 +212,7 @@ class _EarlyStopper:
     ``stopping_rounds`` consecutive rounds."""
 
     order = 30
+    checkpoint_key = "early_stopping"
 
     def __init__(self, stopping_rounds: int, first_metric_only: bool,
                  verbose: bool) -> None:
@@ -204,6 +222,32 @@ class _EarlyStopper:
         self.states: List[_MetricState] = []
         self.active = True
         self.first_metric = ""
+
+    # -- checkpoint and resume (robust/checkpoint.py) --------------------
+    def checkpoint_state(self) -> dict:
+        return {
+            "active": self.active,
+            "first_metric": self.first_metric,
+            "states": [{
+                "higher_better": s.higher_better,
+                "best_value": s.best_value,
+                "best_round": s.best_round,
+                "best_entries": (None if s.best_entries is None
+                                 else [list(e) for e in s.best_entries]),
+            } for s in self.states],
+        }
+
+    def restore_checkpoint_state(self, state: dict) -> None:
+        self.active = bool(state.get("active", True))
+        self.first_metric = state.get("first_metric", "")
+        self.states = []
+        for sd in state.get("states", []):
+            ms = _MetricState(bool(sd["higher_better"]))
+            ms.best_value = float(sd["best_value"])
+            ms.best_round = int(sd["best_round"])
+            if sd["best_entries"] is not None:
+                ms.best_entries = [tuple(e) for e in sd["best_entries"]]
+            self.states.append(ms)
 
     def _setup(self, env: CallbackEnv) -> None:
         boosting = [env.params.get(k, "") for k in

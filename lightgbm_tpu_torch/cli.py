@@ -8,10 +8,13 @@ reference's src/main.cpp). Usage mirrors the reference binary:
     python -m lightgbm_tpu_torch config=train.conf [key=value ...]
 
 Data files go through ``io/text_loader.py``; the booster runs on the
-card unless the parameters say ``device_type=cpu``. The subsystems the
-port does not have yet raise and name their ROADMAP item rather than
-being ignored: ``task=warmup`` (A15), ``trace-report`` and the
-observability flags and keys (A16), the checkpoint flags and keys (A14).
+card unless the parameters say ``device_type=cpu``. ``--checkpoint-dir``
+/ ``--checkpoint-interval`` (the keys ``checkpoint_dir`` /
+``checkpoint_interval``) checkpoint the training, and a rerun resumes
+from the newest valid checkpoint (engine.py ``train``). The subsystems
+the port does not have yet raise and name their ROADMAP item rather
+than being ignored: ``task=warmup`` (A15), ``trace-report`` and the
+observability flags and keys (A16).
 """
 from __future__ import annotations
 
@@ -46,8 +49,6 @@ _UNPORTED = {
     "metrics_interval": "A16 (observability)",
     "obs_port": "A16 (observability)",
     "flight_dir": "A16 (observability)",
-    "checkpoint_dir": "A14 (robustness: checkpoints)",
-    "checkpoint_interval": "A14 (robustness: checkpoints)",
 }
 
 # bare subcommand words accepted as the first argument

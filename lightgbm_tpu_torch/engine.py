@@ -4,8 +4,14 @@ boosting iterations with validation sets, callbacks (before and after
 each iteration), early stopping, custom objectives (``fobj``) and
 metrics (``feval``), continued training from ``init_model``,
 ``learning_rates``, and ``cv`` over k boosters on subsets of one
-dataset. The JAX package's checkpoint, resume, warm-up and telemetry
-branches are not ported yet (ROADMAP A14-A16).
+dataset; and the JAX package's fault tolerance (robust/): periodic
+atomic checkpoints and resume (``checkpoint_dir``), the fault-plan seam
+at the top of every iteration (``LGBM_TPU_FAULT_PLAN``), the hang
+watchdog (``hang_timeout``, ``auto_resume``) and the numeric sentinels'
+recovery policy (``numeric_sentinels``). The loop is the JAX package's
+synchronous one (its ``LGBM_TPU_PIPELINE=0``); its pipelined loop, the
+warm-up and the telemetry branches are not ported yet (ROADMAP A14 part
+b, A15, A16).
 """
 from __future__ import annotations
 
@@ -18,7 +24,13 @@ import numpy as np
 from . import callback as callback_mod
 from . import network
 from .basic import Booster, Dataset, LightGBMError, copy_tree
+from .compile import signature as S
 from .config import Config
+from .robust.checkpoint import CheckpointManager
+from .robust.faultinject import check_fault
+from .robust.sentinel import apply_degraded_rung
+from .robust.watchdog import (HangTimeout, Watchdog, activate_watchdog,
+                              deactivate_watchdog, watch_phase)
 from .utils import log
 from .utils.timer import global_timer
 
@@ -77,13 +89,44 @@ def _ensure_network(params: Dict[str, Any]) -> None:
                                    device_type=net.device_type)
 
 
+def _checkpoint_capture(booster: Booster, cbs) -> tuple:
+    """(state, model_text) snapshot of everything resume needs: the
+    boosting loop's state (gbdt.checkpoint_state), each
+    checkpoint-aware callback's state (keyed by its checkpoint_key),
+    and the running best_iteration. The model travels as the reference
+    text format, so a checkpoint is also a valid saved model."""
+    state: Dict[str, Any] = {
+        "gbdt": booster._gbdt.checkpoint_state(),
+        "best_iteration": int(booster.best_iteration),
+        "callbacks": {},
+    }
+    for cb in cbs:
+        key = getattr(cb, "checkpoint_key", None)
+        if key and hasattr(cb, "checkpoint_state"):
+            state["callbacks"][key] = cb.checkpoint_state()
+    return state, booster._gbdt.save_model_to_string()
+
+
+def _checkpoint_restore(booster: Booster, cbs, state: Dict[str, Any],
+                        model_text: str) -> None:
+    booster._gbdt.restore_checkpoint_state(state["gbdt"], model_text)
+    booster.best_iteration = int(state.get("best_iteration", -1))
+    cb_states = state.get("callbacks", {})
+    for cb in cbs:
+        key = getattr(cb, "checkpoint_key", None)
+        if key and key in cb_states \
+                and hasattr(cb, "restore_checkpoint_state"):
+            cb.restore_checkpoint_state(cb_states[key])
+
+
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100, valid_sets=None, valid_names=None,
           fobj=None, feval=None, init_model=None,
           feature_name="auto", categorical_feature="auto",
           early_stopping_rounds: Optional[int] = None, evals_result=None,
           verbose_eval=True, learning_rates=None,
-          keep_training_booster: bool = False, callbacks=None) -> Booster:
+          keep_training_booster: bool = False, callbacks=None,
+          checkpoint_dir: Optional[str] = None) -> Booster:
     """Train a booster; params are the JAX package's (and LightGBM's)
     keys and aliases, plus ``device_type`` "cuda" (default) or "cpu".
     ``fobj(preds, train_set) -> (grad, hess)`` replaces the objective
@@ -98,7 +141,22 @@ def train(params: Dict[str, Any], train_set: Dataset,
     ``keep_training_booster``. ``timetag`` (or LGBM_TPU_TIMETAG) logs
     the host time of the construction and of the iterations.
     ``num_machines`` > 1 sets up the process group first (network.py
-    ``ensure_distributed``, from ``machines`` or the environment)."""
+    ``ensure_distributed``, from ``machines`` or the environment).
+
+    ``checkpoint_dir`` (or the ``checkpoint_dir`` param) makes training
+    preemption-safe: an atomic checkpoint every ``checkpoint_interval``
+    iterations (the newest ``checkpoint_keep`` kept), and a resume from
+    the newest valid one when the directory holds one (unless
+    ``init_model`` is given), finishing with the uninterrupted run's
+    model text byte for byte. A checkpoint of another configuration
+    (``device_type`` included) is refused. ``hang_timeout`` > 0 arms
+    the hang watchdog (robust/watchdog.py): a stall raises
+    ``HangTimeout`` or, with ``auto_resume``, restores the latest
+    checkpoint (at most ``auto_resume_attempts`` times).
+    ``numeric_sentinels`` quarantines an iteration whose gradients or
+    leaf values are non-finite or overflow
+    ``sentinel_overflow_limit``; ``sentinel_max_trips`` trips roll back
+    to the latest checkpoint and step down the degraded-mode ladder."""
     params = copy.deepcopy(params) if params else {}
     _ensure_network(params)
     num_boost_round = _resolve_num_boost_round(params, num_boost_round)
@@ -183,29 +241,152 @@ def train(params: Dict[str, Any], train_set: Dataset,
             model=booster, params=params, iteration=i, begin_iteration=0,
             end_iteration=num_boost_round, evaluation_result_list=evals)
 
+    # preemption safety: periodic atomic checkpoints and the resume,
+    # wired after the callbacks so that the checkpoint-aware ones
+    # (early stopping, record_evaluation) hand their state back
+    gbdt = booster._gbdt
+    cfg = gbdt.config
+    ckpt_dir = checkpoint_dir if checkpoint_dir else cfg.checkpoint_dir
+    ckpt_mgr = None
+    start_iteration = 0
+    if ckpt_dir:
+        ckpt_mgr = CheckpointManager(
+            ckpt_dir, interval=cfg.checkpoint_interval,
+            keep=cfg.checkpoint_keep,
+            params_digest=S._digest(S.config_signature(cfg)))
+        if init_model is None:
+            resumed = ckpt_mgr.load_latest()
+            if resumed is not None:
+                it, ck_state, ck_model = resumed
+                _checkpoint_restore(booster, cbs, ck_state, ck_model)
+                start_iteration = it + 1
+                log.info("Resuming from checkpoint %s: %d iterations "
+                         "already trained", ckpt_mgr.path_for(it),
+                         start_iteration)
+        else:
+            # the reference's init_model semantics win: an explicit warm
+            # start means the caller manages continuation
+            log.warning("checkpoint_dir=%s ignored for resume because "
+                        "init_model was given (checkpoints will still "
+                        "be written)", ckpt_dir)
+
+    def restore_latest() -> bool:
+        """Roll the live booster back to the newest checkpoint and set
+        the loop's re-entry iteration."""
+        nonlocal start_iteration
+        resumed = ckpt_mgr.load_latest() if ckpt_mgr is not None else None
+        if resumed is None:
+            return False
+        it, ck_state, ck_model = resumed
+        _checkpoint_restore(booster, cbs, ck_state, ck_model)
+        start_iteration = it + 1
+        return True
+
+    # self-healing: the hang watchdog's deadman timer over the loop; the
+    # sentinels' verdicts ride the loop's reads, and the policy below
+    # quarantines bad trees, rolls back to the last checkpoint and steps
+    # down the degraded-mode ladder
+    wd = None
+    if cfg.hang_timeout > 0:
+        # the first iterations load the kernels: a short timeout must
+        # not call that a hang (and there is no checkpoint yet)
+        wd = Watchdog(cfg.hang_timeout,
+                      warmup_grace_s=max(60.0, 4 * cfg.hang_timeout))
+        activate_watchdog(wd)
+        wd.start()
+    resume_attempts = 0
+    degraded_rung = 0
     evals: list = []
-    for i in range(num_boost_round):
-        for cb in cbs_before:
-            cb(env(i, None))
-        with global_timer.scope("boosting iteration"):
-            finished = booster.update(fobj=fobj)
-        evals = []
-        if want_eval:
-            for ds, name, val, bib in booster.eval_all(feval):
-                if ds == "training":
-                    if not valid_contain_train:
-                        continue
-                    ds = train_name
-                evals.append((ds, name, val, bib))
-        try:
-            for cb in cbs_after:
-                cb(env(i, evals))
-        except callback_mod.EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
-            evals = e.best_score
-            break
-        if finished:
-            break
+    try:
+        while True:
+            restart = False
+            try:
+                for i in range(start_iteration, num_boost_round):
+                    if wd is not None:
+                        wd.beat(i)
+                        wd.check()
+                    spec = check_fault("train.iteration", index=i)
+                    if spec is not None and spec.mode in ("nan", "overflow"):
+                        # the drill: the next gradient plane is poisoned,
+                        # and the sentinels must catch it
+                        gbdt._poison_next = spec.mode
+                    with watch_phase("host-callback:before"):
+                        for cb in cbs_before:
+                            cb(env(i, None))
+                    with global_timer.scope("boosting iteration"), \
+                            watch_phase("dispatch:update"):
+                        finished = booster.update(fobj=fobj)
+                    evals = []
+                    if want_eval:
+                        with watch_phase("readback:eval scalars"):
+                            res = booster.eval_all(feval)
+                        for ds, name, val, bib in res:
+                            if ds == "training":
+                                if not valid_contain_train:
+                                    continue
+                                ds = train_name
+                            evals.append((ds, name, val, bib))
+                    try:
+                        with watch_phase("host-callback:after"):
+                            for cb in cbs_after:
+                                cb(env(i, evals))
+                    except callback_mod.EarlyStopException as e:
+                        booster.best_iteration = e.best_iteration + 1
+                        evals = e.best_score
+                        break
+                    sent = gbdt._sentinel
+                    if sent is not None and gbdt.process_sentinel_trips():
+                        # repeated trips: quarantine was not enough; roll
+                        # back to the last checkpoint and give up one
+                        # rung of the ladder per recovery epoch
+                        if apply_degraded_rung(gbdt, degraded_rung) \
+                                is not None:
+                            degraded_rung += 1
+                        if restore_latest():
+                            sent.drop_pending()
+                            sent.reset_trips()
+                            log.warning(
+                                "sentinel: rolled back to iteration %d after"
+                                " %d numeric-health trips", start_iteration,
+                                sent.total_trips)
+                            restart = True
+                            break
+                        # no checkpoint to return to: the trees are
+                        # quarantined already, train on degraded
+                        sent.reset_trips()
+                    if finished:
+                        break
+                    if ckpt_mgr is not None and ckpt_mgr.due(i):
+                        ck_state, ck_model = _checkpoint_capture(booster, cbs)
+                        ckpt_mgr.save(i, ck_state, ck_model)
+                if restart:
+                    continue
+                break
+            except HangTimeout:
+                resume_attempts += 1
+                if not cfg.auto_resume \
+                        or resume_attempts > cfg.auto_resume_attempts \
+                        or not restore_latest():
+                    # no checkpoint, or attempts exhausted: surface the
+                    # watchdog's classified diagnosis
+                    raise
+                if gbdt._sentinel is not None:
+                    gbdt._sentinel.drop_pending()
+                if wd is not None:
+                    wd.clear()
+                log.warning(
+                    "watchdog: auto-resuming from iteration %d after a "
+                    "detected hang (attempt %d/%d)", start_iteration,
+                    resume_attempts, cfg.auto_resume_attempts)
+        # verdicts still pending: a trip on the last trees still
+        # quarantines them before the model is final
+        if gbdt._sentinel is not None:
+            gbdt.sentinel_drain()
+            gbdt.process_sentinel_trips()
+    finally:
+        if wd is not None:
+            deactivate_watchdog(wd)
+            wd.stop()
     if booster._gbdt._fused is not None:
         # the per-tree fused path trains on between its periodic stop
         # checks: drop the trailing single-leaf iterations, as the JAX

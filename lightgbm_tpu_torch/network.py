@@ -29,10 +29,15 @@ of the JAX package's CPU ``psum`` under ``shard_map`` (so a sum of
 exact ``all_reduce``. Under gloo, CUDA tensors are staged through host
 memory. ``STATS`` counts the calls and the bytes each rank contributes;
 ``set_timing(True)`` also records CUDA events around each collective
-(``timed_ms`` sums them).
+(``timed_ms`` sums them). Every collective runs inside
+``collective_span``: the ``collective.dispatch`` fault seam and a
+``collective:<op>`` watchdog phase, so a hang there is classified as a
+collective stall (robust/). Its spans, bytes and straggler skew come
+with ROADMAP A16.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import random
@@ -43,6 +48,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .robust.faultinject import check_fault
+from .robust.watchdog import watch_phase
 from .utils import log
 
 # bring-up retry policy: a peer restarting a few seconds late must not
@@ -150,11 +157,28 @@ def _staged(t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     return t, False
 
 
+@contextlib.contextmanager
+def collective_span(op: str):
+    """One collective dispatch (the JAX package's collective_span): a
+    ``collective:<op>`` phase of the active watchdog, so a hang inside
+    is classified as a "collective" stall and leaving it is a
+    cooperative check point, around the ``collective.dispatch`` fault
+    seam. Its telemetry (bytes, spans) comes with ROADMAP A16."""
+    with watch_phase(f"collective:{op}"):
+        check_fault("collective.dispatch")
+        yield
+
+
 def all_gather(x: torch.Tensor) -> torch.Tensor:
     """[D, *x.shape]: every rank's ``x``, in rank order, on every rank
     (``jax.lax.all_gather`` over the "data" axis)."""
     if not is_active():
         return x[None]
+    with collective_span("all_gather"):
+        return _gather(x)
+
+
+def _gather(x: torch.Tensor) -> torch.Tensor:
     dist = _dist()
     d = dist.get_world_size()
     with _Span(x):
@@ -171,9 +195,9 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
         return out.to(x.device) if staged else out
 
 
-def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, op, name: str) -> torch.Tensor:
     dist = _dist()
-    with _Span(x):
+    with collective_span(name), _Span(x):
         src, staged = _staged(x.clone())
         dist.all_reduce(src, op=op)
         return src.to(x.device) if staged else src
@@ -186,21 +210,22 @@ def psum(x: torch.Tensor) -> torch.Tensor:
     if not is_active():
         return x
     if x.is_floating_point():
-        g = all_gather(x)
+        with collective_span("psum"):
+            g = _gather(x)
         out = g[0] + 0.0
         for r in range(1, g.shape[0]):
             out = out + g[r]
         return out
     if x.dtype == torch.bool:
         x = x.to(torch.int32)
-    return _all_reduce(x, _dist().ReduceOp.SUM)
+    return _all_reduce(x, _dist().ReduceOp.SUM, "psum")
 
 
 def pmax(x: torch.Tensor) -> torch.Tensor:
     """Maximum over the ranks (``jax.lax.pmax``)."""
     if not is_active():
         return x
-    return _all_reduce(x, _dist().ReduceOp.MAX)
+    return _all_reduce(x, _dist().ReduceOp.MAX, "pmax")
 
 
 # -- process wiring ----------------------------------------------------

@@ -24,7 +24,8 @@ A SUM of packed words still unpacks exactly while ``count * (num_bins -
 1) < 2^16`` (``packed_rows_ok``).
 
 The JAX package's dispatch-ahead ring ``PrefetchedQuant`` is not ported
-(ROADMAP A14); the inline pass here gives the same levels it would.
+(ROADMAP A14 part b, with the pipelined loop on CUDA streams); the
+inline pass here gives the same levels it would.
 """
 from __future__ import annotations
 

@@ -1159,6 +1159,65 @@ class FusedSerialGrower:
         out[rowids] = plane.get_f32(data, self.layout.score, n)
         return out
 
+    # -- checkpoint and resume (robust/checkpoint.py) -------------------
+    def persistent_lane_state(self, data: torch.Tensor):
+        """(rowid_lanes, score_bits): the two planes of the persistent
+        state that evolve irrecoverably, as int32 numpy [R]. The LANE
+        ORDER is numeric state (B2 permutes the lanes, B1 sums each
+        window in lane order), so row-order scores would not resume
+        bit-identically; every other plane is a function of the dataset
+        gathered through the rowid plane and is rebuilt on restore."""
+        Ly = self.layout
+        both = data[[Ly.rowid, Ly.score]].cpu().numpy()
+        return both[0], both[1]
+
+    def _restore_planes(self, rid: torch.Tensor, rows: torch.Tensor,
+                        score_bits, codes: torch.Tensor, mv) -> torch.Tensor:
+        """The planar state of lanes whose dataset rows are ``rows``
+        (the first lanes, in lane order), row ids ``rid`` on every lane:
+        ``codes`` / ``mv`` gathered for those lanes, label and weight
+        through ``rows``, zero grad / hess (``set_gh`` writes them
+        before any read), and the score plane's saved words."""
+        Ly = self.layout
+        dev = self.device
+        aux_label, aux_weight = self.objective.persistent_aux()
+
+        def gather(a):
+            if a is None:
+                return None
+            t = a if torch.is_tensor(a) \
+                else torch.as_tensor(np.asarray(a, np.float32))
+            return t.to(dev, torch.float32)[rows]
+        zeros = torch.zeros(rows.shape[0], dtype=torch.float32, device=dev)
+        data = plane.build_data(Ly, plane.build_codes_planes(codes, Ly),
+                                zeros, zeros, rowid=rid,
+                                label=gather(aux_label), score=zeros,
+                                weight=gather(aux_weight), mv=mv)
+        data[Ly.score] = torch.as_tensor(np.asarray(score_bits, np.int32),
+                                         device=dev)
+        return data
+
+    def restore_persistent_state(self, rowid_lanes, score_bits
+                                 ) -> torch.Tensor:
+        """Rebuild the planar state from a checkpoint's lane planes on
+        the device. Partitions only permute lanes within [0, n), so the
+        codes, label and weight of lane j are the dataset's at row
+        rowid[j] (gathered through the ``ops/plane.py`` builders); the
+        score plane is written back bit for bit."""
+        assert self.persistent_capable
+        dev = self.device
+        n = self.actual_rows
+        rid = torch.as_tensor(np.asarray(rowid_lanes, np.int32), device=dev)
+        rows = rid[:n].long()
+        codes = self.dataset.device_bins(dev)[rows]
+        mv = None
+        if self._mv_codes is not None:
+            mv = torch.as_tensor(np.ascontiguousarray(self._mv_codes.T),
+                                 device=dev)[:, rows]
+        # as init_persistent_state: keep no second copy of the codes
+        self._codes_planes = self._mv_dev = None
+        return self._restore_planes(rid, rows, score_bits, codes, mv)
+
     # ------------------------------------------------------------------
     # ------------------------------------------------------------------
     def _tree_mask_np(self) -> np.ndarray:

@@ -181,6 +181,34 @@ class FusedDataParallelGrower(FusedSerialGrower):
         self._mv_dev = None
         return data
 
+    def persistent_lane_state(self, data: torch.Tensor):
+        """(rowid_lanes, score_bits) of every rank, [D, R] int32 numpy
+        in rank order (one gather), as the JAX package's sharded state
+        reads whole: the writer, rank 0, saves every rank's lanes."""
+        Ly = self.layout
+        both = network.all_gather(data[[Ly.rowid, Ly.score]].contiguous())
+        both = both.cpu().numpy()
+        return both[:, 0], both[:, 1]
+
+    def restore_persistent_state(self, rowid_lanes, score_bits
+                                 ) -> torch.Tensor:
+        """This rank's planar state from its row of a checkpoint's
+        [D, R] lane planes: its rows' codes, label and weight gathered
+        through the global row ids of its first ``n_valid`` lanes (pad
+        lanes keep id n and zero codes), the score words as saved."""
+        assert self.persistent_capable
+        dev = self.device
+        nv, lo = self.n_valid, self._lo
+        rid = torch.as_tensor(np.asarray(rowid_lanes, np.int32)[self.rank],
+                              device=dev)
+        rows = rid[:nv].long()
+        codes = self.dataset.device_bins(dev)[rows]
+        mv = self.mv_planes()
+        mv = None if mv is None else mv[:, rows - lo]
+        self._mv_dev = None
+        return self._restore_planes(rid, rows, np.asarray(
+            score_bits, np.int32)[self.rank], codes, mv)
+
     def sync_scores(self, data: torch.Tensor) -> torch.Tensor:
         """[n] float32 raw scores in row order on every rank: each rank
         scatters its rows' scores into zeros and the shards are summed

@@ -166,8 +166,26 @@ def _job_bins(rank, world, params, X):
     return mapper_keys(ds.bin_mappers), ds.bins
 
 
+def _job_resume(rank, world, params, X, y, ckpt_dir):
+    """Half the rounds into a checkpoint directory every rank shares (rank
+    0 writes, robust/checkpoint.py), all of them resumed from it, and
+    all of them straight: (resumed text, straight text, files)."""
+    import lightgbm_tpu_torch as tlgb
+
+    def run(rounds, d):
+        return tlgb.train({**params, "device_type": "cpu",
+                           "checkpoint_interval": 1},
+                          tlgb.Dataset(X, label=y), num_boost_round=rounds,
+                          verbose_eval=False, checkpoint_dir=d
+                          ).model_to_string()
+    run(ROUNDS // 2, ckpt_dir)
+    resumed = run(ROUNDS, ckpt_dir)
+    return resumed, run(ROUNDS, None), sorted(os.listdir(ckpt_dir))
+
+
 _JOBS = {"collectives": _job_collectives, "train": _job_train,
-         "voting_traffic": _job_voting_traffic, "bins": _job_bins}
+         "voting_traffic": _job_voting_traffic, "bins": _job_bins,
+         "resume": _job_resume}
 
 
 # -- the JAX side ---------------------------------------------------------
@@ -428,3 +446,21 @@ def test_parallel_cases_bit_equal(tmp_path, case):
     else:
         X, y = make_data(sort_labels=True)
     assert_parallel_equal(tmp_path, params, 2, X, y, learner)
+
+
+@pytest.mark.parametrize("extra", [
+    {"tree_learner": "data"},
+    {"tree_learner": "voting", "top_k": 5, "tpu_fused": False}],
+    ids=["data_fused", "voting"])
+def test_multi_rank_resume_is_bit_identical(tmp_path, extra):
+    """Two gloo ranks checkpoint into one directory (rank 0 writes; the
+    persistent fused learner saves every rank's lanes) and resume from
+    it: on every rank the resumed model text equals the uninterrupted
+    run's byte for byte."""
+    X, y = make_data()
+    out = run_ranks(tmp_path, 2, "resume", {**PARAMS, **extra}, X, y,
+                    str(tmp_path / "ck"))
+    for resumed, straight, files in out:
+        assert resumed == straight
+        assert files == [f"ckpt_{i:07d}.lgbckpt" for i in (3, 4)]
+    assert out[0][0] == out[1][0]

@@ -196,7 +196,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "objective/rank.py", "models/shap.py", "models/codegen.py",
                 "sklearn.py", "plotting.py", "cli.py", "__main__.py",
                 "network.py", "io/distributed.py",
-                "treelearner/parallel.py"):
+                "treelearner/parallel.py", "robust/__init__.py",
+                "robust/checkpoint.py", "robust/faultinject.py",
+                "robust/watchdog.py", "robust/sentinel.py",
+                "compile/signature.py"):
         assert os.path.join("lightgbm_tpu_torch", mod) in names, mod
     for path in files:
         tree = ast.parse(open(path).read(), path)
