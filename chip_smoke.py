@@ -82,23 +82,23 @@ Phases, each of which fails the run (no exception is caught):
      (raw predictions bit-equal), 2 more from init_model (the 1 + 2
      model's held-out AUC within 5e-4 of the HIGGS path's after 3
      straight), rollback_one_iter, cv
-     over 3 stratified folds (2 iterations), and a 200,000-row CSV read
+     over 3 stratified folds (2 iterations), and a 100,000-row CSV read
      through the csv module into a Dataset, save_binary and back.
    - (v) MSLR lambdarank: MSLR-WEB10K Fold 1's shape (make_rank_like:
      136 dense columns, 723,412 training rows in 6,000 queries of 1 to
      1,250 documents, labels 0-4 in MSLR's shares; 1,000 held-out
      queries), objective=lambdarank, metric ndcg at 1, 3, 5 and 10, 255
-     leaves and bins, 4 iterations on the per-tree fused path (B1 +
+     leaves and bins, 3 iterations on the per-tree fused path (B1 +
      B2); the ranking gradient timed by CUDA events; the held-out
      ndcg@10 must beat a random ordering's (numpy). (w) the same data
      with rank_xendcg, 2 iterations.
    - (x) the rest of the API: LGBMRanker on (v)'s first 1,000 queries
      with an eval set and eval_group, then predict; LGBMClassifier on
-     50,000 HIGGS rows (predict_proba equal to Booster.predict);
+     25,000 HIGGS rows (predict_proba equal to Booster.predict);
      pred_contrib on 500 rows of its model (each row summing to its
      raw score within 1e-6, timed: a host recursion); the command line
      through subprocess (``python -m lightgbm_tpu_torch`` task=train
-     on a 50,000-row CSV, task=predict equal to Booster.predict of the
+     on a 25,000-row CSV, task=predict equal to Booster.predict of the
      model file, task=convert_model a non-empty C++ file).
 3b. multi-GPU — MG_WORLD = 2 ranks spawned with torch.multiprocessing
    (a FileStore rendezvous; NCCL for the card's tensors with gloo for the
@@ -113,14 +113,14 @@ Phases, each of which fails the run (no exception is caught):
      of the one-card HIGGS path's; prints s/iteration, host syncs, the
      reductions' calls, bytes and CUDA-event time per iteration, B1 / B2
      launches per rank per iteration and peak memory per rank;
-   - (z) every parallel learner on 50,000 rows, 2 iterations, on the
+   - (z) every parallel learner on 25,000 rows, 2 iterations, on the
      card and on the CPU in the same group: the persistent and the
      bagged (per-tree) fused data-parallel learner, multiclass (5
      classes), quantized gradients, the host-loop data-parallel,
      voting (top_k 5) and feature-parallel learners; each case's
      model equal on every rank, and card == CPU as phase 4 holds it.
-4. card vs CPU — the same small training of 2 iterations (50,000 rows;
-   30,000 from the
+4. card vs CPU — the same small training of 2 iterations (25,000 rows;
+   20,000 from the
    boosting-mode cases on) on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
    and with quantized gradients, on (h)'s columns with categorical
@@ -144,9 +144,9 @@ Phases, each of which fails the run (no exception is caught):
    - (aa) chaos resume: the HIGGS path's data and params (2,000,000 x
      28, 255 leaves and bins) on the persistent fused learner (B1 + B2),
      a checkpoint every 2 iterations; a child process importing only the
-     port is killed by SIGKILL entering iteration 5 (return code -9, the
+     port is killed by SIGKILL entering iteration 3 (return code -9, the
      drill and not a failure), a second child resumes from the
-     checkpoint of iteration 4 and finishes 8 iterations; its model text
+     checkpoint of iteration 2 and finishes 6 iterations; its model text
      must equal an uninterrupted run's on the card byte for byte. Prints
      the checkpoint's bytes, its save ms (wall clock around ``save``),
      the resume's load and restore ms and the iteration time;
@@ -166,10 +166,45 @@ Phases, each of which fails the run (no exception is caught):
      100,000 rows: without auto_resume it must raise HangTimeout (the
      only exception the smoke catches), with auto_resume and a
      checkpoint directory it must equal the clean run byte for byte.
+6. observability — the telemetry (lightgbm_tpu_torch/obs/):
+   - (ae), after phase 5: the HIGGS path's data and params, first in
+     OBS_PAIRS alternating pairs of 2-iteration runs without telemetry
+     and with metrics_file and trace_file (telemetry's cost per steady
+     iteration, median and spread, and the host split by phase from
+     the records; each model equal to phase 3's), then for
+     OBS_PROFILED_ITERS iterations with full telemetry (metrics_file,
+     trace_file, profile_dir, obs_port on a free port, flight_dir) and
+     the held-out rows as a valid set: every JSONL record valid, its
+     four phase fields summing to t_iter_s (in the pairs too); phase
+     coverage >= 95% (the JAX package's gate; on the pairs' steady
+     iterations and on every profiled one); the trace's sync events per
+     iteration equal
+     to the learner's host syncs + the eval read + the stream sync,
+     each attributed to a lightgbm_tpu_torch/ file:line; /metrics,
+     /healthz and /statusz fetched from a callback during training;
+     mem.live_peak_bytes between mem.planar_state_bytes and the
+     allocator's peak; the profiler's trace naming B1's (hp_partials)
+     and B2's (part_small / part_tiles) kernels; the model text equal
+     to phase 3's HIGGS run's at the same depth but the echoed
+     telemetry keys. Prints the card's kernel time per phase (kernels
+     mapped to the learner span around their launch), the top sync
+     sites, s/iteration beside phase 3's, and the syncing CUDA calls
+     of one traced iteration by call site (sync debug mode "warn");
+   - (af), in (ad): the raising run also sets flight_dir and
+     trace_file: exactly one bundle (manifest with trigger watchdog,
+     trace.json, registry.json, stacks.txt), the HangTimeout
+     diagnosis naming the flushed trace, trace-report --flight on it;
+   - (ag), in (y): metrics_file and trace_file per rank: rank 0's
+     records carry a fleet view of both ranks, coll.host_skew on every
+     record, each rank's collective bytes equal to network.STATS, and
+     trace-report --merge of the two traces gives one process track
+     per rank.
 
 ``--multi-gpu-only`` runs phase 1 and phase 3b alone (no AUC
 comparison) and prints no result; ``--robust-only`` runs phase 1 and
-phase 5 alone and prints no result. ``--profile`` instead profiles one
+phase 5 alone and prints no result; ``--obs-only`` runs phase 1, (ae)
+(with its own telemetry-off HIGGS run to compare with), the hang
+drills with (af) and phase 3b with (ag), and prints no result. ``--profile`` instead profiles one
 iteration of each path
 (``--profile-paths b,h`` of the named ones only; (l)-(n) and (v) device
 rows only; (v) also one call of its ranking gradient alone).
@@ -182,8 +217,10 @@ result. It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1380,6 +1417,10 @@ def held_out_metric(booster, X, y, metric, device, group=None):
                           name))
 
 
+# per run_path name: seconds and learner host syncs of each iteration
+PATH_STATS: dict = {}
+
+
 def run_path(name, params, ds, iters, X_hold, y_hold, expect,
              device="cuda", floor=0.70, metric="auc", fobj=None,
              train_kw=None, hold_group=None):
@@ -1439,6 +1480,8 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
         f"{(marks[-1][1] - marks[0][1]) / iters:.1f} host syncs/iteration")
     log(f"{name}: launches per iteration " + json.dumps(
         {key: round(launches[key] / iters, 1) for key in expect}))
+    PATH_STATS[name] = dict(secs=secs, syncs=[
+        marks[i][1] - marks[i - 1][1] for i in range(1, len(marks))])
     if metric == "auc" or metric.startswith("ndcg@"):
         assert floor < val <= 1.0, (name, val)
     else:
@@ -1639,9 +1682,9 @@ BAG_PATHS = [
 ]
 BAG_ITERS = 3                      # paths (o)-(r)
 BAG_WIDE_ITERS = 3                 # path (s)
-PHASE4_ROWS = 50_000               # phase 4's first cases, (z)
+PHASE4_ROWS = 25_000               # phase 4's first cases, (z)
 PHASE4_ITERS = 2                   # phase 4: iterations of each case
-BAG_CASE_ROWS = 30_000             # phase 4's boosting-mode cases
+BAG_CASE_ROWS = 20_000             # phase 4's boosting-mode cases
 RANK_CASE_ROWS = 30_000            # phase 4's ranking cases: rows,
 RANK_CASE_QUERIES = 250            # queries, and the largest query (the
 RANK_CASE_MAX_QUERY = 512          # CPU side's pair program sets the time)
@@ -1653,7 +1696,7 @@ FORCED_SPLITS = {"feature": 0, "threshold": 0.0,
                  "left": {"feature": 1, "threshold": 0.25},
                  "right": {"feature": 2, "threshold": -0.25}}
 API_ITERS = 2                      # path (u): cv's iterations per fold
-CSV_ROWS = 200_000                 # path (u): the CSV file's rows
+CSV_ROWS = 100_000                 # path (u): the CSV file's rows
 
 
 def write_forced_splits(tmp):
@@ -1810,8 +1853,8 @@ RANK_PARAMS = {"num_leaves": 255, "max_bin": 255, "metric": "ndcg",
 RANK_PATHS = [("v", "(v) MSLR lambdarank fused", "lambdarank", 3),
               ("w", "(w) MSLR rank_xendcg fused", "rank_xendcg", 2)]
 RANKER_QUERIES = 1_000             # path (x): LGBMRanker's training queries
-CLF_ROWS = 50_000                  # path (x): LGBMClassifier, CLI CSV rows
-API_REST_ITERS = 3                 # path (x): iterations of each model
+CLF_ROWS = 25_000                  # path (x): LGBMClassifier, CLI CSV rows
+API_REST_ITERS = 2                 # path (x): iterations of each model
 CONTRIB_ROWS = 500                 # path (x): pred_contrib rows
 
 
@@ -2122,6 +2165,11 @@ def paths(args, report, wide, device="cuda"):
         gb = booster._gbdt
         learner = gb._fused if gb._fused is not None else gb.tree_learner
         assert learner._quant == (twin is not None), name
+        if key == "higgs":
+            # phase 6 (ae) trains the same data with telemetry on
+            higgs = dict(ds=ds, hX=hX, hy=hy,
+                         text=obs_base_texts(booster),
+                         secs=PATH_STATS[name]["secs"])
         if key in ("l", "m", "n"):
             # the per-tree path: no persistent state, K trees per
             # iteration, a fresh planar state per tree
@@ -2184,7 +2232,7 @@ def paths(args, report, wide, device="cuda"):
                "hist_multival_planar_q": ["e"], "hist_multival_q": ["g"]}
     for r in report:
         r["launches"] = sum(got[p][r["name"]] for p in path_of[r["name"]])
-    return aucs["higgs"]
+    return aucs["higgs"], higgs
 
 
 # ---------------------------------------------------------------------------
@@ -2270,16 +2318,26 @@ def _mg_path_y(rank, cfg):
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     name = f"(y) HIGGS data-parallel fused, rank {rank}"
+    # (ag): each rank's own JSONL records and trace
+    obs_files = {"metrics_file": os.path.join(cfg["obs_dir"],
+                                              f"m{rank}.jsonl"),
+                 "trace_file": os.path.join(cfg["obs_dir"], f"t{rank}.json")}
     launches, booster, auc = run_path(
-        name, {**HIGGS_PARAMS, "tree_learner": "data"}, ds, iters,
-        X[rows:], y[rows:], ("hist_planar", "partition"), device)
+        name, {**HIGGS_PARAMS, "tree_learner": "data", **obs_files}, ds,
+        iters, X[rows:], y[rows:], ("hist_planar", "partition"), device)
     coll_ms = network.timed_ms()
     network.set_timing(False)
+    from lightgbm_tpu_torch import obs
+    recs = obs.read_jsonl(obs_files["metrics_file"])
+    last = recs[-1]["counters"]
+    reg_bytes = sum(v for k, v in last.items()
+                    if k.startswith("collective.") and k.endswith(".bytes"))
     gb = booster._gbdt
     fl = gb._fused
     assert type(fl).__name__ == "FusedDataParallelGrower", type(fl)
     assert gb._fused_persist, name
-    return dict(text=booster.model_to_string(), auc=auc,
+    return dict(text=obs_text(booster.model_to_string()), auc=auc,
+                records=recs, reg_bytes=reg_bytes,
                 launches=launches, bin_s=t_bin, rows=fl.n_valid,
                 syncs=fl.syncs, calls=network.STATS["calls"],
                 bytes=network.STATS["bytes"], coll_ms=coll_ms,
@@ -2318,6 +2376,41 @@ def _mg_path_z(rank, cfg):
     return out
 
 
+def fleet_check(res, traces):
+    """(ag): rank 0's records carry a fleet view over every rank with
+    the host skew; each rank's collective bytes in its registry equal
+    ``network.STATS``; the ranks' traces merge into one process track
+    per rank (trace-report --merge)."""
+    import contextlib
+    import io
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.obs import report as obs_report
+    for r, rr in enumerate(res):
+        yr = rr["y"]
+        assert yr["reg_bytes"] == yr["bytes"], \
+            ("(ag) collective bytes", r, yr["reg_bytes"], yr["bytes"])
+        for rec in yr["records"]:
+            assert "coll.host_skew" in rec["gauges"], (r, rec["gauges"])
+    fl = res[0]["y"]["records"][-1]["fleet"]
+    assert fl["ranks"] == MG_WORLD and len(fl["per_rank"]) == MG_WORLD, fl
+    out_path = traces[0] + ".merged.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["trace-report", "--merge", *traces, "--out",
+                       out_path])
+    assert rc == 0, buf.getvalue()
+    events = obs_report.load_trace(out_path)
+    tracks = {e["pid"] for e in events
+              if e.get("ph") == "M" and e.get("name") == "process_name"}
+    assert tracks == set(range(MG_WORLD)), tracks
+    log(f"(ag) fleet over {fl['ranks']} ranks: skew {fl['skew']}, slowest "
+        f"rank {fl['slowest_rank']}, iteration s per rank "
+        f"{[row['iter_s'] for row in fl['per_rank']]}; collective bytes "
+        f"per rank {[rr['y']['reg_bytes'] for rr in res]} equal to "
+        f"network.STATS; merged trace: {len(tracks)} process tracks, "
+        f"{len(events)} events")
+
+
 def multi_gpu_paths(args, higgs_auc, device="cuda", hold=200_000,
                     case_rows=PHASE4_ROWS):
     """Phase 3b: paths (y) and (z) in MG_WORLD ranks spawned here (the
@@ -2337,10 +2430,10 @@ def multi_gpu_paths(args, higgs_auc, device="cuda", hold=200_000,
     log(f"multi-GPU: backend {backend}, {MG_WORLD} ranks on "
         f"{len(cards)} card(s) {cards} of {torch.cuda.device_count()}")
     here = os.path.dirname(os.path.abspath(__file__))
-    cfg = dict(here=here, rows=args.rows, hold=hold, iters=args.iters,
-               case_rows=case_rows, device=device)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        cfg = dict(here=here, rows=args.rows, hold=hold, iters=args.iters,
+                   case_rows=case_rows, device=device, obs_dir=tmp)
         torch.multiprocessing.spawn(
             _mg_rank, args=(MG_WORLD, backend, os.path.join(tmp, "store"),
                             tmp, cfg), nprocs=MG_WORLD, join=True)
@@ -2348,6 +2441,8 @@ def multi_gpu_paths(args, higgs_auc, device="cuda", hold=200_000,
         for r in range(MG_WORLD):
             with open(os.path.join(tmp, f"{r}.pkl"), "rb") as fh:
                 res.append(pickle.load(fh))
+        fleet_check(res, [os.path.join(tmp, f"t{r}.json")
+                          for r in range(MG_WORLD)])
     log(f"multi-GPU: {time.perf_counter() - t0:.1f} s for paths (y) and "
         f"(z) in {MG_WORLD} ranks")
     ys = [r["y"] for r in res]
@@ -2665,8 +2760,8 @@ def api_card_vs_cpu(tmp):
 # watchdog and the numeric sentinels
 # ---------------------------------------------------------------------------
 
-CHAOS_ITERS = 8                    # (aa): iterations of each training
-CHAOS_KILL = 5                     # (aa): the child dies entering this one
+CHAOS_ITERS = 6                    # (aa): iterations of each training
+CHAOS_KILL = 3                     # (aa): the child dies entering this one
 ROBUST_ROWS = 100_000              # (ab)-(ad): training rows
 # (ab)-(ad): 63 leaves keep an iteration well inside (ad)'s 1.2 s
 # hang_timeout (the JAX tests' margins) on a 100,000-row state
@@ -2816,7 +2911,9 @@ def chaos_resume(args, tmp, device="cuda"):
     assert killed.returncode == -9, (killed.returncode, killed.stderr[-2000:])
     assert not os.path.exists(out)
     names = sorted(os.listdir(ck))
-    assert names == ["ckpt_0000001.lgbckpt", "ckpt_0000003.lgbckpt"], names
+    # a checkpoint after every second iteration before the kill
+    assert names == [f"ckpt_{i:07d}.lgbckpt"
+                     for i in range(1, CHAOS_KILL, 2)], names
     size = os.path.getsize(os.path.join(ck, names[-1]))
     env.pop("LGBM_TPU_FAULT_PLAN")
     t0 = time.perf_counter()
@@ -3013,12 +3110,17 @@ def hang_drills(tmp, device="cuda", rows=ROBUST_ROWS):
             install_plan(None)
     t0 = time.perf_counter()
     raised = None
+    # (af): the raising run also records a trace and arms the flight
+    # recorder
+    flight_dir = os.path.join(tmp, "flight_ad")
     try:
-        run({}, fault=plan)
+        run({"flight_dir": flight_dir,
+             "trace_file": os.path.join(tmp, "t_ad.json")}, fault=plan)
     except HangTimeout as e:
         raised = e.diagnosis
     assert raised is not None, "(ad): the hang raised no HangTimeout"
     t_raise = time.perf_counter() - t0
+    flight_check(flight_dir, raised)
     t0 = time.perf_counter()
     K.reset_launches()
     healed = run({"auto_resume": True}, os.path.join(tmp, "ck_ad"), plan)
@@ -3049,6 +3151,462 @@ def robust_paths(args, report, device="cuda"):
     for r in report:
         r["launches"] += sum(g.get(r["name"], 0) for g in got.values())
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: observability — the telemetry of lightgbm_tpu_torch/obs/
+# ---------------------------------------------------------------------------
+
+# the config keys of telemetry: the model text echoes them in its
+# parameter block, the one place a telemetry run's text may differ
+OBS_KEYS = ("metrics_file", "trace_file", "profile_dir", "obs_port",
+            "flight_dir", "metrics_interval", "flight_slo_factor")
+# the learner dispatchers' spans (treelearner/fused.py) -> core phase
+OBS_PHASE_OF = {"fused/leaf_histogram": "hist", "fused/split_scan": "split",
+                "fused/best leaf (read)": "split",
+                "fused/partition": "partition"}
+OBS_COVERAGE_MIN = 0.95    # tests/test_trace.py's gate in the JAX package
+# (ae): alternating off / on pairs that measure telemetry's own cost, and
+# the iterations of the profiled run (its close costs ~12 s and its trace
+# ~210 MiB per HIGGS iteration, so phase 6 keeps within 90 s)
+OBS_PAIRS = 3
+OBS_PROFILED_ITERS = 1
+
+
+def obs_text(text):
+    """A model text without the parameter lines of the telemetry keys."""
+    return "\n".join(ln for ln in text.splitlines()
+                     if not any(ln.startswith(f"[{k}:") for k in OBS_KEYS))
+
+
+def free_port():
+    """A free TCP port on 127.0.0.1 (the endpoint binds it next)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def fetch(port, route):
+    """(HTTP status, body) of one route of the live endpoint."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=10) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def kernel_split(path):
+    """The card's kernel time by core phase, from a torch.profiler
+    Chrome trace: each kernel goes to the phase of the learner span
+    (OBS_PHASE_OF) around its launch, through the launch's correlation
+    id, else to "other". Returns ({phase: ms}, {kernel name: launches},
+    busy ms)."""
+    import bisect
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                    OBS_PHASE_OF[e["name"]]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name") in OBS_PHASE_OF)
+    starts = [sp[0] for sp in spans]
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in (e.get("args") or {})}
+    ms = {"hist": 0.0, "split": 0.0, "partition": 0.0, "other": 0.0}
+    names: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        dur = float(e.get("dur", 0)) / 1e3
+        m = re.search(r"([A-Za-z_]\w*)\s*[<(]", e["name"])
+        short = m.group(1) if m else e["name"]
+        names[short] = names.get(short, 0) + 1
+        ts = launch_ts.get((e.get("args") or {}).get("correlation"))
+        phase = "other"
+        if ts is not None:
+            i = bisect.bisect_right(starts, ts) - 1
+            if i >= 0 and spans[i][0] <= ts <= spans[i][1]:
+                phase = spans[i][2]
+        ms[phase] += dur
+    return ms, names, sum(ms.values())
+
+
+def implicit_sync_sites(train, device="cuda"):
+    """Run ``train()`` under CUDA sync debug mode "warn" and count the
+    syncing CUDA calls by the innermost lightgbm_tpu_torch/ frame of
+    the Python stack that made them (a measurement of this script; the
+    package has no such feature)."""
+    import collections
+    import traceback
+    import warnings
+    here = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(here, "lightgbm_tpu_torch") + os.sep
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message).lower():
+            return
+        for fr in reversed(traceback.extract_stack()):
+            if os.path.abspath(fr.filename).startswith(pkg):
+                sites[f"{os.path.relpath(fr.filename, here)}:{fr.lineno}"
+                      f" ({fr.name})"] += 1
+                return
+        sites[f"(outside the package) {filename}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            train()
+        finally:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def check_records(tag, recs, iters):
+    """One valid record per iteration, its four phase fields summing to
+    t_iter_s."""
+    from lightgbm_tpu_torch import obs
+    assert [r["iteration"] for r in recs] == list(range(iters)), (tag, recs)
+    for r in recs:
+        problems = obs.validate_record(r)
+        assert not problems, (tag, "record", r["iteration"], problems)
+        total = (r["t_hist_s"] + r["t_split_s"] + r["t_partition_s"]
+                 + r["t_other_s"])
+        assert abs(total - r["t_iter_s"]) <= 1e-5, (tag, total, r)
+
+
+def check_coverage(tag, events, checked):
+    """Phase coverage of the iterations ``checked`` at least
+    OBS_COVERAGE_MIN; returns the coverage of every iteration."""
+    from lightgbm_tpu_torch.obs import report as obs_report
+    cov = obs_report.iteration_coverage(events)
+    assert min(cov[i] for i in checked) >= OBS_COVERAGE_MIN, \
+        (tag, "coverage", cov)
+    return cov
+
+
+def obs_base_texts(booster):
+    """{depth: model text} of phase 3's HIGGS booster at the depths of
+    (ae)'s runs: its pairs and its profiled run."""
+    return {n: booster.model_to_string(num_iteration=n)
+            for n in {2, OBS_PROFILED_ITERS}}
+
+
+def telemetry_unit_us(device, tmp, n=20_000):
+    """Host us of one phase span and of one counted read (``device_get``
+    of one float), first without telemetry, then inside a session with
+    metrics_file and trace_file (registry, tracer, sync tracing): the
+    differences are telemetry's cost per span and per sync event. The
+    read here is made from outside the package, so its call-site walk
+    climbs the whole stack (the package's reads stop at their own
+    frame)."""
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.utils import device as D
+    t = torch.zeros(1, device=device)
+
+    def per_call(fn, k):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        return (time.perf_counter() - t0) / k * 1e6
+
+    def one_span():
+        with obs.span("fused/partition", phase="partition"):
+            pass
+
+    def one_read():
+        D.device_get(t)
+
+    def costs():
+        return per_call(one_span, n), per_call(one_read, n // 10)
+    off = costs()
+    session = obs.TelemetrySession(
+        metrics_file=os.path.join(tmp, "unit.jsonl"),
+        trace_file=os.path.join(tmp, "unit.json"), device=str(device))
+    session.start()
+    try:
+        session.begin_iteration(0)
+        on = costs()
+        session.end_iteration(0)
+    finally:
+        session.close()
+    return off, on
+
+
+def median(xs):
+    return float(np.median(np.asarray(xs, np.float64)))
+
+
+def obs_higgs(args, report, base=None, device="cuda"):
+    """(ae): the HIGGS fused path at full width (args.rows x 28, 255
+    leaves and bins, phase 3's dataset). First telemetry's own cost:
+    OBS_PAIRS alternating pairs of 2-iteration runs without telemetry
+    and with metrics_file and trace_file, whose steady iterations give
+    the overhead and, from the records, the host split by phase. Then
+    OBS_PROFILED_ITERS iterations with full telemetry: metrics_file,
+    trace_file, profile_dir, obs_port and flight_dir, and the held-out
+    rows as a valid set; the profiler's trace gives the card's split.
+    ``base``: phase 3's HIGGS run (dataset, held-out rows, model texts
+    at (ae)'s depths, seconds per iteration); None builds
+    the dataset and trains the run without telemetry here. Adds its
+    B1 / B2 launches to ``report``."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import report as obs_report
+    from lightgbm_tpu_torch.ops import cuda as K
+    t_phase = time.perf_counter()
+    if base is None:
+        hold = 200_000
+        X, y = make_higgs_like(args.rows + hold, 28, seed=0)
+        ds = lgt.Dataset(X[:args.rows], label=y[:args.rows],
+                         params={**HIGGS_PARAMS, "device_type": device})
+        ds.construct()
+        _, b, _ = run_path("HIGGS fused", HIGGS_PARAMS, ds, args.iters,
+                           X[args.rows:], y[args.rows:],
+                           ("hist_planar", "partition"), device)
+        base = dict(ds=ds, hX=X[args.rows:], hy=y[args.rows:],
+                    text=obs_base_texts(b),
+                    secs=PATH_STATS["HIGGS fused"]["secs"])
+    ds, iters = base["ds"], OBS_PROFILED_ITERS
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    # telemetry's own cost, before the profiler runs in this process:
+    # alternating pairs (off, on | on, off | ...) of the same 2
+    # iterations without telemetry and with metrics_file and trace_file
+    # (no profiler, endpoint or flight recorder); the second
+    # iterations compared, within each pair
+    fields = ("t_iter_s", "t_hist_s", "t_split_s", "t_partition_s",
+              "t_other_s")
+    steady = {"off": [], "on": []}
+    gc_ms = {"off": [], "on": []}
+    split, n_events = [], []
+    # the host's garbage collections, timed: a full collection of this
+    # process's heap inside a steady iteration would read as overhead
+    gc_clock = {"ms": 0.0, "t0": 0.0}
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_clock["t0"] = time.perf_counter()
+        else:
+            gc_clock["ms"] += 1e3 * (time.perf_counter() - gc_clock["t0"])
+    gc.callbacks.append(gc_timer)
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in range(2 * OBS_PAIRS):
+            key = ("off", "on")[(k + k // 2) % 2]
+            extra = {} if key == "off" else {
+                "metrics_file": os.path.join(tmp, f"m{k}.jsonl"),
+                "trace_file": os.path.join(tmp, f"t{k}.json")}
+            marks = []
+
+            def tick(env):
+                sync()
+                marks.append((time.perf_counter(), gc_clock["ms"]))
+            b = lgt.train({**HIGGS_PARAMS, "device_type": device, **extra},
+                          ds, num_boost_round=2, callbacks=[tick],
+                          verbose_eval=False)
+            steady[key].append(marks[1][0] - marks[0][0])
+            gc_ms[key].append(marks[1][1] - marks[0][1])
+            assert obs_text(b.model_to_string()) == \
+                obs_text(base["text"][2]), \
+                f"(ae) pair run {k} ({key}) differs from phase 3's model"
+            if key == "on":
+                recs = obs.read_jsonl(extra["metrics_file"])
+                check_records(f"(ae) pair run {k}", recs, 2)
+                events = obs_report.load_trace(extra["trace_file"])
+                check_coverage(f"(ae) pair run {k}", events, [1])
+                split.append({f: recs[1][f] for f in fields})
+                # the steady iteration's spans and sync events
+                n_events.append([sum(
+                    1 for e in events if e.get("ph") == "X"
+                    and e.get("cat") == cat
+                    and (e.get("args") or {}).get("iteration") == 1)
+                    for cat in ("phase", "sync")])
+            del b
+        gc.callbacks.remove(gc_timer)
+        unit_off, unit_on = telemetry_unit_us(device, tmp)
+    over = [100 * (on / off - 1)
+            for off, on in zip(steady["off"], steady["on"])]
+    log(f"(ae) steady iteration s, {OBS_PAIRS} alternating pairs: without "
+        f"telemetry {json.dumps([round(x, 4) for x in steady['off']])}, "
+        f"with metrics_file and trace_file "
+        f"{json.dumps([round(x, 4) for x in steady['on']])}; overhead per "
+        f"pair {json.dumps([round(x, 1) for x in over])}%, median "
+        f"{median(over):+.1f}% (spread {min(over):+.1f} to "
+        f"{max(over):+.1f}%); median s/iteration {median(steady['off']):.4f}"
+        f" without, {median(steady['on']):.4f} with")
+    d_span, d_read = unit_on[0] - unit_off[0], unit_on[1] - unit_off[1]
+    n_span = median([n[0] for n in n_events])
+    n_sync = median([n[1] for n in n_events])
+    log(f"(ae) telemetry's unit cost on this host: a span {unit_off[0]:.2f}"
+        f" us without, {unit_on[0]:.2f} us with metrics_file and "
+        f"trace_file; a counted read {unit_off[1]:.2f} us, then "
+        f"{unit_on[1]:.2f} us; the steady iteration's spans and sync "
+        f"events {json.dumps(n_events)}: {n_span:.0f} x {d_span:.2f} us + "
+        f"{n_sync:.0f} x {d_read:.2f} us = "
+        f"{(n_span * d_span + n_sync * d_read) / 1e3:.3f} ms beside the "
+        f"median overhead "
+        f"{1e3 * (median(steady['on']) - median(steady['off'])):.3f} ms; "
+        f"garbage collection ms in the steady iteration without "
+        f"{json.dumps([round(x, 1) for x in gc_ms['off']])}, with "
+        f"{json.dumps([round(x, 1) for x in gc_ms['on']])}")
+    log("(ae) per-phase host seconds of the steady iteration, metrics_file "
+        "and trace_file only: " + json.dumps(
+            [{f: round(r[f], 6) for f in fields} for r in split])
+        + "; median " + json.dumps(
+            {f: round(median([r[f] for r in split]), 6) for f in fields}))
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        params = {**HIGGS_PARAMS, "device_type": device,
+                  "metrics_file": os.path.join(tmp, "m.jsonl"),
+                  "trace_file": os.path.join(tmp, "t.json"),
+                  "profile_dir": os.path.join(tmp, "prof"),
+                  "obs_port": port, "flight_dir": os.path.join(tmp, "fl")}
+        valid = ds.create_valid(base["hX"], label=base["hy"])
+        pages, syncs, marks = {}, [], []
+
+        def probe(env):
+            sync()
+            marks.append(time.perf_counter())
+            gb = env.model._gbdt
+            syncs.append(gb._fused.syncs)
+            if env.iteration == iters - 1:
+                # the live endpoint answers during training
+                for route in ("/metrics", "/healthz", "/statusz"):
+                    pages[route] = fetch(port, route)
+        probe.order = 40
+        K.reset_launches()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        marks.append(time.perf_counter())
+        booster = lgt.train(params, ds, num_boost_round=iters,
+                            valid_sets=[valid], valid_names=["hold"],
+                            callbacks=[probe], verbose_eval=False)
+        sync()
+        # from the last iteration's end: the session's close (the trace
+        # and the profiler's export)
+        t_close = time.perf_counter() - marks[-1]
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        gb = booster._gbdt
+        assert gb._fused_persist, "(ae) not the persistent fused path"
+        # telemetry changes no result
+        assert obs_text(booster.model_to_string()) == \
+            obs_text(base["text"][iters]), \
+            "(ae): the telemetry run's model differs from phase 3's"
+        for k in ("hist_planar", "partition"):
+            assert device != "cuda" or launches[k] > 0, f"(ae): {k}"
+        for r in report:
+            r["launches"] += launches.get(r["name"], 0)
+        recs = obs.read_jsonl(params["metrics_file"])
+        check_records("(ae)", recs, iters)
+        # coverage, and every host sync attributed and accounted for
+        events = obs_report.load_trace(params["trace_file"])
+        cov = check_coverage("(ae)", events, range(iters))
+        per_it = {}
+        for e in events:
+            if e.get("cat") == "sync" and e.get("ph") == "X":
+                it = (e.get("args") or {}).get("iteration")
+                per_it[it] = per_it.get(it, 0) + 1
+                assert "@lightgbm_tpu_torch/" in e["name"], e["name"]
+        learner = [b - a for a, b in zip([0] + syncs, syncs)]
+        want = [n + 2 for n in learner]      # + the eval read + the stream
+        got = [per_it.get(i, 0) for i in range(iters)]
+        assert got == want, ("(ae) sync events", got, "learner", learner)
+        # memory: the allocator's peak brackets the sampled live peak
+        g = recs[-1]["gauges"]
+        if device == "cuda":
+            assert g["mem.planar_state_bytes"] <= g["mem.live_peak_bytes"] \
+                <= peak, ("(ae) memory", g, peak)
+        # the live endpoint answered during training
+        assert pages["/metrics"][0] == 200 and \
+            "lgbm_tpu_kernel_hist_calls" in pages["/metrics"][1], pages
+        hz = json.loads(pages["/healthz"][1])
+        st = json.loads(pages["/statusz"][1])
+        assert pages["/healthz"][0] == 200 and hz["status"] == "ok", hz
+        assert pages["/statusz"][0] == 200 and st["registry_active"] \
+            and st["iteration"] == iters - 1, st
+        # the profiler's trace names B1's and B2's kernels
+        prof = [os.path.join(params["profile_dir"], f)
+                for f in os.listdir(params["profile_dir"])]
+        assert len(prof) == 1, prof
+        prof_mb = os.path.getsize(prof[0]) / 2 ** 20
+        t0 = time.perf_counter()
+        dev_ms, knames, busy = kernel_split(prof[0])
+        t_parse = time.perf_counter() - t0
+        if device == "cuda":
+            assert "hp_partials" in knames, sorted(knames)[:40]
+            assert {"part_small", "part_tiles"} & set(knames), \
+                sorted(knames)[:40]
+        summary = obs_report.summarize(events, top_n=10)
+    # the printout: the card's split, sync sites, the profiler's cost
+    sec = [b - a for a, b in zip(marks, marks[1:])]
+    log(f"(ae) device kernel ms per iteration by phase (profiler, "
+        f"{iters} iterations) " + json.dumps(
+            {k: round(v / iters, 3) for k, v in dev_ms.items()})
+        + f"; busy {busy / iters:.3f} ms of "
+        f"{1e3 * sum(r['t_iter_s'] for r in recs) / iters:.3f} ms wall "
+        f"per iteration; kernels per iteration "
+        f"{sum(knames.values()) / iters:.0f}")
+    log(f"(ae) phase coverage {json.dumps({k: round(v, 4) for k, v in cov.items()})}; "
+        f"host syncs per iteration {got} (learner {learner} + eval read + "
+        f"stream sync)")
+    log("(ae) top sync sites (count, total ms, max ms): " + "; ".join(
+        f"{n} {c} {t:.3f} {m:.3f}" for n, c, t, m in summary["sync_totals"]))
+    log(f"(ae) s/iteration with full telemetry (profiler included) "
+        f"{json.dumps([round(x, 4) for x in sec])} beside phase 3's run "
+        f"without {json.dumps([round(x, 4) for x in base['secs']])}")
+    log(f"(ae) session close (trace + profiler export) {t_close:.1f} s, "
+        f"profiler trace {prof_mb:.1f} MiB parsed in {t_parse:.1f} s")
+    log(f"(ae) memory: live peak {g.get('mem.live_peak_bytes', -1)} bytes, "
+        f"planar state {g['mem.planar_state_bytes']} bytes, allocator peak "
+        f"{peak} bytes; endpoint answered {sorted(pages)}; "
+        f"model text equal to phase 3's")
+    # implicit syncing calls of one traced iteration, by call site
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sites = implicit_sync_sites(lambda: lgt.train(
+            {**HIGGS_PARAMS, "device_type": device,
+             "trace_file": os.path.join(tmp, "t1.json")}, ds,
+            num_boost_round=1, verbose_eval=False), device)
+    log(f"(ae) syncing CUDA calls in one traced iteration (sync debug "
+        f"mode warn): {sum(sites.values())} in "
+        f"{time.perf_counter() - t0:.1f} s; top sites: " + "; ".join(
+            f"{k} x{v}" for k, v in sites.most_common(10)))
+    log(f"(ae): {time.perf_counter() - t_phase:.1f} s")
+    return base
+
+
+def flight_check(flight_dir, diagnosis):
+    """(af): exactly one bundle in ``flight_dir``, from the watchdog,
+    holding its manifest, the trace, the registry and the stacks; the
+    HangTimeout diagnosis names the flushed trace; trace-report --flight
+    reads the bundle."""
+    import contextlib
+    import io
+    from lightgbm_tpu_torch import cli
+    bundles = [d for d in os.listdir(flight_dir) if d.startswith("flight_")]
+    assert len(bundles) == 1, ("(af) bundles", os.listdir(flight_dir))
+    b = os.path.join(flight_dir, bundles[0])
+    for f in ("manifest.json", "trace.json", "registry.json", "stacks.txt"):
+        assert os.path.isfile(os.path.join(b, f)), ("(af)", f, os.listdir(b))
+    with open(os.path.join(b, "manifest.json")) as fh:
+        assert json.load(fh)["trigger"] == "watchdog"
+    assert diagnosis.get("trace_file") and \
+        os.path.isfile(diagnosis["trace_file"]), ("(af)", diagnosis)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["trace-report", "--flight", flight_dir])
+    assert rc == 0, out.getvalue()
+    log("(af) flight bundle " + bundles[0] + ": " + "; ".join(
+        ln.strip() for ln in out.getvalue().splitlines()[:6]))
 
 
 def profile_paths(args, wide):
@@ -3207,6 +3765,10 @@ def main() -> int:
     ap.add_argument("--robust-only", action="store_true",
                     help="build, then only phase 5 (robustness), and exit "
                     "without a result")
+    ap.add_argument("--obs-only", action="store_true",
+                    help="build, then only phase 6 (observability: (ae), "
+                    "the hang drill with (af), phase 3b with (ag)), and "
+                    "exit without a result")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
     ap.add_argument("--profile-paths",
@@ -3246,6 +3808,12 @@ def main() -> int:
     if args.robust_only:
         robust_paths(args, [])
         return 0     # prints no smoke result
+    if args.obs_only:
+        obs_higgs(args, [])
+        with tempfile.TemporaryDirectory() as tmp:
+            hang_drills(tmp)
+        multi_gpu_paths(args, None)
+        return 0     # prints no smoke result
     dev = torch.device("cuda")
     wide = wide_data(args.wide_rows, 100_000, "cuda")
     check_xla_float(dev)
@@ -3266,7 +3834,7 @@ def main() -> int:
     check_quant_multival(dev, report, codes, lay.total_bins)
     del codes
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
-    higgs_auc = paths(args, report, wide)
+    higgs_auc, higgs = paths(args, report, wide)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     y_launches = multi_gpu_paths(args, higgs_auc)
     for r in report:
@@ -3278,6 +3846,13 @@ def main() -> int:
         api_card_vs_cpu(tmp)
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     robust_paths(args, report)
+    # phase 6 last: its profiler session and its implicit-sync probe
+    # leave no state behind that an earlier phase could trip on
+    t6 = time.perf_counter()
+    obs_higgs(args, report, higgs)
+    del higgs
+    log(f"phase 6 (ae) done at {time.perf_counter() - t_start:.1f} s "
+        f"({time.perf_counter() - t6:.1f} s)")
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import network
+from .. import obs
 from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import BinnedDataset
@@ -64,6 +65,7 @@ from ..ops import threefry
 from ..robust.sentinel import NumericSentinel, read_verdicts
 from ..treelearner.fused import FusedSerialGrower, fused_reject_reason
 from ..treelearner.serial import SerialTreeGrower
+from ..utils import device as _device
 from ..utils import log
 from ..utils.device import resolve_device
 
@@ -330,7 +332,7 @@ class GBDT:
         leaf_pred = np.asarray(tree_leaf_prediction, dtype=np.int64)
         self._pred_revision += 1
         self._invalidate_fused_state()
-        grad, hess = (t.cpu().numpy() for t in self._boosting())
+        grad, hess = _device.device_get(list(self._boosting()))
         k = self.num_tree_per_iteration
         for i, tree in enumerate(self.models):
             c = i % k
@@ -416,19 +418,24 @@ class GBDT:
         obj = self.objective
         if obj is None or not obj.is_renew_tree_output:
             return
-        tl = self.tree_learner
-        leaf_idx = tree.leaf_index_binned(tl.bins, tl.feature_miss_bin,
-                                          tl._efb_dev).cpu().numpy()
-        score = self.train_score.score[class_id].cpu().numpy()
-        residual = np.asarray(self.train_data.metadata.label) - score
-        if self.bag_data_cnt < self.num_data:
-            # the bag's rows only (the JAX package's
-            # _renew_tree_output_impl)
-            bag = self._perm[:self.bag_data_cnt].cpu().numpy()
-            leaf_idx, residual = leaf_idx[bag], residual[bag]
-        out = obj.renew_tree_output(leaf_idx, residual, tree.num_leaves)
-        if out is not None:
-            tree.leaf_value[:tree.num_leaves] = out
+        with obs.span("renew tree output (leaf refit)", phase="renew"):
+            tl = self.tree_learner
+            bagged = self.bag_data_cnt < self.num_data
+            host = _device.device_get(
+                [tree.leaf_index_binned(tl.bins, tl.feature_miss_bin,
+                                        tl._efb_dev),
+                 self.train_score.score[class_id]]
+                + ([self._perm[:self.bag_data_cnt]] if bagged else []))
+            leaf_idx = host[0]
+            residual = np.asarray(self.train_data.metadata.label) - host[1]
+            if bagged:
+                # the bag's rows only (the JAX package's
+                # _renew_tree_output_impl)
+                leaf_idx, residual = leaf_idx[host[2]], residual[host[2]]
+            out = obj.renew_tree_output(leaf_idx, residual,
+                                        tree.num_leaves)
+            if out is not None:
+                tree.leaf_value[:tree.num_leaves] = out
 
     def _no_more_splits(self, k: int) -> bool:
         """The stop of an iteration whose K trees are all single leaves
@@ -452,8 +459,10 @@ class GBDT:
         should_continue = False
         for c in range(k):
             if self.train_data.num_features > 0:
-                tree = self.tree_learner.grow(grad[c], hess[c], self._perm,
-                                              self.bag_data_cnt)
+                with obs.span("gbdt/grow_tree (host loop)", phase="grow"):
+                    tree = self.tree_learner.grow(grad[c], hess[c],
+                                                  self._perm,
+                                                  self.bag_data_cnt)
             else:
                 tree = Tree(2)
             if tree.num_leaves > 1:
@@ -501,7 +510,8 @@ class GBDT:
         learner and is covered by its leaf-value checks."""
         if self._sentinel is None or self._grad is None:
             return
-        self._sentinel.dispatch([self._grad, self._hess], self.iter)
+        with obs.span("sentinel health check (dispatch)", phase="sentinel"):
+            self._sentinel.dispatch([self._grad, self._hess], self.iter)
 
     def _sentinel_check_trees(self, leaf_values, defer: bool = False
                               ) -> None:
@@ -511,7 +521,9 @@ class GBDT:
         next read, as the JAX package's device-resident trees' do, so a
         trip is acted on at the same iteration."""
         if self._sentinel is not None:
-            self._sentinel.dispatch(leaf_values, self.iter, defer=defer)
+            with obs.span("sentinel health check (dispatch)",
+                          phase="sentinel"):
+                self._sentinel.dispatch(leaf_values, self.iter, defer=defer)
 
     def _quarantine_degenerate_iter(self, k: int) -> bool:
         """An iteration of single leaves is also the signature of a
@@ -536,6 +548,7 @@ class GBDT:
             # iteration 0's boost_from_average constant was folded into
             # the scores before its trees were discarded
             self._rebuild_scores()
+        obs.inc("health.quarantined", k)
         log.warning(
             "numeric sentinel: quarantined the tree(s) of iteration %d "
             "(%s gradient plane); training continues", self.iter,
@@ -560,6 +573,7 @@ class GBDT:
         self._fused_state = None
         self._score_dirty = False
         self._rebuild_scores()
+        obs.inc("health.quarantined", k)
         return True
 
     def _on_quarantine(self, idx: int) -> None:
@@ -697,6 +711,41 @@ class GBDT:
                     "that meet the split requirements")
         return True
 
+    def telemetry_stats(self) -> Dict[str, float]:
+        """Per-iteration model and memory statistics for the obs layer
+        (the JAX package's; called only under full telemetry): the
+        iteration's leaf count and best split gain from the host trees,
+        and as gauges the bin matrix's bytes, the histogram pool's
+        bytes and ``mem.planar_state_bytes``, the bytes of the state the
+        iteration updates (the planar state on the persistent fused
+        path, else the training scores)."""
+        k = self.num_tree_per_iteration
+        trees = self.models[-k:]
+        best_gain = 0.0
+        for t in trees:
+            gains = np.asarray(t.split_gain[:max(t.num_leaves - 1, 0)])
+            if gains.size:
+                best_gain = max(best_gain, float(np.max(gains)))
+        stats: Dict[str, float] = {
+            "num_leaves": int(sum(t.num_leaves for t in trees)),
+            "best_gain": round(best_gain, 6)}
+        gauges = {}
+        bins = getattr(self.train_data, "bins", None)
+        if bins is not None and hasattr(bins, "nbytes"):
+            gauges["hbm_bins_bytes"] = int(bins.nbytes)
+        tl = self._fused if self._fused is not None else self.tree_learner
+        if tl is not None:
+            gauges["hbm_hist_pool_bytes"] = int(
+                self.config.num_leaves * tl.num_features
+                * tl.max_num_bin * 2 * 4)
+        state = (self._fused_state if self._fused_state is not None
+                 else self.train_score.score)
+        gauges["mem.planar_state_bytes"] = int(state.numel()
+                                               * state.element_size())
+        for name, v in gauges.items():
+            obs.set_gauge(name, v)
+        return stats
+
     def trim_degenerate_tail(self) -> int:
         """Delete every trailing iteration whose trees are all single
         leaves, but the first (the JAX package's _trim_degenerate_tail;
@@ -774,8 +823,9 @@ class GBDT:
         else:
             init_scores = [self._boost_from_average(c) for c in range(k)]
             if not self._fused_persist:
-                self._grad, self._hess = self._boosting()
-                self._apply_grad_poison()
+                with obs.span("gbdt/boosting (gradients)", phase="boost"):
+                    self._grad, self._hess = self._boosting()
+                    self._apply_grad_poison()
         self._sentinel_check_grads()
         # after the gradients, as the JAX package (GOSS reweights them)
         self._bagging(self.iter)
@@ -930,7 +980,10 @@ class GBDT:
 
         def on_eval_device(score):
             # the degraded ladder's device_eval rung: a host copy
-            return score if self._device_eval else score.cpu()
+            if self._device_eval:
+                return score
+            obs.inc("eval.host_transfer_rows", int(score.shape[-1]))
+            return torch.from_numpy(_device.device_get(score))
 
         if self.metrics:
             eval_set("training", self.metrics,
@@ -942,6 +995,7 @@ class GBDT:
         host = self._sentinel_resolve(vals)
         if not vals:
             return []
+        obs.inc("eval.device_scalars", len(rows))
         at = np.cumsum([0] + [v.numel() for v in vals])
         return [(d, n, m.finish(host[at[i]:at[i + 1]], n),
                  m.bigger_is_better) for d, n, m, i in rows]

@@ -116,10 +116,17 @@ def record_evaluation(eval_result: dict) -> Callable:
 
 
 class _MetricsRecorder:
-    """Appends one record per iteration into a user-owned list: the
-    iteration, the host wall time since the previous record and the
-    evaluation metrics (the JAX package's record without an active
-    telemetry registry; ROADMAP A16 brings the registry)."""
+    """Appends one telemetry record per iteration into a user-owned
+    list (the JAX package's recorder). When training runs with an
+    active obs registry (``metrics_file`` / ``trace_file`` /
+    ``profile_dir`` set, or an explicitly activated MetricsRegistry),
+    the record is the registry's full per-iteration snapshot — the same
+    dict the JSONL sink writes; otherwise a minimal record (iteration,
+    wall-time delta, eval metrics) keeps the shape usable.
+
+    Runs after the engine snapshots the iteration (order 25: between
+    the eval recorder at 20 and early stopping at 30), so the snapshot
+    is available even on the early-stopped final round."""
 
     order = 25
 
@@ -129,9 +136,16 @@ class _MetricsRecorder:
         self._t_prev = None
 
     def __call__(self, env: CallbackEnv) -> None:
+        from .obs import active
         if not self._started:
             self.store.clear()
             self._started = True
+        reg = active()
+        rec = reg.last_record if reg is not None else None
+        if rec is not None and rec.get("iteration") == env.iteration:
+            self.store.append(rec)
+            self._t_prev = time.perf_counter()
+            return
         now = time.perf_counter()
         dt = 0.0 if self._t_prev is None else now - self._t_prev
         self._t_prev = now
@@ -144,7 +158,7 @@ class _MetricsRecorder:
 
 
 def record_metrics(metrics_result: list) -> Callable:
-    """Callback collecting one record per iteration into
+    """Callback collecting one telemetry record per iteration into
     ``metrics_result``."""
     if not isinstance(metrics_result, list):
         raise TypeError("metrics_result should be a list")

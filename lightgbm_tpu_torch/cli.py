@@ -11,10 +11,18 @@ Data files go through ``io/text_loader.py``; the booster runs on the
 card unless the parameters say ``device_type=cpu``. ``--checkpoint-dir``
 / ``--checkpoint-interval`` (the keys ``checkpoint_dir`` /
 ``checkpoint_interval``) checkpoint the training, and a rerun resumes
-from the newest valid checkpoint (engine.py ``train``). The subsystems
-the port does not have yet raise and name their ROADMAP item rather
-than being ignored: ``task=warmup`` (A15), ``trace-report`` and the
-observability flags and keys (A16).
+from the newest valid checkpoint (engine.py ``train``). The
+observability flags ``--metrics-out``, ``--trace-out``,
+``--profile-dir``, ``--metrics-interval``, ``--obs-port`` and
+``--flight-dir`` (the keys ``metrics_file``, ``trace_file``,
+``profile_dir``, ``metrics_interval``, ``obs_port``, ``flight_dir``)
+turn on the training's telemetry (obs/), and
+
+    python -m lightgbm_tpu_torch trace-report trace.json [--top N]
+        [--merge r0.json r1.json ... --out merged.json] [--flight DIR]
+
+summarizes a trace (obs/report.py). ``task=warmup`` raises and names
+ROADMAP A15: the port has no warm-up yet.
 """
 from __future__ import annotations
 
@@ -39,16 +47,6 @@ _FLAG_PARAMS = {
     "--checkpoint-interval": "checkpoint_interval",
     "--obs-port": "obs_port",
     "--flight-dir": "flight_dir",
-}
-
-# config keys of subsystems the port does not have yet -> ROADMAP item
-_UNPORTED = {
-    "metrics_file": "A16 (observability)",
-    "profile_dir": "A16 (observability)",
-    "trace_file": "A16 (observability)",
-    "metrics_interval": "A16 (observability)",
-    "obs_port": "A16 (observability)",
-    "flight_dir": "A16 (observability)",
 }
 
 # bare subcommand words accepted as the first argument
@@ -100,16 +98,11 @@ def parse_args(argv: List[str]) -> Dict[str, str]:
 
 
 def check_ported(config: Config) -> None:
-    """Raise for a task, flag or key whose subsystem is not ported."""
+    """Raise for a task whose subsystem is not ported."""
     if config.task == "warmup":
         raise NotImplementedError(
             "task=warmup is not ported yet (ROADMAP A15: compile and "
             "warm-up)")
-    default = Config()
-    for key, item in _UNPORTED.items():
-        if getattr(config, key) != getattr(default, key):
-            raise NotImplementedError(
-                f"{key} is not ported yet (ROADMAP {item})")
 
 
 def run_train(config: Config, params: Dict[str, str]) -> None:
@@ -207,8 +200,9 @@ def run_refit(config: Config, params: Dict[str, str]) -> None:
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if argv and argv[0] == "trace-report":
-        raise NotImplementedError(
-            "trace-report is not ported yet (ROADMAP A16: observability)")
+        # a file-analysis subcommand: no Config, no device
+        from .obs.report import main as report_main
+        return report_main(argv[1:])
     params = parse_args(argv)
     config = Config.from_params(params)
     check_ported(config)

@@ -8,21 +8,27 @@ dataset; and the JAX package's fault tolerance (robust/): periodic
 atomic checkpoints and resume (``checkpoint_dir``), the fault-plan seam
 at the top of every iteration (``LGBM_TPU_FAULT_PLAN``), the hang
 watchdog (``hang_timeout``, ``auto_resume``) and the numeric sentinels'
-recovery policy (``numeric_sentinels``). The loop is the JAX package's
-synchronous one (its ``LGBM_TPU_PIPELINE=0``); its pipelined loop, the
-warm-up and the telemetry branches are not ported yet (ROADMAP A14 part
-b, A15, A16).
+recovery policy (``numeric_sentinels``); and the JAX package's
+telemetry (obs/): a ``TelemetrySession`` when ``metrics_file``,
+``trace_file``, ``profile_dir``, ``obs_port`` or ``flight_dir`` is set,
+with one JSONL record per iteration, the runtime trace, the profiler,
+the live endpoint and the flight recorder. The loop is the JAX
+package's synchronous one (its ``LGBM_TPU_PIPELINE=0``, which is also
+the loop its full telemetry runs); its pipelined loop and the warm-up
+are not ported yet (ROADMAP A14 part b, A15).
 """
 from __future__ import annotations
 
 import collections
 import copy
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from . import callback as callback_mod
 from . import network
+from . import obs
 from .basic import Booster, Dataset, LightGBMError, copy_tree
 from .compile import signature as S
 from .config import Config
@@ -31,6 +37,7 @@ from .robust.faultinject import check_fault
 from .robust.sentinel import apply_degraded_rung
 from .robust.watchdog import (HangTimeout, Watchdog, activate_watchdog,
                               deactivate_watchdog, watch_phase)
+from .utils import device as _device
 from .utils import log
 from .utils.timer import global_timer
 
@@ -87,6 +94,30 @@ def _ensure_network(params: Dict[str, Any]) -> None:
         network.ensure_distributed(net.machines, net.num_machines,
                                    time_out=net.time_out,
                                    device_type=net.device_type)
+
+
+def _telemetry_end_iteration(telemetry, booster: Booster, iteration: int,
+                             evals) -> None:
+    """Snapshot one iteration into the telemetry session (the JAX
+    package's): one stream sync first, so the wall time holds the
+    card's work, then the model statistics and the eval metrics."""
+    gbdt = booster._gbdt
+    extra: Dict[str, Any] = {}
+    if not telemetry.record_consumers_active():
+        # every record consumer is gone (the sink died on an I/O
+        # error, nothing else is on): skip the stream sync and the
+        # statistics; the registry keeps its lifecycle and counts the
+        # drop
+        telemetry.end_iteration(iteration)
+        return
+    with obs.span("telemetry stream sync", phase="sync"):
+        _device.block_until_ready(gbdt.device)
+    with obs.span("telemetry stats", phase="telemetry"):
+        extra.update(gbdt.telemetry_stats())
+    if evals:
+        extra["metrics"] = {f"{ds}/{m}": float(v)
+                            for ds, m, v, _ in evals}
+    telemetry.end_iteration(iteration, extra=extra)
 
 
 def _checkpoint_capture(booster: Booster, cbs) -> tuple:
@@ -156,7 +187,17 @@ def train(params: Dict[str, Any], train_set: Dataset,
     ``numeric_sentinels`` quarantines an iteration whose gradients or
     leaf values are non-finite or overflow
     ``sentinel_overflow_limit``; ``sentinel_max_trips`` trips roll back
-    to the latest checkpoint and step down the degraded-mode ladder."""
+    to the latest checkpoint and step down the degraded-mode ladder.
+
+    Telemetry (obs/): ``metrics_file`` writes one schema-versioned JSONL
+    record per iteration (every ``metrics_interval``-th), ``trace_file``
+    a Perfetto trace of the phase spans and host syncs, ``profile_dir``
+    a torch.profiler Chrome trace with the card's kernels, ``obs_port``
+    serves /metrics /healthz /statusz on 127.0.0.1, and ``flight_dir``
+    arms the flight recorder (watchdog, sentinel and ``flight_slo_factor``
+    triggers). Telemetry changes no result: trees, predictions and
+    metrics equal the run without it (the model text's parameter block
+    echoes the telemetry keys)."""
     params = copy.deepcopy(params) if params else {}
     _ensure_network(params)
     num_boost_round = _resolve_num_boost_round(params, num_boost_round)
@@ -246,6 +287,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # (early stopping, record_evaluation) hand their state back
     gbdt = booster._gbdt
     cfg = gbdt.config
+    if cfg.tpu_warmup or os.environ.get("LGBM_TPU_WARMUP", "") \
+            not in ("", "0"):
+        log.warning("tpu_warmup / LGBM_TPU_WARMUP has no effect: the port "
+                    "has no warm-up or compile cache yet (ROADMAP A15)")
     ckpt_dir = checkpoint_dir if checkpoint_dir else cfg.checkpoint_dir
     ckpt_mgr = None
     start_iteration = 0
@@ -286,12 +331,20 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # sentinels' verdicts ride the loop's reads, and the policy below
     # quarantines bad trees, rolls back to the last checkpoint and steps
     # down the degraded-mode ladder
+    telemetry = obs.TelemetrySession.from_config(cfg)
+    if telemetry is not None:
+        telemetry.start()
+        telemetry.registry.set_gauge("train.total_iterations",
+                                     float(num_boost_round))
+    full_telemetry = telemetry is not None and not telemetry.lightweight
     wd = None
     if cfg.hang_timeout > 0:
         # the first iterations load the kernels: a short timeout must
         # not call that a hang (and there is no checkpoint yet)
         wd = Watchdog(cfg.hang_timeout,
-                      warmup_grace_s=max(60.0, 4 * cfg.hang_timeout))
+                      warmup_grace_s=max(60.0, 4 * cfg.hang_timeout),
+                      trace_path=(cfg.trace_file + ".watchdog.json"
+                                  if cfg.trace_file else None))
         activate_watchdog(wd)
         wd.start()
     resume_attempts = 0
@@ -310,15 +363,21 @@ def train(params: Dict[str, Any], train_set: Dataset,
                         # the drill: the next gradient plane is poisoned,
                         # and the sentinels must catch it
                         gbdt._poison_next = spec.mode
-                    with watch_phase("host-callback:before"):
+                    if telemetry is not None:
+                        telemetry.begin_iteration(i)
+                    with obs.span("before-iteration callbacks",
+                                  phase="callbacks"), \
+                            watch_phase("host-callback:before"):
                         for cb in cbs_before:
                             cb(env(i, None))
-                    with global_timer.scope("boosting iteration"), \
+                    with obs.span("boosting iteration (device dispatch)",
+                                  phase="update"), \
                             watch_phase("dispatch:update"):
                         finished = booster.update(fobj=fobj)
                     evals = []
                     if want_eval:
-                        with watch_phase("readback:eval scalars"):
+                        with obs.span("metric evaluation", phase="eval"), \
+                                watch_phase("readback:eval scalars"):
                             res = booster.eval_all(feval)
                         for ds, name, val, bib in res:
                             if ds == "training":
@@ -326,6 +385,13 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                     continue
                                 ds = train_name
                             evals.append((ds, name, val, bib))
+                    if full_telemetry:
+                        _telemetry_end_iteration(telemetry, booster, i,
+                                                 evals)
+                    elif telemetry is not None:
+                        # lightweight: the registry's wall clock, the
+                        # fleet merge and the SLO check only
+                        telemetry.end_iteration(i)
                     try:
                         with watch_phase("host-callback:after"):
                             for cb in cbs_after:
@@ -343,6 +409,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                 is not None:
                             degraded_rung += 1
                         if restore_latest():
+                            obs.inc("health.rollbacks")
                             sent.drop_pending()
                             sent.reset_trips()
                             log.warning(
@@ -357,8 +424,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     if finished:
                         break
                     if ckpt_mgr is not None and ckpt_mgr.due(i):
-                        ck_state, ck_model = _checkpoint_capture(booster, cbs)
-                        ckpt_mgr.save(i, ck_state, ck_model)
+                        with obs.span("checkpoint save", phase="checkpoint"):
+                            ck_state, ck_model = _checkpoint_capture(
+                                booster, cbs)
+                            ckpt_mgr.save(i, ck_state, ck_model)
                 if restart:
                     continue
                 break
@@ -374,6 +443,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     gbdt._sentinel.drop_pending()
                 if wd is not None:
                     wd.clear()
+                obs.inc("watchdog.auto_resume")
                 log.warning(
                     "watchdog: auto-resuming from iteration %d after a "
                     "detected hang (attempt %d/%d)", start_iteration,
@@ -387,6 +457,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
         if wd is not None:
             deactivate_watchdog(wd)
             wd.stop()
+        if telemetry is not None:
+            telemetry.close()
     if booster._gbdt._fused is not None:
         # the per-tree fused path trains on between its periodic stop
         # checks: drop the trailing single-leaf iterations, as the JAX

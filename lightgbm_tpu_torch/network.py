@@ -32,8 +32,11 @@ memory. ``STATS`` counts the calls and the bytes each rank contributes;
 (``timed_ms`` sums them). Every collective runs inside
 ``collective_span``: the ``collective.dispatch`` fault seam and a
 ``collective:<op>`` watchdog phase, so a hang there is classified as a
-collective stall (robust/). Its spans, bytes and straggler skew come
-with ROADMAP A16.
+collective stall (robust/), and, with telemetry on (obs/), the op's
+calls, the bytes this rank contributes and its host latency in the
+registry and a "collective" event on the trace timeline.
+``fleet_allgather`` gathers the telemetry's small per-rank payload
+(``straggler_stats``: the host skew and the slowest rank).
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .obs import registry as _registry
+from .obs import trace as _trace
 from .robust.faultinject import check_fault
 from .robust.watchdog import watch_phase
 from .utils import log
@@ -125,13 +130,17 @@ def timed_ms() -> float:
     return float(sum(a.elapsed_time(b) for a, b in ev))
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return int(t.numel()) * t.element_size()
+
+
 class _Span:
     """Accounting of one collective: its bytes, and CUDA events when
     timing is on."""
 
     def __init__(self, t: torch.Tensor) -> None:
         STATS["calls"] += 1
-        STATS["bytes"] += int(t.numel()) * t.element_size()
+        STATS["bytes"] += _nbytes(t)
         self.ev = None
         if _timing["on"] and t.is_cuda:
             self.ev = (torch.cuda.Event(enable_timing=True),
@@ -158,15 +167,98 @@ def _staged(t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
 
 
 @contextlib.contextmanager
-def collective_span(op: str):
+def collective_span(op: str, nbytes: int = 0, axis: str = "data"):
     """One collective dispatch (the JAX package's collective_span): a
     ``collective:<op>`` phase of the active watchdog, so a hang inside
     is classified as a "collective" stall and leaving it is a
     cooperative check point, around the ``collective.dispatch`` fault
-    seam. Its telemetry (bytes, spans) comes with ROADMAP A16."""
+    seam. With an active registry or tracer (obs/) it records the call,
+    ``nbytes`` (the bytes this rank contributes, as ``STATS`` counts
+    them) on ``axis`` and the host latency; free when neither is on."""
     with watch_phase(f"collective:{op}"):
         check_fault("collective.dispatch")
-        yield
+        reg = _registry.active()
+        tr = _trace.active_tracer()
+        if reg is None and tr is None:
+            yield
+            return
+        tr_t0 = tr.now_ns() if tr is not None else 0
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            if reg is not None:
+                reg.record_collective(op, nbytes, dt, axis=axis)
+            if tr is not None:
+                args = {"bytes": int(nbytes)}
+                if axis:
+                    args["axis"] = axis
+                tr.complete(op, "collective", tr_t0, tr.now_ns(), args)
+
+
+def straggler_skew(seconds: float) -> float:
+    """Cross-rank skew gauge for one iteration: every rank contributes
+    its wall time, and the gauge is (max - min) / mean over the ranks —
+    0.0 means lockstep. One process returns 0.0 without touching the
+    group. This is itself a host barrier (an all_gather), so it runs
+    only on the telemetry path, never in the disabled loop."""
+    return straggler_stats(seconds)[0]
+
+
+def straggler_stats(seconds: float) -> Tuple[float, int]:
+    """(skew, slowest_rank) for one iteration over the same all_gather
+    as :func:`straggler_skew`: the rank that took the longest lets the
+    watchdog NAME the straggler at trip time (no collective can run in
+    the watchdog thread — the group may be what hung — so this is
+    sampled on the telemetry path and read back from the
+    ``coll.slowest_rank`` gauge)."""
+    try:
+        gathered = fleet_allgather([seconds])
+        if gathered is None:
+            return 0.0, 0
+        times = gathered[:, 0]
+        mean = float(times.mean())
+        if mean <= 0.0:
+            return 0.0, 0
+        return (float((times.max() - times.min()) / mean),
+                int(times.argmax()))
+    except Exception:
+        return 0.0, 0
+
+
+def fleet_allgather(payload, _gather=None):
+    """One all_gather of a small per-rank float32 vector — the single
+    blocking host sync per iteration the telemetry plane is allowed.
+    The fleet aggregator (obs/aggregate.py) widens the payload that
+    ``straggler_stats`` gathers alone, so group-level metrics ride the
+    skew barrier instead of adding a second one. It bypasses ``STATS``
+    and ``collective_span``: the telemetry's own traffic is not the
+    training's.
+
+    Returns an (nranks, len(payload)) float64 numpy array, or None
+    outside a group of more than one rank. ``_gather`` is injectable
+    for tests: it receives the local float32 vector and returns the
+    stacked per-rank payloads."""
+    import numpy as np
+    vec = np.asarray(payload, dtype=np.float32).ravel()
+    if _gather is None:
+        if not is_active():
+            return None
+        _gather = _fleet_gather
+    out = np.asarray(_gather(vec), dtype=np.float64)
+    return out.reshape(-1, vec.size)
+
+
+def _fleet_gather(vec):
+    """``all_gather_into_tensor`` of ``vec`` on the group's device."""
+    dist = _dist()
+    dev = comm_device()
+    t = torch.as_tensor(vec, device=dev)
+    out = torch.empty(dist.get_world_size() * t.numel(), dtype=t.dtype,
+                      device=dev)
+    dist.all_gather_into_tensor(out, t)
+    return out.cpu().numpy()
 
 
 def all_gather(x: torch.Tensor) -> torch.Tensor:
@@ -174,7 +266,7 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     (``jax.lax.all_gather`` over the "data" axis)."""
     if not is_active():
         return x[None]
-    with collective_span("all_gather"):
+    with collective_span("all_gather", _nbytes(x)):
         return _gather(x)
 
 
@@ -197,7 +289,7 @@ def _gather(x: torch.Tensor) -> torch.Tensor:
 
 def _all_reduce(x: torch.Tensor, op, name: str) -> torch.Tensor:
     dist = _dist()
-    with collective_span(name), _Span(x):
+    with collective_span(name, _nbytes(x)), _Span(x):
         src, staged = _staged(x.clone())
         dist.all_reduce(src, op=op)
         return src.to(x.device) if staged else src
@@ -210,7 +302,7 @@ def psum(x: torch.Tensor) -> torch.Tensor:
     if not is_active():
         return x
     if x.is_floating_point():
-        with collective_span("psum"):
+        with collective_span("psum", _nbytes(x)):
             g = _gather(x)
         out = g[0] + 0.0
         for r in range(1, g.shape[0]):

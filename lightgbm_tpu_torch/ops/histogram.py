@@ -493,6 +493,15 @@ def hist_layout(config, dataset=None) -> str:
     return "planar"
 
 
+def _note_layout(layout: str, occ) -> None:
+    """Telemetry: which layout the dispatcher picked, and the measured
+    occupancy behind the decision (obs schema minor 10)."""
+    from .. import obs
+    obs.inc(f"hist.layout_{layout}")
+    if occ is not None:
+        obs.set_gauge("hist.row_nnz_mean", float(occ.row_nnz_mean))
+
+
 def hist_method(config, dataset=None) -> Optional[str]:
     """The ONE histogram dispatch of the learners, named as in the JAX
     package. On the card: "multival_pallas" when ``hist_layout`` picks
@@ -506,7 +515,9 @@ def hist_method(config, dataset=None) -> Optional[str]:
     occ = getattr(dataset, "occupancy", None) if dataset is not None \
         else None
     if hist_layout(config, dataset) == "multival" and occ is not None:
+        _note_layout("multival", occ)
         return "multival_pallas"
+    _note_layout("planar", occ)
     return ("radix_pallas" if config.tpu_hist_dtype == "float32"
             else "radix_pallas_bf16")
 

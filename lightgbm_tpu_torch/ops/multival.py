@@ -158,9 +158,17 @@ def build_rowwise_codes(bins: np.ndarray, group_num_bins, default_code,
         pos = np.arange(rows.size) - starts[rows]
         codes[lo + rows, 1 + pos] = (off[gs]
                                      + chunk[rows, gs]).astype(np.int32)
+    _note_multival_rows(n)
     return codes, MultiValLayout(num_groups=int(g), total_bins=total,
                                  row_capacity=int(k), num_rows=int(n),
                                  nnz_max=int(nnz_max))
+
+
+def _note_multival_rows(n: int) -> None:
+    """hist.multival_rows counter (obs schema minor 10); no-op when
+    telemetry is off."""
+    from .. import obs
+    obs.inc("hist.multival_rows", n)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import device as _device
 from .histogram import leaf_window
 
 
@@ -102,7 +103,7 @@ def partition_leaf(bins_full: torch.Tensor, perm: torch.Tensor, start: int,
     off = start - read_start
     gl = go_left & valid
     gr = (~go_left) & valid
-    left_count = int(gl.sum())
+    left_count = int(_device.device_get(gl.sum()))
     rank_l = cumsum_1d(gl.to(torch.int64)) - 1
     rank_r = cumsum_1d(gr.to(torch.int64)) - 1
     new_pos = torch.where(gl, off + rank_l,

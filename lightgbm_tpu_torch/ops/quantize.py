@@ -40,6 +40,15 @@ from .xla_float import f32_reciprocal
 PACKED_BYTES_PER_ROW = 4
 
 
+def note_requantize(num_bins: int, passes: int = 1) -> None:
+    """Count a quantization pass in the active telemetry registry
+    (hist.quant_* counters, obs schema minor 2); no-op when telemetry
+    is off."""
+    from .. import obs
+    obs.inc("hist.quant_requantize_passes", passes)
+    obs.set_gauge("hist.quant_bins", num_bins)
+
+
 def grad_levels(num_bins: int) -> Tuple[int, int]:
     """(signed grad level max, unsigned hess level max)."""
     return num_bins // 2 - 1, num_bins - 1

@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..utils import log
 from .faultinject import check_fault
 
@@ -172,8 +173,8 @@ class CheckpointManager:
             try:
                 path = self._write(iteration, state, model_text)
             except OSError as e:
-                # disk trouble costs the checkpoint, never the run (the
-                # ckpt.* counters come with ROADMAP A16)
+                # disk trouble costs the checkpoint, never the run
+                obs.inc("ckpt.write_errors")
                 log.warning(
                     "checkpoint write failed at iteration %d (%s); training "
                     "continues, last valid checkpoint is retained", iteration, e)
@@ -209,6 +210,7 @@ class CheckpointManager:
                 # rename — the run "died" before the checkpoint landed
                 log.warning("checkpoint write at iteration %d aborted by "
                             "injected partial-write fault", iteration)
+                obs.inc("ckpt.write_errors")
                 return None
             path = self.path_for(iteration)
             os.replace(tmp, path)
@@ -217,6 +219,8 @@ class CheckpointManager:
         finally:
             if tmp is not None and os.path.exists(tmp) and not partial:
                 os.unlink(tmp)
+        obs.inc("ckpt.saves")
+        obs.inc("ckpt.bytes", len(header) + len(payload))
         log.info("Saved checkpoint %s (%d iterations, %d bytes)",
                  path, iteration, len(header) + len(payload))
         self._prune()
@@ -280,15 +284,18 @@ class CheckpointManager:
                 # between our listing and the read: walk on
                 continue
             except (CheckpointError, OSError, ValueError, KeyError) as e:
+                obs.inc("ckpt.invalid")
                 log.warning("Skipping invalid checkpoint %s: %s", path, e)
                 continue
             digest = state.pop("params_digest", "")
             if self.params_digest and digest and digest != self.params_digest:
+                obs.inc("ckpt.invalid")
                 log.warning(
                     "Skipping checkpoint %s: written under different training "
                     "parameters (digest %s != %s)", path, digest,
                     self.params_digest)
                 continue
+            obs.inc("ckpt.resume")
             return it, state, model_text
         return None
 

@@ -17,12 +17,13 @@ seam                      fires in
 ``train.iteration``       engine.py, at the top of every boosting iteration
                           (the seam index IS the iteration number)
 ``collective.dispatch``   network.py, around every all_gather / psum / pmax
+``sink.write``            obs/sink.py JSONL writer and obs/flight.py bundles
+``trace.export``          obs TelemetrySession.close, before the trace dump
 ``sentinel.check``        robust/sentinel.py, at every sentinel dispatch
 ========================  =====================================================
 
-(``store.load``, ``sink.write`` and ``trace.export`` parse too; their
-owners, the compile store and the telemetry sinks, come with ROADMAP
-A15 and A16.)
+(``store.load`` parses too; its owner, the compile store, comes with
+ROADMAP A15.)
 
 Modes: ``sigkill`` (SIGKILL self — the preemption simulator),
 ``enospc`` / ``ioerror`` (raise the corresponding ``OSError``),
@@ -44,7 +45,9 @@ where ``@N`` compares against the index the call site passes, so
 exactly. ``@*`` (the default for ``delay``/``corrupt``/``truncate``)
 fires on every hit; all other modes default to ``@1``.
 
-Every firing logs one warning, so an injected fault is never silent.
+Every firing bumps the ``fault.fired`` / ``fault.<seam>`` counters on
+the active metrics registry (obs/) and logs one warning, so an injected
+fault is never silent.
 """
 from __future__ import annotations
 
@@ -133,9 +136,10 @@ class FaultPlan:
 
     # -- firing --------------------------------------------------------
     def _fire(self, spec: FaultSpec, index: Optional[int]) -> None:
-        # the fault.* counters come with the metrics registry (ROADMAP
-        # A16); until then a firing is logged only
         self.fired.append(repr(spec))
+        from .. import obs
+        obs.inc("fault.fired")
+        obs.inc(f"fault.{spec.seam}")
         log.warning("fault injection: seam %s firing %s (index=%s)",
                     spec.seam, repr(spec), index)
 

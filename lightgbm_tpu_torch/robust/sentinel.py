@@ -31,8 +31,14 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
+from ..utils import device as _device
 from ..utils import log
 from .faultinject import check_fault
+
+# quantized-histogram overflow escalations since training started past
+# which `poll_quant_tripwire` trips (the JAX package's limit)
+QUANT_ESCALATION_LIMIT = 32
 
 
 def _health_device(vals: torch.Tensor, limit: torch.Tensor) -> torch.Tensor:
@@ -76,6 +82,9 @@ class NumericSentinel:
         self._pending: List[Tuple[int, Any]] = []    # (iteration, verdict)
         self._trips_out: List[Tuple[int, str]] = []  # resolved, unprocessed
         self._limits = {}     # device -> float32 limit tensor
+        self.checks = 0
+        self._quant_base: Optional[float] = None
+        self._quant_warned = False
 
     def _limit_on(self, device) -> torch.Tensor:
         key = str(device)
@@ -95,6 +104,8 @@ class NumericSentinel:
         spec = check_fault("sentinel.check")
         mode = spec.mode if spec is not None \
             and spec.mode in ("nan", "overflow") else None
+        self.checks += 1
+        obs.inc("health.checks")
         for i, arr in enumerate(arrays):
             if mode is not None and i == 0:
                 arr = _poison(arr, mode, self.overflow_limit)
@@ -135,6 +146,17 @@ class NumericSentinel:
         self.trips += 1
         self.total_trips += 1
         self._trips_out.append((iteration, kind))
+        obs.inc("health.sentinel_trips")
+        obs.inc(f"health.{kind}")
+        # flight recorder: capture the state that produced the bad
+        # plane before recovery rewrites it
+        from ..obs.flight import active_flight
+        fr = active_flight()
+        if fr is not None:
+            fr.dump("sentinel", {"iteration": iteration, "kind": kind,
+                                 "nonfinite": nonfinite,
+                                 "overflow": overflow,
+                                 "overflow_limit": self.overflow_limit})
         log.warning(
             "sentinel: numeric-health trip at iteration %d — %d non-finite"
             " / %d overflowed (>|%g|) values in the new tree",
@@ -165,10 +187,29 @@ class NumericSentinel:
 
     # -- quantized-path tripwire ----------------------------------------
     def poll_quant_tripwire(self) -> bool:
-        """The quantized-histogram overflow-escalation tripwire reads a
-        metrics registry's counter, which comes with ROADMAP A16; with
-        no registry it never trips (as in the JAX package)."""
-        return False
+        """Promote the quantized-histogram overflow-escalation counter
+        (``hist.quant_overflow_escalations``, the data-parallel host
+        loop's) to a tripwire: sustained escalation past the limit means
+        the quantized bins systematically overflow, which per-tree leaf
+        checks cannot see. Without an active registry it never trips."""
+        reg = obs.active()
+        if reg is None:
+            return False
+        cur = reg.counters.get("hist.quant_overflow_escalations", 0)
+        if self._quant_base is None:
+            self._quant_base = cur
+            return False
+        if cur - self._quant_base <= QUANT_ESCALATION_LIMIT \
+                or self._quant_warned:
+            return False
+        self._quant_warned = True
+        obs.inc("health.quant_tripwire")
+        log.warning(
+            "sentinel: quantized-histogram overflow escalated %d times "
+            "since training started (limit %d) — consider more "
+            "num_grad_quant_bins or disabling gradient quantization",
+            int(cur - self._quant_base), QUANT_ESCALATION_LIMIT)
+        return True
 
 
 def read_verdicts(pending: List[Tuple[int, Any]], extra=None):
@@ -181,7 +222,8 @@ def read_verdicts(pending: List[Tuple[int, Any]], extra=None):
     n_extra = sum(int(p.numel()) for p in extra)
     dev = [i for i, (_, v) in enumerate(pending) if torch.is_tensor(v)]
     parts = extra + [pending[i][1].to(torch.float64) for i in dev]
-    host = (torch.cat([p.to(parts[0].device) for p in parts]).cpu().numpy()
+    host = (_device.device_get(torch.cat([p.to(parts[0].device)
+                                          for p in parts]))
             if parts else None)
     values: List[Any] = [v for _, v in pending]
     for j, i in enumerate(dev):
@@ -211,6 +253,7 @@ def apply_degraded_rung(gbdt, rung_index: int) -> Optional[str]:
     rungs = getattr(gbdt, "degraded_rungs", None)
     if rungs is not None:
         rungs.append(rung)
+    obs.inc("health.degraded")
     log.warning("degraded mode: stepping down rung %d (%s) after repeated "
                 "numeric-health trips", rung_index, rung)
     return rung

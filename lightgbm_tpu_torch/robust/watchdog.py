@@ -9,19 +9,22 @@ into a bounded, classified, actionable failure:
   and marks the blocking regions it enters (:meth:`phase` — collective
   dispatch, device dispatch, readback, host callbacks);
 - a daemon thread polls the heartbeat age; when it exceeds
-  ``timeout_s`` it classifies the stall from the innermost open phase
-  and dumps every thread's stack. A blocking CUDA call or collective
-  releases the GIL, so the thread runs while the main thread waits;
+  ``timeout_s`` it classifies the stall from the innermost open phase,
+  flushes the active runtime trace (obs/trace.py) so the last seconds
+  before the hang can be inspected in Perfetto, dumps every thread's
+  stack, names the straggling rank from the ``coll.host_skew`` /
+  ``coll.slowest_rank`` gauges when telemetry runs in a group, bumps
+  the ``watchdog.*`` counters and fires the flight recorder
+  (obs/flight.py). A blocking CUDA call or collective releases the
+  GIL, so the thread runs while the main thread waits;
 - the thread never raises into the main thread: the *raise* is
   cooperative, at the next :meth:`check` on the main thread (iteration
   top, phase exit), which raises :class:`HangTimeout`; the engine
   either surfaces it or — with ``auto_resume=true`` — re-enters
   training from the last checkpoint.
 
-The trace flush and the straggler's rank come with the tracer and the
-metrics registry (ROADMAP A16): until then the diagnosis carries
-``trace_file`` and ``slowest_rank`` as None, which is what the JAX
-package reports when neither is active.
+Without an active tracer or registry the diagnosis carries
+``trace_file`` and ``slowest_rank`` as None, as the JAX package's does.
 
 One process-global active watchdog (``activate_watchdog`` /
 ``active_watchdog``) lets the network and boosting layers mark phases
@@ -73,10 +76,12 @@ class Watchdog:
     WARMUP_ITERS = 3
 
     def __init__(self, timeout_s: float, poll_s: Optional[float] = None,
-                 warmup_grace_s: float = 0.0) -> None:
+                 warmup_grace_s: float = 0.0,
+                 trace_path: Optional[str] = None) -> None:
         if timeout_s <= 0:
             raise ValueError("watchdog timeout_s must be > 0")
         self.timeout_s = float(timeout_s)
+        self.trace_path = trace_path
         self.poll_s = (min(max(timeout_s / 4.0, 0.02), 1.0)
                        if poll_s is None else float(poll_s))
         # during the first iterations the host legitimately blocks on
@@ -186,16 +191,27 @@ class Watchdog:
         message = (
             f"training stalled for {age:.1f}s (> hang_timeout="
             f"{self.timeout_s:g}s) {where} — classified as {stall!r} stall"
-            f" at iteration {iteration}{straggler}. Thread stacks were"
-            " dumped; raise hang_timeout if this is legitimate, or set"
-            " auto_resume=true to restart from the last checkpoint.")
+            f" at iteration {iteration}{straggler}. Thread stacks and the"
+            " runtime trace were dumped; raise hang_timeout if this is"
+            " legitimate, or set auto_resume=true to restart from the"
+            " last checkpoint.")
         log.warning("watchdog: %s", message)
+        self._count(stall)
         self._dump_stacks()
         trace_file = self._flush_trace(stall)
         diagnosis = {"message": message, "stall_class": stall,
                      "phase": phase, "age_s": age, "iteration": iteration,
                      "host_skew": skew, "slowest_rank": slowest,
                      "trace_file": trace_file}
+        # flight recorder: snapshot the trace ring, the registry and
+        # the fleet table while the hang is still live
+        try:
+            from ..obs.flight import active_flight
+            fr = active_flight()
+            if fr is not None:
+                fr.dump("watchdog", diagnosis)
+        except Exception as exc:   # the trip below must still land
+            log.warning("watchdog: flight recorder failed: %s", exc)
         with self._lock:
             self.trip_count += 1
             self.tripped = diagnosis
@@ -203,10 +219,16 @@ class Watchdog:
     # -- diagnostics (best-effort: they run on the watchdog thread) -----
     @staticmethod
     def _straggler() -> Tuple[Optional[float], Optional[int]]:
-        """(host skew, slowest rank) from already-sampled telemetry: no
-        collective can run here (the group may be what hangs). The
-        straggler gauges come with ROADMAP A16; until then None."""
-        return None, None
+        """(host skew, slowest rank) from the obs gauges the telemetry
+        session samples: no collective can run here (the group may be
+        what hangs), so only already-sampled data is used."""
+        from ..obs import active as obs_active
+        reg = obs_active()
+        if reg is None:
+            return None, None
+        skew = reg.gauges.get("coll.host_skew")
+        slowest = reg.gauges.get("coll.slowest_rank")
+        return skew, int(slowest) if slowest is not None else None
 
     def _dump_stacks(self) -> None:
         try:
@@ -222,9 +244,29 @@ class Watchdog:
             pass
 
     def _flush_trace(self, stall: str) -> Optional[str]:
-        """Path of the runtime trace flushed at the trip; the tracer
-        comes with ROADMAP A16, so None until then."""
-        return None
+        """Export the active runtime tracer to ``trace_path`` (with an
+        instant event marking the trip); returns the path, or None when
+        no path was given, no tracer is active or the export failed."""
+        from ..obs.trace import active_tracer
+        tracer = active_tracer()
+        if tracer is None or self.trace_path is None:
+            return None
+        try:
+            tracer.instant(f"watchdog trip ({stall})", cat="watchdog")
+            tracer.export(self.trace_path)
+        except OSError as exc:
+            log.warning("watchdog: trace flush to %s failed: %s",
+                        self.trace_path, exc)
+            return None
+        log.warning("watchdog: flushed runtime trace to %s",
+                    self.trace_path)
+        return self.trace_path
+
+    @staticmethod
+    def _count(stall: str) -> None:
+        from .. import obs
+        obs.inc("watchdog.trips")
+        obs.inc(f"watchdog.stall_{stall.replace('-', '_')}")
 
 
 # -- process-global active watchdog --------------------------------------

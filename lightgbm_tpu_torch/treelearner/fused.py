@@ -71,6 +71,14 @@ ends the phase.
 The state is updated IN PLACE (partition, grad/hess and score writes);
 the JAX package keeps it immutable and donates it instead.
 
+Telemetry (obs/): the dispatchers are wrapped at build time as the JAX
+host loop's are, under the core phases ``hist`` (``_leaf_hist``),
+``split`` (``_scan``, and each split's read of the best leaf) and
+``partition`` (``plane.partition``), which never nest; ``train_iter`` /
+``grow_device`` run under phase ``fused``, which the core sum leaves
+out. The tree's read runs under phase ``fetch``. Every read goes
+through utils/device.py ``device_get``.
+
 The data-parallel learner (treelearner/parallel.py
 ``FusedDataParallelGrower``) runs this class per rank over the rank's
 own rows. Its collective seams are ``_psum`` / ``_psum_max``, identities
@@ -88,6 +96,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import BinnedDataset
@@ -100,6 +109,7 @@ from ..ops import quantize as Q
 from ..ops import split as S
 from ..ops import threefry
 from ..ops.xla_float import f32_value, fma_f32
+from ..utils import device as _device
 from ..utils import log
 from .serial import _load_forced_splits
 
@@ -385,9 +395,10 @@ class FusedSerialGrower:
             rec_i = torch.zeros(4 + plane.CAT_WORDS, dtype=i32, device=dev)
             rec_i[0], rec_i[1] = feat, thr
             ok = (lh > 1e-9) & (rh > 1e-9) & (cnt > 0)
-            ok, start, count = self._read(torch.stack(
-                [ok.to(i64), leaf_i[0, leaf].to(i64),
-                 leaf_i[1, leaf].to(i64)]))
+            with obs.span("fused/forced split (read)", phase="split"):
+                ok, start, count = self._read(torch.stack(
+                    [ok.to(i64), leaf_i[0, leaf].to(i64),
+                     leaf_i[1, leaf].to(i64)]))
             if not ok:
                 return
             split(leaf, start, count, 0, rec, rec_i)
@@ -396,7 +407,7 @@ class FusedSerialGrower:
     def _read(self, t: torch.Tensor) -> list:
         """One blocking device -> host read (counted)."""
         self.syncs += 1
-        return t.tolist()
+        return _device.device_get(t).tolist()
 
     def _psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks of the data-parallel learner (reference
@@ -445,6 +456,15 @@ class FusedSerialGrower:
             code_bits=Ly.code_bits, grad_plane=Ly.grad,
             dtype=self._hist_dtype, max_count=max_count, quant=self._quant)
         return self._hist_from_groups(ghist)
+
+    # telemetry: the dispatchers run under their phases (obs/spans.py;
+    # one global load and an `is None` check when telemetry is off).
+    # They are wrapped once here, on the class, so that no learner holds
+    # a reference to itself and each is freed when its last user drops it
+    _leaf_hist = obs.instrument_kernel(_leaf_hist, "hist",
+                                       name="fused/leaf_histogram")
+    _partition = staticmethod(obs.instrument_kernel(
+        plane.partition, "partition", name="fused/partition"))
 
     def _leaf_hist_multival(self, data, start, count, max_count=None):
         """Leaf histogram off the multi-value slot planes (wide-sparse
@@ -513,6 +533,8 @@ class FusedSerialGrower:
             words = torch.zeros((plane.CAT_WORDS, head.shape[1]),
                                 dtype=torch.int32, device=head.device)
         return rec_f, torch.cat([head, cat[None], words])
+
+    _scan = obs.instrument_kernel(_scan, "split", name="fused/split_scan")
 
     @staticmethod
     def _cat_bitset_device(res, f) -> torch.Tensor:
@@ -650,7 +672,7 @@ class FusedSerialGrower:
                 self.feature_miss_bin[feat], self._efb_dev, device=dev,
                 **cat_route)
             if count > 0:
-                data, nleft = plane.partition(data, self.layout, start,
+                data, nleft = self._partition(data, self.layout, start,
                                               count, rscal, cat=bool(is_cat))
             else:
                 # no row of this leaf on this rank
@@ -739,7 +761,8 @@ class FusedSerialGrower:
                                  leaf_i[0, best].to(torch.int64),
                                  leaf_i[1, best].to(torch.int64),
                                  best_i[3, best].to(torch.int64)])
-            leaf, cont, start, count, is_cat = self._read(probe)
+            with obs.span("fused/best leaf (read)", phase="split"):
+                leaf, cont, start, count, is_cat = self._read(probe)
             if not cont:
                 break
             split(leaf, start, count, is_cat, best_f[:, leaf].clone(),
@@ -766,7 +789,8 @@ class FusedSerialGrower:
                           leaf_f[:3, :k].reshape(-1).to(torch.float64),
                           leaf_i[2, :k].to(torch.float64),
                           leaf_i[1, :k].to(torch.float64)])
-        host = np.asarray(self._read(flat), dtype=np.float64)
+        with obs.span("fused/tree (read)", phase="fetch"):
+            host = np.asarray(self._read(flat), dtype=np.float64)
         ri_rows = t_i.shape[0]
         tf = host[:3 * ni].reshape(3, ni)
         ti = host[3 * ni:(3 + ri_rows) * ni].reshape(ri_rows, ni
@@ -1069,6 +1093,9 @@ class FusedSerialGrower:
         leaf_of_row[rowids] = self._lane_leaf(win, n)
         return ta, leaf_of_row
 
+    grow_device = obs.instrument_kernel(grow_device, "fused",
+                                        name="fused/grow_device")
+
     # -- persistent mode -----------------------------------------------
     def init_persistent_state(self, score_vec: np.ndarray) -> torch.Tensor:
         """Planar state carrying label/score/row-id across iterations.
@@ -1109,6 +1136,7 @@ class FusedSerialGrower:
             # int32 histogram sums stay coherent
             key = threefry.fold_in(self._quant_base_key, self._quant_iter)
             self._quant_iter += 1
+            Q.note_requantize(self.config.num_grad_quant_bins)
             qg, qh, gs, hs = Q.quantize_gradients(
                 g, h, self.config.num_grad_quant_bins, key,
                 stochastic=self.config.stochastic_rounding,
@@ -1129,6 +1157,9 @@ class FusedSerialGrower:
         # always, as the JAX package: adding 0.0 turns a -0.0 score to +0.0
         s.add_(torch.tensor(bias, dtype=torch.float32, device=s.device))
         return ta
+
+    train_iter = obs.instrument_kernel(train_iter, "fused",
+                                       name="fused/train_iter")
 
     def _score_add(self, win, vals, leaf_count, n: int) -> torch.Tensor:
         """[n] score increment by window (every lane of leaf l's window

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import network
+from .. import obs
 from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import BinnedDataset
@@ -54,6 +55,7 @@ from ..ops import quantize as Q
 from ..ops import split as S
 from ..ops import threefry
 from ..ops.partition import partition_leaf
+from ..utils import device as _device
 from ..utils import log
 from .fused import FusedSerialGrower
 from .serial import SerialTreeGrower, _Leaf
@@ -281,6 +283,9 @@ class FusedDataParallelGrower(FusedSerialGrower):
         return ta, tree.leaf_index_binned(
             self.bins_device(), self.feature_miss_bin, self._efb_dev)
 
+    grow_device = obs.instrument_kernel(grow_device, "fused",
+                                        name="fused/grow_device")
+
 
 # ---------------------------------------------------------------------------
 # the host-loop learners
@@ -349,6 +354,19 @@ class DataParallelTreeGrower(SerialTreeGrower):
                                else torch.float32, device=self.device)
         return self._group_hist(perm, start, count, grad, hess)
 
+    def _note_packed(self, packed: bool) -> None:
+        """hist.quant_packed_bytes / hist.quant_overflow_escalations
+        (obs schema minor 2): under quantized gradients, whether this
+        leaf's reduction rode the halved packed words or escalated to
+        the unpacked int32 pairs."""
+        if self._qscales is None:
+            return
+        if packed:
+            obs.inc("hist.quant_packed_bytes",
+                    self.num_features * self.max_num_bin * 4)
+        else:
+            obs.inc("hist.quant_overflow_escalations")
+
     def _leaf_sums(self, h: torch.Tensor):
         """The leaf's (grad, hess) totals from column 0 of this rank's
         histogram, summed over the ranks: float32 sums in XLA's order,
@@ -368,8 +386,14 @@ class DataParallelTreeGrower(SerialTreeGrower):
         packed = (self._qscales is not None
                   and Q.packed_rows_ok(int(total_count),
                                        self.config.num_grad_quant_bins))
+        self._note_packed(packed)
         hist = self._efb_expand(self._reduce(h, packed))
         return (hist, self._leaf_sums(h)) if sums else hist
+
+    # telemetry: the histogram with its reduction, and the partition
+    # with its left-count gather, under their phases (obs/spans.py)
+    _hist_call = obs.instrument_kernel(_hist_call, "hist",
+                                       name="data_parallel/leaf_histogram")
 
     # -- grower ---------------------------------------------------------
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -411,12 +435,14 @@ class DataParallelTreeGrower(SerialTreeGrower):
                 threefry.PRNGKey(cfg.objective_seed ^ 0x51A7),
                 self._quant_tree_idx)
             self._quant_tree_idx += 1
-            qg, qh, gs, hs = Q.quantize_gradients(
-                grad, hess, cfg.num_grad_quant_bins, key,
-                cfg.stochastic_rounding)
-            self._qscales = (gs, hs)
-            self._qscales_host = tuple(self._read(torch.stack(
-                [gs.to(torch.float64), hs.to(torch.float64)])))
+            with obs.span("gradient quantization", phase="quantize"):
+                Q.note_requantize(cfg.num_grad_quant_bins)
+                qg, qh, gs, hs = Q.quantize_gradients(
+                    grad, hess, cfg.num_grad_quant_bins, key,
+                    cfg.stochastic_rounding)
+                self._qscales = (gs, hs)
+                self._qscales_host = tuple(self._read(torch.stack(
+                    [gs.to(torch.float64), hs.to(torch.float64)])))
             if cfg.quant_train_renew_leaf:
                 raw_g, raw_h = grad[lo:lo + rps], hess[lo:lo + rps]
             g_l, h_l = qg[lo:lo + rps], qh[lo:lo + rps]
@@ -432,7 +458,8 @@ class DataParallelTreeGrower(SerialTreeGrower):
         starts0 = np.zeros(d, dtype=np.int64)
         hist, sums = self._hist_call(int(counts0.sum()), perm_t, 0,
                                      int(counts0[r]), g_l, h_l, sums=True)
-        sg, sh = self._read(sums.to(torch.float64))
+        with obs.span("data_parallel/root sums (read)", phase="hist"):
+            sg, sh = self._read(sums.to(torch.float64))
         if self._qscales is not None:
             # level sums -> dequantized leaf totals, in float64
             sg *= self._qscales_host[0]
@@ -480,7 +507,10 @@ class DataParallelTreeGrower(SerialTreeGrower):
         e_idx = torch.as_tensor(np.maximum(ends[:, r], 0), device=dev)
         lo_idx = torch.as_tensor(np.maximum(los[:, r], 0), device=dev)
         mine = torch.cat([cs[:, e_idx], cs[:, lo_idx]])        # [4, L]
-        g4 = network.all_gather(mine).cpu().numpy()            # [D, 4, L]
+        with obs.span("data_parallel/renew leaf values (read)",
+                      phase="renew"):
+            self.syncs += 1
+            g4 = _device.device_get(network.all_gather(mine))  # [D, 4, L]
         ge, he, gl, hl = (np.ascontiguousarray(g4[:, i].T)
                           for i in range(4))                   # [L, D]
         has = counts > 0
@@ -502,6 +532,27 @@ class DataParallelTreeGrower(SerialTreeGrower):
             if self.use_monotone:
                 out = float(np.clip(out, lf.cmin, lf.cmax))
             tree.leaf_value[lid] = float(out)
+
+    def _partition_dp(self, perm, leaf: _Leaf, fi, thr, dl, mb, is_cat,
+                      bitset):
+        """This rank's partition of its window of ``leaf`` and the left
+        counts of every rank ([D] int64 on the host, one all-gather and
+        one read: they steer the host loop). Returns (new_perm, lc)."""
+        r = self.rank
+        new_perm, lc_mine = perm, 0
+        if leaf.count[r] > 0:
+            new_perm, lc_mine = partition_leaf(
+                self._grow_bins, perm, int(leaf.start[r]),
+                int(leaf.count[r]), fi, thr, dl, mb, is_cat,
+                cat_bitset=bitset, efb=self._efb_dev)
+        self.syncs += 1          # the left counts steer the host loop
+        lc = _device.device_get(network.all_gather(torch.tensor(
+            [lc_mine], dtype=torch.int64,
+            device=network.comm_device())))[:, 0]
+        return new_perm, lc
+
+    _partition_dp = obs.instrument_kernel(
+        _partition_dp, "partition", name="data_parallel/partition_leaf")
 
     def _compute_best_dp(self, leaf: _Leaf, tree_mask, branch_features,
                          rand_thr):
@@ -554,16 +605,8 @@ class DataParallelTreeGrower(SerialTreeGrower):
             thr, dl, mb = (best["threshold"], best["default_left"],
                            int(self.feature_miss_bin[fi]))
             bitset = None
-        new_perm, lc_mine = perm, 0
-        if leaf.count[r] > 0:
-            new_perm, lc_mine = partition_leaf(
-                self._grow_bins, perm, int(leaf.start[r]),
-                int(leaf.count[r]), fi, thr, dl, mb, is_cat,
-                cat_bitset=bitset, efb=self._efb_dev)
-        self.syncs += 1          # the left counts steer the host loop
-        lc = network.all_gather(torch.tensor(
-            [lc_mine], dtype=torch.int64,
-            device=network.comm_device())).cpu().numpy()[:, 0]
+        new_perm, lc = self._partition_dp(perm, leaf, fi, thr, dl, mb,
+                                          is_cat, bitset)
         rc = leaf.count - lc
 
         lcmin, lcmax, rcmin, rcmax = leaf.cmin, leaf.cmax, leaf.cmin, \
@@ -674,6 +717,7 @@ class VotingParallelTreeGrower(DataParallelTreeGrower):
         packed = (self._qscales is not None
                   and Q.packed_rows_ok(int(total_count),
                                        self.config.num_grad_quant_bins))
+        self._note_packed(packed)
         k2 = min(2 * self.config.top_k, f_total)
         if k2 >= f_total:
             hist = self._reduce(h, packed)
@@ -685,6 +729,9 @@ class VotingParallelTreeGrower(DataParallelTreeGrower):
             hist = torch.zeros_like(h)
             hist[selected] = self._reduce(h[selected], packed)
         return (hist, tot) if sums else hist
+
+    _hist_call = obs.instrument_kernel(_hist_call, "hist",
+                                       name="data_parallel/leaf_histogram")
 
 
 def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -27,6 +27,12 @@ subtraction stay exact, and ``dequantize_hist`` runs at the split scan.
 With ``quant_train_renew_leaf`` the leaf values are refit from the float
 gradient sums.
 
+Telemetry (obs/): the leaf histogram, each leaf's split scan with its
+read, and the partition with its left-count read run under the core
+phases ``hist``, ``split`` and ``partition`` (wrapped at build time, as
+the JAX host loop's dispatchers are), which never nest; every read goes
+through utils/device.py ``device_get``.
+
 Forced splits (``forcedsplits_filename``, reference
 SerialTreeLearner::ForceSplits) run breadth-first before the best-first
 loop: each takes its leaf's pooled histogram of the forced feature to
@@ -41,6 +47,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import BinnedDataset
@@ -52,6 +59,7 @@ from ..ops import quantize as Q
 from ..ops import split as S
 from ..ops import threefry
 from ..ops.partition import partition_leaf
+from ..utils import device as _device
 from ..utils import log
 from .monotone import MonotoneState, monotone_penalty_factor
 
@@ -201,7 +209,7 @@ class SerialTreeGrower:
     def _read(self, t: torch.Tensor) -> list:
         """One blocking device -> host read (counted)."""
         self.syncs += 1
-        return t.tolist()
+        return _device.device_get(t).tolist()
 
     def _leaf_hist(self, perm, start: int, count: int, grad, hess
                    ) -> torch.Tensor:
@@ -218,6 +226,14 @@ class SerialTreeGrower:
                                     flat[-1, 1])
         return self._efb_expand(self._group_hist(perm, start, count, grad,
                                                  hess))
+
+    # telemetry: the dispatchers run under their phases (obs/spans.py),
+    # wrapped once here, on the class, so that no learner holds a
+    # reference to itself and each is freed when its last user drops it
+    _leaf_hist = obs.instrument_kernel(_leaf_hist, "hist",
+                                       name="serial/leaf_histogram")
+    _partition = staticmethod(obs.instrument_kernel(
+        partition_leaf, "partition", name="serial/partition_leaf"))
 
     def _group_hist(self, perm, start, count, grad, hess) -> torch.Tensor:
         """One leaf's histogram over the bin matrix's columns: [G, Bg, 2]
@@ -338,9 +354,11 @@ class SerialTreeGrower:
                 threefry.PRNGKey(cfg.objective_seed ^ 0x51A7),
                 self._quant_tree_idx)
             self._quant_tree_idx += 1
-            grad, hess, gs, hs = Q.quantize_gradients(
-                grad, hess, cfg.num_grad_quant_bins, key,
-                cfg.stochastic_rounding)
+            with obs.span("gradient quantization", phase="quantize"):
+                Q.note_requantize(cfg.num_grad_quant_bins)
+                grad, hess, gs, hs = Q.quantize_gradients(
+                    grad, hess, cfg.num_grad_quant_bins, key,
+                    cfg.stochastic_rounding)
             self._qscales = (gs, hs)
         self._cur_perm, self._cur_grad, self._cur_hess = perm, grad, hess
         root = _Leaf(0, num_data, 0.0, 0.0, 0.0, 0)
@@ -350,14 +368,16 @@ class SerialTreeGrower:
         # order, or exact integer sums times the scales, taken in
         # float64 on the host as the JAX package does; one read either
         # way, the same bits on the card and the CPU
-        if self._quant:
-            gsh, hsh, sg, sh = self._read(torch.stack(
-                [gs.to(torch.float64), hs.to(torch.float64),
-                 *root.hist[0].sum(dim=0).to(torch.float64)]))
-            self._qscales_host = (gsh, hsh)
-            root.sum_g, root.sum_h = sg * gsh, sh * hsh
-        else:
-            root.sum_g, root.sum_h = self._read(S.xla_sum(root.hist[0].t()))
+        with obs.span("serial/root sums (read)", phase="hist"):
+            if self._quant:
+                gsh, hsh, sg, sh = self._read(torch.stack(
+                    [gs.to(torch.float64), hs.to(torch.float64),
+                     *root.hist[0].sum(dim=0).to(torch.float64)]))
+                self._qscales_host = (gsh, hsh)
+                root.sum_g, root.sum_h = sg * gsh, sh * hsh
+            else:
+                root.sum_g, root.sum_h = self._read(
+                    S.xla_sum(root.hist[0].t()))
         leaves: Dict[int, _Leaf] = {0: root}
         if self._forced_splits is not None:
             perm = self._apply_forced_splits(tree, leaves, perm, grad, hess)
@@ -406,8 +426,9 @@ class SerialTreeGrower:
         los = np.asarray([lf.start - 1 for _, lf in items])
         lo_idx = torch.as_tensor(np.maximum(los, 0), dtype=torch.int64,
                                  device=dev)
-        host = np.asarray(self._read(torch.cat(
-            [cs[:, ends], cs[:, lo_idx]], dim=1).to(torch.float64)))
+        with obs.span("serial/renew leaf values (read)", phase="renew"):
+            host = np.asarray(self._read(torch.cat(
+                [cs[:, ends], cs[:, lo_idx]], dim=1).to(torch.float64)))
         m = len(items)
         has_lo = los >= 0
         sum_g = host[0, :m] - np.where(has_lo, host[0, m:], 0.0)
@@ -449,14 +470,8 @@ class SerialTreeGrower:
                 np.where(self._monotone_np != 0, fac, 1.0)
                 .astype(np.float32), device=dev)
 
-        hist = leaf.hist
-        if self._qscales is not None:
-            # integer level sums meet float arithmetic here and only here
-            # (sum_g / sum_h are already dequantized leaf totals)
-            hist = S.dequantize_hist(hist, *self._qscales)
-        v = self._read(self._best_record(
-            hist, self.meta, leaf, torch.as_tensor(mask, device=dev),
-            rand_thr, self._cegb_delta(leaf), scale))
+        v = self._scan_leaf(leaf, torch.as_tensor(mask, device=dev),
+                            rand_thr, scale)
         if drop_after:
             leaf.hist = None
         if not v[11] or not np.isfinite(v[0]) or v[0] <= 0.0:
@@ -474,6 +489,21 @@ class SerialTreeGrower:
             best["cat_used_bin"] = int(v[14])
             best["cat_sorted_order"] = [int(o) for o in v[15:]]
         return best
+
+    def _scan_leaf(self, leaf: _Leaf, mask, rand_thr, scale) -> list:
+        """The leaf's best-split record on the host: the scan of its
+        histogram (dequantized first under quantized gradients: integer
+        level sums meet float arithmetic here and only here; sum_g /
+        sum_h are already dequantized leaf totals) and its one read."""
+        hist = leaf.hist
+        if self._qscales is not None:
+            hist = S.dequantize_hist(hist, *self._qscales)
+        return self._read(self._best_record(
+            hist, self.meta, leaf, mask, rand_thr, self._cegb_delta(leaf),
+            scale))
+
+    _scan_leaf = obs.instrument_kernel(_scan_leaf, "split",
+                                       name="serial/split_scan")
 
     def _best_record(self, hist, meta, leaf: _Leaf, mask, rand_thr,
                      cegb_delta, scale, feature_ids=None) -> torch.Tensor:
@@ -563,7 +593,7 @@ class SerialTreeGrower:
             route = (best["threshold"], best["default_left"],
                      int(self.feature_miss_bin[fi]), None)
         thr, dl, mb, bitset = route
-        new_perm, lc = partition_leaf(
+        new_perm, lc = self._partition(
             self.bins, perm, leaf.start, leaf.count, fi, thr, dl, mb, is_cat,
             cat_bitset=bitset, efb=self._efb_dev)
         self.syncs += 1          # the left count steers the host loop
@@ -667,8 +697,10 @@ class SerialTreeGrower:
             if leaf.hist is None:       # the pool-capped mode dropped it
                 leaf.hist = self._leaf_hist(perm, leaf.start, leaf.count,
                                             grad, hess)
-            hist = np.asarray(self._read(leaf.hist[inner].to(torch.float64)),
-                              dtype=np.float64)                  # [B, 2]
+            with obs.span("serial/forced split (read)", phase="split"):
+                hist = np.asarray(
+                    self._read(leaf.hist[inner].to(torch.float64)),
+                    dtype=np.float64)                            # [B, 2]
             if self._quant:
                 # level sums -> float units, as leaf.sum_g / sum_h
                 hist = hist * np.asarray(self._qscales_host, np.float64)

@@ -4,9 +4,21 @@ without a card raises; nothing falls back to the CPU quietly. The card
 is the current CUDA device: under ``torchrun`` (``LOCAL_RANK`` set),
 network.py ``ensure_distributed`` makes it ``cuda:{LOCAL_RANK}`` when
 it sets up the group; a caller that sets up the group sets the device
-too."""
+too.
+
+The port's explicit sync channel lives here too: ``device_get`` is the
+one counted blocking device -> host read (the learners' per-split and
+per-tree reads, the evaluation read, the host-side refits' reads) and
+``block_until_ready`` waits for a device's queued work (the telemetry
+stream sync). Callers reach both through this module's attributes
+(``device.device_get(t)``), so ``obs/trace.py install_sync_tracing``
+can patch them to time and attribute every such block.
+"""
 from __future__ import annotations
 
+from typing import Any, List, Sequence, Union
+
+import numpy as np
 import torch
 
 from . import log
@@ -20,3 +32,20 @@ def resolve_device(config) -> torch.device:
         log.fatal("device_type=%s but no CUDA device is available; pass "
                   "device_type='cpu' to run on the CPU", config.device_type)
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def device_get(t: Union[torch.Tensor, Sequence[torch.Tensor]]
+               ) -> Union[np.ndarray, List[np.ndarray]]:
+    """Host numpy copy of a tensor (or of each tensor of a list or
+    tuple): one blocking read when the tensor lies on the card."""
+    if isinstance(t, (list, tuple)):
+        return [x.detach().cpu().numpy() for x in t]
+    return t.detach().cpu().numpy()
+
+
+def block_until_ready(device: Any) -> None:
+    """Wait until every kernel queued on ``device`` has finished (a
+    no-op for the CPU, whose work is done when the call returns)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -575,6 +575,11 @@ def test_timetag_times_the_phases(monkeypatch):
                    num_boost_round=2)
     finally:
         timer.global_timer.set_enabled(False)
-    assert seen == [{"dataset construction + learner build": 1,
-                     "boosting iteration": 2}]
+    # the telemetry spans (obs/spans.py) feed the same table, as the
+    # JAX package's do: the iterations and the learner's dispatchers
+    (table,) = seen
+    assert table["dataset construction + learner build"] == 1
+    assert table["boosting iteration (device dispatch)"] == 2
+    assert table["fused/train_iter"] == 2
+    assert table["fused/leaf_histogram"] > 2
     assert not timer.global_timer.acc

@@ -8,6 +8,7 @@ Every model of a test is trained in both packages on the same data; the
 JAX package's programs compile once per shape in a test process, so the
 estimators share one data shape.
 """
+import json
 import os
 import sys
 
@@ -338,21 +339,118 @@ def test_cli_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["task=warmup"], "A15"),
-    (["trace-report", "x.json"], "A16"),
-    (["--metrics-out", "m.jsonl"], "A16"),
-    (["--trace-out=t.json"], "A16"),
-    (["--profile-dir", "p"], "A16"),
-    (["--metrics-interval", "5"], "A16"),
-    (["--obs-port", "9999"], "A16"),
-    (["--flight-dir", "f"], "A16"),
 ])
 def test_cli_unported_raise(argv, item):
-    """A task, flag or key whose subsystem is not ported raises and names
-    its ROADMAP item; none is ignored."""
-    if argv[0] != "trace-report":
-        argv = ["task=train", "data=none.csv", "device_type=cpu"] + argv
+    """A task whose subsystem is not ported raises and names its ROADMAP
+    item; none is ignored."""
+    argv = ["task=train", "data=none.csv", "device_type=cpu"] + argv
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv)
+
+
+def _cli_data(tmp_path):
+    X, f, rng = _data(n=400)
+    y = (f + 0.5 * rng.randn(len(f)) > 0).astype(float)
+    data = tmp_path / "train.csv"
+    np.savetxt(data, np.column_stack([y, np.nan_to_num(X)]), delimiter=",",
+               fmt="%.6f")
+    return ["task=train", f"data={data}", "label_column=0",
+            "num_leaves=7", "num_iterations=4", "verbosity=-1",
+            "device_type=cpu", f"output_model={tmp_path / 'model.txt'}"]
+
+
+def _cli_port(tmp_path) -> str:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return str(sock.getsockname()[1])
+
+
+# flag (or key) -> (arguments, the config key they set, its value)
+OBS_FLAGS = {
+    "metrics_out": (["--metrics-out", "{d}/m.jsonl"], "metrics_file",
+                    "{d}/m.jsonl"),
+    "trace_out": (["--trace-out={d}/t.json"], "trace_file", "{d}/t.json"),
+    "profile_dir": (["--profile-dir", "{d}/prof"], "profile_dir",
+                    "{d}/prof"),
+    "metrics_interval": (["--metrics-interval", "2", "--metrics-out",
+                          "{d}/m.jsonl"], "metrics_interval", 2),
+    "obs_port": (["--obs-port", "{port}"], "obs_port", "{port}"),
+    "flight_dir": (["--flight-dir", "{d}/fl", "hang_timeout=0.25"],
+                   "flight_dir", "{d}/fl"),
+    "metrics_file_key": (["metrics_file={d}/m.jsonl"], "metrics_file",
+                         "{d}/m.jsonl"),
+    "trace_report": (["trace-report", "{d}/t.json"], None, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OBS_FLAGS))
+def test_cli_observability_flags_accepted(case, tmp_path, monkeypatch,
+                                          capsys):
+    """Each observability flag reaches the config and produces its file
+    or endpoint; ``trace-report`` prints the JAX package's report for the
+    same trace."""
+    from lightgbm_tpu.obs import report as jreport
+    from lightgbm_tpu_torch import obs as tobs
+    from lightgbm_tpu_torch.obs import httpd as thttpd
+    from lightgbm_tpu_torch.robust import install_plan
+    from lightgbm_tpu_torch.config import Config
+    flags, key, value = OBS_FLAGS[case]
+    port = _cli_port(tmp_path)
+    flags = [a.format(d=tmp_path, port=port) for a in flags]
+    base = _cli_data(tmp_path)
+    if case == "trace_report":
+        assert tcli.main(base + [f"--trace-out={tmp_path}/t.json"]) == 0
+        capsys.readouterr()
+        assert tcli.main(flags) == 0
+        ours = capsys.readouterr().out
+        assert jreport.main([str(tmp_path / "t.json")]) == 0
+        assert ours == capsys.readouterr().out
+        assert "phase coverage" in ours and "host syncs" in ours
+        return
+    cfg = Config.from_params(tcli.parse_args(base + flags))
+    if isinstance(value, str):
+        value = type(getattr(cfg, key))(value.format(d=tmp_path, port=port))
+    assert getattr(cfg, key) == value
+    answered = {}
+    if case == "obs_port":
+        real_start = thttpd.ObsServer.start
+
+        def start(self):
+            bound = real_start(self)
+            import urllib.request
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{bound}/healthz", timeout=10) as r:
+                answered[bound] = json.loads(r.read())["status"]
+            return bound
+        monkeypatch.setattr(thttpd.ObsServer, "start", start)
+    if case == "flight_dir":
+        install_plan("train.iteration:hang=0.6@3")
+    try:
+        rc = tcli.main(base + flags)
+    finally:
+        install_plan(None)
+    if case == "flight_dir":
+        assert rc == 1                      # the HangTimeout, reported
+        bundles = os.listdir(tmp_path / "fl")
+        assert len(bundles) == 1 and bundles[0].endswith("_watchdog")
+        return
+    assert rc == 0
+    if case in ("metrics_out", "metrics_file_key", "metrics_interval"):
+        recs = tobs.read_jsonl(str(tmp_path / "m.jsonl"))
+        step = 2 if case == "metrics_interval" else 1
+        assert cfg.metrics_interval == step
+        assert [r["iteration"] for r in recs] == list(range(0, 4, step))
+        assert all(tobs.validate_record(r) == [] for r in recs)
+    elif case == "trace_out":
+        doc = json.loads((tmp_path / "t.json").read_text())
+        assert any(e.get("cat") == "sync" for e in doc["traceEvents"])
+    elif case == "profile_dir":
+        files = os.listdir(tmp_path / "prof")
+        assert len(files) == 1 and files[0].endswith(".json")
+    elif case == "obs_port":
+        assert cfg.obs_port == int(port)
+        assert answered == {int(port): "ok"}
 
 
 @pytest.mark.parametrize("argv", [

@@ -1107,3 +1107,47 @@ def test_torchrun_data_parallel_on_cards(tmp_path):
                                    atol=1e-6)
     np.testing.assert_allclose(res["cuda"][0]["pred"], res["cpu"][0]["pred"],
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_full_telemetry_on_card(tmp_path):
+    """Full telemetry on the card: the records sample the caching
+    allocator (``mem.live_bytes`` > 0), the profiler's Chrome trace
+    holds the kernels of B1 (``lgbt_hist_planar`` launches
+    ``hp_partials``) and B2, and the model equals the run without
+    telemetry but the echoed telemetry keys."""
+    _need_card()
+    import json
+    import os
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import obs
+    rng = np.random.RandomState(2)
+    X = rng.randn(20_000, 10)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.randn(20_000) > 0)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              "device_type": "cuda"}
+    files = {"metrics_file": str(tmp_path / "m.jsonl"),
+             "trace_file": str(tmp_path / "t.json"),
+             "profile_dir": str(tmp_path / "prof")}
+    on = tlgb.train({**params, **files}, tlgb.Dataset(X, label=y),
+                    num_boost_round=3, verbose_eval=False)
+    off = tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=3,
+                     verbose_eval=False)
+    recs = obs.read_jsonl(files["metrics_file"])
+    assert len(recs) == 3
+    for r in recs:
+        assert obs.validate_record(r) == []
+        assert r["gauges"]["mem.live_bytes"] > 0
+        assert r["gauges"]["mem.live_peak_bytes"] >= \
+            r["gauges"]["mem.planar_state_bytes"]
+    (prof,) = os.listdir(files["profile_dir"])
+    with open(os.path.join(files["profile_dir"], prof)) as fh:
+        kernels = {e["name"] for e in json.load(fh)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    assert any("hp_partials" in k for k in kernels), sorted(kernels)[:20]
+    assert any("part_small" in k or "part_tiles" in k for k in kernels)
+
+    def text(b):
+        return [ln for ln in b.model_to_string().splitlines()
+                if not any(ln.startswith(f"[{k}:") for k in files)]
+    assert text(on) == text(off)

@@ -199,7 +199,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "treelearner/parallel.py", "robust/__init__.py",
                 "robust/checkpoint.py", "robust/faultinject.py",
                 "robust/watchdog.py", "robust/sentinel.py",
-                "compile/signature.py"):
+                "compile/signature.py", "utils/device.py",
+                "obs/__init__.py", "obs/registry.py", "obs/sink.py",
+                "obs/trace.py", "obs/spans.py", "obs/report.py",
+                "obs/aggregate.py", "obs/flight.py", "obs/httpd.py"):
         assert os.path.join("lightgbm_tpu_torch", mod) in names, mod
     for path in files:
         tree = ast.parse(open(path).read(), path)
