@@ -58,7 +58,7 @@ Phases, each of which fails the run (no exception is caught):
      constant predictor's ln 5; (m) the same data with multiclassova, 1
      iteration, held-out multi_error below the constant predictor's
      0.8; (n) shape (a) (multi-value layout, P = 128) with a custom
-     objective (the binary log loss in numpy), 3 iterations, B5 + B2,
+     objective (the binary log loss in numpy), 2 iterations, B5 + B2,
      held-out AUC above 0.75. Each prints its kernels' launches per
      iteration.
    - (o)-(s): row sampling and the boosting modes on the per-tree fused
@@ -73,16 +73,16 @@ Phases, each of which fails the run (no exception is caught):
      (bagging_fraction 0.632, bagging_freq 1, feature_fraction 0.8),
      all B1 + B2 for 3 iterations with held-out AUC above 0.70, and (s)
      shape (a) with bagging (0.8, freq 1), B5 + B2 over bag-gathered
-     slot planes, 3 iterations.
+     slot planes, 2 iterations.
    - (t) HIGGS forced splits: the HIGGS shape on the persistent fused
-     path with a depth-2 forced-split tree (FORCED_SPLITS), 3
+     path with a depth-2 forced-split tree (FORCED_SPLITS), --iters
      iterations; every tree's first three splits must be the forced
      ones (B1 + B2).
-   - (u) the API: 1 iteration, save_model and Booster(model_file=...)
-     (raw predictions bit-equal), 2 more from init_model (the 1 + 2
-     model's held-out AUC within 5e-4 of the HIGGS path's after 3
-     straight), rollback_one_iter, cv
-     over 3 stratified folds (2 iterations), and a 100,000-row CSV read
+   - (u) the API: --iters // 2 iterations, save_model and
+     Booster(model_file=...) (raw predictions bit-equal), the rest from
+     init_model (the held-out AUC within 5e-4 of the HIGGS path's after
+     --iters straight), rollback_one_iter, cv
+     over 3 stratified folds (1 iteration), and a 50,000-row CSV read
      through the csv module into a Dataset, save_binary and back.
    - (v) MSLR lambdarank: MSLR-WEB10K Fold 1's shape (make_rank_like:
      136 dense columns, 723,412 training rows in 6,000 queries of 1 to
@@ -94,11 +94,11 @@ Phases, each of which fails the run (no exception is caught):
      with rank_xendcg, 2 iterations.
    - (x) the rest of the API: LGBMRanker on (v)'s first 1,000 queries
      with an eval set and eval_group, then predict; LGBMClassifier on
-     25,000 HIGGS rows (predict_proba equal to Booster.predict);
+     10,000 HIGGS rows (predict_proba equal to Booster.predict);
      pred_contrib on 500 rows of its model (each row summing to its
      raw score within 1e-6, timed: a host recursion); the command line
      through subprocess (``python -m lightgbm_tpu_torch`` task=train
-     on a 25,000-row CSV, task=predict equal to Booster.predict of the
+     on a 10,000-row CSV, task=predict equal to Booster.predict of the
      model file, task=convert_model a non-empty C++ file).
 3b. multi-GPU — MG_WORLD = 2 ranks spawned with torch.multiprocessing
    (a FileStore rendezvous; NCCL for the card's tensors with gloo for the
@@ -113,14 +113,15 @@ Phases, each of which fails the run (no exception is caught):
      of the one-card HIGGS path's; prints s/iteration, host syncs, the
      reductions' calls, bytes and CUDA-event time per iteration, B1 / B2
      launches per rank per iteration and peak memory per rank;
-   - (z) every parallel learner on 25,000 rows, 2 iterations, on the
+   - (z) every parallel learner on 12,000 rows, 2 iterations, on the
      card and on the CPU in the same group: the persistent and the
      bagged (per-tree) fused data-parallel learner, multiclass (5
      classes), quantized gradients, the host-loop data-parallel,
      voting (top_k 5) and feature-parallel learners; each case's
      model equal on every rank, and card == CPU as phase 4 holds it.
-4. card vs CPU — the same small training of 2 iterations (25,000 rows;
-   20,000 from the
+4. card vs CPU — the same small training of 2 iterations of 15 leaves
+   (12,000 rows;
+   10,000 from the
    boosting-mode cases on) on cuda and on cpu (the plain
    versions), on the fused and on the host-loop learner, with float32
    and with quantized gradients, on (h)'s columns with categorical
@@ -146,24 +147,24 @@ Phases, each of which fails the run (no exception is caught):
      a checkpoint every 2 iterations; a child process importing only the
      port is killed by SIGKILL entering iteration 3 (return code -9, the
      drill and not a failure), a second child resumes from the
-     checkpoint of iteration 2 and finishes 6 iterations; its model text
+     checkpoint of iteration 2 and finishes 4 iterations; its model text
      must equal an uninterrupted run's on the card byte for byte. Prints
      the checkpoint's bytes, its save ms (wall clock around ``save``),
      the resume's load and restore ms and the iteration time;
-   - (ab) resume in process on 100,000 rows (63 leaves): the host loop
+   - (ab) resume in process on 50,000 rows (63 leaves): the host loop
      (B4), quantized gradients (B1q + B2), bagging with
      feature_fraction, GOSS, DART, multiclass and early stopping with a
      valid set, each 1 iteration into a checkpoint directory and then 2
      in a second train() call, byte-equal to the uninterrupted run;
-   - (ac) numeric_sentinels on 100,000 rows: train.iteration:nan@3 on
+   - (ac) numeric_sentinels on 50,000 rows: train.iteration:nan@3 on
      the host loop and sentinel.check:nan@3 on the fused learner, each
      one tree fewer than the clean run with finite predictions and the
-     card's model text equal to the CPU's; then 3 iterations of the
+     card's model text equal to the CPU's; then 2 iterations of the
      HIGGS path with sentinels on and off, whose learner host syncs and
      syncing CUDA calls (sync debug mode "warn") per iteration must be
      equal;
    - (ad) train.iteration:hang=3.0@4 against hang_timeout=1.2 on
-     100,000 rows: without auto_resume it must raise HangTimeout (the
+     50,000 rows: without auto_resume it must raise HangTimeout (the
      only exception the smoke catches), with auto_resume and a
      checkpoint directory it must equal the clean run byte for byte.
 6. observability — the telemetry (lightgbm_tpu_torch/obs/):
@@ -200,11 +201,36 @@ Phases, each of which fails the run (no exception is caught):
      trace-report --merge of the two traces gives one process track
      per rank.
 
+7. the pipelined loop, the split step's syncing calls and warm-up, after
+   phase 6, on phase 3's HIGGS dataset:
+   - (ah) PIPE_PAIRS alternating pairs of PIPE_ITERS-iteration runs of
+     the default (pipelined) loop and LGBM_TPU_PIPELINE=0 with the
+     held-out rows as a valid set: s/iteration per pair and medians;
+     every model text equal to phase 3's, the held-out AUC equal to
+     phase 3's and, at the default rows and iterations, to HIGGS_AUC_3;
+     then the learner reads and syncing CUDA calls of each iteration
+     of a pipelined run (sync debug mode "warn"), the steady one at
+     most SYNC_CALLS_MAX;
+   - (ai) early stopping (ES_ROUNDS rounds) on a valid set with every
+     second label flipped, under both loops: the same best iteration,
+     the model texts equal at it, the pipelined run at most one tree
+     longer; and at ES_CASE_ROWS rows, card == CPU (best iteration,
+     trees, model text, raw predictions within 1e-6);
+   - (aj) the time to the first iteration (WARM_ROWS rows of the HIGGS
+     shape) in child processes on a copy of the package without its
+     build directory: cold without the
+     warm-up, cold with tpu_warmup, then warm; then task=warmup and
+     task=train of the CLI on a WARM_CSV_ROWS-row CSV in a fresh copy
+     (the train process must find all 4 libraries by their hash), with
+     the compile.* counters of each.
+
 ``--multi-gpu-only`` runs phase 1 and phase 3b alone (no AUC
 comparison) and prints no result; ``--robust-only`` runs phase 1 and
 phase 5 alone and prints no result; ``--obs-only`` runs phase 1, (ae)
 (with its own telemetry-off HIGGS run to compare with), the hang
-drills with (af) and phase 3b with (ag), and prints no result. ``--profile`` instead profiles one
+drills with (af) and phase 3b with (ag), and prints no result;
+``--pipeline-only`` runs phase 1, the HIGGS path and phase 7, and prints
+no result. ``--profile`` instead profiles one
 iteration of each path
 (``--profile-paths b,h`` of the named ones only; (l)-(n) and (v) device
 rows only; (v) also one call of its ranking gradient alone).
@@ -1446,13 +1472,17 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
     def timer(env):
         sync()
         marks.append((time.perf_counter(), learner_syncs(env.model._gbdt)))
+    # at the start of each iteration, and once after train(): the
+    # pipelined loop runs an iteration's after-iteration callbacks only
+    # once the next iteration is dispatched
+    timer.before_iteration = True
 
     K.reset_launches()
-    marks.append((time.perf_counter(), 0))
     booster = lgt.train({**params, "device_type": device}, ds,
                         num_boost_round=iters, callbacks=[timer],
                         verbose_eval=False, fobj=fobj, **(train_kw or {}))
     sync()
+    marks.append((time.perf_counter(), learner_syncs(booster._gbdt)))
     launches = dict(K.LAUNCHES)
     gbdt = booster._gbdt
     k = gbdt.num_tree_per_iteration
@@ -1577,7 +1607,7 @@ MC_PATHS = [("l", "(l) HIGGS-multiclass fused", "multiclass",
              "multi_logloss", float(np.log(5.0)), 1),
             ("m", "(m) HIGGS-multiclassova fused", "multiclassova",
              "multi_error", 0.8, 1)]
-FOBJ_ITERS = 3                     # path (n)
+FOBJ_ITERS = 2                     # path (n)
 
 
 def mc_data(rows, hold, device):
@@ -1681,10 +1711,11 @@ BAG_PATHS = [
      {"bagging_fraction": 0.8, "bagging_freq": 1}, True),
 ]
 BAG_ITERS = 3                      # paths (o)-(r)
-BAG_WIDE_ITERS = 3                 # path (s)
-PHASE4_ROWS = 25_000               # phase 4's first cases, (z)
+BAG_WIDE_ITERS = 2                 # path (s)
+PHASE4_ROWS = 12_000               # phase 4's first cases, (z)
 PHASE4_ITERS = 2                   # phase 4: iterations of each case
-BAG_CASE_ROWS = 20_000             # phase 4's boosting-mode cases
+PHASE4_LEAVES = 15                 # phase 4's card_vs_cpu cases: leaves
+BAG_CASE_ROWS = 10_000             # phase 4's boosting-mode cases
 RANK_CASE_ROWS = 30_000            # phase 4's ranking cases: rows,
 RANK_CASE_QUERIES = 250            # queries, and the largest query (the
 RANK_CASE_MAX_QUERY = 512          # CPU side's pair program sets the time)
@@ -1695,8 +1726,8 @@ RANK_CASE_MAX_QUERY = 512          # CPU side's pair program sets the time)
 FORCED_SPLITS = {"feature": 0, "threshold": 0.0,
                  "left": {"feature": 1, "threshold": 0.25},
                  "right": {"feature": 2, "threshold": -0.25}}
-API_ITERS = 2                      # path (u): cv's iterations per fold
-CSV_ROWS = 100_000                 # path (u): the CSV file's rows
+API_ITERS = 1                      # path (u): cv's iterations per fold
+CSV_ROWS = 50_000                  # path (u): the CSV file's rows
 
 
 def write_forced_splits(tmp):
@@ -1853,7 +1884,7 @@ RANK_PARAMS = {"num_leaves": 255, "max_bin": 255, "metric": "ndcg",
 RANK_PATHS = [("v", "(v) MSLR lambdarank fused", "lambdarank", 3),
               ("w", "(w) MSLR rank_xendcg fused", "rank_xendcg", 2)]
 RANKER_QUERIES = 1_000             # path (x): LGBMRanker's training queries
-CLF_ROWS = 25_000                  # path (x): LGBMClassifier, CLI CSV rows
+CLF_ROWS = 10_000                  # path (x): LGBMClassifier, CLI CSV rows
 API_REST_ITERS = 2                 # path (x): iterations of each model
 CONTRIB_ROWS = 500                 # path (x): pred_contrib rows
 
@@ -2169,7 +2200,7 @@ def paths(args, report, wide, device="cuda"):
             # phase 6 (ae) trains the same data with telemetry on
             higgs = dict(ds=ds, hX=hX, hy=hy,
                          text=obs_base_texts(booster),
-                         secs=PATH_STATS[name]["secs"])
+                         secs=PATH_STATS[name]["secs"], auc=aucs[key])
         if key in ("l", "m", "n"):
             # the per-tree path: no persistent state, K trees per
             # iteration, a fresh planar state per tree
@@ -2636,7 +2667,8 @@ def card_vs_cpu(forced_file):
         fobj = extra.pop("fobj", None)
         for dev in ("cuda", "cpu"):
             params = {"objective": "binary", "tpu_hist_dtype": "float32",
-                      "verbose": -1, "device_type": dev, **extra}
+                      "verbose": -1, "num_leaves": PHASE4_LEAVES,
+                      "device_type": dev, **extra}
             b = lgt.train(params, lgt.Dataset(xs, label=ys, **ds_kw),
                           num_boost_round=PHASE4_ITERS, verbose_eval=False,
                           fobj=fobj)
@@ -2760,15 +2792,15 @@ def api_card_vs_cpu(tmp):
 # watchdog and the numeric sentinels
 # ---------------------------------------------------------------------------
 
-CHAOS_ITERS = 6                    # (aa): iterations of each training
+CHAOS_ITERS = 4                    # (aa): iterations of each training
 CHAOS_KILL = 3                     # (aa): the child dies entering this one
-ROBUST_ROWS = 100_000              # (ab)-(ad): training rows
+ROBUST_ROWS = 50_000               # (ab)-(ad): training rows
 # (ab)-(ad): 63 leaves keep an iteration well inside (ad)'s 1.2 s
 # hang_timeout (the JAX tests' margins) on a 100,000-row state
 ROBUST_PARAMS = {**HIGGS_PARAMS, "num_leaves": 63}
 ROBUST_ITERS = 2                   # (ab): iterations (half, then all)
 SENTINEL_ITERS = 4                 # (ac): iterations of each drill
-SENTINEL_SYNC_ITERS = 3            # (ac): HIGGS iterations, sentinels on/off
+SENTINEL_SYNC_ITERS = 2            # (ac): HIGGS iterations, sentinels on/off
 HANG_ITERS = 5                     # (ad): iterations of each run
 
 # the child of (aa): imports only the port, trains from the saved rows,
@@ -2830,9 +2862,11 @@ def syncs_per_iteration(train, device="cuda"):
     reads, the syncing CUDA calls). The calls are counted under CUDA
     sync debug mode "warn", where every call that waits for the card (a
     device-to-host copy, ``.item()``, ...) warns; ``callback`` marks the
-    end of each iteration."""
+    start of each iteration (a before-iteration callback), and the
+    booster ``train`` returns the end of the last. An iteration holds
+    the trailing read of the one before it under the pipelined loop."""
     import warnings
-    marks = [(0, 0)]
+    marks = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
 
@@ -2843,10 +2877,12 @@ def syncs_per_iteration(train, device="cuda"):
         def mark(env):
             gb = env.model._gbdt
             marks.append((calls(), (gb._fused or gb.tree_learner).syncs))
+        mark.before_iteration = True
         if device == "cuda":
             torch.cuda.set_sync_debug_mode("warn")
         try:
-            train(mark)
+            booster = train(mark)
+            mark(types.SimpleNamespace(model=booster))
         finally:
             if device == "cuda":
                 torch.cuda.set_sync_debug_mode("default")
@@ -2877,18 +2913,20 @@ def chaos_resume(args, tmp, device="cuda"):
     def timer(env):
         sync()
         marks.append(time.perf_counter())
+    # at the start of each iteration, and once after train()
+    timer.before_iteration = True
     orig_save = _timed_calls(CheckpointManager, "save", saves, sync)
     orig_capture = _timed_calls(engine, "_checkpoint_capture", captures,
                                 sync)
     ds = lgt.Dataset(X, label=y)
     K.reset_launches()
-    marks.append(time.perf_counter())
     try:
         straight = lgt.train(dict(params), ds, num_boost_round=CHAOS_ITERS,
                              verbose_eval=False, callbacks=[timer],
                              checkpoint_dir=os.path.join(tmp, "ck_straight"))
     finally:
         sync()
+        marks.append(time.perf_counter())
         launches = dict(K.LAUNCHES)
         CheckpointManager.save = orig_save
         engine._checkpoint_capture = orig_capture
@@ -3169,7 +3207,7 @@ OBS_COVERAGE_MIN = 0.95    # tests/test_trace.py's gate in the JAX package
 # (ae): alternating off / on pairs that measure telemetry's own cost, and
 # the iterations of the profiled run (its close costs ~12 s and its trace
 # ~210 MiB per HIGGS iteration, so phase 6 keeps within 90 s)
-OBS_PAIRS = 3
+OBS_PAIRS = 2
 OBS_PROFILED_ITERS = 1
 
 
@@ -3295,9 +3333,11 @@ def check_coverage(tag, events, checked):
 
 def obs_base_texts(booster):
     """{depth: model text} of phase 3's HIGGS booster at the depths of
-    (ae)'s runs: its pairs and its profiled run."""
+    (ae)'s runs (its pairs and its profiled run) and of (ah)'s, as far
+    as it was trained."""
+    have = booster.current_iteration
     return {n: booster.model_to_string(num_iteration=n)
-            for n in {2, OBS_PROFILED_ITERS}}
+            for n in {2, OBS_PROFILED_ITERS, PIPE_ITERS} if n <= have}
 
 
 def telemetry_unit_us(device, tmp, n=20_000):
@@ -3346,6 +3386,24 @@ def median(xs):
     return float(np.median(np.asarray(xs, np.float64)))
 
 
+def higgs_base(args, device="cuda"):
+    """Phase 3's HIGGS run alone, for the ``--*-only`` modes: its
+    dataset, held-out rows, model texts at the later phases' depths,
+    seconds per iteration and held-out AUC."""
+    import lightgbm_tpu_torch as lgt
+    hold = 200_000
+    X, y = make_higgs_like(args.rows + hold, 28, seed=0)
+    ds = lgt.Dataset(X[:args.rows], label=y[:args.rows],
+                     params={**HIGGS_PARAMS, "device_type": device})
+    ds.construct()
+    _, b, auc = run_path("HIGGS fused", HIGGS_PARAMS, ds, args.iters,
+                         X[args.rows:], y[args.rows:],
+                         ("hist_planar", "partition"), device)
+    return dict(ds=ds, hX=X[args.rows:], hy=y[args.rows:],
+                text=obs_base_texts(b),
+                secs=PATH_STATS["HIGGS fused"]["secs"], auc=auc)
+
+
 def obs_higgs(args, report, base=None, device="cuda"):
     """(ae): the HIGGS fused path at full width (args.rows x 28, 255
     leaves and bins, phase 3's dataset). First telemetry's own cost:
@@ -3365,17 +3423,7 @@ def obs_higgs(args, report, base=None, device="cuda"):
     from lightgbm_tpu_torch.ops import cuda as K
     t_phase = time.perf_counter()
     if base is None:
-        hold = 200_000
-        X, y = make_higgs_like(args.rows + hold, 28, seed=0)
-        ds = lgt.Dataset(X[:args.rows], label=y[:args.rows],
-                         params={**HIGGS_PARAMS, "device_type": device})
-        ds.construct()
-        _, b, _ = run_path("HIGGS fused", HIGGS_PARAMS, ds, args.iters,
-                           X[args.rows:], y[args.rows:],
-                           ("hist_planar", "partition"), device)
-        base = dict(ds=ds, hX=X[args.rows:], hy=y[args.rows:],
-                    text=obs_base_texts(b),
-                    secs=PATH_STATS["HIGGS fused"]["secs"])
+        base = higgs_base(args, device)
     ds, iters = base["ds"], OBS_PROFILED_ITERS
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     # telemetry's own cost, before the profiler runs in this process:
@@ -3406,11 +3454,19 @@ def obs_higgs(args, report, base=None, device="cuda"):
                 "trace_file": os.path.join(tmp, f"t{k}.json")}
             marks = []
 
+            def tock(env):
+                if env.iteration == 1:
+                    sync()
+                    marks.append((time.perf_counter(), gc_clock["ms"]))
+
             def tick(env):
-                sync()
-                marks.append((time.perf_counter(), gc_clock["ms"]))
+                tock(env)
+            # the second iteration from its start to its after-iteration
+            # callbacks, in either loop (the pipelined loop runs them
+            # once the next iteration is dispatched, here at the end)
+            tick.before_iteration = True
             b = lgt.train({**HIGGS_PARAMS, "device_type": device, **extra},
-                          ds, num_boost_round=2, callbacks=[tick],
+                          ds, num_boost_round=2, callbacks=[tick, tock],
                           verbose_eval=False)
             steady[key].append(marks[1][0] - marks[0][0])
             gc_ms[key].append(marks[1][1] - marks[0][1])
@@ -3609,6 +3665,267 @@ def flight_check(flight_dir, diagnosis):
         ln.strip() for ln in out.getvalue().splitlines()[:6]))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the pipelined loop, the split step's syncing calls, warm-up
+# ---------------------------------------------------------------------------
+
+PIPE_PAIRS = 3                     # (ah): alternating pairs
+PIPE_ITERS = 3                     # (ah): iterations of each run
+SYNC_CALLS_MAX = 300               # (ah): syncing CUDA calls per steady
+#                                    iteration (1,539 with implicit reads)
+# (ah): the held-out AUC of the HIGGS path after 3 iterations at
+# 2,000,000 rows, as this script has read it since the kernels' redesign
+HIGGS_AUC_3 = "0.770587"
+ES_ROUNDS = 1                      # (ai): early_stopping_rounds
+ES_MAX_ITERS = 20                  # (ai): the runs' num_boost_round
+ES_CASE_ROWS = 2_000               # (ai): card == CPU, training rows
+WARM_ROWS = 250_000                # (aj): the children's training rows
+WARM_CSV_ROWS = 20_000             # (aj): the CLI's CSV rows
+
+
+def _pipeline_env(pipe):
+    """Set LGBM_TPU_PIPELINE ("0": synchronous; None: the default,
+    pipelined)."""
+    if pipe is None:
+        os.environ.pop("LGBM_TPU_PIPELINE", None)
+    else:
+        os.environ["LGBM_TPU_PIPELINE"] = pipe
+
+
+def _flip_half(y):
+    """Every second label flipped: a validation set on which the loss
+    grows after the first iterations, so early stopping fires."""
+    y = np.array(y, dtype=np.float64)
+    y[::2] = 1.0 - y[::2]
+    return y
+
+
+def pipeline_paths(args, base, device="cuda"):
+    """Phase 7 (ah), (ai) on phase 3's HIGGS data ``base``."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda as K
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    ds, hX, hy = base["ds"], base["hX"], base["hy"]
+    params = {**HIGGS_PARAMS, "device_type": device}
+    valid = ds.create_valid(hX, label=hy)
+    n = min(PIPE_ITERS, args.iters)
+
+    def run(pipe, callbacks=(), iters=PIPE_ITERS):
+        _pipeline_env(pipe)
+        marks = []
+
+        def tick(env):
+            # host clock only: a card sync here would drain the queue
+            # the pipelined loop keeps ahead
+            marks.append(time.perf_counter())
+        tick.before_iteration = True
+        try:
+            b = lgt.train(dict(params), ds, num_boost_round=iters,
+                          valid_sets=[valid], valid_names=["hold"],
+                          callbacks=[tick, *callbacks], verbose_eval=False)
+            sync()
+        finally:
+            _pipeline_env(None)
+        # iterations 1.. (the first builds the state)
+        return b, (time.perf_counter() - marks[1]) / (iters - 1)
+
+    # (ah): alternating pairs, pipelined first in even pairs
+    secs = {"pipelined": [], "synchronous": []}
+    texts, aucs = set(), set()
+    K.reset_launches()
+    for k in range(2 * PIPE_PAIRS):
+        key = ("pipelined", "synchronous")[(k + k // 2) % 2]
+        b, sec = run(None if key == "pipelined" else "0")
+        secs[key].append(sec)
+        texts.add(b.model_to_string(num_iteration=n))
+        aucs.add(f"{held_out_metric(b, hX, hy, 'auc', device):.6f}")
+        del b
+    launches = dict(K.LAUNCHES)
+    assert len(texts) == 1 and len(aucs) == 1, \
+        "(ah): the two loops' models differ"
+    assert texts == {base["text"][n]}, "(ah): model differs from phase 3's"
+    if args.iters == PIPE_ITERS:
+        assert aucs == {f"{base['auc']:.6f}"}, (aucs, base["auc"])
+    if args.rows == 2_000_000:
+        assert aucs == {HIGGS_AUC_3}, (aucs, HIGGS_AUC_3)
+    for key in ("hist_planar", "partition"):
+        assert device != "cuda" or launches[key] > 0, f"(ah): {key}"
+    log(f"(ah) HIGGS {args.rows} x 28, {PIPE_ITERS} iterations with the "
+        f"held-out rows as a valid set, s/iteration of iterations 1-"
+        f"{PIPE_ITERS - 1}, {PIPE_PAIRS} alternating pairs: pipelined "
+        f"{json.dumps([round(x, 4) for x in secs['pipelined']])}, "
+        f"synchronous (LGBM_TPU_PIPELINE=0) "
+        f"{json.dumps([round(x, 4) for x in secs['synchronous']])}; per "
+        f"pair pipelined/synchronous " + json.dumps(
+            [round(a / b, 4) for a, b in zip(secs["pipelined"],
+                                             secs["synchronous"])])
+        + f"; median {median(secs['pipelined']):.4f} vs "
+        f"{median(secs['synchronous']):.4f}; held-out AUC {aucs.pop()} in "
+        f"every run, model text equal to phase 3's at depth {n}")
+    per_iter = syncs_per_iteration(
+        lambda mark: run(None, [mark], iters=2)[0], device)
+    # iteration 1: its own work and the trailing read of iteration 0
+    # (iteration 0 builds the state), and the final drain
+    reads, calls = per_iter[1]
+    log(f"(ah) (learner reads, syncing CUDA calls) per iteration of the "
+        f"pipelined run (sync debug mode \"warn\"): {per_iter}; steady "
+        f"iteration {calls} syncing calls, {reads} learner reads "
+        f"(limit {SYNC_CALLS_MAX})")
+    assert device != "cuda" or calls <= SYNC_CALLS_MAX, per_iter
+
+    # (ai): early stopping on a valid set whose loss grows
+    vflip = ds.create_valid(hX, label=_flip_half(hy))
+    es = {}
+    for pipe in (None, "0"):
+        _pipeline_env(pipe)
+        t0 = time.perf_counter()
+        try:
+            b = lgt.train(dict(params), ds, num_boost_round=ES_MAX_ITERS,
+                          valid_sets=[vflip], early_stopping_rounds=ES_ROUNDS,
+                          verbose_eval=False)
+        finally:
+            _pipeline_env(None)
+        es[pipe] = (b.best_iteration, b.num_trees(),
+                    b.model_to_string(num_iteration=b.best_iteration),
+                    time.perf_counter() - t0)
+    (bi_p, nt_p, tx_p, s_p), (bi_s, nt_s, tx_s, s_s) = es[None], es["0"]
+    assert bi_p == bi_s > 0 and tx_p == tx_s, ("(ai)", es[None][:2],
+                                               es["0"][:2])
+    assert nt_s <= nt_p <= nt_s + 1, ("(ai)", nt_p, nt_s)
+    X, y = make_higgs_like(ES_CASE_ROWS + 800, 28, seed=5)
+    small = {}
+    for dev in ("cuda", "cpu") if device == "cuda" else ("cpu",):
+        sds = lgt.Dataset(X[:ES_CASE_ROWS], label=y[:ES_CASE_ROWS])
+        svs = sds.create_valid(X[ES_CASE_ROWS:],
+                               label=_flip_half(y[ES_CASE_ROWS:]))
+        b = lgt.train({**HIGGS_PARAMS, "device_type": dev,
+                       "tpu_hist_dtype": "float32"}, sds,
+                      num_boost_round=ES_MAX_ITERS, valid_sets=[svs],
+                      early_stopping_rounds=ES_ROUNDS, verbose_eval=False)
+        small[dev] = (b.best_iteration, b.num_trees(), _tree_text(
+            {"text": b.model_to_string()}), b.predict(X, raw_score=True))
+    if device == "cuda":
+        assert small["cuda"][:3] == small["cpu"][:3], \
+            ("(ai) card != CPU", small["cuda"][:2], small["cpu"][:2])
+        np.testing.assert_allclose(small["cuda"][3], small["cpu"][3],
+                                   rtol=0, atol=1e-6)
+    log(f"(ai) HIGGS early stopping ({ES_ROUNDS} rounds, held-out rows with "
+        f"every second label flipped): pipelined best iteration {bi_p}, "
+        f"{nt_p} trees, {s_p:.1f} s; synchronous {bi_s}, {nt_s} trees, "
+        f"{s_s:.1f} s; model texts equal at the best iteration; "
+        f"{ES_CASE_ROWS} rows card == CPU: best iteration "
+        f"{small['cpu'][0]}, {small['cpu'][1]} trees, model text and raw "
+        f"predictions equal")
+    return launches
+
+
+_WARM_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.compile import manager
+X, y = np.load(sys.argv[2]), np.load(sys.argv[3])
+t0 = time.perf_counter()
+lgt.train(json.loads(sys.argv[4]), lgt.Dataset(X, label=y),
+          num_boost_round=1, verbose_eval=False)
+torch.cuda.synchronize()
+print(json.dumps({"first_iteration_s": time.perf_counter() - t0,
+                  "compile": manager.snapshot()}))
+"""
+
+
+def warmup_paths(args, tmp, device="cuda"):
+    """Phase 7 (aj): time to the first iteration (train() on WARM_ROWS rows
+    of the HIGGS shape for one iteration, binning included) in child processes
+    on a copy of the package without its build directory: cold without
+    the warm-up (``LGBM_TPU_WARMUP=0``) and with ``tpu_warmup``, then
+    warm without it; then the CLI's ``task=warmup`` and ``task=train``
+    on a CSV in a fresh copy. Prints each time and the compile.*
+    counters."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    X, y = make_higgs_like(WARM_ROWS, 28, seed=0)
+    x_path, y_path = os.path.join(tmp, "wX.npy"), os.path.join(tmp, "wy.npy")
+    np.save(x_path, X)
+    np.save(y_path, y)
+
+    def fresh_copy(name):
+        root = os.path.join(tmp, name)
+        shutil.copytree(os.path.join(here, "lightgbm_tpu_torch"),
+                        os.path.join(root, "lightgbm_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        return root
+
+    def child(root, warm):
+        # without tpu_warmup, LGBM_TPU_WARMUP=0: at these rows the
+        # warm-up would start on its own (bucket_min_rows)
+        params = {**HIGGS_PARAMS, "device_type": device,
+                  "tpu_warmup": warm}
+        env = dict(os.environ, LGBM_TPU_WARMUP="1" if warm else "0")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", _WARM_CHILD, root, x_path, y_path,
+             json.dumps(params)], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-4000:]
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        res["process_s"] = time.perf_counter() - t0
+        return res
+
+    cold_off = fresh_copy("cold_off")
+    runs = [("cold, no warm-up", child(cold_off, False))]
+    cold_on = fresh_copy("cold_on")
+    runs.append(("cold, tpu_warmup", child(cold_on, True)))
+    runs.append(("warm, no warm-up", child(cold_on, False)))
+    nsrc = 4
+    for name, res in runs:
+        c = res["compile"]
+        log(f"(aj) {name}: first iteration {res['first_iteration_s']:.2f} s "
+            f"after train() (process {res['process_s']:.1f} s); compile "
+            f"counters {json.dumps(c)}")
+    assert runs[0][1]["compile"].get("programs") == nsrc, runs[0]
+    assert runs[1][1]["compile"].get("programs") == nsrc, runs[1]
+    assert runs[2][1]["compile"].get("cache_hits") == nsrc, runs[2]
+    assert "programs" not in runs[2][1]["compile"], runs[2]
+
+    # the CLI: task=warmup, then task=train, in a fresh copy
+    root = fresh_copy("cli")
+    csv = os.path.join(tmp, "warm.csv")
+    np.savetxt(csv, np.column_stack([y[:WARM_CSV_ROWS], X[:WARM_CSV_ROWS]]),
+               delimiter=",", fmt="%.6g")
+    common = [f"data={csv}", "label_column=0", "num_leaves=255",
+              "max_bin=255", "num_iterations=1", f"device_type={device}",
+              "verbosity=1"]
+    env = dict(os.environ, PYTHONPATH=root)
+    times = {}
+    for task, extra in (("warmup", []),
+                        ("train", [f"output_model={tmp}/warm_model.txt",
+                                   f"metrics_file={tmp}/warm.jsonl"])):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                              f"task={task}", *common, *extra], cwd=tmp,
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        times[task] = time.perf_counter() - t0
+        assert out.returncode == 0, (task, out.stderr[-4000:])
+        if task == "warmup":
+            said = [ln for ln in (out.stdout + out.stderr).splitlines()
+                    if "Warm-up built" in ln]
+            assert said and f"built {nsrc}/{nsrc}" in said[-1], said
+    from lightgbm_tpu_torch import obs
+    rec = obs.read_jsonl(os.path.join(tmp, "warm.jsonl"))[0]
+    comp = {k: v for k, v in rec["counters"].items()
+            if k.startswith("compile.")}
+    assert comp.get("compile.cache_hits") == nsrc and \
+        "compile.programs" not in comp, comp
+    log(f"(aj) CLI on a {WARM_CSV_ROWS}-row CSV: task=warmup {times['warmup']:.1f}"
+        f" s ({said[-1].split('] ')[-1]}), then task=train "
+        f"{times['train']:.1f} s with compile counters {json.dumps(comp)}")
+
+
 def profile_paths(args, wide):
     """One steady-state iteration of each path under torch.profiler:
     device time by kernel family, kernel count, and the device's busy
@@ -3748,13 +4065,13 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="training rows of the HIGGS-shaped paths (HIGGS "
                     "has 10.5M)")
-    ap.add_argument("--iters", type=int, default=3,
+    ap.add_argument("--iters", type=int, default=2,
                     help="iterations of the HIGGS fused path, (d), (h), "
                     "(t) and (y), and of (u)'s two trainings together")
     ap.add_argument("--wide-rows", type=int, default=1_048_576,
                     help="training rows of shape (a) (the bench.py wide "
                     "sidecar's own default)")
-    ap.add_argument("--wide-iters", type=int, default=3)
+    ap.add_argument("--wide-iters", type=int, default=2)
     ap.add_argument("--host-iters", type=int, default=2,
                     help="iterations of path (b)")
     ap.add_argument("--wide-host-iters", type=int, default=2,
@@ -3769,6 +4086,10 @@ def main() -> int:
                     help="build, then only phase 6 (observability: (ae), "
                     "the hang drill with (af), phase 3b with (ag)), and "
                     "exit without a result")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="build, then only the HIGGS path and phase 7 (the "
+                    "pipelined loop, syncing calls, warm-up), and exit "
+                    "without a result")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
     ap.add_argument("--profile-paths",
@@ -3807,6 +4128,12 @@ def main() -> int:
         return 0     # prints no smoke result
     if args.robust_only:
         robust_paths(args, [])
+        return 0     # prints no smoke result
+    if args.pipeline_only:
+        higgs = higgs_base(args)
+        pipeline_paths(args, higgs)
+        with tempfile.TemporaryDirectory() as tmp:
+            warmup_paths(args, tmp)
         return 0     # prints no smoke result
     if args.obs_only:
         obs_higgs(args, [])
@@ -3850,9 +4177,18 @@ def main() -> int:
     # leave no state behind that an earlier phase could trip on
     t6 = time.perf_counter()
     obs_higgs(args, report, higgs)
-    del higgs
     log(f"phase 6 (ae) done at {time.perf_counter() - t_start:.1f} s "
         f"({time.perf_counter() - t6:.1f} s)")
+    t7 = time.perf_counter()
+    p7 = pipeline_paths(args, higgs)
+    for r in report:
+        if r["name"] in ("hist_planar", "partition"):
+            r["launches"] += p7[r["name"]]
+    del higgs
+    with tempfile.TemporaryDirectory() as tmp:
+        warmup_paths(args, tmp)
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s "
+        f"({time.perf_counter() - t7:.1f} s)")
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -491,14 +491,17 @@ class Booster:
     def eval_valid(self, feval=None) -> list:
         return [r for r in self.eval_all(feval) if r[0] != "training"]
 
-    def eval_all(self, feval=None) -> list:
+    def eval_all(self, feval=None, res=None) -> list:
         """[(dataset_name, metric_name, value, bigger_is_better)] with
         validation sets under the names given to add_valid; then, per
         dataset, each ``feval(preds, dataset)``'s (name, value,
         is_higher_better) results, with preds the transformed scores
         ([N], or [N, K]) and dataset the training Dataset (None for a
-        validation set), as the JAX package calls it."""
-        res = self._gbdt.eval_at_iter()
+        validation set), as the JAX package calls it. ``res``: the
+        metric rows of a resolved ``begin_eval_at_iter`` handle (the
+        pipelined loop's), else they are evaluated now."""
+        if res is None:
+            res = self._gbdt.eval_at_iter()
         keys = ["training"] + [f"valid_{i}"
                                for i in range(len(self.name_valid_sets))]
         out = []

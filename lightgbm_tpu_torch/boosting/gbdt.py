@@ -33,6 +33,21 @@ initial score and averages the trees' outputs. Continued training
 (``init_model``: the old trees prepended, ``num_init_iteration``
 counting them), rollback and refit follow the JAX package.
 
+The loop is pipelined by default (engine.py; ``LGBM_TPU_PIPELINE=0``
+restores the synchronous loop): ``begin_eval_at_iter`` reduces the
+metrics on the device and starts their one copy to the host without
+waiting, ``finish_eval_at_iter`` waits for it one iteration later, and
+the fused paths' periodic no-more-splits check decides on the verdict
+of the previous check (``_periodic_stop_check``), as the JAX package's
+does; the host loop enqueues each class tree's quantization ahead of
+its growth (``prefetch_quantize``). The loop counts
+``pipeline.inflight_fetches`` (evaluation copies started) and
+``pipeline.delayed_stop_iters`` (iterations trained past a stop it saw
+late). The JAX package's ``pipeline.donated_bytes`` counts XLA buffer
+donation, which the port has no counterpart of (its state is updated in
+place), and ``pipeline.overlap_share`` is computed only by the JAX
+side's bench script, so neither is set here.
+
 Robustness (robust/): ``checkpoint_state`` / ``restore_checkpoint_state``
 carry everything a resumed run needs to finish byte-identical to the
 uninterrupted one — every RNG stream, the bag permutation, the float32
@@ -47,6 +62,7 @@ surviving trees).
 from __future__ import annotations
 
 import copy
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,6 +79,7 @@ from ..objective.functions import ObjectiveFunction, create_objective
 from ..ops import split as S
 from ..ops import threefry
 from ..robust.sentinel import NumericSentinel, read_verdicts
+from ..robust.watchdog import watch_phase
 from ..treelearner.fused import FusedSerialGrower, fused_reject_reason
 from ..treelearner.serial import SerialTreeGrower
 from ..utils import device as _device
@@ -158,12 +175,22 @@ class GBDT:
         self._fused = None
         self.tree_learner = None
         self.average_output = False
-        # the degraded-mode ladder (robust/sentinel.py): rung 1 clears
-        # _pipeline (this loop is synchronous already), rung 2
-        # _device_eval (metrics on a host copy of the scores); the rungs
-        # taken, in order
-        self._pipeline = False
+        # dispatch-ahead pipelining (LGBM_TPU_PIPELINE=0 restores the
+        # synchronous loop): the engine resolves each evaluation one
+        # iteration late, and the fused paths' periodic stop check
+        # decides on the previous check's verdict. The degraded-mode
+        # ladder (robust/sentinel.py) clears _pipeline at rung 1 and
+        # _device_eval (metrics on a host copy of the scores) at rung 2;
+        # the rungs taken, in order
+        self._pipeline = os.environ.get("LGBM_TPU_PIPELINE", "1") != "0"
         self._device_eval = True
+        # the fused paths' no-more-splits check: its period (the JAX
+        # package's), the check in flight (leaf counts, dispatch
+        # iteration, dispatch trace iteration) and a drained verdict
+        # not consumed yet (True or None)
+        self._stop_check_every = 50
+        self._stop_fetch = None
+        self._stop_pending = None
         self.degraded_rungs: List[str] = []
         # numeric-health sentinels (robust/sentinel.py; made by init
         # under numeric_sentinels) and the train.iteration:nan/overflow
@@ -194,7 +221,6 @@ class GBDT:
         self._fused = None
         self._fused_state = None     # persistent planar state (device)
         self._score_dirty = False    # train_score stale vs _fused_state
-        self._stop_pending = False   # the last periodic stop verdict
         reason = fused_reject_reason(config, train_data, objective)
         if reason is None:
             self._fused = FusedSerialGrower(train_data, config, objective,
@@ -456,13 +482,21 @@ class GBDT:
         row-order gradients, its refit and score update. Returns True
         when training should stop."""
         k = self.num_tree_per_iteration
+        tl = self.tree_learner
+        # one view per class, the same objects for the prefetch and the
+        # growth (the ring matches them by identity)
+        gh = [(grad[c], hess[c]) for c in range(k)]
+        if self.train_data.num_features > 0:
+            for g, h in gh:
+                # every class tree's quantization enqueued up front: the
+                # levels of tree c+1 build while tree c grows
+                tl.prefetch_quantize(g, h)
         should_continue = False
         for c in range(k):
             if self.train_data.num_features > 0:
                 with obs.span("gbdt/grow_tree (host loop)", phase="grow"):
-                    tree = self.tree_learner.grow(grad[c], hess[c],
-                                                  self._perm,
-                                                  self.bag_data_cnt)
+                    tree = tl.grow(gh[c][0], gh[c][1], self._perm,
+                                   self.bag_data_cnt)
             else:
                 tree = Tree(2)
             if tree.num_leaves > 1:
@@ -565,6 +599,7 @@ class GBDT:
         if idx < 0 or (idx + 1) * k > len(self.models):
             return False
         self._pred_revision += 1
+        self._drain_stop_check()
         del self.models[idx * k:(idx + 1) * k]
         self._on_quarantine(idx)
         self.iter -= 1
@@ -684,24 +719,25 @@ class GBDT:
             self.models.append(tree)
         self._sentinel_check_trees(leaf_values, defer=True)
         self.iter += 1
-        return (self.iter % self.STOP_CHECK_EVERY == 0
+        return (self.iter % self._stop_check_every == 0
                 and self._periodic_stop_check(self.models[-k:]))
 
-    # the per-tree fused path's stop-check period (the JAX package's)
-    STOP_CHECK_EVERY = 50
-
     def _periodic_stop_check(self, trees) -> bool:
-        """The JAX package's pipelined stop check of the per-tree fused
-        path: the verdict of the PREVIOUS check (were its iteration's
-        trees all single leaves?) decides; a positive one trims the
-        trailing single-leaf iterations and stops, unless none trail
-        (later iterations split again) and the model holds more than
-        one iteration. Returns True when training should stop."""
-        # the stop check's read resolves the pending sentinel verdicts,
-        # as the JAX package's does
-        self.sentinel_drain()
-        stop = self._stop_pending
-        self._stop_pending = all(t.num_leaves <= 1 for t in trees)
+        """The no-more-splits check of the fused paths, every
+        ``_stop_check_every`` iterations (the JAX package's). Pipelined
+        (default): the verdict of the PREVIOUS check decides, then this
+        one starts; ``LGBM_TPU_PIPELINE=0``: this check starts and
+        decides at once. A positive verdict (the checked iteration's
+        trees all single leaves) trims the trailing single-leaf
+        iterations and stops, unless none trail (later iterations split
+        again) and the model holds more than one iteration. Returns
+        True when training should stop."""
+        if self._pipeline:
+            stop = self._resolve_stop_check()
+            self._begin_stop_check(trees)
+        else:
+            self._begin_stop_check(trees)
+            stop = self._resolve_stop_check()
         if not stop:
             return False
         if self.trim_degenerate_tail() == 0 \
@@ -710,6 +746,49 @@ class GBDT:
         log.warning("Stopped training because there are no more leaves "
                     "that meet the split requirements")
         return True
+
+    def _begin_stop_check(self, trees) -> None:
+        """Start the stop check of ``trees``. Their leaf counts are on
+        the host already (each tree's one read brought them), so what
+        trails is the decision, together with the pending sentinel
+        verdicts that ride the check's read."""
+        tr = obs.active_tracer()
+        self._stop_fetch = ([t.num_leaves for t in trees], self.iter,
+                            tr.iteration if tr is not None else -1)
+
+    def _resolve_stop_check(self) -> bool:
+        """Verdict of the check started last: True when every tree it
+        covered was a single leaf. False when none is in flight (the
+        first check of a run, or after a resume). The pending sentinel
+        verdicts resolve in the same read, charged to the iteration
+        that started the check."""
+        if self._stop_pending is not None:
+            out, self._stop_pending = self._stop_pending, None
+            return bool(out)
+        if self._stop_fetch is None:
+            return False
+        counts, disp_iter, disp_trace_iter = self._stop_fetch
+        self._stop_fetch = None
+        if self._sentinel is not None and self._sentinel.has_pending:
+            with obs.span("trailing stop-check (readback)",
+                          phase="stop_check"), \
+                    obs.sync_attribution(disp_trace_iter), \
+                    watch_phase("readback:stop check"):
+                self._sentinel_resolve()
+        stop = bool(counts) and all(v <= 1 for v in counts)
+        if stop and self.iter > disp_iter:
+            # iterations trained past the detected single-leaf window
+            # (trimmed again by trim_degenerate_tail)
+            obs.inc("pipeline.delayed_stop_iters", self.iter - disp_iter)
+        return stop
+
+    def _drain_stop_check(self) -> None:
+        """Resolve the stop check in flight and park a positive verdict
+        for the next periodic check. Checkpoint capture and quarantine
+        call this, so a checkpoint holds no check in flight and a
+        positive verdict survives a resume."""
+        if self._stop_fetch is not None:
+            self._stop_pending = self._resolve_stop_check() or None
 
     def telemetry_stats(self) -> Dict[str, float]:
         """Per-iteration model and memory statistics for the obs layer
@@ -771,15 +850,10 @@ class GBDT:
         ta = self._fused.train_iter(self._fused_state, self.shrinkage_rate)
         self._score_dirty = True
         tree = self._fused.materialize_tree(ta)
-        if tree.num_leaves <= 1:
-            # constant-tree path (reference gbdt.cpp:389-407): the first
-            # tree keeps the init score; later ones end training
-            if not self.models:
-                tree.set_leaf_value(0, init_score)
-                self.models.append(tree)
-            log.warning("Stopped training because there are no more leaves "
-                        "that meet the split requirements")
-            return True
+        # a single-leaf tree does not end training here: as in the JAX
+        # package, training stops only at the periodic check, and the
+        # trailing single-leaf iterations are trimmed (their leaf value
+        # is 0; the first tree keeps the init score as its bias)
         if self.valid_score:
             vals = torch.as_tensor(
                 np.asarray(ta["leaf_value"], np.float32),
@@ -793,11 +867,8 @@ class GBDT:
         self._sentinel_check_trees(
             [np.asarray(ta["leaf_value"], np.float32)], defer=True)
         self.iter += 1
-        if self.iter % self.STOP_CHECK_EVERY == 0:
-            # the JAX package's periodic stop check reads here, and the
-            # pending verdicts with it
-            self.sentinel_drain()
-        return False
+        return (self.iter % self._stop_check_every == 0
+                and self._periodic_stop_check(self.models[-1:]))
 
     def get_training_score(self) -> torch.Tensor:
         """[K, N] raw training scores in row order, on the device."""
@@ -852,7 +923,10 @@ class GBDT:
         scores (restored as they are: recomputing them from the trees
         would change the accumulation order). The persistent fused
         path saves its state's rowid and score planes instead of
-        row-order scores, since its lane order is numeric state."""
+        row-order scores, since its lane order is numeric state. The
+        stop check in flight is drained first, and a positive verdict
+        saved as ``stop_pending``."""
+        self._drain_stop_check()
         k = self.num_tree_per_iteration
         st: Dict = {
             "iter": int(self.iter),
@@ -893,7 +967,10 @@ class GBDT:
         dataset and config (freshly, or live: a watchdog auto-resume or
         a sentinel rollback restores mid-run)."""
         self._pred_revision += 1
-        self._stop_pending = bool(state.get("stop_pending"))
+        # no check crosses a checkpoint in flight; a drained positive
+        # verdict resumes through "stop_pending"
+        self._stop_fetch = None
+        self._stop_pending = True if state.get("stop_pending") else None
         if self._sentinel is not None:
             self._sentinel.drop_pending()
         self.models = parse_tree_blocks(model_text)
@@ -952,9 +1029,20 @@ class GBDT:
     # ------------------------------------------------------------------
     def eval_at_iter(self) -> List[Tuple[str, str, float, bool]]:
         """All metric values: (dataset_name, metric_name, value,
-        bigger_is_better), computed on the device and brought to the
-        host in ONE read (the multiclass metrics' per-row inputs too,
-        which ``Metric.finish`` completes there)."""
+        bigger_is_better). The synchronous form of the begin / finish
+        pair below: the two back to back."""
+        return self.finish_eval_at_iter(self.begin_eval_at_iter())
+
+    def begin_eval_at_iter(self):
+        """Start this iteration's evaluation: every metric is reduced on
+        the device (the multiclass metrics' per-row inputs too, which
+        ``Metric.finish`` completes on the host), the values joined into
+        one float64 tensor, and its copy to the host started without
+        waiting (utils/device.py ``start_read``). Returns the handle
+        that ``finish_eval_at_iter`` resolves, one iteration later in
+        the pipelined loop. The host fallbacks run here, eagerly: the
+        degraded ladder's host copy of the scores, and the divide of an
+        averaged output."""
         rows, vals, srcs = [], [], []
 
         def eval_set(ds_name, metrics, score):
@@ -991,12 +1079,34 @@ class GBDT:
         for i, ms in enumerate(self.valid_metrics):
             eval_set(f"valid_{i}", ms,
                      averaged(on_eval_device(self.valid_score[i].score)))
-        # the pending sentinel verdicts ride the same read
-        host = self._sentinel_resolve(vals)
-        if not vals:
+        flat = read = None
+        if vals:
+            flat = torch.cat([v.to(vals[0].device) for v in vals])
+            read = _device.start_read(flat)
+            obs.inc("pipeline.inflight_fetches")
+        tr = obs.active_tracer()
+        return (rows, [v.numel() for v in vals], flat, read,
+                tr.iteration if tr is not None else -1)
+
+    def finish_eval_at_iter(self, handle) -> List[Tuple[str, str, float,
+                                                        bool]]:
+        """Resolve a ``begin_eval_at_iter`` handle: wait for its copy
+        (one counted read, charged to the iteration that began it) and
+        finish each metric. The pending sentinel verdicts ride the same
+        read: then the values are read together with them instead of
+        from the copy."""
+        rows, sizes, flat, read, disp_iter = handle
+        with obs.sync_attribution(disp_iter), \
+                watch_phase("readback:eval scalars"):
+            if self._sentinel is not None and self._sentinel.has_pending:
+                host = self._sentinel_resolve(
+                    [flat] if flat is not None else None)
+            elif read is not None:
+                host = _device.device_get(read)
+        if not rows:
             return []
         obs.inc("eval.device_scalars", len(rows))
-        at = np.cumsum([0] + [v.numel() for v in vals])
+        at = np.cumsum([0] + sizes)
         return [(d, n, m.finish(host[at[i]:at[i + 1]], n),
                  m.bigger_is_better) for d, n, m, i in rows]
 

@@ -1,4 +1,5 @@
-"""Command-line application: train / predict / convert_model / refit.
+"""Command-line application: train / predict / convert_model / refit /
+warmup.
 
 The port of the JAX package's CLI (reference
 src/application/application.cpp: argv + config-file parsing :49-82,
@@ -21,8 +22,14 @@ turn on the training's telemetry (obs/), and
     python -m lightgbm_tpu_torch trace-report trace.json [--top N]
         [--merge r0.json r1.json ... --out merged.json] [--flight DIR]
 
-summarizes a trace (obs/report.py). ``task=warmup`` raises and names
-ROADMAP A15: the port has no warm-up yet.
+summarizes a trace (obs/report.py).
+
+    python -m lightgbm_tpu_torch warmup config=train.conf
+
+(or ``task=warmup``) builds the Dataset and Booster as ``task=train``
+would and builds every kernel library of ops/cuda.py into the build
+directory, so a later ``task=train`` process finds them by their hash
+instead of building them (compile/warmup.py ``run_warmup``).
 """
 from __future__ import annotations
 
@@ -95,14 +102,6 @@ def parse_args(argv: List[str]) -> Dict[str, str]:
         file_params.update(params)
         params = file_params
     return params
-
-
-def check_ported(config: Config) -> None:
-    """Raise for a task whose subsystem is not ported."""
-    if config.task == "warmup":
-        raise NotImplementedError(
-            "task=warmup is not ported yet (ROADMAP A15: compile and "
-            "warm-up)")
 
 
 def run_train(config: Config, params: Dict[str, str]) -> None:
@@ -197,6 +196,17 @@ def run_refit(config: Config, params: Dict[str, str]) -> None:
     log.info("Finished refit, model saved to %s", config.output_model)
 
 
+def run_warmup_task(config: Config, params: Dict[str, str]) -> None:
+    """Build every kernel library the configured training needs, so the
+    next ``task=train`` process loads them instead of building them."""
+    from .compile.warmup import run_warmup
+
+    summary = run_warmup(config, params)
+    log.info("Warm-up built %d/%d kernel libraries in %.1fs (build "
+             "directory: %s)", summary["compiled"], summary["entries"],
+             summary["seconds"], summary["build_dir"])
+
+
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if argv and argv[0] == "trace-report":
@@ -205,7 +215,6 @@ def main(argv=None) -> int:
         return report_main(argv[1:])
     params = parse_args(argv)
     config = Config.from_params(params)
-    check_ported(config)
     try:
         if config.task == "train":
             run_train(config, params)
@@ -215,6 +224,8 @@ def main(argv=None) -> int:
             run_convert_model(config, params)
         elif config.task == "refit":
             run_refit(config, params)
+        elif config.task == "warmup":
+            run_warmup_task(config, params)
         else:
             log.fatal("Unknown task %s", config.task)
     except Exception as e:  # mirror main.cpp catch-all

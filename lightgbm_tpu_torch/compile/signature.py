@@ -6,13 +6,16 @@ characters. A checkpoint carries the digest of the config that wrote
 it (robust/checkpoint.py), and a resume under another digest is
 refused. ``device_type`` is part of it, as the JAX package's
 ``device_type`` is: a checkpoint written on the card is refused by a
-resume on the CPU. The row buckets, environment key and cache keys of
-that module come with ROADMAP A15."""
+resume on the CPU. ``bucket_min_rows`` is the row count from which the
+warm-up runs by default (compile/warmup.py ``warmup_wanted``). The row
+buckets, environment key and cache keys of that module size and name
+XLA executables, which the port does not have."""
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+import os
 from typing import Any, Dict
 
 _IGNORED_CONFIG_FIELDS = frozenset({
@@ -72,3 +75,12 @@ def config_signature(config: Any) -> Dict[str, Any]:
             continue
         out[f.name] = _jsonable(getattr(config, f.name))
     return out
+
+
+def bucket_min_rows() -> int:
+    """``LGBM_TPU_BUCKET_MIN`` (default 2^20 rows): the training size
+    from which the warm-up starts without being asked."""
+    try:
+        return int(os.environ.get("LGBM_TPU_BUCKET_MIN", 1 << 20))
+    except ValueError:
+        return 1 << 20

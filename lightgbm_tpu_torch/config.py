@@ -433,8 +433,9 @@ class Config:
     # runtime toggle for the utils/timer.py phase table (equivalent to
     # LGBM_TPU_TIMETAG=1, but per-train and without reimport)
     timetag: bool = False
-    # force background AOT warmup in train() regardless of dataset size
-    # (docs/COMPILE_CACHE.md); LGBM_TPU_WARMUP overrides both ways
+    # start the kernels' background build in train() regardless of the
+    # dataset size (compile/warmup.py); LGBM_TPU_WARMUP overrides both
+    # ways
     tpu_warmup: bool = False
     # live observability endpoint (/metrics /healthz /statusz) on a
     # localhost daemon thread; 0 = off (no socket, zero overhead).

@@ -12,16 +12,23 @@ recovery policy (``numeric_sentinels``); and the JAX package's
 telemetry (obs/): a ``TelemetrySession`` when ``metrics_file``,
 ``trace_file``, ``profile_dir``, ``obs_port`` or ``flight_dir`` is set,
 with one JSONL record per iteration, the runtime trace, the profiler,
-the live endpoint and the flight recorder. The loop is the JAX
-package's synchronous one (its ``LGBM_TPU_PIPELINE=0``, which is also
-the loop its full telemetry runs); its pipelined loop and the warm-up
-are not ported yet (ROADMAP A14 part b, A15).
+the live endpoint and the flight recorder.
+
+The loop is the JAX package's dispatch-ahead one: iteration t's
+evaluation read and after-iteration callbacks run after iteration t+1
+is dispatched, so early stopping sees iteration t one step late and
+trains at most one tree more, which the saved model's truncation to
+``best_iteration`` drops. ``LGBM_TPU_PIPELINE=0`` restores the
+synchronous loop, and full telemetry (``metrics_file``, ``trace_file``,
+``profile_dir``), ``feval`` and the degraded ladder's first rung keep
+it synchronous too. ``tpu_warmup`` / ``LGBM_TPU_WARMUP`` (or a training
+of ``bucket_min_rows`` rows) build the kernels on a background thread
+while the Dataset is binned (compile/warmup.py).
 """
 from __future__ import annotations
 
 import collections
 import copy
-import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -31,6 +38,7 @@ from . import network
 from . import obs
 from .basic import Booster, Dataset, LightGBMError, copy_tree
 from .compile import signature as S
+from .compile.warmup import background_warmup, warmup_wanted
 from .config import Config
 from .robust.checkpoint import CheckpointManager
 from .robust.faultinject import check_fault
@@ -94,6 +102,15 @@ def _ensure_network(params: Dict[str, Any]) -> None:
         network.ensure_distributed(net.machines, net.num_machines,
                                    time_out=net.time_out,
                                    device_type=net.device_type)
+
+
+def _rows_of(data: Dataset) -> int:
+    """The row count of a Dataset before it is binned (0 for a file
+    path, whose rows are not known yet)."""
+    if data._handle is not None:
+        return data.num_data()
+    shape = getattr(data.data, "shape", None)
+    return int(shape[0]) if shape else 0
 
 
 def _telemetry_end_iteration(telemetry, booster: Booster, iteration: int,
@@ -232,6 +249,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if any(Config.resolve_alias(k) == "timetag" for k in params):
         # the phase table of named scopes (utils/timer.py), per train()
         global_timer.set_enabled(Config.from_params(params).timetag)
+    cfg0 = Config.from_params(params)
+    if warmup_wanted(cfg0, _rows_of(train_set)):
+        # the kernels build on a thread while the Dataset is binned; the
+        # first launch waits for them instead of building them
+        background_warmup(cfg0.device_type)
     with global_timer.scope("dataset construction + learner build"):
         booster = Booster(params=params, train_set=train_set)
     if predictor is not None:
@@ -287,10 +309,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # (early stopping, record_evaluation) hand their state back
     gbdt = booster._gbdt
     cfg = gbdt.config
-    if cfg.tpu_warmup or os.environ.get("LGBM_TPU_WARMUP", "") \
-            not in ("", "0"):
-        log.warning("tpu_warmup / LGBM_TPU_WARMUP has no effect: the port "
-                    "has no warm-up or compile cache yet (ROADMAP A15)")
     ckpt_dir = checkpoint_dir if checkpoint_dir else cfg.checkpoint_dir
     ckpt_mgr = None
     start_iteration = 0
@@ -317,11 +335,13 @@ def train(params: Dict[str, Any], train_set: Dataset,
 
     def restore_latest() -> bool:
         """Roll the live booster back to the newest checkpoint and set
-        the loop's re-entry iteration."""
-        nonlocal start_iteration
+        the loop's re-entry iteration. The evaluation in flight belongs
+        to the abandoned timeline and is dropped."""
+        nonlocal start_iteration, pending
         resumed = ckpt_mgr.load_latest() if ckpt_mgr is not None else None
         if resumed is None:
             return False
+        pending = None
         it, ck_state, ck_model = resumed
         _checkpoint_restore(booster, cbs, ck_state, ck_model)
         start_iteration = it + 1
@@ -337,6 +357,49 @@ def train(params: Dict[str, Any], train_set: Dataset,
         telemetry.registry.set_gauge("train.total_iterations",
                                      float(num_boost_round))
     full_telemetry = telemetry is not None and not telemetry.lightweight
+    # dispatch-ahead pipelining (LGBM_TPU_PIPELINE=0 restores the
+    # synchronous loop, read by GBDT as _pipeline): iteration t's
+    # evaluation read and after-iteration callbacks run after iteration
+    # t+1 is dispatched. Full telemetry stays synchronous (its stream
+    # sync serializes the loop, and each record carries its own
+    # iteration's metrics), as does feval (it reads the live scores);
+    # lightweight sessions (obs_port / flight_dir) ride the pipelined
+    # loop. The degraded ladder's first rung clears gbdt._pipeline.
+    pipeline_ok = not full_telemetry and feval is None
+    pending = None    # (iteration, evaluation handle in flight)
+
+    def resolve_evals(handle) -> list:
+        out = []
+        if handle is None:
+            return out
+        with obs.span("metric evaluation (resolve)", phase="eval"):
+            for ds, name, val, bib in booster.eval_all(
+                    feval, res=gbdt.finish_eval_at_iter(handle)):
+                if ds == "training":
+                    if not valid_contain_train:
+                        continue
+                    ds = train_name
+                out.append((ds, name, val, bib))
+        return out
+
+    def after_callbacks(it: int, evals) -> None:
+        with watch_phase("host-callback:after"):
+            for cb in cbs_after:
+                cb(env(it, evals))
+
+    def early_stop(e: callback_mod.EarlyStopException) -> list:
+        booster.best_iteration = e.best_iteration + 1
+        return e.best_score
+
+    def drain() -> list:
+        """Resolve the evaluation in flight and run its callbacks."""
+        nonlocal pending
+        pit, ph = pending
+        pending = None
+        out = resolve_evals(ph)
+        after_callbacks(pit, out)
+        return out
+
     wd = None
     if cfg.hang_timeout > 0:
         # the first iterations load the kernels: a short timeout must
@@ -374,31 +437,43 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                   phase="update"), \
                             watch_phase("dispatch:update"):
                         finished = booster.update(fobj=fobj)
-                    evals = []
+                    handle = None
                     if want_eval:
-                        with obs.span("metric evaluation", phase="eval"), \
-                                watch_phase("readback:eval scalars"):
-                            res = booster.eval_all(feval)
-                        for ds, name, val, bib in res:
-                            if ds == "training":
-                                if not valid_contain_train:
-                                    continue
-                                ds = train_name
-                            evals.append((ds, name, val, bib))
+                        with obs.span("metric evaluation", phase="eval"):
+                            handle = gbdt.begin_eval_at_iter()
                     if full_telemetry:
+                        evals = resolve_evals(handle)
                         _telemetry_end_iteration(telemetry, booster, i,
                                                  evals)
                     elif telemetry is not None:
                         # lightweight: the registry's wall clock, the
-                        # fleet merge and the SLO check only
+                        # fleet merge and the SLO check only; the window
+                        # ends at dispatch, and the trailing resolve is
+                        # charged to the next iteration
                         telemetry.end_iteration(i)
+                    drained_it = i
                     try:
-                        with watch_phase("host-callback:after"):
-                            for cb in cbs_after:
-                                cb(env(i, evals))
+                        if full_telemetry:
+                            after_callbacks(i, evals)
+                        else:
+                            # the trailing resolve: the PREVIOUS
+                            # iteration's read and callbacks run while
+                            # this iteration's work is in flight
+                            if pending is not None:
+                                drained_it = pending[0]
+                                evals = drain()
+                            pending = (i, handle)
+                            if not (pipeline_ok and gbdt._pipeline) \
+                                    or finished:
+                                drained_it = i
+                                evals = drain()
                     except callback_mod.EarlyStopException as e:
-                        booster.best_iteration = e.best_iteration + 1
-                        evals = e.best_score
+                        evals = early_stop(e)
+                        if drained_it < i:
+                            # the stop arrived one dispatch late:
+                            # iteration i is trained already (and
+                            # truncated away through best_iteration)
+                            obs.inc("pipeline.delayed_stop_iters")
                         break
                     sent = gbdt._sentinel
                     if sent is not None and gbdt.process_sentinel_trips():
@@ -424,12 +499,29 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     if finished:
                         break
                     if ckpt_mgr is not None and ckpt_mgr.due(i):
+                        # the pipelined loop drains first: the callbacks'
+                        # state and the evaluation records cover
+                        # iteration i, as the synchronous loop's would
+                        if pending is not None:
+                            try:
+                                evals = drain()
+                            except callback_mod.EarlyStopException as e:
+                                evals = early_stop(e)
+                                break
                         with obs.span("checkpoint save", phase="checkpoint"):
                             ck_state, ck_model = _checkpoint_capture(
                                 booster, cbs)
                             ckpt_mgr.save(i, ck_state, ck_model)
                 if restart:
                     continue
+                # the last iteration's callbacks (the early stopper's
+                # announcement among them) when the loop ran to its end
+                # with an evaluation in flight
+                if pending is not None:
+                    try:
+                        evals = drain()
+                    except callback_mod.EarlyStopException as e:
+                        evals = early_stop(e)
                 break
             except HangTimeout:
                 resume_attempts += 1

@@ -27,11 +27,11 @@ Layers:
   `metrics_interval`, `obs_port`, `flight_dir`, `flight_slo_factor`).
 
 A session is **lightweight** when only the live plane is on
-(`obs_port` / `flight_dir`, no metrics/profile/trace file): the JAX
-package then keeps its pipelined dispatch-ahead loop. The port's loop
-is synchronous until ROADMAP A14 part b, so a lightweight session runs
-on that synchronous loop; what it still skips is the per-iteration
-stream sync and the model statistics of full telemetry.
+(`obs_port` / `flight_dir`, no metrics/profile/trace file): it rides
+the pipelined dispatch-ahead loop (engine.py), skipping the
+per-iteration stream sync and the model statistics of full telemetry,
+which keeps the loop synchronous. `sync_attribution` charges a
+trailing read to the iteration that dispatched it.
 
 Everything is off by default: with no active registry, no timer, no
 tracer, and no profile dir, the instrumentation fast paths reduce to a
@@ -54,7 +54,7 @@ from .spans import (instrument_kernel, span, start_profiler, step_span,
 from .trace import (Tracer, activate_tracer, active_tracer,
                     deactivate_tracer, install_sync_tracing,
                     live_array_bytes, merge_trace_events, merge_trace_files,
-                    uninstall_sync_tracing)
+                    sync_attribution, uninstall_sync_tracing)
 
 __all__ = [
     "MetricsRegistry", "LatencyHistogram", "activate", "active",
@@ -64,7 +64,8 @@ __all__ = [
     "validate_bench_record", "span", "step_span", "instrument_kernel",
     "start_profiler", "stop_profiler", "TelemetrySession",
     "Tracer", "activate_tracer", "active_tracer", "deactivate_tracer",
-    "install_sync_tracing", "uninstall_sync_tracing", "live_array_bytes",
+    "install_sync_tracing", "uninstall_sync_tracing", "sync_attribution",
+    "live_array_bytes",
     "merge_trace_events", "merge_trace_files",
     "FleetAggregator", "activate_aggregator", "active_aggregator",
     "deactivate_aggregator",

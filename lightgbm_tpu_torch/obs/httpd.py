@@ -15,9 +15,9 @@ Three routes:
   the degraded-ladder rung (robust/sentinel.py).
 - `/statusz` — one JSON page for humans: iteration progress, core
   phase coverage, pipeline `overlap_share` (when a pipelined loop sets
-  it), and the fleet straggler table (obs/aggregate.py). The port has
-  no compile manager yet (ROADMAP A15), so the page has no `compile`
-  entry.
+  it), the `compile` block (the kernel libraries built and found by
+  their hash and the build seconds, compile/manager.py), and the fleet
+  straggler table (obs/aggregate.py).
 
 Security: binds 127.0.0.1 by default — the pages expose host names,
 file paths and config text, so widening the bind
@@ -167,6 +167,8 @@ def render_statusz() -> Dict[str, Any]:
         body["latency_ms"] = {
             name: {"p50": h.percentile(0.50), "p99": h.percentile(0.99)}
             for name, h in sorted(reg.latency_histograms().items())}
+    from ..compile import manager
+    body["compile"] = manager.snapshot()
     try:
         from .aggregate import active_aggregator
         agg = active_aggregator()

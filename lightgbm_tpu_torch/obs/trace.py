@@ -44,6 +44,7 @@ microseconds relative to tracer construction (monotonic clock).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -88,6 +89,10 @@ class Tracer:
         self.dropped = 0
         self.t0_ns = time.perf_counter_ns()
         self.iteration = -1          # set by TelemetrySession per iter
+        # when set, sync events are attributed to THIS iteration instead
+        # of the current one: a trailing read of the pipelined loop
+        # resolves during iteration t+1 but belongs to the dispatch at t
+        self.sync_attr_iteration: Optional[int] = None
         self.events_total = 0
 
     # -- recording ------------------------------------------------------
@@ -131,8 +136,10 @@ class Tracer:
             name, args = func, {}
         if nbytes >= 0:
             args["bytes"] = nbytes
+        it = self.iteration if self.sync_attr_iteration is None \
+            else self.sync_attr_iteration
         self._append(("X", name, "sync", t0_ns, max(0, t1_ns - t0_ns),
-                      self.iteration, args))
+                      it, args))
 
     # -- export ---------------------------------------------------------
     def to_perfetto(self) -> Dict[str, Any]:
@@ -195,6 +202,24 @@ def deactivate_tracer(tr: Optional[Tracer] = None) -> None:
 
 def active_tracer() -> Optional[Tracer]:
     return _ACTIVE
+
+
+@contextlib.contextmanager
+def sync_attribution(iteration: Optional[int]):
+    """Attribute sync events recorded in this scope to `iteration`
+    (the DISPATCH iteration of a trailing read), not the iteration the
+    read happens to resolve in. No-op when no tracer is active or
+    `iteration` is None or negative."""
+    tr = _ACTIVE
+    if tr is None or iteration is None or iteration < 0:
+        yield
+        return
+    prev = tr.sync_attr_iteration
+    tr.sync_attr_iteration = int(iteration)
+    try:
+        yield
+    finally:
+        tr.sync_attr_iteration = prev
 
 
 def _process_index() -> int:
@@ -261,9 +286,13 @@ _SYNC_PATCH: Optional[Tuple[Any, Any]] = None
 def _payload_bytes(obj: Any) -> int:
     """Payload size of a device_get argument (a tensor or a sequence of
     tensors), from metadata only; -1 when unknown."""
+    from ..utils.device import PendingRead
     items = obj if isinstance(obj, (list, tuple)) else [obj]
     total = 0
     for x in items:
+        if isinstance(x, PendingRead):
+            total += x.nbytes
+            continue
         try:
             total += int(x.numel()) * int(x.element_size())
         except Exception:

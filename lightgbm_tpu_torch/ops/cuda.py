@@ -10,6 +10,13 @@ ctypes: pointers and the CUDA stream are passed as ``c_void_p``.
 Nothing here runs at import time — the CPU test suite imports every
 module on a machine without ``nvcc``.
 
+Each library found in the build directory counts as a
+``compile.cache_hits``, each one built as a ``compile.cache_misses`` and
+a ``compile.programs``, and the build's seconds go to the ``compile``
+timer (compile/manager.py). compile/warmup.py runs ``build_all`` on a
+background thread or as ``task=warmup``; a launch meanwhile waits on
+the lock.
+
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
 which kernels the main path went through.
@@ -118,6 +125,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile every missing library (one nvcc per source, all started
     together), load all of them, and return them by source name. Build
     seconds and the compiler's resource report land in BUILD_INFO."""
+    from ..compile import manager
     with _lock:
         if len(_libs) == len(SOURCES):
             return _libs
@@ -127,7 +135,9 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         for name in SOURCES:
             out = _lib_path(name)
             if os.path.exists(out):
+                manager.count("cache_hits")
                 continue
+            manager.count("cache_misses")
             tmp = f"{out}.{os.getpid()}.tmp"
             procs[name] = (subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp,
@@ -144,6 +154,9 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        if procs:
+            manager.count("programs", len(procs))
+            manager.add_time("compile", time.perf_counter() - t0)
         BUILD_INFO["seconds"] = time.perf_counter() - t0
         BUILD_INFO["built"] = sorted(procs)
         BUILD_INFO["log"] = logs
@@ -155,6 +168,11 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 f.restype = res
             _libs[name] = lib
         return _libs
+
+
+def all_loaded() -> bool:
+    """True when every library is built and loaded in this process."""
+    return len(_libs) == len(SOURCES)
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -248,9 +248,12 @@ def route_scalars(layout: PlaneLayout, feature: Scalar, threshold: Scalar,
     feature = t(feature)
     bits = layout.code_bits
     if efb_dev is not None:
+        # gathers: indexing by the 0-d device tensor would read it back
         group_of, offset_of, nslots_of, skip_of = efb_dev
-        gidx = group_of[feature]
-        efb = [t(1), offset_of[feature], nslots_of[feature], skip_of[feature]]
+        fi = feature.reshape(1).to(group_of.device)
+        gidx, off, nsl, skip = (tab.index_select(0, fi)[0] for tab in
+                                (group_of, offset_of, nslots_of, skip_of))
+        efb = [t(1), off, nsl, skip]
     else:
         gidx = feature
         efb = [t(0), t(0), t(0), t(0)]

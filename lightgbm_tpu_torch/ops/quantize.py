@@ -23,9 +23,12 @@ the planar state, and the kernels unpack each row before adding it.
 A SUM of packed words still unpacks exactly while ``count * (num_bins -
 1) < 2^16`` (``packed_rows_ok``).
 
-The JAX package's dispatch-ahead ring ``PrefetchedQuant`` is not ported
-(ROADMAP A14 part b, with the pipelined loop on CUDA streams); the
-inline pass here gives the same levels it would.
+``PrefetchedQuant`` is the JAX package's dispatch-ahead ring: the
+host-loop booster enqueues every class tree's quantization as soon as
+its gradients exist, so the levels of tree c+1 are computed on the card
+while tree c's host-driven growth is still running. It stays on the
+current stream: each pass takes its own tree's key, in the inline
+order, so the levels are the inline pass's bit for bit.
 """
 from __future__ import annotations
 
@@ -104,6 +107,45 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     qg = torch.clamp(sg, -qmax_g, qmax_g).to(torch.int32)
     qh = torch.clamp(sh, 0, qmax_h).to(torch.int32)
     return qg, qh, gscale, hscale
+
+
+class PrefetchedQuant:
+    """Two-slot dispatch-ahead quantization ring (the JAX package's).
+
+    The producer (the booster's host loop) pushes the quantization of an
+    upcoming tree as soon as that tree's gradients exist; the consumer
+    (the tree grower) pops it when the tree grows. Slots match by key
+    index AND (grad, hess) object identity, so a tree can never be
+    paired with another tree's stochastic-rounding draw; a mismatch
+    falls back to the inline pass, which gives the same bits.
+    """
+
+    def __init__(self, depth: int = 2) -> None:
+        self.depth = max(1, int(depth))
+        self.slots: list = []    # (key index, grad, hess, result)
+
+    def __len__(self) -> int:
+        return len(self.slots)
+
+    @property
+    def full(self) -> bool:
+        return len(self.slots) >= self.depth
+
+    def push(self, idx: int, grad, hess, result) -> None:
+        self.slots.append((idx, grad, hess, result))
+
+    def pop_match(self, idx: int, grad, hess):
+        """The prefetched result for (idx, grad, hess), or None. Stale
+        slots (an older index or other tensors) are dropped on the way:
+        the ring never reorders the key sequence."""
+        while self.slots:
+            s = self.slots.pop(0)
+            if s[0] == idx and s[1] is grad and s[2] is hess:
+                return s[3]
+        return None
+
+    def clear(self) -> None:
+        self.slots = []
 
 
 def pack_gh(qg: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:

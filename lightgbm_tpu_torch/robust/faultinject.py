@@ -22,8 +22,10 @@ seam                      fires in
 ``sentinel.check``        robust/sentinel.py, at every sentinel dispatch
 ========================  =====================================================
 
-(``store.load`` parses too; its owner, the compile store, comes with
-ROADMAP A15.)
+(``store.load`` parses too; its owner in the JAX package, the AOT
+executable store, has no counterpart in the port, whose kernels are
+nvcc libraries found by their hash (compile/manager.py), so no seam
+fires it.)
 
 Modes: ``sigkill`` (SIGKILL self — the preemption simulator),
 ``enospc`` / ``ioerror`` (raise the corresponding ``OSError``),

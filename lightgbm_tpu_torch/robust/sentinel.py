@@ -238,10 +238,12 @@ DEGRADED_LADDER = ("pipeline", "device_eval", "aot_store")
 
 def apply_degraded_rung(gbdt, rung_index: int) -> Optional[str]:
     """Apply ladder rung ``rung_index`` (0-based) to a live booster:
-    0 = pipelined loop -> synchronous loop (the port's loop is
-    synchronous already), 1 = metrics on the device -> metrics on a host
-    copy of the scores, 2 = the AOT executable store (ROADMAP A15: only
-    logged). Returns the rung name (also appended to the booster's
+    0 = pipelined loop -> synchronous loop (the engine's loop and the
+    fused paths' stop check read ``gbdt._pipeline`` each iteration), 1 =
+    metrics on the device -> metrics on a host copy of the scores, 2 =
+    the AOT executable store, only logged: the port keeps no executable
+    store to turn off (its kernels are nvcc libraries loaded once per
+    process). Returns the rung name (also appended to the booster's
     ``degraded_rungs``), or None when the ladder is exhausted."""
     if rung_index >= len(DEGRADED_LADDER):
         return None

@@ -664,13 +664,16 @@ class FusedSerialGrower:
             t_f[2, node] = leaf_f[1, leaf]
 
             # --- partition the leaf's window in place ---
-            feat = rec_i[0]
+            # the record's feature indexes the per-feature tables by a
+            # gather on the device: indexing by a 0-d device tensor is
+            # an implicit blocking read
+            feat = rec_i[:1]
             cat_route = ({"is_cat": rec_i[3], "cat_bitset": rec_i[4:]}
                          if self.any_categorical else {})
             rscal = plane.route_scalars(
                 self.layout, feat, rec_i[1], rec_i[2],
-                self.feature_miss_bin[feat], self._efb_dev, device=dev,
-                **cat_route)
+                self.feature_miss_bin.index_select(0, feat),
+                self._efb_dev, device=dev, **cat_route)
             if count > 0:
                 data, nleft = self._partition(data, self.layout, start,
                                               count, rscal, cat=bool(is_cat))
@@ -698,7 +701,7 @@ class FusedSerialGrower:
             leaf_f[0:3, new] = rec[4:7]
             leaf_f[0:3, leaf] = rec[1:4]
             if self.use_monotone:
-                monof = self.meta.monotone[feat]
+                monof = self.meta.monotone.index_select(0, feat)[0]
                 mid = (rec[3] + rec[6]) / 2.0
                 cmin, cmax = leaf_f[3, leaf].clone(), leaf_f[4, leaf].clone()
                 leaf_f[4, leaf] = torch.where(monof > 0,
@@ -756,11 +759,16 @@ class FusedSerialGrower:
             gains = best_f[0]
             if depth_ok is not None:
                 gains = torch.where(depth_ok, gains, NEG_INF)
-            best = torch.argmax(gains)
-            probe = torch.stack([best, (gains[best] > 0.0).to(torch.int64),
-                                 leaf_i[0, best].to(torch.int64),
-                                 leaf_i[1, best].to(torch.int64),
-                                 best_i[3, best].to(torch.int64)])
+            # the best leaf's fields by gathers on the device (indexing
+            # by the 0-d argmax would read it back, once per field)
+            best = torch.argmax(gains).reshape(1)
+            probe = torch.cat([best,
+                               (gains.index_select(0, best) > 0.0
+                                ).to(torch.int64),
+                               leaf_i[:2].index_select(1, best)[:, 0]
+                               .to(torch.int64),
+                               best_i[3].index_select(0, best)
+                               .to(torch.int64)])
             with obs.span("fused/best leaf (read)", phase="split"):
                 leaf, cont, start, count, is_cat = self._read(probe)
             if not cont:

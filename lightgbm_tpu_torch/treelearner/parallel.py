@@ -396,6 +396,11 @@ class DataParallelTreeGrower(SerialTreeGrower):
                                        name="data_parallel/leaf_histogram")
 
     # -- grower ---------------------------------------------------------
+    def prefetch_quantize(self, grad: torch.Tensor,
+                          hess: torch.Tensor) -> None:
+        """No prefetch: ``grow`` quantizes the padded global gradients
+        inline, which the serial grower's ring could not match."""
+
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              perm: torch.Tensor, num_data: int) -> Tree:
         """One tree (the JAX package's DataParallelTreeGrower.grow):

@@ -173,6 +173,7 @@ class SerialTreeGrower:
         self._quant = bool(config.use_quantized_grad)
         self._qscales = None
         self._quant_tree_idx = 0
+        self._quant_prefetch = Q.PrefetchedQuant()
         self._qscales_host = None
         self._forced_splits = _load_forced_splits(
             config.forcedsplits_filename)
@@ -330,6 +331,25 @@ class SerialTreeGrower:
         return torch.as_tensor(r.astype(np.int32), device=self.device)
 
     # ------------------------------------------------------------------
+    def _quant_key(self, idx: int) -> torch.Tensor:
+        """The stochastic-rounding key of the idx-th quantized tree."""
+        return threefry.fold_in(
+            threefry.PRNGKey(self.config.objective_seed ^ 0x51A7), idx)
+
+    def prefetch_quantize(self, grad: torch.Tensor,
+                          hess: torch.Tensor) -> None:
+        """Enqueue the quantization of an upcoming ``grow`` call now, up
+        to two trees ahead (ops/quantize.py ``PrefetchedQuant``). Key
+        indices advance as the inline path's would, so the draws are
+        the same; a no-op on the float32 path."""
+        if not self._quant or self._quant_prefetch.full:
+            return
+        cfg = self.config
+        idx = self._quant_tree_idx + len(self._quant_prefetch)
+        self._quant_prefetch.push(idx, grad, hess, Q.quantize_gradients(
+            grad, hess, cfg.num_grad_quant_bins, self._quant_key(idx),
+            cfg.stochastic_rounding))
+
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              perm: torch.Tensor, num_data: int) -> Tree:
         """Train one tree (reference SerialTreeLearner::Train,
@@ -349,16 +369,20 @@ class SerialTreeGrower:
         self._qscales = None
         if self._quant:
             # one quantization pass per tree; histograms, the pool and
-            # the subtraction then run in exact int32 level space
-            key = threefry.fold_in(
-                threefry.PRNGKey(cfg.objective_seed ^ 0x51A7),
-                self._quant_tree_idx)
-            self._quant_tree_idx += 1
+            # the subtraction then run in exact int32 level space. The
+            # pass was usually enqueued ahead (prefetch_quantize); the
+            # inline one takes the same key and gives the same bits
             with obs.span("gradient quantization", phase="quantize"):
                 Q.note_requantize(cfg.num_grad_quant_bins)
-                grad, hess, gs, hs = Q.quantize_gradients(
-                    grad, hess, cfg.num_grad_quant_bins, key,
-                    cfg.stochastic_rounding)
+                pre = self._quant_prefetch.pop_match(
+                    self._quant_tree_idx, grad, hess)
+                if pre is None:
+                    pre = Q.quantize_gradients(
+                        grad, hess, cfg.num_grad_quant_bins,
+                        self._quant_key(self._quant_tree_idx),
+                        cfg.stochastic_rounding)
+            self._quant_tree_idx += 1
+            grad, hess, gs, hs = pre
             self._qscales = (gs, hs)
         self._cur_perm, self._cur_grad, self._cur_hess = perm, grad, hess
         root = _Leaf(0, num_data, 0.0, 0.0, 0.0, 0)

@@ -1151,3 +1151,41 @@ def test_full_telemetry_on_card(tmp_path):
         return [ln for ln in b.model_to_string().splitlines()
                 if not any(ln.startswith(f"[{k}:") for k in files)]
     assert text(on) == text(off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [{}, {"monotone_constraints": [1, 0, -1, 0,
+                                                                 0, 0]}],
+                         ids=["plain", "monotone"])
+def test_split_step_makes_one_syncing_call(extra):
+    """A steady iteration of the fused learner under CUDA sync debug
+    mode "warn": its syncing CUDA calls are its counted reads (one per
+    split and one for the tree) plus a few set-up calls of the
+    iteration, so one per split step. Indexing by a 0-d device tensor
+    (an implicit read) would add one call per index and split."""
+    import warnings
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.RandomState(6)
+    X = rng.randn(50_000, 6)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.randn(50_000) > 0)
+    b = lgt.Booster({"objective": "binary", "num_leaves": 63,
+                     "verbose": -1, "device_type": "cuda", **extra},
+                    lgt.Dataset(X, label=y.astype(float)))
+    b.update()                      # the state built, the kernels loaded
+    learner = b._gbdt._fused
+    assert learner is not None
+    torch.cuda.synchronize()
+    reads0 = learner.syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            b.update()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    calls = sum("synchroniz" in str(w.message).lower() for w in caught)
+    reads = learner.syncs - reads0
+    splits = b._gbdt.models[-1].num_leaves - 1
+    assert splits > 30 and reads == splits + 1
+    assert reads <= calls <= reads + 16, (calls, reads, splits)
