@@ -162,7 +162,8 @@ Phases, each of which fails the run (no exception is caught):
      card's model text equal to the CPU's; then 2 iterations of the
      HIGGS path with sentinels on and off, whose learner host syncs and
      syncing CUDA calls (sync debug mode "warn") per iteration must be
-     equal;
+     equal (train()'s end may take one more call with them: the drain
+     of the verdicts still on the card);
    - (ad) train.iteration:hang=3.0@4 against hang_timeout=1.2 on
      50,000 rows: without auto_resume it must raise HangTimeout (the
      only exception the smoke catches), with auto_resume and a
@@ -224,6 +225,30 @@ Phases, each of which fails the run (no exception is caught):
      (the train process must find all 4 libraries by their hash), with
      the compile.* counters of each.
 
+8. the split loop without reads, after phase 7, on phase 3's HIGGS
+   dataset (no valid set):
+   - (ak) DEV_ITERS-iteration runs alternating the captured split step
+     (the default on the card: the first tree eager, then one capture)
+     and the eager device loop (the learner's ``_eager_loop``): equal
+     model texts, the first two trees equal to phase 3's; s/iteration
+     of each, captures and their seconds; then the counted reads (0)
+     and the syncing CUDA calls (at most DEV_SYNC_CALLS_MAX, by site)
+     of two steady ``Booster.update()`` calls, the wrappers' launches of
+     one (replays counted), and one profiled steady iteration under
+     each loop (B1 / B2 ms per iteration);
+   - (al) LGBM_TPU_ITER_BATCH=4 over DEV_BATCH_ITERS iterations (a
+     batch of 4, then a partial one): the model text of batch 1;
+   - (am) card == CPU on the new loop at phase 4's sizes (PHASE4_ROWS
+     rows, PHASE4_LEAVES leaves), DEV_CASE_ITERS iterations, plain and
+     quantized.
+   B2's device-window entry is held in phase 2: every partition case
+   again through ``partition_dev_cuda`` (one set of buffers bounded by
+   the rows), bit for bit against the plain version on both routes and
+   at a zero count, and timed beside the host-window entry at the root
+   and at 16,384 lanes.
+
+``--devloop-only`` runs phase 1, B1's and B2's phase-2 checks, the
+HIGGS path and phase 8, and prints no result.
 ``--multi-gpu-only`` runs phase 1 and phase 3b alone (no AUC
 comparison) and prints no result; ``--robust-only`` runs phase 1 and
 phase 5 alone and prints no result; ``--obs-only`` runs phase 1, (ae)
@@ -700,6 +725,26 @@ def check_partition(dev, report):
                                     for r in routes))
         log(f"B2 partition: {len(cs)} cases bit-exact "
             f"(P={lay.num_planes}, lanes={lay.num_lanes}; routes: {names})")
+        # the device-window entry: the window a [2] tensor on the card
+        # (its count never passed as an int), the route chosen on the
+        # device, every launch sized by one bound; one set of buffers for
+        # all cases, as a learner holds it
+        bufs = plane.PartitionBuffers(lay.num_planes, lay.num_rows, dev)
+        for name, start, count, kw in cs:
+            rscal = plane.route_scalars(lay, device=dev, **kw)
+            win = torch.tensor([start, count], dtype=torch.int32,
+                               device=dev)
+            got, nl_got = plane.partition_dev_cuda(st.clone(), lay, win,
+                                                   rscal, bufs)
+            want, nl_want = plane.partition_plain(st.clone(), lay, win,
+                                                  None, rscal)
+            torch.cuda.synchronize()
+            assert int(nl_got) == int(nl_want), ("dev", name, int(nl_got),
+                                                 int(nl_want))
+            assert torch.equal(got, want), f"B2 dev {name}: data differs"
+        log(f"B2 partition, device window (bound {lay.num_rows}): "
+            f"{len(cs)} cases bit-exact (P={lay.num_planes}; routes: "
+            f"{names}, chosen on the device)")
     # launches per partition on each route, and timings at the root and
     # at SMALL_WINDOW lanes beside argsort + index_select
     entries = []
@@ -715,9 +760,16 @@ def check_partition(dev, report):
                 f" route): {k} kernel launches per partition")
         key_all = (torch.as_tensor(cds[:, 3], device=dev) > 120).to(
             torch.int32)
+        bufs = plane.PartitionBuffers(P, root, dev)
         for c in (root, SMALL_WINDOW):
             ms = time_ms(lambda: plane.partition_cuda(work, lay, 0, c, rscal),
                          reps=20)
+            win = torch.tensor([0, c], dtype=torch.int32, device=dev)
+            dev_ms = time_ms(lambda: plane.partition_dev_cuda(
+                work, lay, win, rscal, bufs), reps=20)
+            log(f"B2 partition {c} lanes x P={P}: device window (bound "
+                f"{root}) {dev_ms:.4f} ms beside the host window's "
+                f"{ms:.4f} ms")
             plain_ms = time_ms(lambda: plane.partition_plain(work, lay, 0, c,
                                                              rscal), reps=3)
             key = key_all[:c]
@@ -1483,8 +1535,9 @@ def run_path(name, params, ds, iters, X_hold, y_hold, expect,
                         verbose_eval=False, fobj=fobj, **(train_kw or {}))
     sync()
     marks.append((time.perf_counter(), learner_syncs(booster._gbdt)))
-    launches = dict(K.LAUNCHES)
+    launches = K.launch_counts()
     gbdt = booster._gbdt
+    gbdt._materialize_models()          # the pending trees: one read
     k = gbdt.num_tree_per_iteration
     trees = gbdt.models[gbdt.num_init_iteration * k:]
     leaves = [t.num_leaves for t in trees]
@@ -1830,7 +1883,7 @@ def api_path(args, X, y, hX, hy, ds, straight_auc, tmp, device="cuda"):
                  seed=0)
     if device == "cuda":
         torch.cuda.synchronize()
-    got["u3"] = dict(K.LAUNCHES)
+    got["u3"] = K.launch_counts()
     secs = time.perf_counter() - t4
     mean, std = res["auc-mean"], res["auc-stdv"]
     assert len(mean) == API_ITERS and 0.70 < mean[-1] <= 1.0, mean
@@ -1983,7 +2036,7 @@ def api_rest_path(args, rank, X, y, tmp, device="cuda"):
     pr = ranker.predict(hX[:nh])
     if device == "cuda":
         torch.cuda.synchronize()
-    got["x1"] = dict(K.LAUNCHES)
+    got["x1"] = K.launch_counts()
     ev = ranker.evals_result_["valid_0"]
     assert np.isfinite(pr).all() and len(ev["ndcg@10"]) == API_REST_ITERS
     log(f"(x) LGBMRanker: {nr} rows in {RANKER_QUERIES} queries, "
@@ -1998,7 +2051,7 @@ def api_rest_path(args, rank, X, y, tmp, device="cuda"):
     clf.fit(X[:CLF_ROWS], y[:CLF_ROWS])
     if device == "cuda":
         torch.cuda.synchronize()
-    got["x2"] = dict(K.LAUNCHES)
+    got["x2"] = K.launch_counts()
     proba = clf.predict_proba(X[:CLF_ROWS])
     direct = clf.booster_.predict(X[:CLF_ROWS])
     assert np.array_equal(proba[:, 1], direct), "(x): predict_proba"
@@ -2402,7 +2455,7 @@ def _mg_path_z(rank, cfg):
             learner = gb._fused if gb._fused is not None else gb.tree_learner
             out[name, key] = dict(
                 text=b.model_to_string(), pred=b.predict(X[:20_000]),
-                learner=type(learner).__name__, launches=dict(K.LAUNCHES),
+                learner=type(learner).__name__, launches=K.launch_counts(),
                 secs=time.perf_counter() - t0)
     return out
 
@@ -2800,7 +2853,7 @@ ROBUST_ROWS = 50_000               # (ab)-(ad): training rows
 ROBUST_PARAMS = {**HIGGS_PARAMS, "num_leaves": 63}
 ROBUST_ITERS = 2                   # (ab): iterations (half, then all)
 SENTINEL_ITERS = 4                 # (ac): iterations of each drill
-SENTINEL_SYNC_ITERS = 2            # (ac): HIGGS iterations, sentinels on/off
+SENTINEL_SYNC_ITERS = 3            # (ac): HIGGS iterations, sentinels on/off
 HANG_ITERS = 5                     # (ad): iterations of each run
 
 # the child of (aa): imports only the port, trains from the saved rows,
@@ -2857,14 +2910,16 @@ def _timed_calls(cls, name, out, sync):
     return orig
 
 
-def syncs_per_iteration(train, device="cuda"):
+def syncs_per_iteration(train, device="cuda", sites=None):
     """Per iteration of ``train(callback)``: (the learner's blocking host
     reads, the syncing CUDA calls). The calls are counted under CUDA
     sync debug mode "warn", where every call that waits for the card (a
     device-to-host copy, ``.item()``, ...) warns; ``callback`` marks the
     start of each iteration (a before-iteration callback), and the
     booster ``train`` returns the end of the last. An iteration holds
-    the trailing read of the one before it under the pipelined loop."""
+    the trailing read of the one before it under the pipelined loop.
+    ``sites``: a list that gets, per iteration, the syncing calls by
+    Python site."""
     import warnings
     marks = []
     with warnings.catch_warnings(record=True) as caught:
@@ -2886,6 +2941,15 @@ def syncs_per_iteration(train, device="cuda"):
         finally:
             if device == "cuda":
                 torch.cuda.set_sync_debug_mode("default")
+    if sites is not None:
+        here = os.path.dirname(os.path.abspath(__file__))
+        sync = [w for w in caught if "synchroniz" in str(w.message).lower()]
+        for a, b in zip(marks, marks[1:]):
+            got: dict = {}
+            for w in sync[a[0]:b[0]]:
+                key = f"{os.path.relpath(w.filename, here)}:{w.lineno}"
+                got[key] = got.get(key, 0) + 1
+            sites.append(got)
     return [(b[1] - a[1], b[0] - a[0]) for a, b in zip(marks, marks[1:])]
 
 
@@ -2927,7 +2991,7 @@ def chaos_resume(args, tmp, device="cuda"):
     finally:
         sync()
         marks.append(time.perf_counter())
-        launches = dict(K.LAUNCHES)
+        launches = K.launch_counts()
         CheckpointManager.save = orig_save
         engine._checkpoint_capture = orig_capture
     for key in ("hist_planar", "partition"):
@@ -3039,7 +3103,7 @@ def resume_cases(tmp, device="cuda", rows=ROBUST_ROWS):
         K.reset_launches()
         run(ROBUST_ITERS // 2, d)
         resumed, kw_r = run(ROBUST_ITERS, d)
-        got[name] = dict(K.LAUNCHES)
+        got[name] = K.launch_counts()
         straight, kw_s = run(ROBUST_ITERS, None)
         assert resumed.model_to_string() == straight.model_to_string(), \
             f"(ab) {name}: the resumed model differs"
@@ -3063,7 +3127,9 @@ def sentinel_drills(args, device="cuda", rows=ROBUST_ROWS):
     equal to the CPU's (float32 histogram inputs, as phase 4). Then the
     HIGGS path, SENTINEL_SYNC_ITERS iterations with sentinels on and
     off: the learner's host syncs and the syncing CUDA calls per
-    iteration must be equal. Returns the launches of the drills."""
+    iteration must be equal, but for one more call at train()'s end with
+    them (the drain of the verdicts). Returns the launches of the
+    drills."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import cuda as K
     from lightgbm_tpu_torch.robust import install_plan
@@ -3088,7 +3154,7 @@ def sentinel_drills(args, device="cuda", rows=ROBUST_ROWS):
             finally:
                 install_plan(None)
             if dev == device and fault:
-                got[key] = dict(K.LAUNCHES)
+                got[key] = K.launch_counts()
                 p = b.predict(X[:20_000])
                 assert np.isfinite(p).all(), name
             texts[(dev, fault)] = (b.model_to_string(), b.num_trees())
@@ -3115,11 +3181,17 @@ def sentinel_drills(args, device="cuda", rows=ROBUST_ROWS):
     log(f"(ac) HIGGS {args.rows} x 28, {SENTINEL_SYNC_ITERS} iterations "
         f"(learner host syncs, syncing CUDA calls) per iteration: with "
         f"sentinels {per_iter[True]}, without {per_iter[False]} (the first "
-        f"iteration's calls include one-time set-up)")
-    # the learner's reads in every iteration, every call after the first
+        f"iteration's calls include one-time set-up; the last holds the end "
+        f"of train(), where the pending verdicts are drained)")
+    # the learner's reads in every iteration, every call of the steady
+    # iterations; the trees' verdicts wait on the card for a read to
+    # ride, and without a valid set the first is train()'s final drain:
+    # one read per training, not per iteration
     assert [r[0] for r in per_iter[True]] == \
         [r[0] for r in per_iter[False]], per_iter
-    assert per_iter[True][1:] == per_iter[False][1:], per_iter
+    assert per_iter[True][1:-1] == per_iter[False][1:-1], per_iter
+    assert per_iter[True][-1][1] - per_iter[False][-1][1] in (0, 1), \
+        per_iter
     return got
 
 
@@ -3162,7 +3234,7 @@ def hang_drills(tmp, device="cuda", rows=ROBUST_ROWS):
     t0 = time.perf_counter()
     K.reset_launches()
     healed = run({"auto_resume": True}, os.path.join(tmp, "ck_ad"), plan)
-    launches = dict(K.LAUNCHES)
+    launches = K.launch_counts()
     t_heal = time.perf_counter() - t0
     clean = run({})
     assert healed.model_to_string() == clean.model_to_string(), \
@@ -3201,7 +3273,7 @@ OBS_KEYS = ("metrics_file", "trace_file", "profile_dir", "obs_port",
             "flight_dir", "metrics_interval", "flight_slo_factor")
 # the learner dispatchers' spans (treelearner/fused.py) -> core phase
 OBS_PHASE_OF = {"fused/leaf_histogram": "hist", "fused/split_scan": "split",
-                "fused/best leaf (read)": "split",
+                "fused/split steps (graph replays)": "split",
                 "fused/partition": "partition"}
 OBS_COVERAGE_MIN = 0.95    # tests/test_trace.py's gate in the JAX package
 # (ae): alternating off / on pairs that measure telemetry's own cost, and
@@ -3549,7 +3621,7 @@ def obs_higgs(args, report, base=None, device="cuda"):
         # from the last iteration's end: the session's close (the trace
         # and the profiler's export)
         t_close = time.perf_counter() - marks[-1]
-        launches = dict(K.LAUNCHES)
+        launches = K.launch_counts()
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
         gb = booster._gbdt
         assert gb._fused_persist, "(ae) not the persistent fused path"
@@ -3671,8 +3743,11 @@ def flight_check(flight_dir, diagnosis):
 
 PIPE_PAIRS = 3                     # (ah): alternating pairs
 PIPE_ITERS = 3                     # (ah): iterations of each run
-SYNC_CALLS_MAX = 300               # (ah): syncing CUDA calls per steady
-#                                    iteration (1,539 with implicit reads)
+SYNC_CALLS_MAX = 2                 # (ah): syncing CUDA calls per steady
+#                                    iteration and train()'s end (1,539
+#                                    with implicit reads, 268 with one read
+#                                    per split)
+DEV_SYNC_CALLS_MAX = 1             # (ak): the same without a valid set
 # (ah): the held-out AUC of the HIGGS path after 3 iterations at
 # 2,000,000 rows, as this script has read it since the kernels' redesign
 HIGGS_AUC_3 = "0.770587"
@@ -3740,7 +3815,7 @@ def pipeline_paths(args, base, device="cuda"):
         texts.add(b.model_to_string(num_iteration=n))
         aucs.add(f"{held_out_metric(b, hX, hy, 'auc', device):.6f}")
         del b
-    launches = dict(K.LAUNCHES)
+    launches = K.launch_counts()
     assert len(texts) == 1 and len(aucs) == 1, \
         "(ah): the two loops' models differ"
     assert texts == {base["text"][n]}, "(ah): model differs from phase 3's"
@@ -3762,15 +3837,16 @@ def pipeline_paths(args, base, device="cuda"):
         + f"; median {median(secs['pipelined']):.4f} vs "
         f"{median(secs['synchronous']):.4f}; held-out AUC {aucs.pop()} in "
         f"every run, model text equal to phase 3's at depth {n}")
+    sites: list = []
     per_iter = syncs_per_iteration(
-        lambda mark: run(None, [mark], iters=2)[0], device)
+        lambda mark: run(None, [mark], iters=2)[0], device, sites)
     # iteration 1: its own work and the trailing read of iteration 0
     # (iteration 0 builds the state), and the final drain
     reads, calls = per_iter[1]
     log(f"(ah) (learner reads, syncing CUDA calls) per iteration of the "
         f"pipelined run (sync debug mode \"warn\"): {per_iter}; steady "
         f"iteration {calls} syncing calls, {reads} learner reads "
-        f"(limit {SYNC_CALLS_MAX})")
+        f"(limit {SYNC_CALLS_MAX}) at {json.dumps(sites[1])}")
     assert device != "cuda" or calls <= SYNC_CALLS_MAX, per_iter
 
     # (ai): early stopping on a valid set whose loss grows
@@ -3834,6 +3910,176 @@ torch.cuda.synchronize()
 print(json.dumps({"first_iteration_s": time.perf_counter() - t0,
                   "compile": manager.snapshot()}))
 """
+
+
+# -- phase 8: the split loop without reads, the captured step, batching --
+DEV_ITERS = 4                      # (ak): iterations of each run
+DEV_BATCH = "4"                    # (al): LGBM_TPU_ITER_BATCH, over
+DEV_BATCH_ITERS = 5                # iterations (a batch of 4, then 1)
+DEV_CASE_ITERS = 3                 # (am): card == CPU at phase 4's sizes
+DEV_CASE_PARAMS = {**HIGGS_PARAMS, "num_leaves": PHASE4_LEAVES,
+                   "tpu_hist_dtype": "float32"}
+
+
+def steady_sync_sites(booster, learner, device="cuda"):
+    """One steady ``update()`` of ``booster`` under CUDA sync debug mode
+    "warn": (the learner's counted reads, the syncing CUDA calls by
+    Python site)."""
+    import warnings
+    from collections import Counter
+    here = os.path.dirname(os.path.abspath(__file__))
+    reads0 = learner.syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            booster.update()
+        finally:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    # the mode's own one-time notice names synchronization too
+    sites = Counter(
+        f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message).lower()
+        and "prototype" not in str(w.message))
+    return learner.syncs - reads0, sites
+
+
+def devloop_paths(args, base, device="cuda"):
+    """Phase 8 on phase 3's HIGGS data ``base``: (ak) the captured split
+    step against the eager device loop (equal model text; s/iteration,
+    captures and their seconds, counted reads and syncing calls per
+    steady iteration without a valid set by site, kernels per steady
+    iteration, B1 / B2 ms per iteration by the profiler); (al)
+    LGBM_TPU_ITER_BATCH=4 over DEV_BATCH_ITERS iterations (a partial
+    last batch) against batch 1; (am) card == CPU on the new loop at
+    phase 4's sizes, plain and quantized. Returns the launches of (ak)'s
+    and (al)'s runs (replays counted)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.compile import manager
+    from lightgbm_tpu_torch.ops import cuda as K
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    ds = base["ds"]
+    params = {**HIGGS_PARAMS, "device_type": device}
+
+    def run(eager, iters=DEV_ITERS):
+        marks = []
+
+        def tick(env):
+            if eager:
+                env.model._gbdt._fused._eager_loop = True
+            sync()
+            marks.append(time.perf_counter())
+        tick.before_iteration = True
+        s0 = manager.snapshot()
+        b = lgt.train(dict(params), ds, num_boost_round=iters,
+                      callbacks=[tick], verbose_eval=False)
+        sync()
+        marks.append(time.perf_counter())
+        s1 = manager.snapshot()
+        caps = s1.get("graph_captures", 0) - s0.get("graph_captures", 0)
+        cap_s = s1.get("graph_capture_s", 0) - s0.get("graph_capture_s", 0)
+        secs = [b_ - a for a, b_ in zip(marks, marks[1:])]
+        return b, secs, caps, cap_s
+
+    # (ak): graph, eager, graph, eager
+    K.reset_launches()
+    texts, secs, caps = {}, {True: [], False: []}, {}
+    for eager in (False, True, False, True):
+        b, sec, n_cap, cap_s = run(eager)
+        texts.setdefault(eager, set()).add(obs_text(b.model_to_string()))
+        assert b.model_to_string(num_iteration=2) == base["text"][2], \
+            "(ak): the first two trees differ from phase 3's"
+        secs[eager].append(sec)
+        caps.setdefault(eager, []).append((n_cap, cap_s))
+        del b
+    launches = K.launch_counts()
+    assert len(texts[False]) == 1 and texts[False] == texts[True], \
+        "(ak): the captured step and the eager loop train different models"
+    if device == "cuda":
+        assert all(n == 1 for n, _ in caps[False]), caps
+        assert all(n == 0 for n, _ in caps[True]), caps
+    for eager in (False, True):
+        steady = [s[2:] for s in secs[eager]]
+        log(f"(ak) HIGGS {args.rows} x 28, {DEV_ITERS} iterations, "
+            f"{'eager device loop' if eager else 'captured split step'}: "
+            f"s/iteration {json.dumps([[round(x, 4) for x in s] for s in secs[eager]])}"
+            f" (iteration 0 eager, 1 captures); steady median "
+            f"{median([x for s in steady for x in s]):.4f}")
+    log(f"(ak) captures (count, s) per graph run "
+        f"{json.dumps([(n, round(c, 4)) for n, c in caps[False]])}; "
+        f"model text equal in all four runs; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+
+    # counted reads and syncing calls per steady iteration, no valid set
+    b = lgt.Booster(dict(params), ds)
+    b.update()                      # the first tree, eager
+    b.update()                      # the capture
+    learner = b._gbdt._fused
+    per = [steady_sync_sites(b, learner, device) for _ in range(2)]
+    for reads, sites in per:
+        log(f"(ak) steady iteration: {reads} counted reads, "
+            f"{sum(sites.values())} syncing CUDA calls (limit "
+            f"{DEV_SYNC_CALLS_MAX}) at {json.dumps(dict(sites))}")
+        assert reads == 0, per
+        assert device != "cuda" or sum(sites.values()) <= \
+            DEV_SYNC_CALLS_MAX, per
+    K.reset_launches()
+    b.update()
+    one = K.launch_counts()
+    log(f"(ak) wrappers' launches in one steady iteration (replays "
+        f"counted): {json.dumps({k: v for k, v in one.items() if v})}")
+    if device == "cuda":
+        assert one["hist_planar"] >= 255 and one["partition"] >= 254, one
+        profile_iteration("(ak) HIGGS captured step", b, device_only=True)
+        learner._eager_loop = True
+        profile_iteration("(ak) HIGGS eager device loop", b,
+                          device_only=True)
+    del b, learner
+
+    # (al): LGBM_TPU_ITER_BATCH=4 over DEV_BATCH_ITERS iterations
+    os.environ["LGBM_TPU_ITER_BATCH"] = DEV_BATCH
+    K.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        b = lgt.train(dict(params), ds, num_boost_round=DEV_BATCH_ITERS,
+                      verbose_eval=False)
+        assert b._gbdt._iter_batch == int(DEV_BATCH)
+        reads = b._gbdt._fused.syncs
+        text = obs_text(b.model_to_string(num_iteration=DEV_ITERS))
+        sync()
+        t_batch = time.perf_counter() - t0
+    finally:
+        os.environ.pop("LGBM_TPU_ITER_BATCH", None)
+    for k, v in K.launch_counts().items():
+        launches[k] += v
+    assert {text} == texts[False], "(al): batch 4 and batch 1 differ"
+    log(f"(al) LGBM_TPU_ITER_BATCH={DEV_BATCH}, {DEV_BATCH_ITERS} iterations "
+        f"(a batch of 4, then 1): model text equal to batch 1's at depth "
+        f"{DEV_ITERS}; "
+        f"{reads} counted reads in training (the end's trim), "
+        f"{t_batch:.2f} s with the model's read")
+    del b
+
+    # (am): card == CPU on the new loop, small
+    X, y = make_higgs_like(PHASE4_ROWS, 28, seed=11)
+    for name, extra in (("plain", {}),
+                        ("quantized", {"use_quantized_grad": True,
+                                       "num_grad_quant_bins": 4})):
+        got = {}
+        for dev in ("cuda", "cpu") if device == "cuda" else ("cpu",):
+            sb = lgt.train({**DEV_CASE_PARAMS, **extra, "device_type": dev},
+                           lgt.Dataset(X, label=y),
+                           num_boost_round=DEV_CASE_ITERS)
+            got[dev] = "\n".join(
+                ln for ln in sb.model_to_string().splitlines()
+                if not ln.startswith("[device_type"))
+        assert len(set(got.values())) == 1, f"(am) {name}: card != CPU"
+        log(f"(am) {name}: {PHASE4_ROWS} rows, {PHASE4_LEAVES} leaves, "
+            f"{DEV_CASE_ITERS} iterations (the graph from the second): "
+            f"model text card == CPU")
+    return launches
 
 
 def warmup_paths(args, tmp, device="cuda"):
@@ -4090,6 +4336,11 @@ def main() -> int:
                     help="build, then only the HIGGS path and phase 7 (the "
                     "pipelined loop, syncing calls, warm-up), and exit "
                     "without a result")
+    ap.add_argument("--devloop-only", action="store_true",
+                    help="build, then only B2's checks (phase 2's "
+                    "partition part), the HIGGS path and phase 8 (the "
+                    "captured split step, iteration batching), and exit "
+                    "without a result")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
     ap.add_argument("--profile-paths",
@@ -4134,6 +4385,12 @@ def main() -> int:
         pipeline_paths(args, higgs)
         with tempfile.TemporaryDirectory() as tmp:
             warmup_paths(args, tmp)
+        return 0     # prints no smoke result
+    if args.devloop_only:
+        check_hist(torch.device("cuda"), [])
+        check_partition(torch.device("cuda"), [])
+        higgs = higgs_base(args)
+        devloop_paths(args, higgs)
         return 0     # prints no smoke result
     if args.obs_only:
         obs_higgs(args, [])
@@ -4184,11 +4441,18 @@ def main() -> int:
     for r in report:
         if r["name"] in ("hist_planar", "partition"):
             r["launches"] += p7[r["name"]]
-    del higgs
     with tempfile.TemporaryDirectory() as tmp:
         warmup_paths(args, tmp)
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s "
         f"({time.perf_counter() - t7:.1f} s)")
+    t8 = time.perf_counter()
+    p8 = devloop_paths(args, higgs)
+    for r in report:
+        if r["name"] in ("hist_planar", "partition"):
+            r["launches"] += p8[r["name"]]
+    del higgs
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s "
+        f"({time.perf_counter() - t8:.1f} s)")
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -576,6 +576,7 @@ class Booster:
         train = Dataset(mat, label=label, params=new_params,
                         free_raw_data=False)
         nb = Booster(new_params, train)
+        self._gbdt._materialize_models()
         nb._gbdt.models = [copy_tree(t) for t in self._gbdt.models]
         nb._gbdt.refit_tree(leaf)
         return nb
@@ -633,6 +634,7 @@ class Booster:
         on ``feature`` (reference basic.py:2944)."""
         fidx = (self.feature_name().index(feature)
                 if isinstance(feature, str) else int(feature))
+        self._gbdt._materialize_models()
         values = np.asarray([
             float(t.threshold[i]) for t in self._gbdt.models
             for i in range(t.num_leaves - 1)
@@ -650,6 +652,7 @@ class Booster:
         """One row per node of every tree (reference basic.py:2132);
         needs pandas, imported here only."""
         import pandas as pd
+        self._gbdt._materialize_models()
         rows = []
         fn = self.feature_name()
 

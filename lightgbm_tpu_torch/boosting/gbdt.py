@@ -80,7 +80,8 @@ from ..ops import split as S
 from ..ops import threefry
 from ..robust.sentinel import NumericSentinel, read_verdicts
 from ..robust.watchdog import watch_phase
-from ..treelearner.fused import FusedSerialGrower, fused_reject_reason
+from ..treelearner.fused import (FusedSerialGrower, PendingTree,
+                                 TreeArrayBatch, fused_reject_reason)
 from ..treelearner.serial import SerialTreeGrower
 from ..utils import device as _device
 from ..utils import log
@@ -197,6 +198,17 @@ class GBDT:
         # drill's pending poison
         self._sentinel: Optional[NumericSentinel] = None
         self._poison_next = None
+        # the persistent path's iteration batching (the JAX package's
+        # LGBM_TPU_ITER_BATCH, default 1): K iterations are queued and
+        # then run together, their K trees read back by one read; valid
+        # sets keep the batch at 1 (their scores need each tree). The
+        # queued trees, their feature masks, and the sentinel checks
+        # waiting for the queue to run
+        self._iter_batch = max(1, int(os.environ.get(
+            "LGBM_TPU_ITER_BATCH", "1")))
+        self._pq_trees: list = []
+        self._pq_masks: list = []
+        self._sentinel_deferred: list = []
 
     # ------------------------------------------------------------------
     def init(self, config: Config, train_data: BinnedDataset,
@@ -333,6 +345,7 @@ class GBDT:
         """Drop the last iteration's trees, their leaf values subtracted
         from the training and validation scores (reference
         GBDT::RollbackOneIter, gbdt.cpp:421)."""
+        self._materialize_models()
         self._invalidate_fused_state()
         if self.iter <= 0:
             return
@@ -357,6 +370,7 @@ class GBDT:
         cfg = self.config
         leaf_pred = np.asarray(tree_leaf_prediction, dtype=np.int64)
         self._pred_revision += 1
+        self._materialize_models()
         self._invalidate_fused_state()
         grad, hess = _device.device_get(list(self._boosting()))
         k = self.num_tree_per_iteration
@@ -547,17 +561,22 @@ class GBDT:
         with obs.span("sentinel health check (dispatch)", phase="sentinel"):
             self._sentinel.dispatch([self._grad, self._hess], self.iter)
 
-    def _sentinel_check_trees(self, leaf_values, defer: bool = False
-                              ) -> None:
-        """Health checks of this iteration's new trees, judged on the
-        host copy of their leaf values the loop holds already (no read).
-        ``defer``: the fused paths' verdicts wait in the queue for the
-        next read, as the JAX package's device-resident trees' do, so a
-        trip is acted on at the same iteration."""
+    def _sentinel_check_trees(self, leaf_values, defer: bool = False,
+                              iteration: Optional[int] = None) -> None:
+        """Health checks of the new trees of ``iteration`` (default this
+        one): host leaf values are judged at once (no read); device ones
+        (the persistent path's trees) are reduced on the device and
+        their verdicts ride the loop's next read. ``defer``: host
+        verdicts wait in the queue too, as the JAX package's
+        device-resident trees' do, so a trip is acted on at the same
+        iteration."""
         if self._sentinel is not None:
             with obs.span("sentinel health check (dispatch)",
                           phase="sentinel"):
-                self._sentinel.dispatch(leaf_values, self.iter, defer=defer)
+                self._sentinel.dispatch(
+                    leaf_values,
+                    self.iter if iteration is None else iteration,
+                    defer=defer)
 
     def _quarantine_degenerate_iter(self, k: int) -> bool:
         """An iteration of single leaves is also the signature of a
@@ -599,6 +618,7 @@ class GBDT:
         if idx < 0 or (idx + 1) * k > len(self.models):
             return False
         self._pred_revision += 1
+        self._materialize_models()
         self._drain_stop_check()
         del self.models[idx * k:(idx + 1) * k]
         self._on_quarantine(idx)
@@ -619,6 +639,7 @@ class GBDT:
         """Every training and validation score afresh from the
         surviving trees (the init scores re-applied by _ScoreState; the
         boost_from_average constant lives in the first trees' bias)."""
+        self._materialize_models()
         k = self.num_tree_per_iteration
         self.train_score = _ScoreState(self.train_data, k, self.device)
         fresh = []
@@ -684,6 +705,14 @@ class GBDT:
                                           fl._efb_dev)
             vs.score[class_id] += vals[leaf]
 
+    def _update_valid_scores_device(self, ta: Dict, vals: torch.Tensor
+                                    ) -> None:
+        """The persistent path's tree, still on the device, on the
+        validation sets: ``traverse_bins`` of its device arrays (no
+        read), plus the leaf values ``vals``."""
+        for vs in self.valid_score:
+            vs.score[0] += vals[self._fused.traverse_bins(ta, vs.bins)]
+
     def _train_one_iter_fused(self, init_scores, grad, hess) -> bool:
         """The per-tree fused path (the JAX package's
         _train_one_iter_fused): per class, ``grow_device`` on the class's
@@ -748,12 +777,21 @@ class GBDT:
         return True
 
     def _begin_stop_check(self, trees) -> None:
-        """Start the stop check of ``trees``. Their leaf counts are on
-        the host already (each tree's one read brought them), so what
-        trails is the decision, together with the pending sentinel
-        verdicts that ride the check's read."""
+        """Start the stop check of ``trees``: the leaf counts of host
+        trees (and of pending trees read before), and the device leaf
+        counts of the pending ones, which the check's one read brings
+        back together with the pending sentinel verdicts."""
+        refs, counts = [], []
+        for t in trees:
+            if isinstance(t, PendingTree) and t._tree is None:
+                if t._n_leaves_host is not None:
+                    counts.append(int(t._n_leaves_host))
+                else:
+                    refs.append((t, t.device_arrays()["n_leaves"]))
+            else:
+                counts.append(int(t.num_leaves))
         tr = obs.active_tracer()
-        self._stop_fetch = ([t.num_leaves for t in trees], self.iter,
+        self._stop_fetch = (refs, counts, self.iter,
                             tr.iteration if tr is not None else -1)
 
     def _resolve_stop_check(self) -> bool:
@@ -767,14 +805,21 @@ class GBDT:
             return bool(out)
         if self._stop_fetch is None:
             return False
-        counts, disp_iter, disp_trace_iter = self._stop_fetch
+        refs, counts, disp_iter, disp_trace_iter = self._stop_fetch
         self._stop_fetch = None
-        if self._sentinel is not None and self._sentinel.has_pending:
+        counts = list(counts)
+        if refs or (self._sentinel is not None
+                    and self._sentinel.has_pending):
             with obs.span("trailing stop-check (readback)",
                           phase="stop_check"), \
                     obs.sync_attribution(disp_trace_iter), \
                     watch_phase("readback:stop check"):
-                self._sentinel_resolve()
+                host = self._sentinel_resolve(
+                    [torch.cat([r for _, r in refs]).to(torch.float64)]
+                    if refs else None)
+            for (t, _), v in zip(refs, [] if host is None else host):
+                t._n_leaves_host = int(v)
+                counts.append(int(v))
         stop = bool(counts) and all(v <= 1 for v in counts)
         if stop and self.iter > disp_iter:
             # iterations trained past the detected single-leaf window
@@ -799,14 +844,14 @@ class GBDT:
         iteration updates (the planar state on the persistent fused
         path, else the training scores)."""
         k = self.num_tree_per_iteration
-        trees = self.models[-k:]
+        counts, gain_arrays = self._batched_tree_stats(self.models[-k:],
+                                                       with_gains=True)
         best_gain = 0.0
-        for t in trees:
-            gains = np.asarray(t.split_gain[:max(t.num_leaves - 1, 0)])
+        for gains in gain_arrays:
             if gains.size:
                 best_gain = max(best_gain, float(np.max(gains)))
         stats: Dict[str, float] = {
-            "num_leaves": int(sum(t.num_leaves for t in trees)),
+            "num_leaves": int(sum(counts)),
             "best_gain": round(best_gain, 6)}
         gauges = {}
         bins = getattr(self.train_data, "bins", None)
@@ -833,39 +878,136 @@ class GBDT:
         k = self.num_tree_per_iteration
         removed = 0
         while len(self.models) > k and all(
-                t.num_leaves <= 1 for t in self.models[-k:]):
+                v <= 1 for v in self._batched_tree_stats(
+                    self.models[-k:])[0]):
             del self.models[-k:]
             self.iter -= 1
             removed += 1
         return removed
 
+    def _batched_tree_stats(self, trees, with_gains: bool = False):
+        """(leaf counts, split gain arrays) of ``trees`` with at most ONE
+        read across all of them (the JAX package's): the pending trees'
+        device values ride one read; a leaf count read is kept on its
+        PendingTree."""
+        want = []
+        for t in trees:
+            if isinstance(t, PendingTree) and t._tree is None and (
+                    with_gains or t._n_leaves_host is None):
+                want.append(t)
+        host = {}
+        if want:
+            parts = [torch.cat([t.device_arrays()["n_leaves"].to(
+                torch.float64)] + ([t.device_arrays()["t_f"][0].to(
+                    torch.float64)] if with_gains else [])) for t in want]
+            with obs.span("batched tree stats (device fetch)",
+                          phase="stop_check"):
+                vals = want[0].grower._read(torch.cat(parts))
+            at = 0
+            for t, p in zip(want, parts):
+                v = vals[at:at + p.numel()]
+                at += p.numel()
+                t._n_leaves_host = int(v[0])
+                host[id(t)] = np.asarray(v[1:], np.float64)
+        counts, gains = [], []
+        for t in trees:
+            if isinstance(t, PendingTree) and t._tree is None:
+                counts.append(int(t._n_leaves_host))
+                if with_gains:
+                    gains.append(host[id(t)][:max(counts[-1] - 1, 0)])
+            else:
+                counts.append(int(t.num_leaves))
+                if with_gains:
+                    gains.append(np.asarray(
+                        t.split_gain[:max(t.num_leaves - 1, 0)]))
+        return counts, gains
+
+    def _materialize_models(self) -> None:
+        """Swap the pending trees of ``models`` for host Trees: ONE read
+        for every pending tree not read yet (the JAX package's)."""
+        self._flush_persistent_queue()
+        pend = [t for t in self.models
+                if isinstance(t, PendingTree) and t._tree is None]
+        unread = [t for t in pend if t._ta is None and (
+            t.batch is None or t.batch._host is None)]
+        if unread:
+            batch = TreeArrayBatch(unread[0].grower,
+                                   [t.device_arrays() for t in unread])
+            for t, ta in zip(unread, batch.host()):
+                t.tree_arrays = ta
+        for i, t in enumerate(self.models):
+            if isinstance(t, PendingTree):
+                self.models[i] = t.materialize()
+
+    def _flush_persistent_queue(self) -> None:
+        """Run the queued persistent iterations: a full batch as
+        ``train_iters_persistent`` (its trees one TreeArrayBatch), a
+        partial one iteration by iteration (the JAX package's
+        _flush_persistent_queue). The sentinel checks that waited for
+        the queue are dispatched after."""
+        q = self._pq_trees
+        if not q:
+            return
+        fl = self._fused
+        if len(q) == self._iter_batch:
+            batch = fl.train_iters_persistent(
+                self._fused_state, self.shrinkage_rate, self._pq_masks)
+            for i, t in enumerate(q):
+                t.batch, t.index = batch, i
+        else:
+            for t, mask in zip(q, self._pq_masks):
+                t._dev = fl.train_iter(self._fused_state,
+                                       self.shrinkage_rate, mask=mask)
+        for t in q:
+            # run: the tree no longer refers back to this booster
+            t.resolver = None
+        self._pq_trees, self._pq_masks = [], []
+        deferred, self._sentinel_deferred = self._sentinel_deferred, []
+        for it, t in deferred:
+            self._sentinel_check_trees(
+                [t.device_arrays()["leaf_value"]], iteration=it,
+                defer=True)
+
     def _train_one_iter_persistent(self, init_score: float) -> bool:
         """One iteration of the persistent fused path: gradients, tree
-        growth and the score update on the learner's state."""
+        growth and the score update on the learner's state, with no
+        read. The tree is appended as a PendingTree (the JAX package's
+        _train_one_iter_persistent); with ``LGBM_TPU_ITER_BATCH`` K > 1
+        and no valid set the iteration is queued, and every K-th runs
+        the queue. Valid scores take the tree by ``traverse_bins`` on
+        the device."""
         if self._fused_state is None:
             # built AFTER _boost_from_average, so the state's score
             # already carries the init constant
             self._fused_state = self._fused.init_persistent_state(
                 self.get_training_score()[0])
-        ta = self._fused.train_iter(self._fused_state, self.shrinkage_rate)
+        if self._iter_batch > 1 and not self.valid_score:
+            pending = PendingTree(self._fused,
+                                  resolver=self._flush_persistent_queue)
+            self._pq_trees.append(pending)
+            self._pq_masks.append(self._fused.feature_masks_for_tree())
+            if self._sentinel is not None:
+                self._sentinel_deferred.append((self.iter, pending))
+            if len(self._pq_trees) >= self._iter_batch:
+                self._flush_persistent_queue()
+        else:
+            ta = self._fused.train_iter(self._fused_state,
+                                        self.shrinkage_rate)
+            pending = PendingTree(self._fused, ta)
+            if self.valid_score:
+                self._update_valid_scores_device(
+                    ta, ta["leaf_value"] * torch.tensor(
+                        self.shrinkage_rate, dtype=torch.float32))
+            self._sentinel_check_trees([ta["leaf_value"]], defer=True)
         self._score_dirty = True
-        tree = self._fused.materialize_tree(ta)
         # a single-leaf tree does not end training here: as in the JAX
         # package, training stops only at the periodic check, and the
         # trailing single-leaf iterations are trimmed (their leaf value
         # is 0; the first tree keeps the init score as its bias)
-        if self.valid_score:
-            vals = torch.as_tensor(
-                np.asarray(ta["leaf_value"], np.float32),
-                device=self.device) * torch.tensor(self.shrinkage_rate,
-                                                   dtype=torch.float32)
-            self._update_valid_scores(tree, vals, 0)
-        tree.apply_shrinkage(self.shrinkage_rate)
+        pending.apply_shrinkage(self.shrinkage_rate)
         if abs(init_score) > K_EPSILON:
-            tree.add_bias(init_score)
-        self.models.append(tree)
-        self._sentinel_check_trees(
-            [np.asarray(ta["leaf_value"], np.float32)], defer=True)
+            pending.add_bias(init_score)
+        self.models.append(pending)
         self.iter += 1
         return (self.iter % self._stop_check_every == 0
                 and self._periodic_stop_check(self.models[-1:]))
@@ -873,6 +1015,7 @@ class GBDT:
     def get_training_score(self) -> torch.Tensor:
         """[K, N] raw training scores in row order, on the device."""
         if self._score_dirty and self._fused_state is not None:
+            self._flush_persistent_queue()
             self.train_score.score = \
                 self._fused.sync_scores(self._fused_state)[None, :]
             self._score_dirty = False
@@ -925,7 +1068,9 @@ class GBDT:
         path saves its state's rowid and score planes instead of
         row-order scores, since its lane order is numeric state. The
         stop check in flight is drained first, and a positive verdict
-        saved as ``stop_pending``."""
+        saved as ``stop_pending``. Pending trees are materialized first
+        (the model text is saved beside this state)."""
+        self._materialize_models()
         self._drain_stop_check()
         k = self.num_tree_per_iteration
         st: Dict = {
@@ -973,6 +1118,9 @@ class GBDT:
         self._stop_pending = True if state.get("stop_pending") else None
         if self._sentinel is not None:
             self._sentinel.drop_pending()
+        # queued iterations belong to the timeline being replaced
+        self._pq_trees, self._pq_masks = [], []
+        self._sentinel_deferred = []
         self.models = parse_tree_blocks(model_text)
         # the text drops the bin-space fields that score surgery (DART,
         # rollback, quarantine) traverses with: re-link every tree
@@ -1118,6 +1266,7 @@ class GBDT:
     # prediction
     # ------------------------------------------------------------------
     def _used_models(self, start_iteration: int, num_iteration: int):
+        self._materialize_models()
         k = self.num_tree_per_iteration
         total = len(self.models) // k
         start = max(0, min(start_iteration, total))

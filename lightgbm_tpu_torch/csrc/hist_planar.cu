@@ -59,10 +59,17 @@
 // every element adds straight into the output by a global atomic.
 //
 // The window may be given as host ints or read from device memory (two
-// int32: start, count) so the tree learner can size a child's launch
-// by its parent's count without reading the child's count back: blocks
-// past the real count leave at once, and the reduce reads the tile count
-// from the device count.
+// int32: start, count) so the tree learner can launch a child's
+// histogram with a bound it holds on the host (half the rows, say)
+// without reading the child's count back. Then the float mode runs
+// hp_partials_dev: a grid of at most kSMs x kBlocksPerSM blocks that
+// walk the window's own (tile, column group, bin range) items, split
+// from the device count as a launch sized by that count would split
+// them (the columns per block re-derived from the window's own tiles,
+// so a small window still spreads over the card); warps past the
+// window's columns per block leave at once. The reduce reads the tile
+// count from the device count. Neither changes a sum: every (tile,
+// column, bin) cell is summed in row order whichever block takes it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,24 +131,16 @@ __device__ __forceinline__ void hp_load(const int32_t* __restrict__ cp,
   }
 }
 
-__global__ void __launch_bounds__(1024)
-hp_partials(const int32_t* __restrict__ data, long long R, Window win,
-            int num_cols, int num_bins, int code_bits, int grad_plane,
-            int cpb, int nbr, int round_bf16,
-            float2* __restrict__ partials) {
-  extern __shared__ float4 smem[];                 // [cpb][warp_bytes]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int f = blockIdx.y * cpb + warp;           // this warp's column
-  if (f >= num_cols) return;
-  const int count = win.count();
-  const int row0 = blockIdx.x * kTile;
-  if (row0 >= count) return;                       // past the window
+// one (tile, column, bin range) of the float mode: the tile's rows
+// folded in row order into this warp's shared cells, then written out
+__device__ __forceinline__ void hp_cell_block(
+    const int32_t* __restrict__ data, long long R, int start, int count,
+    int tile, int f, int b0, int num_cols, int num_bins, int code_bits,
+    int grad_plane, int nbr, int round_bf16, float2* col, unsigned* mask,
+    int lane, float2* __restrict__ partials) {
+  const int row0 = tile * kTile;
   const int rows = min(kTile, count - row0);
-  const int b0 = blockIdx.z * nbr;
   const int nb = min(nbr, num_bins - b0);
-  float2* col = reinterpret_cast<float2*>(
-      reinterpret_cast<char*>(smem) + (size_t)warp * lgbt::warp_bytes(nbr));
-  unsigned* mask = reinterpret_cast<unsigned*>(col + nbr);
   for (int i = lane; i < nb; i += 32) {
     col[i] = make_float2(0.f, 0.f);
     mask[i] = 0u;
@@ -150,7 +149,7 @@ hp_partials(const int32_t* __restrict__ data, long long R, Window win,
   const int bitpos = f * code_bits;
   const unsigned shift = (unsigned)(bitpos & 31);
   const unsigned cmask = (1u << code_bits) - 1u;   // code_bits <= 16
-  const long long base = (long long)win.start() + row0;
+  const long long base = (long long)start + row0;
   const int32_t* cp = data + (long long)(bitpos >> 5) * R + base;
   const int32_t* gp = data + (long long)grad_plane * R + base;
   const int32_t* hp = gp + R;
@@ -168,8 +167,65 @@ hp_partials(const int32_t* __restrict__ data, long long R, Window win,
     }
   }
   for (int i = lane; i < nb; i += 32) {
-    partials[((size_t)blockIdx.x * num_cols + f) * num_bins + b0 + i] =
-        col[i];
+    partials[((size_t)tile * num_cols + f) * num_bins + b0 + i] = col[i];
+  }
+}
+
+// host window: block (tile, column group, bin range) of the launch's grid
+__global__ void __launch_bounds__(1024)
+hp_partials(const int32_t* __restrict__ data, long long R, Window win,
+            int num_cols, int num_bins, int code_bits, int grad_plane,
+            int cpb, int nbr, int round_bf16,
+            float2* __restrict__ partials) {
+  extern __shared__ float4 smem[];                 // [cpb][warp_bytes]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int f = blockIdx.y * cpb + warp;           // this warp's column
+  if (f >= num_cols) return;
+  const int count = win.count();
+  if ((int)blockIdx.x * kTile >= count) return;    // past the window
+  float2* col = reinterpret_cast<float2*>(
+      reinterpret_cast<char*>(smem) + (size_t)warp * lgbt::warp_bytes(nbr));
+  hp_cell_block(data, R, win.start(), count, blockIdx.x, f,
+                blockIdx.z * nbr, num_cols, num_bins, code_bits, grad_plane,
+                nbr, round_bf16, col, reinterpret_cast<unsigned*>(col + nbr),
+                lane, partials);
+}
+
+// device window: a grid of a few hundred blocks walks the window's own
+// (tile, column group, bin range) items, which the block derives from
+// the device count as a launch sized by that count would split them
+// (columns per block re-derived from the window's tiles, at most
+// cpb), so a window far below the launch's bound pays for no grid of
+// empty blocks
+__global__ void __launch_bounds__(1024)
+hp_partials_dev(const int32_t* __restrict__ data, long long R, Window win,
+                int num_cols, int num_bins, int code_bits, int grad_plane,
+                int cpb, int nbr, int nranges, int grid_tiles,
+                int round_bf16, float2* __restrict__ partials) {
+  extern __shared__ float4 smem[];                 // [cpb][warp_bytes]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int count = win.count();
+  const int at = min(grid_tiles, count / kTile + (count % kTile != 0));
+  if (at <= 0) return;
+  const int cpb_e = (int)min(
+      (long long)cpb,
+      ceil_div((long long)num_cols * at * nranges, kSMs * kBlocksPerSM));
+  if (warp >= cpb_e) return;
+  const int ncol_e = (num_cols + cpb_e - 1) / cpb_e;
+  const int items = at * ncol_e * nranges;
+  const int start = win.start();
+  float2* col = reinterpret_cast<float2*>(
+      reinterpret_cast<char*>(smem) + (size_t)warp * lgbt::warp_bytes(nbr));
+  unsigned* mask = reinterpret_cast<unsigned*>(col + nbr);
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int tile = it % at;
+    const int rest = it / at;
+    const int f = (rest % ncol_e) * cpb_e + warp;  // this warp's column
+    if (f < num_cols) {
+      hp_cell_block(data, R, start, count, tile, f, (rest / ncol_e) * nbr,
+                    num_cols, num_bins, code_bits, grad_plane, nbr,
+                    round_bf16, col, mask, lane, partials);
+    }
   }
 }
 
@@ -302,14 +358,35 @@ int launch_float(const int32_t* data, long long R, Window win, int max_count,
         (long long)num_cols * grid_tiles * nranges, kSMs * kBlocksPerSM);
     const int cpb = (int)std::min<long long>(
         {32, num_cols, kSmemBudget / lgbt::warp_bytes(nbr), spread});
-    const int ncol = (int)ceil_div(num_cols, cpb);
-    if (ncol > 65535 || nranges > 65535) return (int)cudaErrorInvalidValue;
     const int smem = cpb * lgbt::warp_bytes(nbr);
-    cudaError_t e = allow_smem(hp_partials, smem);
-    if (e != cudaSuccess) return (int)e;
-    hp_partials<<<dim3(grid_tiles, ncol, nranges), 32 * cpb, smem, s>>>(
-        data, R, win, num_cols, num_bins, code_bits, grad_plane, cpb, nbr,
-        round_bf16, reinterpret_cast<float2*>(partials));
+    cudaError_t e;
+    if (win.count_p == nullptr) {
+      const int ncol = (int)ceil_div(num_cols, cpb);
+      if (ncol > 65535 || nranges > 65535) return (int)cudaErrorInvalidValue;
+      if ((e = allow_smem(hp_partials, smem)) != cudaSuccess) return (int)e;
+      hp_partials<<<dim3(grid_tiles, ncol, nranges), 32 * cpb, smem, s>>>(
+          data, R, win, num_cols, num_bins, code_bits, grad_plane, cpb, nbr,
+          round_bf16, reinterpret_cast<float2*>(partials));
+    } else {
+      // the most items any count up to max_count has, in at most
+      // kSMs * kBlocksPerSM blocks
+      long long items = 0;
+      for (long long at = 1; at <= grid_tiles; ++at) {
+        const long long ce = std::min<long long>(
+            cpb, ceil_div((long long)num_cols * at * nranges,
+                          kSMs * kBlocksPerSM));
+        items = std::max(items, at * ceil_div(num_cols, ce) * nranges);
+      }
+      if (items > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+      const int blocks = (int)std::min(items, kSMs * kBlocksPerSM);
+      if ((e = allow_smem(hp_partials_dev, smem)) != cudaSuccess) {
+        return (int)e;
+      }
+      hp_partials_dev<<<blocks, 32 * cpb, smem, s>>>(
+          data, R, win, num_cols, num_bins, code_bits, grad_plane, cpb, nbr,
+          nranges, grid_tiles, round_bf16,
+          reinterpret_cast<float2*>(partials));
+    }
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

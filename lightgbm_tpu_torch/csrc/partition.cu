@@ -39,8 +39,11 @@
 //          decoupled look-back over per-tile status words (aggregate,
 //          then inclusive prefix). The status words carry the call's
 //          epoch, so words of earlier calls read as "not ready" and no
-//          memset is needed per call; the block that draws the last
-//          ticket resets the ticket. Then plane by plane it copies the
+//          memset is needed per call. The epoch is a device word beside
+//          the ticket: every block reads it before it draws its ticket,
+//          and the block that draws the last ticket resets the ticket
+//          and advances the epoch, so a launch captured in a CUDA graph
+//          gets a fresh epoch on every replay. Then plane by plane it copies the
 //          tile's words into a [P, count] scratch: the lefts from the
 //          front at their final rank, the rights from the back in
 //          reverse order (nleft is not known until the last tile). The
@@ -53,6 +56,16 @@
 //          lanes at P = 128 still spreads over the card.
 //       2. part_copyback: data[:, start + i] takes the front word i for
 //          i < nleft, else the back word count - 1 - (i - nleft).
+//
+// Two entries. lgbt_partition takes the window as host ints and
+// chooses the route on the host. lgbt_partition_dev reads the window
+// (start, count) from device memory, so a learner can partition a leaf
+// whose window only the device knows (and a CUDA graph can replay the
+// launch): its launches are sized by a bound on the count that the
+// caller holds, all three kernels are enqueued, and each one checks the
+// route on the device and leaves at once when the other route applies;
+// part_tiles' blocks past the window's own tile and group count leave
+// before they draw a ticket.
 //
 // Integer only: the result is the same on every launch.
 
@@ -75,14 +88,14 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 
 static_assert(kItems * kWarps == 64, "one warp scans two counts a lane");
 
-bool part_is_small(long long P, long long count) {
+__host__ __device__ inline bool part_is_small(long long P, long long count) {
   return count * (P + 1) * 4 <= kSmallBytes;
 }
 
 // planes per block of part_tiles: all of them, unless the window has
 // too few tiles to spread over about kSpreadBlocks blocks; groups of at
 // least 8 planes
-int planes_per_group(int P, int ntiles) {
+__host__ __device__ inline int planes_per_group(int P, int ntiles) {
   long long want = (kSpreadBlocks + ntiles - 1) / ntiles;
   const long long most = (P + 7) / 8;
   if (want > most) want = most;
@@ -114,14 +127,27 @@ __device__ __forceinline__ unsigned lanes_below(int lane) {
   return (1u << lane) - 1u;
 }
 
+// the lane window: (start, count) in device memory, or host ints when
+// the pointer is null
+struct Window {
+  const int32_t* p;
+  int start_h;
+  int count_h;
+  __device__ int start() const { return p ? p[0] : start_h; }
+  __device__ int count() const { return p ? p[1] : count_h; }
+};
+
 __global__ void __launch_bounds__(kSmallThreads)
-part_small(int32_t* __restrict__ data, long long R, int P, int start,
-           int count, const int32_t* __restrict__ rscal,
+part_small(int32_t* __restrict__ data, long long R, int P, Window win,
+           int gate, const int32_t* __restrict__ rscal,
            int32_t* __restrict__ nleft) {
   extern __shared__ int32_t sbuf[];    // [P][count] words, then [count] ranks
   __shared__ int32_t rs[kRouteScalars];
   __shared__ int s_cnt[32];
   __shared__ int s_carry, s_next;
+  const int count = win.count();
+  if (gate && !part_is_small(P, count)) return;   // the tiles' window
+  const int start = win.start();
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   if (t < kRouteScalars) rs[t] = rscal[t];
   if (t == 0) s_carry = 0;
@@ -220,24 +246,49 @@ __device__ int look_back(const unsigned long long* st, int tile,
 }
 
 __global__ void __launch_bounds__(kThreads)
-part_tiles(const int32_t* __restrict__ data, long long R, int P, int start,
-           int count, const int32_t* __restrict__ rscal, int ntiles,
-           int groups, int pg, unsigned long long* __restrict__ status,
-           unsigned epoch, int32_t* __restrict__ scratch,
-           int32_t* __restrict__ nleft) {
+part_tiles(const int32_t* __restrict__ data, long long R, int P, Window win,
+           int gate, const int32_t* __restrict__ rscal,
+           unsigned long long* __restrict__ status,
+           int32_t* __restrict__ scratch, int32_t* __restrict__ nleft) {
   __shared__ int32_t rs[kRouteScalars];
   __shared__ int s_cnt[kItems * kWarps];  // item-major: k * kWarps + warp
   __shared__ int s_ticket, s_prefix;
+  __shared__ unsigned s_epoch;
+  const int count = win.count();
+  if (gate && part_is_small(P, count)) return;    // the one-block window
+  const int start = win.start();
+  const int ntiles = (count + kTile - 1) / kTile;
+  const int pg = planes_per_group(P, ntiles);
+  const int groups = (P + pg - 1) / pg;
+  // blocks past this window's own grid (a launch sized by a bound)
+  // leave before they draw a ticket, so the tickets drawn are exactly
+  // [0, ntiles * groups)
+  if ((long long)blockIdx.x >= (long long)ntiles * groups) return;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   if (t == 0) {
+    // word 0 of the status words: the ticket (low half) and the epoch
+    // (high half; 0 before the first launch reads as 1)
     unsigned* ticket = reinterpret_cast<unsigned*>(status);
+    volatile unsigned* epoch_w = ticket + 1;
+    const unsigned raw = *epoch_w;
+    const unsigned epoch = raw ? raw : 1u;
+    __threadfence();                   // the epoch is read before the draw
     const unsigned tk = atomicAdd(ticket, 1u);
-    // every block draws once: the last ticket's holder may reset it
-    if (tk == (unsigned)(ntiles * groups) - 1u) atomicExch(ticket, 0u);
+    // every block draws once: the last ticket's holder resets the ticket
+    // and advances the epoch for the next launch (every block of this
+    // one has read it already)
+    if (tk == (unsigned)(ntiles * groups) - 1u) {
+      atomicExch(ticket, 0u);
+      __threadfence();
+      atomicExch(const_cast<unsigned*>(epoch_w),
+                 epoch + 1u < 0x80000000u ? epoch + 1u : 1u);
+    }
     s_ticket = (int)tk;
+    s_epoch = epoch;
   }
   if (t < kRouteScalars) rs[t] = rscal[t];
   __syncthreads();
+  const unsigned epoch = s_epoch;
   const int tile = s_ticket / groups;
   const int g = s_ticket - tile * groups;
   unsigned long long* st = status + 1 + (size_t)g * ntiles;
@@ -319,9 +370,12 @@ part_tiles(const int32_t* __restrict__ data, long long R, int P, int start,
 }
 
 __global__ void part_copyback(const int32_t* __restrict__ scratch,
-                              int32_t* __restrict__ data, long long R,
-                              int start, int count,
+                              int32_t* __restrict__ data, long long R, int P,
+                              Window win, int gate,
                               const int32_t* __restrict__ nleft_p) {
+  const int count = win.count();
+  if (gate && part_is_small(P, count)) return;
+  const int start = win.start();
   const int nl = nleft_p[0];
   const int p = blockIdx.y;
   const int32_t* src = scratch + (long long)p * count;
@@ -330,6 +384,29 @@ __global__ void part_copyback(const int32_t* __restrict__ scratch,
        i += gridDim.x * blockDim.x) {
     dst[i] = src[i < nl ? i : count - 1 + nl - i];
   }
+}
+
+// the most blocks and status words a part_tiles launch needs for any
+// count up to `bound` (its tiles times plane groups, plus the ticket)
+long long dev_max_blocks(int P, int bound) {
+  const int tmax = (bound + kTile - 1) / kTile;
+  long long most = 1;
+  for (int t = 1; t <= tmax; ++t) {
+    const long long b = (long long)t * ((P + planes_per_group(P, t) - 1) /
+                                        planes_per_group(P, t));
+    if (b > most) most = b;
+  }
+  return most;
+}
+
+// the largest count that takes the one-block route at P planes
+long long small_cap(int P) { return kSmallBytes / (4LL * (P + 1)); }
+
+cudaError_t allow_small_smem(int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(part_small,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 }  // namespace
@@ -344,8 +421,8 @@ int lgbt_partition_small(int P, int count) {
   return part_is_small(P, count) ? 1 : 0;
 }
 
-// status words (uint64) the large route needs: the ticket, then one word
-// per (plane group, tile); 0 for a small window
+// status words (uint64) the large route needs: word 0 (the ticket and
+// the epoch), then one word per (plane group, tile); 0 for a small window
 long long lgbt_partition_status_words(int P, int count) {
   if (part_is_small(P, count)) return 0;
   const int ntiles = (count + kTile - 1) / kTile;
@@ -353,43 +430,81 @@ long long lgbt_partition_status_words(int P, int count) {
   return 1 + (long long)((P + pg - 1) / pg) * ntiles;
 }
 
+// status words of lgbt_partition_dev for counts up to `bound`; 0 when
+// every such count takes the one-block route
+long long lgbt_partition_dev_status_words(int P, int bound) {
+  if (part_is_small(P, bound)) return 0;
+  return 1 + dev_max_blocks(P, bound);
+}
+
 // scratch: [P * count] int32 and status: lgbt_partition_status_words
-// uint64 words (zero when first used; the ticket word stays 0 between
-// calls), both NULL for a small window; epoch: nonzero, below 2^31, and
-// new for every call that shares `status`. nleft: [1] int32.
+// uint64 words (zero when first made; word 0 keeps the ticket and the
+// epoch between calls, so calls that share `status` must be ordered on
+// one stream), both NULL for a small window. nleft: [1] int32.
 int lgbt_partition(int32_t* data, long long R, int P, int start, int count,
                    const int32_t* rscal, int32_t* scratch,
-                   unsigned long long* status, unsigned epoch,
-                   int32_t* nleft, void* stream) {
+                   unsigned long long* status, int32_t* nleft, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (P < 1 || count < 0) return (int)cudaErrorInvalidValue;
+  const Window win{nullptr, start, count};
   if (part_is_small(P, count)) {
     const int smem = (P + 1) * count * 4;
-    if (smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(part_small,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    part_small<<<1, kSmallThreads, smem, s>>>(data, R, P, start, count,
-                                              rscal, nleft);
+    if ((e = allow_small_smem(smem)) != cudaSuccess) return (int)e;
+    part_small<<<1, kSmallThreads, smem, s>>>(data, R, P, win, 0, rscal,
+                                              nleft);
     return (int)cudaGetLastError();
   }
-  if (scratch == nullptr || status == nullptr || epoch == 0u ||
-      epoch >= 0x80000000u) {
+  if (scratch == nullptr || status == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const int ntiles = (count + kTile - 1) / kTile;
   const int pg = planes_per_group(P, ntiles);
   const int groups = (P + pg - 1) / pg;
-  part_tiles<<<ntiles * groups, kThreads, 0, s>>>(
-      data, R, P, start, count, rscal, ntiles, groups, pg, status, epoch,
-      scratch, nleft);
+  part_tiles<<<ntiles * groups, kThreads, 0, s>>>(data, R, P, win, 0, rscal,
+                                                  status, scratch, nleft);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   int gx = (count + 1023) / 1024;
   if (gx > 2048) gx = 2048;
-  part_copyback<<<dim3(gx, P), 256, 0, s>>>(scratch, data, R, start, count,
+  part_copyback<<<dim3(gx, P), 256, 0, s>>>(scratch, data, R, P, win, 0,
+                                            nleft);
+  return (int)cudaGetLastError();
+}
+
+// The device-window entry: win = [2] int32 (start, count) in device
+// memory, count <= bound (the caller's bound, a host int). scratch:
+// [P * bound] int32 and status: lgbt_partition_dev_status_words(P, bound)
+// uint64 words (zero when first made; ordered on one stream), both may be
+// NULL when that is 0. Every launch is sized by `bound` alone, so the
+// host reads nothing of the window; the route is chosen on the device.
+int lgbt_partition_dev(int32_t* data, long long R, int P, const int32_t* win,
+                       int bound, const int32_t* rscal, int32_t* scratch,
+                       unsigned long long* status, int32_t* nleft,
+                       void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (P < 1 || bound < 0 || win == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Window w{win, 0, 0};
+  const long long cap = small_cap(P) < bound ? small_cap(P) : bound;
+  const int smem = (int)((P + 1) * cap * 4);
+  if ((e = allow_small_smem(smem)) != cudaSuccess) return (int)e;
+  part_small<<<1, kSmallThreads, smem, s>>>(data, R, P, w, 1, rscal, nleft);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (part_is_small(P, bound)) return (int)cudaSuccess;
+  if (scratch == nullptr || status == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  part_tiles<<<(unsigned)dev_max_blocks(P, bound), kThreads, 0, s>>>(
+      data, R, P, w, 1, rscal, status, scratch, nleft);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // a grid-stride copy: a few thousand blocks whatever the bound, so a
+  // small window does not pay for a grid of empty blocks
+  int gx = (bound + 1023) / 1024;
+  const int most = 4096 / P > 1 ? 4096 / P : 1;
+  if (gx > most) gx = most;
+  part_copyback<<<dim3(gx, P), 256, 0, s>>>(scratch, data, R, P, w, 1,
                                             nleft);
   return (int)cudaGetLastError();
 }

@@ -258,6 +258,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
         booster = Booster(params=params, train_set=train_set)
     if predictor is not None:
         gb = booster._gbdt
+        predictor._gbdt._materialize_models()
         gb.models = [copy_tree(t) for t in predictor._gbdt.models] \
             + gb.models
         gb.num_init_iteration = (len(predictor._gbdt.models)

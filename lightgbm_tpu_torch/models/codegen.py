@@ -63,6 +63,7 @@ def _tree_to_ifelse(tree: Tree, index: int) -> str:
 
 def model_to_cpp(gbdt) -> str:
     """Emit the full predictor (raw-score sum over trees)."""
+    gbdt._materialize_models()
     k = gbdt.num_tree_per_iteration
     parts = ["#include <cmath>", "#include <cstddef>", ""]
     for i, t in enumerate(gbdt.models):

@@ -56,7 +56,6 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_U = ctypes.c_uint
 _SIGNATURES = {
     "hist_planar": {
         "lgbt_hist_tile": ([], _I),
@@ -67,8 +66,10 @@ _SIGNATURES = {
         "lgbt_partition_tile": ([], _I),
         "lgbt_partition_small": ([_I, _I], _I),
         "lgbt_partition_status_words": ([_I, _I], _L),
-        "lgbt_partition": ([_P, _L, _I, _I, _I, _P, _P, _P, _U, _P, _P],
-                           _I),
+        "lgbt_partition_dev_status_words": ([_I, _I], _L),
+        "lgbt_partition": ([_P, _L, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+        "lgbt_partition_dev": ([_P, _L, _I, _P, _I, _P, _P, _P, _P, _P],
+                               _I),
     },
     "hist_rowmajor": {
         "lgbt_rm_tile": ([_I, _I, _I], _I),
@@ -90,9 +91,49 @@ _SIGNATURES = {
 }
 
 
+# launches whose kind only the device knows (B2's categorical route
+# under a device-side window): per (name, device) an int64 counter on the
+# device that the wrapper adds to on the stream; ``launch_counts`` folds
+# them into LAUNCHES with one read
+_DEVICE_COUNTS: Dict = {}
+
+
+def device_counter(name: str, device):
+    """The device-side launch counter of ``name`` on ``device``."""
+    import torch
+    key = (name, str(device))
+    if key not in _DEVICE_COUNTS:
+        _DEVICE_COUNTS[key] = torch.zeros(1, dtype=torch.int64,
+                                          device=device)
+    return _DEVICE_COUNTS[key]
+
+
+def add_launches(delta: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` to LAUNCHES: the wrappers' launches of a
+    captured CUDA graph, once per replay (a replay calls no wrapper)."""
+    for k, v in delta.items():
+        if v:
+            LAUNCHES[k] += v * times
+
+
+def launch_counts() -> Dict[str, int]:
+    """LAUNCHES with the device-side counters folded in (a read of each,
+    which is then zeroed)."""
+    if _DEVICE_COUNTS:
+        import torch
+        keys = list(_DEVICE_COUNTS)
+        vals = torch.cat([_DEVICE_COUNTS[k].cpu() for k in keys]).tolist()
+        for k, v in zip(keys, vals):
+            LAUNCHES[k[0]] += int(v)
+            _DEVICE_COUNTS[k].zero_()
+    return dict(LAUNCHES)
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for t in _DEVICE_COUNTS.values():
+        t.zero_()
 
 
 def _nvcc() -> str:

@@ -16,8 +16,11 @@ DataPartition::Split (reference data_partition.hpp:72) is
 ``partition``: ``partition_cuda`` (the hand-written CUDA kernel in
 csrc/partition.cu) for a tensor on the card, or its plain PyTorch
 version (``partition_plain``, a stable argsort of the window) for a
-tensor on the CPU. The routing decision per lane is
-``route_from_col32``.
+tensor on the CPU. ``partition_dev`` is the same partition of a window
+that lives on the device ([2] int32 start, count): the kernel reads it
+and chooses its route there, its launches sized by a bound the caller
+holds, so nothing is read back and a CUDA graph can replay it. The
+routing decision per lane is ``route_from_col32``.
 
 The wide-sparse layout adds ``mv_planes`` slot planes of row-wise flat
 codes (ops/multival.py) after the scalar planes; the partition moves
@@ -296,12 +299,17 @@ def route_from_col32(col32: torch.Tensor, rs: Sequence[int]) -> torch.Tensor:
 # the partition: plain version + CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-def partition_plain(data: torch.Tensor, layout: PlaneLayout, start: int,
-                    count: int, rscal: torch.Tensor):
+def partition_plain(data: torch.Tensor, layout: PlaneLayout, start,
+                    count, rscal: torch.Tensor):
     """Stable window partition in plain PyTorch (the port's oracle):
     the stable argsort of the JAX package's partition_ref over the
-    dynamic window [start, start+count). Updates ``data`` in place and
-    returns (data, nleft) with nleft a 0-d int32 tensor."""
+    dynamic window [start, start+count). ``start``/``count``: host ints,
+    or tensors that it reads (a window given as one [2] tensor passes
+    ``count=None``). Updates ``data`` in place and returns (data,
+    nleft) with nleft a 0-d int32 tensor."""
+    if count is None:
+        start, count = (int(v) for v in start.tolist())
+    start, count = int(start), int(count)
     rs = [int(v) for v in rscal.tolist()]
     win = data[:, start:start + count]
     go_left = route_from_col32(win[rs[0]], rs)
@@ -321,25 +329,59 @@ def partition_small(num_planes: int, count: int) -> bool:
 
 
 # per (device, stream), for the life of the process like the loaded
-# kernel libraries: the large route's status words and the epoch of the
-# last call that used them (csrc/partition.cu lgbt_partition)
+# kernel libraries: the large route's status words (csrc/partition.cu
+# lgbt_partition; word 0 keeps the ticket and the epoch on the device)
 _STATUS: dict = {}
 _STATUS_LOCK = threading.Lock()
 
 
 def _status_words(dev, stream: int, words: int):
     """The status buffer of ``stream`` holding at least ``words`` uint64
-    words, and a fresh epoch for this call. The buffer is zeroed once
-    when it is made (or grown); every call tags its words with a new
-    epoch, so no call needs a memset."""
+    words. The buffer is zeroed once when it is made (or grown); the
+    kernel advances the epoch in its word 0 at every launch, so no call
+    needs a memset."""
     key = (dev, stream)
     with _STATUS_LOCK:
-        buf, epoch = _STATUS.get(key, (None, 0))
-        if buf is None or buf.numel() < words or epoch + 1 >= 1 << 31:
+        buf = _STATUS.get(key)
+        if buf is None or buf.numel() < words:
             n = words if buf is None else max(words, 2 * buf.numel())
-            buf, epoch = torch.zeros(n, dtype=torch.int64, device=dev), 0
-        _STATUS[key] = (buf, epoch + 1)
-        return buf, epoch + 1
+            buf = torch.zeros(n, dtype=torch.int64, device=dev)
+        _STATUS[key] = buf
+        return buf
+
+
+def dev_status_words(num_planes: int, bound: int) -> int:
+    """The uint64 status words of ``partition_dev`` for windows of at
+    most ``bound`` lanes (csrc/partition.cu
+    lgbt_partition_dev_status_words): 0 when every such window takes the
+    one-block route, else word 0 plus the most (tile, plane group) words
+    any count up to the bound uses."""
+    if partition_small(num_planes, bound):
+        return 0
+    most = 1
+    for t in range(1, -(-bound // PART_TILE) + 1):
+        want = min(max(-(-264 // t), 1), -(-num_planes // 8))
+        pg = -(-num_planes // want)
+        most = max(most, t * -(-num_planes // pg))
+    return 1 + most
+
+
+class PartitionBuffers:
+    """The scratch and status words of ``partition_dev`` on one stream,
+    made once for windows of at most ``bound`` lanes (a learner holds
+    one): [P * bound] int32 scratch and zeroed status words, both None
+    when every window up to the bound takes the one-block route."""
+
+    def __init__(self, num_planes: int, bound: int, device) -> None:
+        self.bound = int(bound)
+        self.num_planes = int(num_planes)
+        words = dev_status_words(num_planes, bound)
+        self.scratch = self.status = None
+        if words:
+            self.scratch = torch.empty(num_planes * self.bound,
+                                       dtype=torch.int32, device=device)
+            self.status = torch.zeros(words, dtype=torch.int64,
+                                      device=device)
 
 
 def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
@@ -380,20 +422,95 @@ def partition_cuda(data: torch.Tensor, layout: PlaneLayout, start: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     nleft = torch.empty(1, dtype=torch.int32, device=dev)
     scratch = status = None
-    epoch = 0
     if not small:
         scratch = torch.empty(P * count, dtype=torch.int32, device=dev)
-        status, epoch = _status_words(
-            dev, stream, lib.lgbt_partition_status_words(P, count))
+        status = _status_words(dev, stream,
+                               lib.lgbt_partition_status_words(P, count))
     K.check(lib.lgbt_partition(
         data.data_ptr(), R, P, start, count, rscal.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        None if status is None else status.data_ptr(), epoch,
+        None if status is None else status.data_ptr(),
         nleft.data_ptr(), stream), "partition_cuda")
     K.LAUNCHES["partition"] += 1
     if cat:
         K.LAUNCHES["partition_cat"] += 1
     return data, nleft[0]
+
+
+def _check_win(data, win, rscal, bound: int) -> None:
+    P, R = data.shape
+    if not (torch.is_tensor(win) and win.dtype == torch.int32
+            and win.shape == (2,) and win.device == data.device):
+        raise ValueError("the window must be a [2] int32 tensor (start, "
+                         "count) on the state's device")
+    if not 0 <= bound <= R:
+        raise ValueError(f"bound {bound} outside [0, {R}]")
+    if (rscal.device != data.device or rscal.dtype != torch.int32
+            or rscal.shape != (ROUTE_SCALARS,) or not rscal.is_contiguous()):
+        raise ValueError("rscal must be a contiguous [19] int32 tensor on "
+                         "the state's device")
+
+
+def partition_dev_cuda(data: torch.Tensor, layout: PlaneLayout,
+                       win: torch.Tensor, rscal: torch.Tensor,
+                       bufs: PartitionBuffers,
+                       cat_count: Optional[torch.Tensor] = None):
+    """``partition_cuda`` of a window on the card: ``win`` is a [2]
+    int32 tensor (start, count) that the kernel reads, count <=
+    ``bufs.bound`` (the caller's bound; it sizes every launch). The
+    route (one block or tiles) is chosen on the device. No host read,
+    no allocation but nleft's, so the call can be captured in a CUDA
+    graph. ``cat_count``: a device counter that gains the routing
+    vector's is_cat flag (the categorical route's launches). Returns
+    (data, nleft) as ``partition_cuda``."""
+    P, R = data.shape
+    if not data.is_cuda:
+        raise ValueError("partition_dev_cuda launches a CUDA kernel: the "
+                         "state must be on the card")
+    if data.dtype != torch.int32 or not data.is_contiguous():
+        raise ValueError("partition_dev_cuda needs a contiguous int32 state")
+    _check_win(data, win, rscal, bufs.bound)
+    if bufs.num_planes != P:
+        raise ValueError(f"buffers for P={bufs.num_planes}, state has {P}")
+    lib = K.lib("partition")
+    words = lib.lgbt_partition_dev_status_words(P, bufs.bound)
+    have = 0 if bufs.status is None else bufs.status.numel()
+    if words != have:
+        raise RuntimeError(f"partition_dev_cuda: the kernel needs {words} "
+                           f"status words for P={P}, bound={bufs.bound}; "
+                           f"dev_status_words gave {have}")
+    dev = data.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nleft = torch.empty(1, dtype=torch.int32, device=dev)
+    win = win.contiguous()
+    K.check(lib.lgbt_partition_dev(
+        data.data_ptr(), R, P, win.data_ptr(), bufs.bound, rscal.data_ptr(),
+        None if bufs.scratch is None else bufs.scratch.data_ptr(),
+        None if bufs.status is None else bufs.status.data_ptr(),
+        nleft.data_ptr(), stream), "partition_dev_cuda")
+    K.LAUNCHES["partition"] += 1
+    if cat_count is not None:
+        cat_count.add_(rscal[10:11].to(torch.int64))
+    return data, nleft[0]
+
+
+def partition_dev(data: torch.Tensor, layout: PlaneLayout,
+                  win: torch.Tensor, rscal: torch.Tensor,
+                  bufs: PartitionBuffers,
+                  cat_count: Optional[torch.Tensor] = None):
+    """The stable window partition of a window held on the device:
+    ``partition_dev_cuda`` for a state on the card, ``partition_plain``
+    on the CPU (which reads the window: no sync there)."""
+    if data.is_cuda:
+        return partition_dev_cuda(data, layout, win, rscal, bufs, cat_count)
+    _check_win(data, win, rscal, bufs.bound)
+    start, count = (int(v) for v in win.tolist())
+    if not 0 <= start <= start + count <= data.shape[1] \
+            or count > bufs.bound:
+        raise ValueError(f"window [{start}, {start + count}) outside "
+                         f"[0, {data.shape[1]}) or beyond the bound "
+                         f"{bufs.bound}")
+    return partition_plain(data, layout, start, count, rscal)
 
 
 def partition(data: torch.Tensor, layout: PlaneLayout, start: int,

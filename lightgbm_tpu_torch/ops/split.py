@@ -89,6 +89,17 @@ class FeatureMeta:
                    tuple(int(i) for i, c in enumerate(is_categorical) if c),
                    bool(((nb > 2) & (mt != MISSING_NONE)).any()))
 
+    def cat_index(self) -> torch.Tensor:
+        """``cat_idx`` as an int64 tensor on the metadata's device, made
+        once (a copy to the card inside a captured CUDA graph is not
+        allowed)."""
+        t = self.__dict__.get("_cat_index")
+        if t is None:
+            t = torch.as_tensor(self.cat_idx, dtype=torch.int64,
+                                device=self.num_bin.device)
+            self.__dict__["_cat_index"] = t
+        return t
+
     def subset(self, idx: torch.Tensor, cat_idx: tuple) -> "FeatureMeta":
         """The metadata of the features ``idx``."""
         return FeatureMeta(self.num_bin[idx], self.missing_type[idx],
@@ -696,7 +707,7 @@ def merge_categorical(num: dict, hist, meta: FeatureMeta, cfg, sum_g, sum_h,
     ``cat_used_bin`` (zeros on numerical columns)."""
     f_total = hist.shape[-3]
     ci = meta.cat_idx
-    idx = torch.as_tensor(ci, dtype=torch.int64, device=hist.device)
+    idx = meta.cat_index().to(hist.device)
     every = len(ci) == f_total
     if every:
         cat = categorical_split_scan(hist, meta, cfg, sum_g, sum_h, num_data,

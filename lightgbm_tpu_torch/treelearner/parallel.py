@@ -113,7 +113,12 @@ class FusedDataParallelGrower(FusedSerialGrower):
     its own rows and keeps its own leaf windows; the histograms and the
     counts that decide the splits are summed over the ranks, so the tree
     is the same on every rank (the reference's SyncUpGlobalBestSplit,
-    :240, has nothing to do)."""
+    :240, has nothing to do). It runs the split steps eagerly on every
+    device (a collective cannot be captured in a CUDA graph): no read
+    per split, the reductions kept."""
+
+    # its reductions are collectives: the split steps run eagerly
+    _single_process = False
 
     def __init__(self, dataset: BinnedDataset, config: Config, objective,
                  device) -> None:
@@ -132,6 +137,11 @@ class FusedDataParallelGrower(FusedSerialGrower):
 
     def _psum_max(self, x: torch.Tensor) -> torch.Tensor:
         return network.pmax(x)
+
+    def _small_bound(self, n: int) -> int:
+        # the smaller child by the global counts may hold most of this
+        # rank's rows of the leaf
+        return n
 
     def _local_bins(self, edge: bool) -> np.ndarray:
         """This rank's [sr, G] bin rows; the short last shard padded with
@@ -279,9 +289,8 @@ class FusedDataParallelGrower(FusedSerialGrower):
                                 mv=None if mv is None else mv[:, perm_l])
         ta, _ = self._grow_tree(data, cnt, self.feature_masks_for_tree())
         del data
-        tree = self.materialize_tree(ta)
-        return ta, tree.leaf_index_binned(
-            self.bins_device(), self.feature_miss_bin, self._efb_dev)
+        return self.read_trees([ta])[0], self.traverse_bins(
+            ta, self.bins_device())
 
     grow_device = obs.instrument_kernel(grow_device, "fused",
                                         name="fused/grow_device")

@@ -289,13 +289,18 @@ def test_bag_traversal_matches_partition(kind):
     perm = torch.as_tensor(np.concatenate(
         [bag, np.setdiff1d(np.arange(n), bag)]))
     data = fl.bag_state(g, h, perm)
-    ta, (win, _) = fl._grow_tree(data, len(bag), fl.feature_masks_for_tree())
+    ta_dev, win = fl._grow_tree(data, len(bag),
+                                fl.feature_masks_for_tree())
+    ta = fl.read_trees([ta_dev])[0]
     assert ta["n_leaves"] > 2
     lanes = fl._lane_leaf(win, len(bag))
     rowids = data[fl.layout.rowid, :len(bag)].long()
     trav = fl.materialize_tree(ta).leaf_index_binned(
         fl.bins_device(), fl.feature_miss_bin, fl._efb_dev)
     np.testing.assert_array_equal(trav[rowids].numpy(), lanes.numpy())
+    # the device traversal of the tree's device arrays, every row
+    np.testing.assert_array_equal(
+        fl.traverse_bins(ta_dev, fl.bins_device()).numpy(), trav.numpy())
     # the bag's rows keep their lanes' row ids; every leaf has rows
     assert sorted(rowids.tolist()) == bag.tolist()
     assert int(win[1].sum()) == len(bag)

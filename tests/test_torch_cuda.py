@@ -216,6 +216,57 @@ def test_partition_routes_bit_exact(mv_planes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mv_planes", [0, 112], ids=["P16", "P128"])
+def test_partition_device_window_bit_exact(mv_planes):
+    """B2's device-window entry (the window a [2] tensor on the card,
+    the route chosen on the device, every launch sized by one bound)
+    equals the plain version bit for bit on both routes and at a zero
+    count, call after call on one set of buffers (the device epoch),
+    and inside a replayed CUDA graph."""
+    _need_card()
+    from lightgbm_tpu_torch.ops import cuda as K
+    lib = K.lib("partition")
+    for P in (16, 128):
+        for bound in (0, 395, 3012, 70_000, 2_000_000):
+            assert lib.lgbt_partition_dev_status_words(P, bound) == \
+                tplane.dev_status_words(P, bound), (P, bound)
+    n = 70_000
+    lay, data = _partition_state(n, mv_planes, seed=mv_planes + 1)
+    P = lay.num_planes
+    small = tplane.PART_SMALL_BYTES // (4 * (P + 1))
+    t = tplane.PART_TILE
+    windows = [(0, n), (11, small), (11, small + 1), (500, t - 1),
+               (500, t + 1), (7, 30 * t + 3), (1, 1), (9, 0)]
+    bufs = tplane.PartitionBuffers(P, n, "cuda")
+    dev, cpu = data.cuda(), data.clone()
+    routes = set()
+    for k, (start, count) in enumerate(windows * 2):
+        rs = tplane.route_scalars(lay, k % 28, 60 + 9 * k, k % 2,
+                                  miss_bin=7 * k)
+        routes.add(tplane.partition_small(P, count))
+        win = torch.tensor([start, count], dtype=torch.int32,
+                           device="cuda")
+        a, na = tplane.partition_dev_cuda(dev, lay, win, rs.cuda(), bufs)
+        b, nb = tplane.partition_plain(cpu, lay, start, count, rs)
+        assert int(na) == int(nb), (P, start, count)
+        assert torch.equal(a.cpu(), b), (P, start, count)
+    assert routes == {True, False}
+    # captured once, replayed over windows written into its input
+    win = torch.zeros(2, dtype=torch.int32, device="cuda")
+    rs = tplane.route_scalars(lay, 3, 100, 1, miss_bin=7).cuda()
+    tplane.partition_dev_cuda(dev, lay, win, rs, bufs)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        _, nl = tplane.partition_dev_cuda(dev, lay, win, rs, bufs)
+    for start, count in windows:
+        win.copy_(torch.tensor([start, count], dtype=torch.int32))
+        g.replay()
+        b, nb = tplane.partition_plain(cpu, lay, start, count, rs.cpu())
+        assert int(nl) == int(nb) and torch.equal(dev.cpu(), b), \
+            (P, start, count)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", RM_SHAPES, ids=_shape_id)
 def test_rowmajor_kernels_bit_exact_on_random_floats(shape):
     """B4 (float32 and bfloat16) and B7 on random, non-dyadic g/h: the
@@ -1159,10 +1210,11 @@ def test_full_telemetry_on_card(tmp_path):
                          ids=["plain", "monotone"])
 def test_split_step_makes_one_syncing_call(extra):
     """A steady iteration of the fused learner under CUDA sync debug
-    mode "warn": its syncing CUDA calls are its counted reads (one per
-    split and one for the tree) plus a few set-up calls of the
-    iteration, so one per split step. Indexing by a 0-d device tensor
-    (an implicit read) would add one call per index and split."""
+    mode "warn": no counted read (the split steps replay a captured
+    graph and the tree stays on the card), and at most a few syncing
+    calls (SYNC_STEADY_MAX) for the whole iteration, none per split.
+    Indexing by a 0-d device tensor (an implicit read) would add one
+    call per index and split."""
     import warnings
     _need_card()
     import lightgbm_tpu_torch as lgt
@@ -1173,8 +1225,9 @@ def test_split_step_makes_one_syncing_call(extra):
                      "verbose": -1, "device_type": "cuda", **extra},
                     lgt.Dataset(X, label=y.astype(float)))
     b.update()                      # the state built, the kernels loaded
+    b.update()                      # the split step captured
     learner = b._gbdt._fused
-    assert learner is not None
+    assert learner is not None and learner._graph is not None
     torch.cuda.synchronize()
     reads0 = learner.syncs
     with warnings.catch_warnings(record=True) as caught:
@@ -1186,6 +1239,40 @@ def test_split_step_makes_one_syncing_call(extra):
             torch.cuda.set_sync_debug_mode("default")
     calls = sum("synchroniz" in str(w.message).lower() for w in caught)
     reads = learner.syncs - reads0
-    splits = b._gbdt.models[-1].num_leaves - 1
-    assert splits > 30 and reads == splits + 1
-    assert reads <= calls <= reads + 16, (calls, reads, splits)
+    assert reads == 0 and calls <= SYNC_STEADY_MAX, (calls, reads)
+    assert b._gbdt.models[-1].num_leaves > 30
+
+
+SYNC_STEADY_MAX = 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {}, {"use_quantized_grad": True, "num_grad_quant_bins": 4},
+    {"categorical_feature": [5]}, {"max_depth": 4},
+    {"feature_fraction_bynode": 0.5}],
+    ids=["plain", "quantized", "categorical", "max_depth", "bynode"])
+def test_captured_step_equals_eager_loop(extra):
+    """The persistent iteration's captured split step and the eager
+    device loop train the same model text; the graph is captured once."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.compile import manager
+    rng = np.random.RandomState(8)
+    X = rng.randn(30_000, 6)
+    X[:, 5] = rng.randint(0, 20, 30_000)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + (X[:, 5] % 3) * 0.4
+         + 0.3 * rng.randn(30_000) > 0).astype(float)
+    texts = {}
+    for eager in (False, True):
+        b = lgt.Booster({"objective": "binary", "num_leaves": 31,
+                         "verbose": -1, "device_type": "cuda", **extra},
+                        lgt.Dataset(X, label=y))
+        b._gbdt._fused._eager_loop = eager
+        n0 = manager.snapshot().get("graph_captures", 0)
+        for _ in range(4):
+            b.update()
+        caps = manager.snapshot().get("graph_captures", 0) - n0
+        assert caps == (0 if eager else 1), (eager, caps)
+        texts[eager] = b.model_to_string()
+    assert texts[False] == texts[True]

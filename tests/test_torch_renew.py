@@ -157,15 +157,27 @@ def test_renew_leaf_outputs_bit_equal(objective, alpha, weighted):
 
 def test_refit_takes_no_blocking_read():
     """A quantile training on the fused learner takes the reads of an L2
-    training and no more: one per split and one per tree."""
+    training and no more: none in an iteration (the refit, like the
+    tree, stays on the device), one at the end of training (the last
+    tree's leaf count, for the trim of single-leaf iterations), and one
+    that materializes every tree."""
     X, y, _ = reg_data("regression")
     syncs = {}
     for objective in ("regression", "quantile"):
+        marks = []
+
+        def mark(env):
+            marks.append(env.model._gbdt._fused.syncs)
+        mark.before_iteration = True
         b = tlgb.train({"objective": objective, "num_leaves": 31,
                         "min_data_in_leaf": 5, "verbose": -1,
                         "device_type": "cpu"},
-                       tlgb.Dataset(X, label=y), num_boost_round=3)
+                       tlgb.Dataset(X, label=y), num_boost_round=3,
+                       callbacks=[mark])
         gb = b._gbdt
+        after = gb._fused.syncs
+        gb._materialize_models()
+        assert gb._fused.syncs == after + 1
         assert all(t.num_leaves == 31 for t in gb.models)
-        syncs[objective] = gb._fused.syncs
-    assert syncs["quantile"] == syncs["regression"] == 3 * 31
+        syncs[objective] = (marks, after)
+    assert syncs["quantile"] == syncs["regression"] == ([0, 0, 0], 1)
