@@ -50,10 +50,11 @@ Phases, each of which fails the run (no exception is caught):
      carries its label weights), timed per iteration with CUDA events;
      each held-out metric must beat its floor (0.8 x the label variance;
      the constant 0.9-quantile's and the constant median's loss).
-   - (l)-(n): the per-tree fused path (``grow_device``: a fresh planar
-     state per class tree from row-order gradients, the score update
-     through each row's leaf): (l) HIGGS-multiclass fused, the HIGGS
-     columns with 5 classes (the quintiles of (i)'s label), multiclass,
+   - (l)-(n): the per-tree fused path (``grow_device``: each class
+     tree's planar state built from row-order gradients into the
+     learner's one buffer, the split step captured from the second
+     tree, the score update through each row's leaf, no read): (l)
+     HIGGS-multiclass fused, the HIGGS columns with 5 classes (the quintiles of (i)'s label), multiclass,
      1 iteration (5 trees), B1 + B2, held-out multi_logloss below the
      constant predictor's ln 5; (m) the same data with multiclassova, 1
      iteration, held-out multi_error below the constant predictor's
@@ -227,7 +228,7 @@ Phases, each of which fails the run (no exception is caught):
 
 8. the split loop without reads, after phase 7, on phase 3's HIGGS
    dataset (no valid set):
-   - (ak) DEV_ITERS-iteration runs alternating the captured split step
+   - (ak) a pair of DEV_ITERS-iteration runs: the captured split step
      (the default on the card: the first tree eager, then one capture)
      and the eager device loop (the learner's ``_eager_loop``): equal
      model texts, the first two trees equal to phase 3's; s/iteration
@@ -247,8 +248,31 @@ Phases, each of which fails the run (no exception is caught):
    at a zero count, and timed beside the host-window entry at the root
    and at 16,384 lanes.
 
+9. the per-tree path without reads, after phase 8, on phase 3's HIGGS
+   dataset and (l)'s multiclass data (no valid set):
+   - (an) (l) multiclass (PT_MC_ITERS iterations of 5 trees, its eager
+     twin PT_MC_EAGER_ITERS), (o) bagging, (p) GOSS and (q) DART
+     (PT_ITERS each) through ``Booster.update()``, captured (the
+     default: the first tree eager, then one capture) and then eager
+     (``_eager_loop``): equal model texts; s/iteration of each,
+     captures and their seconds; the counted reads of every iteration
+     (0, and DART's one materialize) and of one more steady update with
+     its syncing CUDA calls by site (sync debug mode "warn"); one
+     profiled steady (l) iteration (B1 / B2 ms per iteration, card busy
+     share);
+   - (ao) forced splits (FORCED_SPLITS, --iters iterations) on the
+     persistent and the per-tree (bagging) learner, captured and eager:
+     no counted read, every tree's first three splits the forced ones,
+     equal model texts, the persistent one phase 3's (t);
+   - (ap) card == CPU at phase 4's sizes over PT_CASE_ITERS iterations
+     (the graph from the second tree): multiclass, multiclassova,
+     bagging, pos/neg bagging, GOSS (its first sampled round), DART,
+     RF, forced splits on the persistent and the bagging learner.
+
 ``--devloop-only`` runs phase 1, B1's and B2's phase-2 checks, the
-HIGGS path and phase 8, and prints no result.
+HIGGS path and phase 8, and prints no result; ``--pertree-only`` runs
+phase 1, B1's and B2's phase-2 checks, the HIGGS path, (l)'s data and
+phase 9, and prints no result. Each phase prints its seconds.
 ``--multi-gpu-only`` runs phase 1 and phase 3b alone (no AUC
 comparison) and prints no result; ``--robust-only`` runs phase 1 and
 phase 5 alone and prints no result; ``--obs-only`` runs phase 1, (ae)
@@ -1795,7 +1819,8 @@ def forced_path(args, ds, hX, hy, tmp, device="cuda"):
     """Path (t): the HIGGS shape on the persistent fused path with
     FORCED_SPLITS; every tree's first three splits must be the forced
     ones (B1 + B2 through the forced phase and the gain loop).
-    Returns (launches, held-out AUC)."""
+    Returns (launches, held-out AUC, the model text up to its trees'
+    end)."""
     name = "(t) HIGGS forced splits fused"
     params = {**HIGGS_PARAMS,
               "forcedsplits_filename": write_forced_splits(tmp)}
@@ -1814,7 +1839,7 @@ def forced_path(args, ds, hX, hy, tmp, device="cuda"):
             assert t.threshold[node] == mappers[f].bin_to_value(b)
     log(f"{name}: every tree's first three splits are the forced ones "
         f"(features 0, 1, 2 at bins {[s[2] for s in sched]})")
-    return got, auc
+    return got, auc, _trees_part(booster.model_to_string())
 
 
 def api_path(args, X, y, hX, hy, ds, straight_auc, tmp, device="cuda"):
@@ -2292,9 +2317,11 @@ def paths(args, report, wide, device="cuda"):
                 f"{iters} refits: " + ", ".join(
                     f"{r[0]:.3f}" for r in refits))
         log(f"{name}: {time.perf_counter() - t_path:.1f} s in all")
+    higgs["mc"] = mds               # phase 9 trains (l)'s data again
     got.update(bag_paths(args, ds, hX, hy, wide, device))
     with tempfile.TemporaryDirectory() as tmp:
-        got["t"], auc_t = forced_path(args, ds, hX, hy, tmp, device)
+        got["t"], auc_t, higgs["t_text"] = forced_path(args, ds, hX, hy,
+                                                       tmp, device)
         log(f"(t) HIGGS forced splits fused: held-out AUC {auc_t:.6f} "
             f"beside HIGGS fused's {aucs['higgs']:.6f} (diff "
             f"{auc_t - aucs['higgs']:+.6f})")
@@ -3741,7 +3768,7 @@ def flight_check(flight_dir, diagnosis):
 # phase 7: the pipelined loop, the split step's syncing calls, warm-up
 # ---------------------------------------------------------------------------
 
-PIPE_PAIRS = 3                     # (ah): alternating pairs
+PIPE_PAIRS = 2                     # (ah): alternating pairs
 PIPE_ITERS = 3                     # (ah): iterations of each run
 SYNC_CALLS_MAX = 2                 # (ah): syncing CUDA calls per steady
 #                                    iteration and train()'s end (1,539
@@ -3983,10 +4010,10 @@ def devloop_paths(args, base, device="cuda"):
         secs = [b_ - a for a, b_ in zip(marks, marks[1:])]
         return b, secs, caps, cap_s
 
-    # (ak): graph, eager, graph, eager
+    # (ak): graph, then eager
     K.reset_launches()
     texts, secs, caps = {}, {True: [], False: []}, {}
-    for eager in (False, True, False, True):
+    for eager in (False, True):
         b, sec, n_cap, cap_s = run(eager)
         texts.setdefault(eager, set()).add(obs_text(b.model_to_string()))
         assert b.model_to_string(num_iteration=2) == base["text"][2], \
@@ -4009,7 +4036,7 @@ def devloop_paths(args, base, device="cuda"):
             f"{median([x for s in steady for x in s]):.4f}")
     log(f"(ak) captures (count, s) per graph run "
         f"{json.dumps([(n, round(c, 4)) for n, c in caps[False]])}; "
-        f"model text equal in all four runs; launches "
+        f"model text equal in both runs; launches "
         f"{json.dumps({k: v for k, v in launches.items() if v})}")
 
     # counted reads and syncing calls per steady iteration, no valid set
@@ -4072,13 +4099,214 @@ def devloop_paths(args, base, device="cuda"):
             sb = lgt.train({**DEV_CASE_PARAMS, **extra, "device_type": dev},
                            lgt.Dataset(X, label=y),
                            num_boost_round=DEV_CASE_ITERS)
-            got[dev] = "\n".join(
-                ln for ln in sb.model_to_string().splitlines()
-                if not ln.startswith("[device_type"))
+            got[dev] = _plain_text(sb)
         assert len(set(got.values())) == 1, f"(am) {name}: card != CPU"
         log(f"(am) {name}: {PHASE4_ROWS} rows, {PHASE4_LEAVES} leaves, "
             f"{DEV_CASE_ITERS} iterations (the graph from the second): "
             f"model text card == CPU")
+    return launches
+
+
+# -- phase 9: the per-tree path without reads, its captured step, forced --
+PT_ITERS = 3                       # (an) (o)-(q): timed iterations per run
+PT_MC_ITERS = 2                    # (an) (l): captured run (5 trees each;
+PT_MC_EAGER_ITERS = 1              # the eager run, 1: ~10 s an iteration)
+PT_CASE_ITERS = 3                  # (ap): card == CPU at phase 4's sizes
+# (an): (key, name, params, data, counted reads per steady iteration:
+# DART's one materialize, as the JAX package's)
+PT_PATHS = [("l", "(l) HIGGS-multiclass", "mc", 0),
+            ("o", "(o) HIGGS bagging", "higgs", 0),
+            ("p", "(p) HIGGS GOSS", "higgs", 0),
+            ("q", "(q) HIGGS DART", "higgs", 1)]
+
+
+def _plain_text(booster, **kw):
+    """A model text without its ``device_type`` parameter line."""
+    return "\n".join(ln for ln in booster.model_to_string(**kw).splitlines()
+                     if not ln.startswith("[device_type"))
+
+
+def _trees_part(text):
+    """A model text up to its trees' end (no importances or parameters:
+    a Booster's echo of them differs from train()'s)."""
+    return text.split("end of trees")[0]
+
+
+def pertree_run(params, ds, iters, eager, depth, device="cuda",
+                sites=False):
+    """``iters`` timed ``Booster.update()`` calls of the per-tree path
+    (``eager``: the learner's ``_eager_loop``), the model text at
+    ``depth`` iterations (read then: DART's later iterations rescale
+    earlier trees), then, with ``sites``, one more update under CUDA
+    sync debug mode "warn" (``steady_sync_sites``). Returns (booster,
+    s per iteration, counted reads per iteration, captures, capture s,
+    model text, (reads, syncing call sites) of the extra update or
+    None)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.compile import manager
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    b = lgt.Booster({**params, "device_type": device}, ds)
+    fl = b._gbdt._fused
+    assert fl is not None and not b._gbdt._fused_persist, params
+    fl._eager_loop = eager
+    s0 = manager.snapshot()
+    secs, reads = [], []
+    for _ in range(iters):
+        sync()
+        t0, r0 = time.perf_counter(), fl.syncs
+        b.update()
+        sync()
+        secs.append(time.perf_counter() - t0)
+        reads.append(fl.syncs - r0)
+    s1 = manager.snapshot()
+    text = _plain_text(b, num_iteration=depth)
+    steady = steady_sync_sites(b, fl, device) if sites else None
+    return (b, secs, reads,
+            s1.get("graph_captures", 0) - s0.get("graph_captures", 0),
+            s1.get("graph_capture_s", 0) - s0.get("graph_capture_s", 0),
+            text, steady)
+
+
+def pertree_paths(args, base, device="cuda", tmp=None):
+    """Phase 9 on phase 3's HIGGS data and (l)'s multiclass data
+    (``base``, no valid set): (an) (l), (o), (p), (q) captured and
+    eager, one after the other (equal model texts; s/iteration,
+    captures and their seconds; counted reads and syncing calls of a
+    steady update by site; one profiled steady (l) iteration); (ao)
+    forced splits on the persistent and the per-tree learner (no
+    counted read, the persistent model phase 3's (t)); (ap) card == CPU
+    at phase 4's sizes. Returns the launches of (an) and (ao)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda as K
+    bag_params = {k: e for k, _, e, _ in BAG_PATHS}
+    data = {"higgs": base["ds"], "mc": base["mc"]}
+    launches = {}
+
+    def add_launches():
+        for key, v in K.launch_counts().items():
+            launches[key] = launches.get(key, 0) + v
+        K.reset_launches()
+
+    # (an): captured, then eager, per case
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for key, name, dkey, want in PT_PATHS:
+        t_case = time.perf_counter()
+        params = ({**MC_PARAMS, "objective": "multiclass"} if key == "l"
+                  else {**HIGGS_PARAMS, **bag_params[key]})
+        iters = PT_MC_ITERS if key == "l" else PT_ITERS
+        depth = PT_MC_EAGER_ITERS if key == "l" else iters
+        b, secs, reads, caps, cap_s, text, steady = pertree_run(
+            params, data[dkey], iters, False, depth, device, sites=True)
+        k = b._gbdt.num_tree_per_iteration
+        if key == "l" and device == "cuda":
+            t_prof = time.perf_counter()
+            profile_iteration(f"(an) {name} captured step", b,
+                              device_only=True)
+            log(f"(an) {name}: the profiled iteration took "
+                f"{time.perf_counter() - t_prof:.1f} s with the profiler")
+        eb, esecs, ereads, ecaps, _, etext, _ = pertree_run(
+            params, data[dkey], depth, True, depth, device)
+        add_launches()
+        assert text == etext, f"(an) {name}: captured and eager models differ"
+        assert reads == [want] * iters, (name, reads)
+        assert ereads == [want] * len(ereads), (name, ereads)
+        assert steady[0] == want, (name, steady)
+        if device == "cuda":
+            assert caps == 1 and ecaps == 0, (name, caps, ecaps)
+        log(f"(an) {name}, {k} tree(s) per iteration: s/iteration captured "
+            f"{json.dumps([round(x, 4) for x in secs])} (the first tree "
+            f"eager, the second captures: {caps} capture, {cap_s:.4f} s), "
+            f"eager device loop {json.dumps([round(x, 4) for x in esecs])}; "
+            f"counted reads per iteration {reads} / {ereads}; model text "
+            f"equal at depth {depth}")
+        log(f"(an) {name} steady update: {steady[0]} counted reads, "
+            f"{sum(steady[1].values())} syncing CUDA calls at "
+            f"{json.dumps(dict(steady[1]))}; the case "
+            f"{time.perf_counter() - t_case:.1f} s in all")
+        del b, eb
+
+    log(f"(an): {time.perf_counter() - t0:.1f} s")
+
+    # (ao): forced splits on the persistent and the per-tree learner
+    t0 = time.perf_counter()
+    forced = write_forced_splits(tmp)
+    for learner, extra in (("persistent", {}),
+                           ("per-tree (bagging)", bag_params["o"])):
+        params = {**HIGGS_PARAMS, **extra, "forcedsplits_filename": forced,
+                  "device_type": device}
+        texts, reads = {}, {}
+        for eager in (False, True):
+            b = lgt.Booster(dict(params), base["ds"])
+            fl = b._gbdt._fused
+            assert fl is not None and fl._forced_sched is not None
+            assert b._gbdt._fused_persist == (learner == "persistent")
+            fl._eager_loop = eager
+            r0 = fl.syncs
+            for _ in range(args.iters):
+                b.update()
+            reads[eager] = fl.syncs - r0
+            for t in b._gbdt.models:
+                assert list(t.split_feature[:3]) == [0, 1, 2], learner
+            texts[eager] = _plain_text(b)
+            del b, fl
+        add_launches()
+        assert reads == {False: 0, True: 0}, (learner, reads)
+        assert texts[False] == texts[True], \
+            f"(ao) {learner}: captured and eager models differ"
+        if learner == "persistent" and base.get("t_text") is not None:
+            assert _trees_part(texts[False]) == base["t_text"], \
+                "(ao): the persistent forced model differs from phase 3's (t)"
+        log(f"(ao) forced splits, {learner} learner, {args.iters} "
+            f"iterations: 0 counted reads (the forced phase's verdicts stay "
+            f"on the card), every tree's first three splits the forced "
+            f"ones, captured == eager model text"
+            + (", equal to phase 3's (t)" if learner == "persistent"
+               and base.get("t_text") is not None else ""))
+
+    log(f"(ao): {time.perf_counter() - t0:.1f} s")
+
+    # (ap): card == CPU at phase 4's sizes, PT_CASE_ITERS iterations (a
+    # third iteration over phase 4's: GOSS's first sampled round, a
+    # second pos/neg bag count, DART dropping a captured tree)
+    t0 = time.perf_counter()
+    n, m = PHASE4_ROWS, BAG_CASE_ROWS
+    X, y = make_higgs_like(n, 28, seed=3)
+    Xr, yr = make_higgs_reg_like(n, 28, seed=3)
+    y3 = np.digitize(yr, np.quantile(yr, [1 / 3, 2 / 3])).astype(np.float32)
+    bag = {"bagging_fraction": 0.7, "bagging_freq": 1}
+    cases = [
+        ("multiclass", {"objective": "multiclass", "num_class": 3}, Xr, y3),
+        ("multiclassova", {"objective": "multiclassova", "num_class": 3},
+         Xr, y3),
+        ("bagging", bag, X[:m], y[:m]),
+        ("pos/neg bagging", {"pos_bagging_fraction": 0.6,
+                             "neg_bagging_fraction": 0.8,
+                             "bagging_freq": 1}, X[:m], y[:m]),
+        ("GOSS", {"boosting": "goss", "learning_rate": 0.5}, X[:m], y[:m]),
+        ("DART", {"boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0},
+         X[:m], y[:m]),
+        ("RF", {"boosting": "rf", "bagging_fraction": 0.632,
+                "bagging_freq": 1, "feature_fraction": 0.8}, X[:m], y[:m]),
+        ("forced splits", {"forcedsplits_filename": forced}, X[:m], y[:m]),
+        ("forced splits bagging", {"forcedsplits_filename": forced, **bag},
+         X[:m], y[:m])]
+    for name, extra, xs, ys in cases:
+        got = {}
+        for dev in ("cuda", "cpu") if device == "cuda" else ("cpu",):
+            params = {"objective": "binary", "tpu_hist_dtype": "float32",
+                      "verbose": -1, "num_leaves": PHASE4_LEAVES,
+                      "device_type": dev, **extra}
+            b = lgt.train(params, lgt.Dataset(xs, label=ys),
+                          num_boost_round=PT_CASE_ITERS, verbose_eval=False)
+            assert b._gbdt._fused is not None, name
+            got[dev] = (_plain_text(b), b.predict(xs, raw_score=True))
+        (tg, pg), (tc, pc) = got.get("cuda", got["cpu"]), got["cpu"]
+        assert tg == tc and np.array_equal(pg, pc), f"(ap) {name}: card != CPU"
+        log(f"(ap) {name}: {len(ys)} rows, {PHASE4_LEAVES} leaves, "
+            f"{PT_CASE_ITERS} iterations (the graph from the second tree): "
+            f"model text and raw predictions card == CPU")
+    log(f"(ap): {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4281,6 +4509,8 @@ def profile_iteration(name, booster, device_only=False, fobj=None):
         booster.update(fobj=fobj)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the iteration's reads (reading its trees below takes more)
+    reads = learner.syncs - syncs0
     rows_ = _device_rows(prof)
     assert rows_, f"profile {name}: the profiler saw no device work"
     busy = sum(r[0] for r in rows_) / 1e6
@@ -4295,7 +4525,7 @@ def profile_iteration(name, booster, device_only=False, fobj=None):
     log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
         f"{sum(r[1] for r in rows_)} kernels, "
-        f"{learner.syncs - syncs0} host syncs, {tree.num_leaves} leaves")
+        f"{reads} host syncs, {tree.num_leaves} leaves")
     log(f"profile {name}: device ms by family " + json.dumps(
         {k: round(v, 3) for k, v in fam.items()}) + f"; histogram "
         f"kernel {fam['hist']:.3f} ms vs bytes bound {hb:.4f} ms "
@@ -4341,6 +4571,11 @@ def main() -> int:
                     "partition part), the HIGGS path and phase 8 (the "
                     "captured split step, iteration batching), and exit "
                     "without a result")
+    ap.add_argument("--pertree-only", action="store_true",
+                    help="build, then only B1's and B2's checks (phase 2's "
+                    "part), the HIGGS path, (l)'s data and phase 9 (the "
+                    "per-tree path captured, forced splits without reads), "
+                    "and exit without a result")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
     ap.add_argument("--profile-paths",
@@ -4392,6 +4627,17 @@ def main() -> int:
         higgs = higgs_base(args)
         devloop_paths(args, higgs)
         return 0     # prints no smoke result
+    if args.pertree_only:
+        check_hist(torch.device("cuda"), [])
+        check_partition(torch.device("cuda"), [])
+        higgs = higgs_base(args)
+        higgs["mc"] = mc_data(args.rows, 1000, "cuda")[0]
+        t9 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            pertree_paths(args, higgs, tmp=tmp)
+        log(f"phase 9: {time.perf_counter() - t9:.1f} s; all done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0     # prints no smoke result
     if args.obs_only:
         obs_higgs(args, [])
         with tempfile.TemporaryDirectory() as tmp:
@@ -4417,42 +4663,49 @@ def main() -> int:
     check_quant_planar(dev, report, args.rows)
     check_quant_multival(dev, report, codes, lay.total_bins)
     del codes
-    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
+    marks = [t_start]
+
+    def done(phase):
+        marks.append(time.perf_counter())
+        log(f"phase {phase} done at {marks[-1] - t_start:.1f} s "
+            f"({marks[-1] - marks[-2]:.1f} s)")
+    done("1-2")
     higgs_auc, higgs = paths(args, report, wide)
-    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    done(3)
     y_launches = multi_gpu_paths(args, higgs_auc)
     for r in report:
         if r["name"] in ("hist_planar", "partition"):
             r["launches"] += y_launches[r["name"]]
-    log(f"phase 3b done at {time.perf_counter() - t_start:.1f} s")
+    done("3b")
     with tempfile.TemporaryDirectory() as tmp:
         card_vs_cpu(write_forced_splits(tmp))
         api_card_vs_cpu(tmp)
-    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    done(4)
     robust_paths(args, report)
-    # phase 6 last: its profiler session and its implicit-sync probe
-    # leave no state behind that an earlier phase could trip on
-    t6 = time.perf_counter()
+    done(5)
+    # phase 6 after phase 5: its profiler session and its implicit-sync
+    # probe leave no state behind that an earlier phase could trip on
     obs_higgs(args, report, higgs)
-    log(f"phase 6 (ae) done at {time.perf_counter() - t_start:.1f} s "
-        f"({time.perf_counter() - t6:.1f} s)")
-    t7 = time.perf_counter()
+    done("6 (ae)")
     p7 = pipeline_paths(args, higgs)
     for r in report:
         if r["name"] in ("hist_planar", "partition"):
             r["launches"] += p7[r["name"]]
     with tempfile.TemporaryDirectory() as tmp:
         warmup_paths(args, tmp)
-    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s "
-        f"({time.perf_counter() - t7:.1f} s)")
-    t8 = time.perf_counter()
+    done(7)
     p8 = devloop_paths(args, higgs)
     for r in report:
         if r["name"] in ("hist_planar", "partition"):
             r["launches"] += p8[r["name"]]
+    done(8)
+    with tempfile.TemporaryDirectory() as tmp:
+        p9 = pertree_paths(args, higgs, tmp=tmp)
+    for r in report:
+        if r["name"] in ("hist_planar", "partition"):
+            r["launches"] += p9.get(r["name"], 0)
     del higgs
-    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s "
-        f"({time.perf_counter() - t8:.1f} s)")
+    done(9)
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -13,14 +13,16 @@ serial config is eligible for it, and data, voting and feature
 otherwise take the host-loop parallel learners
 (treelearner/parallel.py); every rank keeps the whole training score.
 
-Each iteration hands the learner's tree to the host right away, so
-``models`` holds plain host Trees. Objectives that grow K trees per
+The fused learner's trees stay on the device as ``PendingTree``s until
+a host consumer (save, predict, rollback, refit, checkpoint, DART's
+drop) asks, and ``_materialize_models`` then reads all of them at once;
+the host loop's are host Trees. Objectives that grow K trees per
 iteration (multiclass) or whose gradients come from outside the fused
 learner's program (custom objectives, ``cross_entropy_lambda``) take the
-per-tree fused path: one fresh planar state per class tree
-(``FusedSerialGrower.grow_device``) and the score update through each
-row's leaf. Quantized-gradient training (``use_quantized_grad``) runs on
-both learners.
+per-tree fused path: each class tree's planar state built into the
+learner's one state buffer (``FusedSerialGrower.grow_device``) and the
+score update through each row's leaf, with no read. Quantized-gradient
+training (``use_quantized_grad``) runs on both learners.
 
 Row sampling re-permutes the rows per iteration: bagging (numpy
 ``RandomState``, the JAX package's draws) and GOSS (its device-side
@@ -695,57 +697,47 @@ class GBDT:
         sent.poll_quant_tripwire()
         return sent.trips >= sent.max_trips
 
-    def _update_valid_scores(self, tree: Tree, vals: torch.Tensor,
-                             class_id: int) -> None:
-        """The fused learner's tree on the validation sets: each row's
-        leaf by bin-space traversal, plus the leaf values ``vals``."""
-        fl = self._fused
+    def _update_valid_scores_device(self, ta: Dict, vals: torch.Tensor,
+                                    class_id: int = 0) -> None:
+        """The fused learner's tree of class ``class_id``, still on the
+        device, on the validation sets: ``traverse_bins`` of its device
+        arrays (no read), plus the leaf values ``vals``."""
         for vs in self.valid_score:
-            leaf = tree.leaf_index_binned(vs.bins, fl.feature_miss_bin,
-                                          fl._efb_dev)
-            vs.score[class_id] += vals[leaf]
-
-    def _update_valid_scores_device(self, ta: Dict, vals: torch.Tensor
-                                    ) -> None:
-        """The persistent path's tree, still on the device, on the
-        validation sets: ``traverse_bins`` of its device arrays (no
-        read), plus the leaf values ``vals``."""
-        for vs in self.valid_score:
-            vs.score[0] += vals[self._fused.traverse_bins(ta, vs.bins)]
+            vs.score[class_id] += vals[self._fused.traverse_bins(ta,
+                                                                 vs.bins)]
 
     def _train_one_iter_fused(self, init_scores, grad, hess) -> bool:
         """The per-tree fused path (the JAX package's
-        _train_one_iter_fused): per class, ``grow_device`` on the class's
-        row-order gradients and the iteration's [bag | oob] permutation,
-        then score[c] += vals[leaf_of_row] with
-        vals = leaf value x shrinkage in float32 (``PendingTree.
-        leaf_values_device``), and the valid scores by bin-space
-        traversal. An iteration of single leaves does not end training
-        here: as in the JAX package, training stops only at the periodic
-        check (``_periodic_stop_check``), and the trailing single-leaf
+        _train_one_iter_fused), with no read: per class, ``grow_device``
+        on the class's row-order gradients and the iteration's
+        [bag | oob] permutation, its device tree appended as a
+        ``PendingTree``, then score[c] += vals[leaf_of_row] with
+        vals = leaf value x shrinkage + 0.0 in float32 (``PendingTree.
+        leaf_values_device`` before the bias: a -0.0 leaf value adds
+        +0.0, as in the JAX package), and the valid scores by
+        ``traverse_bins`` of the device tree. The sentinels take the
+        device leaf values, their verdicts deferred. An iteration of
+        single leaves does not end training here: as in the JAX package,
+        training stops only at the periodic check
+        (``_periodic_stop_check``), and the trailing single-leaf
         iterations are trimmed at the end (``trim_degenerate_tail``).
         Under row sampling a later bag may split again, so a single-leaf
         iteration inside the run stays in the model."""
         k = self.num_tree_per_iteration
         fl = self._fused
-        zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        shrink = torch.tensor(self.shrinkage_rate, dtype=torch.float32)
         leaf_values = []
         for c in range(k):
             ta, leaf_of_row = fl.grow_device(grad[c], hess[c], self._perm,
                                              self.bag_data_cnt)
-            leaf_values.append(np.asarray(ta["leaf_value"], np.float32))
-            tree = fl.materialize_tree(ta)
-            # + 0.0, as the JAX package adds its pending bias (a -0.0
-            # leaf value adds +0.0)
-            vals = torch.as_tensor(np.asarray(ta["leaf_value"], np.float32),
-                                   device=self.device) * shrink + zero
+            pending = PendingTree(fl, ta)
+            pending.apply_shrinkage(self.shrinkage_rate)
+            vals = pending.leaf_values_device()
             self.train_score.score[c] += vals[leaf_of_row]
-            self._update_valid_scores(tree, vals, c)
-            tree.apply_shrinkage(self.shrinkage_rate)
+            self._update_valid_scores_device(ta, vals, c)
             if abs(init_scores[c]) > K_EPSILON:
-                tree.add_bias(init_scores[c])
-            self.models.append(tree)
+                pending.add_bias(init_scores[c])
+            self.models.append(pending)
+            leaf_values.append(ta["leaf_value"])
         self._sentinel_check_trees(leaf_values, defer=True)
         self.iter += 1
         return (self.iter % self._stop_check_every == 0
@@ -1551,7 +1543,9 @@ class DART(GBDT):
     def _dropping_trees(self) -> None:
         """Draw the dropped iterations (the drop RNG consumed in loop
         order, up to ``max_drop``), subtract their trees from the
-        training score and set this iteration's shrinkage."""
+        training score and set this iteration's shrinkage. The pending
+        trees are materialized first, where the JAX package does (after
+        ``_normalize``'s read, none is left: no read here)."""
         cfg = self.config
         self.drop_index = []
         if self._drop_rng.rand() >= cfg.skip_drop:
@@ -1580,6 +1574,7 @@ class DART(GBDT):
                             break
         k = self.num_tree_per_iteration
         bins, miss, efb = self._score_tables()
+        self._materialize_models()
         for i in self.drop_index:
             for c in range(k):
                 t = self.models[i * k + c]
@@ -1598,11 +1593,13 @@ class DART(GBDT):
         valid scores, then -k times that the training score (the
         xgboost form: the shrinkage, then -k/learning_rate), each factor
         applied to the float64 leaf values in turn; then the tree
-        weights."""
+        weights. The iteration's pending trees are materialized first,
+        as the JAX package does: DART's one read per iteration."""
         cfg = self.config
         k_drop = float(len(self.drop_index))
         k = self.num_tree_per_iteration
         bins, miss, efb = self._score_tables()
+        self._materialize_models()
         for i in self.drop_index:
             for c in range(k):
                 t = self.models[i * k + c]

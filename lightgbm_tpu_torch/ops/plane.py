@@ -157,15 +157,27 @@ def build_data(layout: PlaneLayout, codes_planes: torch.Tensor,
                label: Optional[torch.Tensor] = None,
                score: Optional[torch.Tensor] = None,
                weight: Optional[torch.Tensor] = None,
-               mv: Optional[torch.Tensor] = None) -> torch.Tensor:
+               mv: Optional[torch.Tensor] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Assemble the [P, R] planar state on the device of
     ``codes_planes``. grad/hess/... are [n] f32 in lane order. ``mv``:
     [mv_planes, n] int32 slot-major row-wise codes when the layout
-    reserves slot planes; pad lanes get the -1 no-contribution code."""
+    reserves slot planes; pad lanes get the -1 no-contribution code.
+    ``out``: a [P, R] int32 tensor on that device to build the state
+    into (cleared first) instead of a new one, so that a state rebuilt
+    per tree keeps one address."""
     R = layout.num_lanes
     dev = codes_planes.device
     n = grad.shape[0]
-    data = torch.zeros((layout.num_planes, R), dtype=torch.int32, device=dev)
+    if out is None:
+        data = torch.zeros((layout.num_planes, R), dtype=torch.int32,
+                           device=dev)
+    else:
+        if (out.shape != (layout.num_planes, R) or out.dtype != torch.int32
+                or out.device != dev or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous [{layout.num_planes}"
+                             f", {R}] int32 tensor on {dev}")
+        data = out.zero_()
     data[:layout.code_planes] = codes_planes
     set_gh(data, layout, grad.to(dev), hess.to(dev))
     if rowid is None:

@@ -23,18 +23,17 @@ read: the tree lives in fixed [L] / [L-1] device tensors (the port's
 (``_split_step``) takes the best leaf by an argmax on the device,
 partitions its window through B2's device-window entry
 (``plane.partition_dev``) and launches the smaller child's histogram at
-a bound the host knows (half the rows). A tree runs num_leaves - 1
-steps; once no leaf can split, a step changes nothing (its window is
-empty and its writes go to trash slots). On the card, in one process,
-the persistent iteration captures one split step as a CUDA graph and
-replays it (``_replay_steps``, ``_graph_rule``); the first tree, the
-per-tree path and the data-parallel learner (its collectives cannot be
-captured) run the same step eagerly. The persistent iteration returns
-its tree as device tensors, which the booster keeps as a
-``PendingTree`` until a host consumer asks; ``read_trees`` brings any
-number of them back in one read. ``syncs`` counts the reads: none per
-persistent iteration, one per tree of the per-tree path, one per forced
-split.
+a bound the host knows (half the learner's rows). A tree runs
+num_leaves - 1 steps; once no leaf can split, a step changes nothing
+(its window is empty and its writes go to trash slots). On the card, in
+one process, the learner captures one split step as a CUDA graph and
+replays it (``_replay_steps``, ``_graph_rule``), on the persistent
+path and on the per-tree path alike; the first tree and the
+data-parallel learner (its collectives cannot be captured) run the same
+step eagerly. Every tree comes back as device tensors, which the
+booster keeps as a ``PendingTree`` until a host consumer asks;
+``read_trees`` brings any number of them back in one read. ``syncs``
+counts the reads: none per tree.
 
 Quantized-gradient training (``use_quantized_grad``, ops/quantize.py)
 quantizes the iteration's gradients with one threefry key per iteration
@@ -60,22 +59,26 @@ into the tree's inner and raw-category bitset pools.
 Objectives without in-state gradients (multiclass and OVA with K trees
 per iteration, cross_entropy_lambda, custom objectives) and the boosting
 modes with row sampling or score surgery (bagging, GOSS, RF, DART) take
-the per-tree path, ``grow_device``: each tree starts from a fresh state
-(the cached code planes, the tree's row-order grad / hess, row ids
-0..n-1) without label or score planes, and returns each row's leaf,
-read off the partitioned windows, for the booster's score update. Under
-row sampling the state is bag-ordered instead: once per tree the bin
-codes, grad / hess and slot planes are gathered by the [bag | oob]
-permutation and packed, the tree grows on the bag's lanes only, and
-every row's leaf (out-of-bag rows included) comes from bin-space
-traversal of the new tree.
+the per-tree path, ``grow_device``: each tree's state (the cached code
+planes, the tree's row-order grad / hess, row ids 0..n-1, without label
+or score planes) is built into one buffer the learner keeps, so the
+captured step finds every tree's state at one address, and the tree
+returns each row's leaf, read off the partitioned windows, for the
+booster's score update. Under row sampling the state is bag-ordered
+instead: once per tree the bin codes, grad / hess and slot planes are
+gathered by the [bag | oob] permutation and packed into that buffer,
+the tree grows on the bag's lanes only, and every row's leaf
+(out-of-bag rows included) comes from bin-space traversal of the new
+tree. The split steps' launches are bounded by the learner's rows, not
+the bag's, so one capture serves every bagging round.
 
 Forced splits (``forcedsplits_filename``) run first in every tree: a
 breadth-first schedule of (leaf slot, feature, threshold bin) built on
 the host once (``_forced_schedule``), each split's sums taken from its
 leaf's pooled histogram (``_forced_phase``), then the same partition,
-histogram and scans as a gain-driven split; the first skipped split
-ends the phase.
+histogram and scans as a gain-driven split. The first skipped split
+ends the phase through a device word (``alive``): it and every later
+forced step are no-op steps, with no read.
 
 The state is updated IN PLACE (partition, grad/hess and score writes);
 the JAX package keeps it immutable and donates it instead.
@@ -336,11 +339,13 @@ class FusedSerialGrower:
                                 if self._quant else None)
         # blocking host reads (device -> host) taken by the learner
         self.syncs = 0
-        # the fixed device state of one tree, B2's buffers, the captured
-        # split step and its memory pool (kept here, so they go with the
-        # learner), and the trees grown so far
+        # the fixed device state of one tree, B2's buffers, the per-tree
+        # path's planar state buffer, the captured split step and its
+        # memory pool (kept here, so they go with the learner), and the
+        # trees grown so far
         self._st = None
         self._part_bufs = None
+        self._tree_data = None
         self._graph = None
         self._graph_pool = None
         self._trees_grown = 0
@@ -385,22 +390,24 @@ class FusedSerialGrower:
                 queue.append((node["right"], right_slot))
         return sched or None
 
-    def _forced_phase(self, st, data, feature_mask, qscales, n: int
+    def _forced_phase(self, st, data, feature_mask, qscales, bound: int
                       ) -> None:
         """The forced splits of one tree, before the gain-driven loop
-        (the JAX package's ``forced_step``): each scheduled split's left
-        sums come from the pooled histogram of its leaf at the forced
-        feature, its children's outputs from ``_calc_output``, its gain
-        is 0.0 and its default direction right. One read per split
-        brings the verdict; the first split skipped (an empty side by
-        hessian mass, or an empty leaf) ends the phase, since the later
-        slots assumed it. The schedule holds at most num_leaves - 1
-        splits and each adds one leaf, so the JAX package's leaf-count
-        check always passes here."""
+        (the JAX package's ``forced_step`` scan): each scheduled split's
+        left sums come from the pooled histogram of its leaf at the
+        forced feature, its children's outputs from ``_calc_output``,
+        its gain is 0.0 and its default direction right. Its verdict
+        stays on the device: ``ok`` (both sides with hessian mass, a
+        leaf with rows, fewer than L leaves, and every earlier forced
+        split taken: ``st.alive``) is the step's ``cont``, so a skipped
+        split and every later one are no-op steps, since the later
+        slots assumed it. Every scheduled step runs (a fixed count, no
+        read)."""
         dev = self.device
         f32, i32, i64 = torch.float32, torch.int32, torch.int64
         eps = S.K_EPSILON
         cfg = self.split_cfg
+        L = self.num_leaves
         leaf_f, leaf_i = st.leaf_f, st.leaf_i
         for leaf, feat, thr in self._forced_sched:
             hist = st.pool[leaf, feat]                             # [B, 2]
@@ -425,13 +432,12 @@ class FusedSerialGrower:
                                lg, lh, out[0], rg, rh, out[1]])
             rec_i = torch.zeros(4 + plane.CAT_WORDS, dtype=i32, device=dev)
             rec_i[0], rec_i[1] = feat, thr
-            ok = (lh > 1e-9) & (rh > 1e-9) & (cnt > 0)
-            with obs.span("fused/forced split (read)", phase="split"):
-                ok, = self._read(ok.to(i64).reshape(1))
-            if not ok:
-                return
-            self._split_step(st, data, feature_mask, qscales, n, forced=(
-                torch.full((1,), leaf, dtype=i64, device=dev), rec, rec_i))
+            ok = (st.alive & (lh > 1e-9) & (rh > 1e-9)
+                  & (st.n_leaves < L) & (cnt > 0))
+            st.alive.copy_(ok)
+            self._split_step(st, data, feature_mask, qscales, bound, forced=(
+                torch.full((1,), leaf, dtype=i64, device=dev), rec, rec_i,
+                ok))
 
     # ------------------------------------------------------------------
     def _read(self, t: torch.Tensor) -> list:
@@ -610,8 +616,8 @@ class FusedSerialGrower:
         leaf_i [3, L+1] i32: window start, window count, global count;
         leaf_depth / leaf_parent [L+1]; t_f [3, L]: gain, value, weight;
         t_i [13, L]: count, then best_i's rows; t_left / t_right [L];
-        n_leaves / cont [1]; pool [L+1, F, B, 2] (None without a
-        histogram pool)."""
+        n_leaves / cont [1]; alive [1]: no forced split skipped yet;
+        pool [L+1, F, B, 2] (None without a histogram pool)."""
         if self._st is not None:
             return self._st
         L, F, B = self.num_leaves, self.num_features, self.max_num_bin
@@ -631,6 +637,7 @@ class FusedSerialGrower:
             t_right=torch.zeros(L, dtype=i32, device=dev),
             n_leaves=torch.zeros(1, dtype=torch.int64, device=dev),
             cont=torch.zeros(1, dtype=torch.bool, device=dev),
+            alive=torch.zeros(1, dtype=torch.bool, device=dev),
             pool=(torch.zeros((L + 1, F, B, 2),
                               dtype=i32 if self._quant else f32, device=dev)
                   if self._use_hist_pool else None))
@@ -645,17 +652,18 @@ class FusedSerialGrower:
         return self._part_bufs
 
     def _split_step(self, st, data: torch.Tensor, feature_mask, qscales,
-                    n: int, forced=None) -> None:
+                    bound: int, forced=None) -> None:
         """One split step on the device, with no host read (the JAX
         package's ``cond`` + ``body``): take the best leaf (argmax of the
         gains, masked by depth), ``cont`` = fewer than L leaves and a
         positive gain, partition its window in place (B2 on the device
-        window), histogram the smaller child (B1 / B5, launched at a
-        bound of the rows the host knows), subtract for the larger one,
-        scan both children and do the bookkeeping. Once ``cont`` is
+        window), histogram the smaller child (B1 / B5, launched at the
+        host's ``bound`` on the tree's rows), subtract for the larger
+        one, scan both children and do the bookkeeping. Once ``cont`` is
         false the step changes nothing: its window has count 0 and its
-        writes go to the trash slots. ``forced``: (leaf [1] int64, rec,
-        rec_i) of a forced split, applied as is."""
+        writes go to the trash slots.
+        ``forced``: (leaf [1] int64, rec, rec_i, ok [1] bool) of a
+        forced split, applied as is when ``ok`` holds."""
         L = self.num_leaves
         F = self.num_features
         dev = self.device
@@ -673,8 +681,7 @@ class FusedSerialGrower:
             rec = st.best_f.index_select(1, best)[:, 0]
             rec_i = st.best_i.index_select(1, best)[:, 0]
         else:
-            best, rec, rec_i = forced
-            cont = st.n_leaves < L
+            best, rec, rec_i, cont = forced
         st.cont.copy_(cont)
         trash = torch.full_like(best, L)
         leaf_w = torch.where(cont, best, trash)           # write slots
@@ -732,7 +739,7 @@ class FusedSerialGrower:
         s_start = start + torch.where(left_smaller, 0, nleft)
         s_count = torch.where(left_smaller, nleft, nright)
         hist_small = self._psum(self._leaf_hist(
-            data, s_start, s_count, max_count=self._small_bound(n)))
+            data, s_start, s_count, max_count=self._small_bound(bound)))
 
         # --- children bookkeeping ---
         if self.use_monotone:
@@ -762,7 +769,7 @@ class FusedSerialGrower:
         else:
             hist_large = self._psum(self._leaf_hist(
                 data, start + torch.where(left_smaller, nleft, 0),
-                torch.where(left_smaller, nright, nleft), max_count=n))
+                torch.where(left_smaller, nright, nleft), max_count=bound))
         hist_left = torch.where(left_smaller, hist_small, hist_large)
         hist_right = torch.where(left_smaller, hist_large, hist_small)
         hists = torch.stack([hist_left, hist_right])
@@ -816,6 +823,7 @@ class FusedSerialGrower:
         st.t_left.zero_()
         st.t_right.zero_()
         st.n_leaves.fill_(1)
+        st.alive.fill_(True)
         if st.pool is not None:
             st.pool[0] = root_hist
 
@@ -864,13 +872,18 @@ class FusedSerialGrower:
         self._part_buffers()
         self._reset_tree(st, n, n_g, sum_g, sum_h, root_hist, rf, ri)
 
+        # the split steps' launch bound: the learner's rows, which bound
+        # every tree's (a bag's included), so one captured step serves
+        # every tree and bagging round; it sizes launches only (the
+        # kernels read each window's count on the device)
+        bound = self.actual_rows
         if self._forced_sched is not None:
-            self._forced_phase(st, data, feature_mask, qscales, n)
+            self._forced_phase(st, data, feature_mask, qscales, bound)
         if graph:
-            self._replay_steps(st, data, feature_mask, qscales, n)
+            self._replay_steps(st, data, feature_mask, qscales, bound)
         else:
             for _ in range(L - 1):
-                self._split_step(st, data, feature_mask, qscales, n)
+                self._split_step(st, data, feature_mask, qscales, bound)
                 if not data.is_cuda and not bool(st.cont):
                     # on the CPU the flag is a host value (no sync): the
                     # steps after the stop would change nothing
@@ -899,20 +912,24 @@ class FusedSerialGrower:
         return ta, leaf_i.clone()
 
     # -- the captured split step (CUDA graph) ----------------------------
-    def _graph_signature(self, data: torch.Tensor, n: int, bynode: bool):
+    def _graph_signature(self, data: torch.Tensor, bound: int,
+                         bynode: bool):
         """The key of a captured split step, as the JAX package keys its
         programs (``_compile_signature``): the layout (P, R), F and B, L,
         the option set (quantized, categorical, monotone, bynode,
-        max_depth, histogram pool), the rows and the state's address (the
-        graph reads the state where it was captured)."""
+        max_depth, histogram pool), the launches' row bound (the
+        learner's rows: not the tree's, which change per bagging round)
+        and the state's address (the graph reads the state where it was
+        captured: the persistent state, or the per-tree path's one
+        buffer)."""
         P, R = data.shape
         return (P, R, self.num_features, self.max_num_bin, self.num_leaves,
                 self._quant, self.any_categorical, self.use_monotone,
-                bynode, self.config.max_depth, self._use_hist_pool, n,
+                bynode, self.config.max_depth, self._use_hist_pool, bound,
                 data.data_ptr())
 
     def _replay_steps(self, st, data: torch.Tensor, feature_mask, qscales,
-                      n: int) -> None:
+                      bound: int) -> None:
         """The tree's L - 1 split steps as replays of one captured step.
         The step is captured once per signature (counted with its seconds
         under ``compile.graph_captures`` / ``graph_capture_s``); its
@@ -924,7 +941,7 @@ class FusedSerialGrower:
         from ..compile import manager
         L = self.num_leaves
         bynode = feature_mask.dim() == 2
-        key = self._graph_signature(data, n, bynode)
+        key = self._graph_signature(data, bound, bynode)
         g = self._graph
         if g is None or g["key"] != key:
             self._graph = None
@@ -942,7 +959,7 @@ class FusedSerialGrower:
                     self._split_step(
                         st, data, mask_buf,
                         None if qs_buf is None else (qs_buf[0], qs_buf[1]),
-                        n)
+                        bound)
             delta = {k: v - before[k] for k, v in K.LAUNCHES.items()}
             K.LAUNCHES.update(before)       # the capture launched nothing
             manager.count("graph_captures")
@@ -958,8 +975,8 @@ class FusedSerialGrower:
         K.add_launches(g["launches"], L - 1)
 
     def _graph_rule(self, data: torch.Tensor) -> bool:
-        """Whether the persistent iteration replays the captured split
-        step: on the card, in one process (a collective of the
+        """Whether a tree (persistent or per-tree) replays the captured
+        split step: on the card, in one process (a collective of the
         data-parallel learner cannot be captured), once the learner has
         grown one tree eagerly (kernels loaded, allocator warm), and
         unless ``_eager_loop`` is set (the tests and chip_smoke hold the
@@ -1300,56 +1317,72 @@ class FusedSerialGrower:
         return self._bins_dev
 
     # -- per-tree mode -------------------------------------------------
+    def _state_buffer(self) -> torch.Tensor:
+        """The per-tree path's [P, R] int32 planar state, allocated once:
+        each tree's state is built into it (``plane.build_data`` with
+        ``out``), so the captured split step reads every tree's state
+        at one address."""
+        if self._tree_data is None:
+            Ly = self.layout
+            self._tree_data = torch.empty((Ly.num_planes, Ly.num_lanes),
+                                          dtype=torch.int32,
+                                          device=self.device)
+        return self._tree_data
+
     def bag_state(self, grad: torch.Tensor, hess: torch.Tensor,
                   perm: torch.Tensor) -> torch.Tensor:
         """The bag-ordered planar state of one tree (the JAX package's
-        grow_device bagging branch): the row-major codes, grad / hess
-        and slot planes gathered by ``perm`` ([bag | oob]) and packed,
-        with ``perm`` as the row ids. One gather per tree, not per
-        split."""
+        grow_device bagging branch), in the learner's state buffer: the
+        row-major codes, grad / hess and slot planes gathered by
+        ``perm`` ([bag | oob]) and packed, with ``perm`` as the row ids.
+        One gather per tree, not per split."""
         bins = self.bins_device()
         cp = plane.build_codes_planes(bins[perm], self.layout)
         mv = self.mv_planes()
         return plane.build_data(
             self.layout, cp, grad[perm].to(torch.float32),
             hess[perm].to(torch.float32), rowid=perm,
-            mv=None if mv is None else mv[:, perm])
+            mv=None if mv is None else mv[:, perm],
+            out=self._state_buffer())
 
     def grow_device(self, grad: torch.Tensor, hess: torch.Tensor,
                     perm: Optional[torch.Tensor] = None,
                     bag_cnt: Optional[int] = None):
         """One tree from row-order gradients (the JAX package's
-        grow_device). Returns the tree arrays (host numpy, leaf values
-        before shrinkage; the tree's one read) and leaf_of_row [n] int64
-        on the device. It runs the eager device loop: each tree has a
-        state of its own.
+        grow_device), with no read. Returns the tree arrays as DEVICE
+        tensors (``_grow_tree``'s dict, leaf values before shrinkage;
+        the booster keeps them as a ``PendingTree``) and leaf_of_row [n]
+        int64 on the device. On the card the tree replays the captured
+        split step from the learner's second tree on (``_graph_rule``):
+        its state is built into the learner's one state buffer.
 
-        Unbagged (``_score_from_partition``): a fresh planar state from
-        the cached code planes, grad / hess [n] float32 in row order,
-        row ids 0..n-1 and the slot planes; each row's leaf is its
-        lane's leaf scattered back to row order through the row-id
-        plane. Under row sampling: the bag-ordered state of
-        ``bag_state``, the tree grown on lanes [0, bag_cnt) (root sums
-        from the bag's histogram), and every row's leaf, out-of-bag
-        rows included, by bin-space traversal of the new tree over the
-        full codes."""
+        Unbagged (``_score_from_partition``): the state from the cached
+        code planes, grad / hess [n] float32 in row order, row ids
+        0..n-1 and the slot planes; each row's leaf is its lane's leaf
+        scattered back to row order through the row-id plane. Under row
+        sampling: the bag-ordered state of ``bag_state``, the tree grown
+        on lanes [0, bag_cnt) (root sums from the bag's histogram), and
+        every row's leaf, out-of-bag rows included, by bin-space
+        traversal of the new tree over the full codes."""
         n = self.actual_rows
         masks = self.feature_masks_for_tree()
         if not self._score_from_partition:
             data = self.bag_state(grad, hess, perm)
-            ta, _ = self._grow_tree(data, int(bag_cnt), masks)
-            del data
-            # the per-tree path's one read of its tree
-            ta_host = self.read_trees([ta])[0]
-            return ta_host, self.traverse_bins(ta, self.bins_device())
+            ta, _ = self._grow_tree(data, int(bag_cnt), masks,
+                                    graph=self._graph_rule(data))
+            self._trees_grown += 1
+            return ta, self.traverse_bins(ta, self.bins_device())
         cp = self.codes_planes()
         data = plane.build_data(self.layout, cp, grad.to(torch.float32),
-                                hess.to(torch.float32), mv=self._mv_dev)
-        ta, win = self._grow_tree(data, n, masks)
+                                hess.to(torch.float32), mv=self._mv_dev,
+                                out=self._state_buffer())
+        ta, win = self._grow_tree(data, n, masks,
+                                  graph=self._graph_rule(data))
+        self._trees_grown += 1
         rowids = data[self.layout.rowid, :n].long()
         leaf_of_row = torch.empty(n, dtype=torch.int64, device=self.device)
         leaf_of_row[rowids] = self._lane_leaf(win, n)
-        return self.read_trees([ta])[0], leaf_of_row
+        return ta, leaf_of_row
 
     grow_device = obs.instrument_kernel(grow_device, "fused",
                                         name="fused/grow_device")

@@ -267,10 +267,13 @@ class FusedDataParallelGrower(FusedSerialGrower):
                     bag_cnt: Optional[int] = None):
         """One tree from row-order gradients (the JAX package's sharded
         grow_device): this rank's bag-ordered state (its local
-        permutation, bag rows first), the tree grown over the rank's bag
-        lanes with the reductions, and every row's leaf by bin-space
-        traversal of the new tree (every rank holds every row, so no
-        gather)."""
+        permutation, bag rows first) in the learner's state buffer, the
+        tree grown over the rank's bag lanes with the reductions (the
+        eager device loop: ``_graph_rule`` keeps a collective off the
+        graph), and every row's leaf by bin-space traversal of the new
+        tree (every rank holds every row, so no gather). Returns the
+        device tree arrays and leaf_of_row, as the one-device
+        learner's."""
         dev = self.device
         sr, lo, nv = self.shard_rows, self._lo, self.n_valid
         n = self.global_rows
@@ -286,11 +289,12 @@ class FusedDataParallelGrower(FusedSerialGrower):
         mv = self.mv_planes()
         data = plane.build_data(self.layout, cp, local(grad), local(hess),
                                 rowid=perm_l,
-                                mv=None if mv is None else mv[:, perm_l])
-        ta, _ = self._grow_tree(data, cnt, self.feature_masks_for_tree())
-        del data
-        return self.read_trees([ta])[0], self.traverse_bins(
-            ta, self.bins_device())
+                                mv=None if mv is None else mv[:, perm_l],
+                                out=self._state_buffer())
+        ta, _ = self._grow_tree(data, cnt, self.feature_masks_for_tree(),
+                                graph=self._graph_rule(data))
+        self._trees_grown += 1
+        return ta, self.traverse_bins(ta, self.bins_device())
 
     grow_device = obs.instrument_kernel(grow_device, "fused",
                                         name="fused/grow_device")

@@ -747,7 +747,7 @@ def _grow_device_pair(X, y, params, wide=False, bag=None):
         fl = FusedSerialGrower(ds, cfg, None, dev)
         ta, leaf = fl.grow_device(g.to(dev), h.to(dev),
                                   None if perm is None else perm.to(dev), cnt)
-        out.append((fl, ta, leaf.cpu()))
+        out.append((fl, fl.read_trees([ta])[0], leaf.cpu()))
     return out
 
 
@@ -1276,3 +1276,83 @@ def test_captured_step_equals_eager_loop(extra):
         assert caps == (0 if eager else 1), (eager, caps)
         texts[eager] = b.model_to_string()
     assert texts[False] == texts[True]
+
+
+def _per_tree_case(case, tmp_path):
+    """(X, y, params) of a per-tree card case: 30,000 rows, 31 leaves."""
+    import json
+    rng = np.random.RandomState(9)
+    X = rng.randn(30_000, 6)
+    s = X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.randn(30_000)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              "device_type": "cuda"}
+    if case == "multiclass":
+        y = np.digitize(s, np.quantile(s, [1 / 3, 2 / 3])).astype(float)
+        params.update(objective="multiclass", num_class=3)
+        return X, y, params
+    params.update(bagging_fraction=0.8, bagging_freq=1)
+    if case == "pos_neg_bagging":
+        params.update(pos_bagging_fraction=0.6, neg_bagging_fraction=0.8)
+        del params["bagging_fraction"]
+    if case == "forced":
+        path = str(tmp_path / "forced.json")
+        with open(path, "w") as fh:
+            # the left child (x0 <= 0) forced on x0 at 1.0 has an empty
+            # right side: skipped, and the right child's split with it
+            json.dump({"feature": 0, "threshold": 0.0,
+                       "left": {"feature": 0, "threshold": 1.0},
+                       "right": {"feature": 1, "threshold": 0.0}}, fh)
+        params["forcedsplits_filename"] = path
+    return X, (s > 0).astype(float), params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["multiclass", "bagging", "forced"])
+def test_per_tree_captured_step_equals_eager_loop(case, tmp_path):
+    """The per-tree path (``grow_device``) replays its captured split
+    step from the learner's second tree on: the same model text as the
+    eager device loop, no counted read per update (the forced case's
+    second split has an empty side: it and the third are skipped on the
+    card, with no read), and one capture over the run."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.compile import manager
+    X, y, params = _per_tree_case(case, tmp_path)
+    texts = {}
+    for eager in (False, True):
+        b = lgt.Booster(dict(params), lgt.Dataset(X, label=y))
+        fl = b._gbdt._fused
+        assert fl is not None and not b._gbdt._fused_persist
+        fl._eager_loop = eager
+        n0 = manager.snapshot().get("graph_captures", 0)
+        reads = []
+        for _ in range(4):
+            r0 = fl.syncs
+            b.update()
+            reads.append(fl.syncs - r0)
+        caps = manager.snapshot().get("graph_captures", 0) - n0
+        assert reads == [0] * 4, reads
+        assert caps == (0 if eager else 1), (eager, caps)
+        texts[eager] = b.model_to_string()
+    assert texts[False] == texts[True]
+
+
+@pytest.mark.cuda
+def test_pos_neg_bagging_captures_once():
+    """Pos/neg bagging draws a bag count per round; the per-tree step's
+    launches are bounded by the learner's rows, so three rounds replay
+    one capture, with no counted read."""
+    _need_card()
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.compile import manager
+    X, y, params = _per_tree_case("pos_neg_bagging", None)
+    b = lgt.Booster(params, lgt.Dataset(X, label=y))
+    fl = b._gbdt._fused
+    n0 = manager.snapshot().get("graph_captures", 0)
+    counts, r0 = [], fl.syncs
+    for _ in range(3):
+        b.update()
+        counts.append(b._gbdt.bag_data_cnt)
+    assert len(set(counts)) > 1, counts
+    assert manager.snapshot().get("graph_captures", 0) - n0 == 1
+    assert fl.syncs == r0

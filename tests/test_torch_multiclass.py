@@ -347,7 +347,8 @@ def test_grow_device_leaf_of_row_matches_traversal():
     jta, jleaf = jfl.grow_device(jnp.asarray(g), jnp.asarray(h),
                                  jnp.arange(len(y)), len(y))
     np.testing.assert_array_equal(leaf.numpy(), np.asarray(jleaf))
-    tree = fl.materialize_tree(ta)
+    # the device tree arrays: one read brings them back
+    tree = fl.materialize_tree(fl.read_trees([ta])[0])
     trav = tree.leaf_index_binned(torch.as_tensor(tds.bins.astype(np.int32)),
                                   fl.feature_miss_bin, fl._efb_dev)
     np.testing.assert_array_equal(leaf.numpy(), trav.numpy())
