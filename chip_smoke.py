@@ -89,14 +89,14 @@ Phases, each of which fails the run (no exception is caught):
      136 dense columns, 723,412 training rows in 6,000 queries of 1 to
      1,250 documents, labels 0-4 in MSLR's shares; 1,000 held-out
      queries), objective=lambdarank, metric ndcg at 1, 3, 5 and 10, 255
-     leaves and bins, 3 iterations on the per-tree fused path (B1 +
+     leaves and bins, 2 iterations on the per-tree fused path (B1 +
      B2); the ranking gradient timed by CUDA events; the held-out
      ndcg@10 must beat a random ordering's (numpy). (w) the same data
      with rank_xendcg, 2 iterations.
    - (x) the rest of the API: LGBMRanker on (v)'s first 1,000 queries
      with an eval set and eval_group, then predict; LGBMClassifier on
      10,000 HIGGS rows (predict_proba equal to Booster.predict);
-     pred_contrib on 500 rows of its model (each row summing to its
+     pred_contrib on 200 rows of its model (each row summing to its
      raw score within 1e-6, timed: a host recursion); the command line
      through subprocess (``python -m lightgbm_tpu_torch`` task=train
      on a 10,000-row CSV, task=predict equal to Booster.predict of the
@@ -268,6 +268,26 @@ Phases, each of which fails the run (no exception is caught):
      (the graph from the second tree): multiclass, multiclassova,
      bagging, pos/neg bagging, GOSS (its first sampled round), DART,
      RF, forced splits on the persistent and the bagging learner.
+10. static analysis against a real iteration, after phase 9, on phase
+   3's HIGGS dataset and held-out rows ((aq)):
+   - the port's rule packs (``lightgbm_tpu_torch.analysis.run``) over
+     the checkout: no new finding; the findings by pack, the hot sync
+     sites and the seconds;
+   - one steady persistent iteration (the captured split step, B1 and
+     B2, no valid set) under ``set_sync_debug_mode("error")``
+     (``runtime_check.transfer_guard_no_transfers``): nothing raises,
+     and ``.item()`` of a card tensor inside the guard must;
+   - the syncing CUDA calls (``implicit_sync_sites``) and the counted
+     reads (``record_device_gets``) by package site of one steady HIGGS
+     iteration with the held-out rows as a valid set and of one steady
+     (q) DART iteration (drop_rate 1 and skip_drop 0, so that it drops
+     every tree): every site lies in the linter's static hot inventory;
+   - ``graph_shadow_check`` on the persistent and the per-tree (DART)
+     learner, ``thread_check`` with the telemetry endpoint's thread
+     live;
+   - every launch configuration kernel-contract reads from csrc/*.cu
+     within the card's limits (``get_device_properties``): threads per
+     block and the opt-in dynamic shared memory.
 
 ``--devloop-only`` runs phase 1, B1's and B2's phase-2 checks, the
 HIGGS path and phase 8, and prints no result; ``--pertree-only`` runs
@@ -279,7 +299,8 @@ phase 5 alone and prints no result; ``--obs-only`` runs phase 1, (ae)
 (with its own telemetry-off HIGGS run to compare with), the hang
 drills with (af) and phase 3b with (ag), and prints no result;
 ``--pipeline-only`` runs phase 1, the HIGGS path and phase 7, and prints
-no result. ``--profile`` instead profiles one
+no result; ``--lint-only`` runs phase 1, the HIGGS path and phase 10,
+and prints no result. ``--profile`` instead profiles one
 iteration of each path
 (``--profile-paths b,h`` of the named ones only; (l)-(n) and (v) device
 rows only; (v) also one call of its ranking gradient alone).
@@ -1959,12 +1980,12 @@ def api_path(args, X, y, hX, hy, ds, straight_auc, tmp, device="cuda"):
 RANK_PARAMS = {"num_leaves": 255, "max_bin": 255, "metric": "ndcg",
                "eval_at": [1, 3, 5, 10], "verbose": -1}
 # (key, name, objective, iterations)
-RANK_PATHS = [("v", "(v) MSLR lambdarank fused", "lambdarank", 3),
+RANK_PATHS = [("v", "(v) MSLR lambdarank fused", "lambdarank", 2),
               ("w", "(w) MSLR rank_xendcg fused", "rank_xendcg", 2)]
 RANKER_QUERIES = 1_000             # path (x): LGBMRanker's training queries
 CLF_ROWS = 10_000                  # path (x): LGBMClassifier, CLI CSV rows
 API_REST_ITERS = 2                 # path (x): iterations of each model
-CONTRIB_ROWS = 500                 # path (x): pred_contrib rows
+CONTRIB_ROWS = 200                 # path (x): pred_contrib rows
 
 
 def rank_data(device, queries=RANK_TRAIN_QUERIES, rows=RANK_TRAIN_ROWS,
@@ -2937,46 +2958,45 @@ def _timed_calls(cls, name, out, sync):
     return orig
 
 
+def watch_syncs(calls, device="cuda"):
+    """A context that appends the (path, line) package site of every
+    syncing CUDA call inside it to ``calls``: the port's
+    ``runtime_check.implicit_sync_sites`` (sync debug mode "warn", where
+    every call that waits for the card warns). On the CPU, where the
+    mode sees nothing, it watches nothing."""
+    import contextlib
+    from lightgbm_tpu_torch.analysis import runtime_check as rc
+    if device != "cuda":
+        return contextlib.nullcontext()
+    return rc.implicit_sync_sites(calls)
+
+
+def site_counts(calls):
+    """Counter of ``watch_syncs``' sites as "path:line" keys."""
+    import collections
+    return collections.Counter(f"{rel}:{line}" for rel, line in calls)
+
+
 def syncs_per_iteration(train, device="cuda", sites=None):
     """Per iteration of ``train(callback)``: (the learner's blocking host
-    reads, the syncing CUDA calls). The calls are counted under CUDA
-    sync debug mode "warn", where every call that waits for the card (a
-    device-to-host copy, ``.item()``, ...) warns; ``callback`` marks the
-    start of each iteration (a before-iteration callback), and the
+    reads, the syncing CUDA calls, ``watch_syncs``); ``callback`` marks
+    the start of each iteration (a before-iteration callback), and the
     booster ``train`` returns the end of the last. An iteration holds
     the trailing read of the one before it under the pipelined loop.
     ``sites``: a list that gets, per iteration, the syncing calls by
-    Python site."""
-    import warnings
-    marks = []
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
+    package site."""
+    marks, calls = [], []
 
-        def calls():
-            return sum("synchroniz" in str(w.message).lower()
-                       for w in caught)
-
-        def mark(env):
-            gb = env.model._gbdt
-            marks.append((calls(), (gb._fused or gb.tree_learner).syncs))
-        mark.before_iteration = True
-        if device == "cuda":
-            torch.cuda.set_sync_debug_mode("warn")
-        try:
-            booster = train(mark)
-            mark(types.SimpleNamespace(model=booster))
-        finally:
-            if device == "cuda":
-                torch.cuda.set_sync_debug_mode("default")
+    def mark(env):
+        gb = env.model._gbdt
+        marks.append((len(calls), (gb._fused or gb.tree_learner).syncs))
+    mark.before_iteration = True
+    with watch_syncs(calls, device):
+        booster = train(mark)
+        mark(types.SimpleNamespace(model=booster))
     if sites is not None:
-        here = os.path.dirname(os.path.abspath(__file__))
-        sync = [w for w in caught if "synchroniz" in str(w.message).lower()]
         for a, b in zip(marks, marks[1:]):
-            got: dict = {}
-            for w in sync[a[0]:b[0]]:
-                key = f"{os.path.relpath(w.filename, here)}:{w.lineno}"
-                got[key] = got.get(key, 0) + 1
-            sites.append(got)
+            sites.append(dict(site_counts(calls[a[0]:b[0]])))
     return [(b[1] - a[1], b[0] - a[0]) for a, b in zip(marks, marks[1:])]
 
 
@@ -3372,39 +3392,13 @@ def kernel_split(path):
     return ms, names, sum(ms.values())
 
 
-def implicit_sync_sites(train, device="cuda"):
-    """Run ``train()`` under CUDA sync debug mode "warn" and count the
-    syncing CUDA calls by the innermost lightgbm_tpu_torch/ frame of
-    the Python stack that made them (a measurement of this script; the
-    package has no such feature)."""
-    import collections
-    import traceback
-    import warnings
-    here = os.path.dirname(os.path.abspath(__file__))
-    pkg = os.path.join(here, "lightgbm_tpu_torch") + os.sep
-    sites = collections.Counter()
-
-    def hook(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message).lower():
-            return
-        for fr in reversed(traceback.extract_stack()):
-            if os.path.abspath(fr.filename).startswith(pkg):
-                sites[f"{os.path.relpath(fr.filename, here)}:{fr.lineno}"
-                      f" ({fr.name})"] += 1
-                return
-        sites[f"(outside the package) {filename}:{lineno}"] += 1
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = hook
-        if device == "cuda":
-            torch.cuda.set_sync_debug_mode("warn")
-        try:
-            train()
-        finally:
-            if device == "cuda":
-                torch.cuda.set_sync_debug_mode("default")
-    return sites
+def sync_sites_of(train, device="cuda"):
+    """Run ``train()`` and count its syncing CUDA calls by package site
+    (``watch_syncs``)."""
+    calls = []
+    with watch_syncs(calls, device):
+        train()
+    return site_counts(calls)
 
 
 def check_records(tag, recs, iters):
@@ -3727,7 +3721,7 @@ def obs_higgs(args, report, base=None, device="cuda"):
     # implicit syncing calls of one traced iteration, by call site
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        sites = implicit_sync_sites(lambda: lgt.train(
+        sites = sync_sites_of(lambda: lgt.train(
             {**HIGGS_PARAMS, "device_type": device,
              "trace_file": os.path.join(tmp, "t1.json")}, ds,
             num_boost_round=1, verbose_eval=False), device)
@@ -3940,7 +3934,7 @@ print(json.dumps({"first_iteration_s": time.perf_counter() - t0,
 
 
 # -- phase 8: the split loop without reads, the captured step, batching --
-DEV_ITERS = 4                      # (ak): iterations of each run
+DEV_ITERS = 3                      # (ak): iterations of each run
 DEV_BATCH = "4"                    # (al): LGBM_TPU_ITER_BATCH, over
 DEV_BATCH_ITERS = 5                # iterations (a batch of 4, then 1)
 DEV_CASE_ITERS = 3                 # (am): card == CPU at phase 4's sizes
@@ -3949,28 +3943,13 @@ DEV_CASE_PARAMS = {**HIGGS_PARAMS, "num_leaves": PHASE4_LEAVES,
 
 
 def steady_sync_sites(booster, learner, device="cuda"):
-    """One steady ``update()`` of ``booster`` under CUDA sync debug mode
-    "warn": (the learner's counted reads, the syncing CUDA calls by
-    Python site)."""
-    import warnings
-    from collections import Counter
-    here = os.path.dirname(os.path.abspath(__file__))
+    """One steady ``update()`` of ``booster``: (the learner's counted
+    reads, the syncing CUDA calls by package site, ``watch_syncs``)."""
     reads0 = learner.syncs
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        if device == "cuda":
-            torch.cuda.set_sync_debug_mode("warn")
-        try:
-            booster.update()
-        finally:
-            if device == "cuda":
-                torch.cuda.set_sync_debug_mode("default")
-    # the mode's own one-time notice names synchronization too
-    sites = Counter(
-        f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message).lower()
-        and "prototype" not in str(w.message))
-    return learner.syncs - reads0, sites
+    calls = []
+    with watch_syncs(calls, device):
+        booster.update()
+    return learner.syncs - reads0, site_counts(calls)
 
 
 def devloop_paths(args, base, device="cuda"):
@@ -4452,18 +4431,20 @@ def profile_paths(args, wide):
 
 
 def _device_rows(prof):
-    """[(device us, count, name)] of a profile's device-side rows
-    (kernels, memcpy, memset), largest first: operator rows repeat their
-    kernels' time."""
-    rows_ = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+    """[(device us, count, name)] of a profile's device-side events
+    (kernels, memcpy, memset) summed by name, largest first. Read from
+    the profiler's raw events: ``key_averages()`` first builds the
+    event tree, which takes most of a minute on the ~570,000 kernels of
+    a multiclass iteration."""
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name: dict = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != cuda:
             continue
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows_.append((dev_us, evt.count, evt.key))
-    return sorted(rows_, reverse=True)
+        us, n = by_name.get(evt.name(), (0.0, 0))
+        by_name[evt.name()] = (us + evt.duration_ns() / 1e3, n + 1)
+    return sorted(((us, n, name) for name, (us, n) in by_name.items()
+                   if us > 0), reverse=True)
 
 
 def profile_gradient(name, booster):
@@ -4536,6 +4517,166 @@ def profile_iteration(name, booster, device_only=False, fobj=None):
             f"{key[:80]}")
 
 
+# -- phase 10: static analysis against a real iteration ------------------
+LINT_ITERS = 4                     # (aq): iterations of each run; the
+LINT_STEADY = 2                    # recorded one (the graph captured at 1)
+
+
+def _lint_window(params, ds, valid, device):
+    """``lgt.train`` over LINT_ITERS iterations with iteration
+    LINT_STEADY recorded: (syncing CUDA calls by package site, counted
+    reads by package site, booster). The window opens and closes in
+    before-iteration callbacks, so it holds that iteration's update,
+    its evaluation and the trailing read of the one before it."""
+    import contextlib
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.analysis import runtime_check as rc
+    calls, reads = [], []
+    stack = contextlib.ExitStack()
+
+    def window(env):
+        if env.iteration == LINT_STEADY:
+            stack.enter_context(watch_syncs(calls, device))
+            stack.enter_context(rc.record_device_gets(reads))
+        elif env.iteration == LINT_STEADY + 1:
+            stack.close()
+    window.before_iteration = True
+    with stack:
+        b = lgt.train(dict(params), ds, num_boost_round=LINT_ITERS,
+                      valid_sets=[valid] if valid is not None else None,
+                      callbacks=[window], verbose_eval=False)
+    return calls, reads, b
+
+
+def lint_paths(args, base, device="cuda"):
+    """Phase 10 (aq) on phase 3's HIGGS data ``base``: the static run,
+    the transfer guard on a steady captured iteration (with its positive
+    control), the hot sites of a steady HIGGS iteration with a valid set
+    and of a steady (q) DART iteration against the static hot inventory,
+    the graph and thread shadow checks, and the launch limits. Each
+    check raises. Returns the wrappers' launches of its runs."""
+    import collections
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import analysis
+    from lightgbm_tpu_torch.analysis import kernel_contract
+    from lightgbm_tpu_torch.analysis import runtime_check as rc
+    from lightgbm_tpu_torch.analysis.core import Package
+    from lightgbm_tpu_torch.obs import MetricsRegistry
+    from lightgbm_tpu_torch.obs.httpd import ObsServer
+    from lightgbm_tpu_torch.ops import cuda as K
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_all = time.perf_counter()
+
+    # 1. the static run
+    t0 = time.perf_counter()
+    pkg = Package.load(here)
+    result = analysis.run(here, pkg=pkg)
+    by_pack = collections.Counter(f.rule for f in result.new
+                                  + result.baselined)
+    static_s = time.perf_counter() - t0
+    assert result.ok, "(aq): new findings:\n" + "\n".join(
+        map(str, result.new))
+    log(f"(aq) static run over {len(pkg.files)} files in {static_s:.2f} s: "
+        f"{len(result.new)} new findings, {len(result.baselined)} "
+        f"baselined (budget {result.baseline_size}); by pack "
+        f"{json.dumps({r: by_pack.get(r, 0) for r in analysis.RULE_PACKS})}"
+        f"; {result.hot_sync_count} hot sync sites")
+    hot = rc.static_hot_inventory(pkg)
+    K.reset_launches()
+    params = {**HIGGS_PARAMS, "device_type": device}
+
+    # 2. the transfer guard on a steady captured iteration
+    t0 = time.perf_counter()
+    b = lgt.Booster(dict(params), base["ds"])
+    b.update()                      # the first tree, eager
+    b.update()                      # the capture
+    learner = b._gbdt._fused
+    if device == "cuda":
+        reads0 = learner.syncs
+        with rc.transfer_guard_no_transfers():
+            b.update()
+        assert learner.syncs == reads0, (learner.syncs, reads0)
+        probe = torch.ones(4, device="cuda")
+        try:
+            with rc.transfer_guard_no_transfers():
+                probe.sum().item()
+        except RuntimeError as exc:
+            control = str(exc).splitlines()[0][:80]
+        else:
+            raise AssertionError("(aq): .item() passed the transfer guard")
+        log(f"(aq) one steady persistent HIGGS iteration (captured step, B1 "
+            f"+ B2, no valid set) under sync debug mode \"error\": nothing "
+            f"raised, 0 counted reads; the positive control raised "
+            f"({control!r}); {time.perf_counter() - t0:.1f} s")
+    shadow = rc.graph_shadow_check(learner, [b._gbdt._fused_state], pkg=pkg)
+    assert shadow["unaccounted"] == [], shadow
+    assert device != "cuda" or shadow["graphs"] == 1, shadow
+    del b, learner
+
+    # 3. the hot sites of a steady iteration, with a valid set, and DART
+    valid = base["ds"].create_valid(base["hX"], label=base["hy"])
+    # (q)'s path with every tree dropped (drop_rate 1, skip_drop 0): the
+    # recorded iteration surely traverses dropped host trees
+    dart = {**{k: e for k, _, e, _ in BAG_PATHS}["q"], "drop_rate": 1.0,
+            "skip_drop": 0.0}
+    for name, prm, vs in (("HIGGS with the held-out rows as a valid set",
+                           params, valid),
+                          ("(q) DART, every tree dropped",
+                           {**params, **dart}, None)):
+        t0 = time.perf_counter()
+        calls, reads, b = _lint_window(prm, base["ds"], vs, device)
+        seen = collections.Counter(calls + reads)
+        missed = rc.unexplained(seen, hot)
+        log(f"(aq) steady iteration {LINT_STEADY} of {name}: "
+            f"{len(calls)} syncing CUDA calls, {len(reads)} counted reads at "
+            + json.dumps({f"{r}:{ln}": n for (r, ln), n in
+                          sorted(seen.items())})
+            + f"; every site in the static hot inventory: {not missed}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        assert not missed, f"(aq) {name}: sites the linter misses: {missed}"
+        if vs is None:
+            fl = b._gbdt._fused
+            shadow_pt = rc.graph_shadow_check(fl, [fl._tree_data], pkg=pkg)
+            assert shadow_pt["unaccounted"] == [], shadow_pt
+            assert device != "cuda" or shadow_pt["graphs"] == 1, shadow_pt
+        del b
+    log(f"(aq) graph shadow checks: persistent {json.dumps(shadow)}, "
+        f"per-tree (DART) {json.dumps(shadow_pt)}")
+
+    # 4. threads: the endpoint's accept loop live beside whatever runs
+    srv = ObsServer(0, registry=MetricsRegistry())
+    try:
+        srv.start()
+        threads = rc.thread_check(pkg=pkg)
+    finally:
+        srv.stop()
+    assert threads["unaccounted"] == [] and threads["live"], threads
+    log(f"(aq) thread check: live {threads['live']} within the spawn "
+        f"inventory {threads['static']}")
+
+    # 5. the launch configurations within the card's limits
+    launches = kernel_contract.launch_inventory(pkg)
+    if device == "cuda":
+        props = torch.cuda.get_device_properties(0)
+        max_threads = props.max_threads_per_block
+        smem = props.shared_memory_per_block_optin
+        bad = [(ln.kernel, ln.line, ln.block_max, ln.smem_max)
+               for ln in launches
+               if ln.block_max is None or ln.block_max > max_threads
+               or not ln.block_mult32 or ln.smem_max is None
+               or ln.smem_max > smem]
+        assert not bad, ("(aq) launches beyond the card", bad)
+        log(f"(aq) {len(launches)} launch configurations in csrc/*.cu: "
+            f"blocks up to {max(ln.block_max for ln in launches)} threads "
+            f"(card: {max_threads}, get_device_properties), dynamic shared "
+            f"memory up to "
+            f"{max(ln.smem_max for ln in launches)} B (card opt-in: {smem} "
+            f"B), all on the stream passed in")
+    out = K.launch_counts()
+    log(f"(aq): {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -4576,6 +4717,10 @@ def main() -> int:
                     "part), the HIGGS path, (l)'s data and phase 9 (the "
                     "per-tree path captured, forced splits without reads), "
                     "and exit without a result")
+    ap.add_argument("--lint-only", action="store_true",
+                    help="build, then only the HIGGS path and phase 10 "
+                    "(the linter against a real iteration), and exit "
+                    "without a result")
     ap.add_argument("--profile", action="store_true",
                     help="only profile one iteration of each path and exit")
     ap.add_argument("--profile-paths",
@@ -4636,6 +4781,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             pertree_paths(args, higgs, tmp=tmp)
         log(f"phase 9: {time.perf_counter() - t9:.1f} s; all done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0     # prints no smoke result
+    if args.lint_only:
+        higgs = higgs_base(args)
+        t10 = time.perf_counter()
+        lint_paths(args, higgs)
+        log(f"phase 10: {time.perf_counter() - t10:.1f} s; all done at "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0     # prints no smoke result
     if args.obs_only:
@@ -4704,8 +4856,13 @@ def main() -> int:
     for r in report:
         if r["name"] in ("hist_planar", "partition"):
             r["launches"] += p9.get(r["name"], 0)
-    del higgs
     done(9)
+    p10 = lint_paths(args, higgs)
+    for r in report:
+        if r["name"] in ("hist_planar", "partition"):
+            r["launches"] += p10.get(r["name"], 0)
+    del higgs
+    done(10)
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -130,6 +130,7 @@ class _ScoreState:
         if self.has_init_score:
             init += np.asarray(dataset.metadata.init_score, np.float32
                                ).reshape(num_trees_per_iter, -1)
+        # tpulint: sync-ok(once per score state, as after a quarantine rebuild)
         self.score = torch.as_tensor(init, device=device)
         self.bins = dataset.device_bins(device) if with_bins else None
 
@@ -142,6 +143,7 @@ class _ScoreState:
         found by bin-space traversal of ``bins`` (the JAX package's
         _ScoreState.add_tree)."""
         leaf = tree.leaf_index_binned(bins, miss_bin, efb)
+        # tpulint: sync-ok(DART's normalize traverses host trees, as the JAX package)
         vals = torch.as_tensor(
             tree.leaf_value[:tree.num_leaves].astype(np.float32),
             device=self.score.device)
@@ -426,8 +428,8 @@ class GBDT:
             bag.sort()
         oob = np.setdiff1d(np.arange(n, dtype=np.int64), bag,
                            assume_unique=True)
-        self._perm = torch.as_tensor(np.concatenate([bag, oob]),
-                                     dtype=torch.int64, device=self.device)
+        self._perm = _device.upload(np.concatenate([bag, oob]), self.device,
+                                    dtype=torch.int64)
         self.bag_data_cnt = len(bag)
 
     def _boosting(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -463,6 +465,7 @@ class GBDT:
         with obs.span("renew tree output (leaf refit)", phase="renew"):
             tl = self.tree_learner
             bagged = self.bag_data_cnt < self.num_data
+            # tpulint: sync-ok(host-loop refit of L1/quantile/MAPE leaves, one read per tree)
             host = _device.device_get(
                 [tree.leaf_index_binned(tl.bins, tl.feature_miss_bin,
                                         tl._efb_dev),
@@ -894,6 +897,7 @@ class GBDT:
                     torch.float64)] if with_gains else [])) for t in want]
             with obs.span("batched tree stats (device fetch)",
                           phase="stop_check"):
+                # tpulint: sync-ok(one batched read: telemetry, or training's end trim)
                 vals = want[0].grower._read(torch.cat(parts))
             at = 0
             for t, p in zip(want, parts):
@@ -1023,6 +1027,7 @@ class GBDT:
         init_scores = [0.0] * k
         self._grad = self._hess = None
         if custom:
+            # tpulint: sync-ok(custom objective: the caller hands host gradients)
             self._grad, self._hess = (torch.as_tensor(
                 np.asarray(a, np.float32).reshape(k, self.num_data),
                 device=self.device) for a in (gradients, hessians))
@@ -1200,8 +1205,8 @@ class GBDT:
         if self.average_output and self.current_iteration > 0:
             # averaged output: the scores over the iteration count, a
             # true float32 division as the JAX package's host divide
-            div = torch.tensor(float(self.current_iteration),
-                               dtype=torch.float32, device=self.device)
+            div = torch.full((), float(self.current_iteration),
+                             dtype=torch.float32, device=self.device)
 
         def averaged(score):
             return score if div is None else score / div.to(score.device)
@@ -1211,6 +1216,7 @@ class GBDT:
             if self._device_eval:
                 return score
             obs.inc("eval.host_transfer_rows", int(score.shape[-1]))
+            # tpulint: sync-ok(degraded ladder rung only: the host copy it asks for)
             return torch.from_numpy(_device.device_get(score))
 
         if self.metrics:
@@ -1242,6 +1248,7 @@ class GBDT:
                 host = self._sentinel_resolve(
                     [flat] if flat is not None else None)
             elif read is not None:
+                # tpulint: sync-ok(trailing-fetch: waits for the previous iteration's start_read)
                 host = _device.device_get(read)
         if not rows:
             return []

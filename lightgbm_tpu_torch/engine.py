@@ -128,6 +128,7 @@ def _telemetry_end_iteration(telemetry, booster: Booster, iteration: int,
         telemetry.end_iteration(iteration)
         return
     with obs.span("telemetry stream sync", phase="sync"):
+        # tpulint: sync-ok(telemetry only: the stream sync of a timed iteration)
         _device.block_until_ready(gbdt.device)
     with obs.span("telemetry stats", phase="telemetry"):
         extra.update(gbdt.telemetry_stats())

@@ -192,6 +192,7 @@ class BinnedDataset:
         """The row-major [N, G] bin codes on ``device``: uint8, or int32
         for wider codes (torch gathers no uint16)."""
         b = self.bins
+        # tpulint: sync-ok(once: FusedSerialGrower.bins_device caches the upload)
         return torch.as_tensor(np.ascontiguousarray(
             b if b.dtype == np.uint8 else b.astype(np.int32)), device=device)
 

@@ -246,8 +246,10 @@ def per_feature_hist(group_hist: torch.Tensor, hist_tables, sum_g, sum_h
     # the casts keep quantized int32 histograms in exact integer space
     # (no-ops on the float32 path)
     fh = flat[gather_idx] * valid[..., None].to(flat.dtype)
+    # tpulint: sync-ok(host loop with EFB: per-leaf totals, as the JAX host loop)
     total = torch.stack([torch.as_tensor(sum_g, dtype=fh.dtype,
                                          device=fh.device),
+                         # tpulint: sync-ok(host loop with EFB: per-leaf totals, as the JAX host loop)
                          torch.as_tensor(sum_h, dtype=fh.dtype,
                                          device=fh.device)])    # [2]
     rest = xla_sum(fh.transpose(1, 2)).to(fh.dtype)            # [F, 2]

@@ -77,6 +77,7 @@ class Metric:
         if arr is None:
             return None
         if key not in self._dev_cache:
+            # tpulint: sync-ok(once per dataset: cached in _dev_cache)
             self._dev_cache[key] = torch.as_tensor(
                 np.asarray(arr, np.float32), device=device)
         return self._dev_cache[key]
@@ -366,6 +367,7 @@ class MultiLoglossMetric(Metric):
     def _label_idx(self, device):
         key = ("label_idx", str(device))
         if key not in self._dev_cache:
+            # tpulint: sync-ok(once per dataset: cached in _dev_cache)
             self._dev_cache[key] = torch.as_tensor(
                 self.label.astype(np.int64), device=device)[:, None]
         return self._dev_cache[key]

@@ -193,6 +193,7 @@ class Tree:
         dt = self.decision_type[:n]
         out = {"default_left": (dt & K_DEFAULT_LEFT_MASK) != 0,
                "is_cat": (dt & K_CATEGORICAL_MASK) != 0}
+        # tpulint: sync-ok(DART's drop traverses host trees, as the JAX package)
         return [torch.as_tensor(np.asarray(out[k] if k in out
                                            else getattr(self, k)[:n]),
                                 device=dev) for k in names]
@@ -212,6 +213,7 @@ class Tree:
             "split_feature_inner", "threshold_in_bin", "left_child",
             "right_child", "default_left", "is_cat"))
         sf, thr = sf.long(), thr.long()
+        # tpulint: sync-ok(DART's drop traverses host trees, as the JAX package)
         miss = torch.as_tensor(feature_to_miss_bin, device=dev).long()[sf]
         # categorical nodes have no missing-bin routing in bin space
         miss = torch.where(is_cat, -1, miss)
@@ -219,6 +221,7 @@ class Tree:
         return traverse_binned(
             bins, sf, thr, left.long(), right.long(), dl, miss, is_cat,
             words_tensor(self.cat_threshold_inner, dev),
+            # tpulint: sync-ok(DART's drop traverses host trees, as the JAX package)
             torch.as_tensor(np.asarray(bounds, np.int64), device=dev),
             tree_depth(self.left_child, self.right_child, n), efb=efb)
 

@@ -48,6 +48,7 @@ def _load() -> Optional[ctypes.CDLL]:
                      "-o", tmp],
                     check=True, capture_output=True, timeout=120)
             os.replace(tmp, _SO)
+        # tpulint: build-ok(the host binning library, built and hashed by native/)
         lib = ctypes.CDLL(_SO)
         lib.lgbt_greedy_find_bin.restype = ctypes.c_int
         lib.lgbt_greedy_find_bin.argtypes = [

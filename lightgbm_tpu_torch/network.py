@@ -162,6 +162,7 @@ def _staged(t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     """(tensor to hand the backend, whether it was staged to the host):
     gloo takes CUDA tensors through host memory."""
     if t.is_cuda and backend() == "gloo":
+        # tpulint: sync-ok(gloo only: the backend takes CUDA tensors via the host)
         return t.cpu(), True
     return t, False
 

@@ -130,6 +130,7 @@ class ObjectiveFunction:
         key = (name, str(device))
         if key not in self._dev_rows:
             arr = getattr(self, name)
+            # tpulint: sync-ok(once per dataset: cached in _dev_rows)
             self._dev_rows[key] = None if arr is None else torch.as_tensor(
                 np.asarray(arr, np.float32), device=device)
         return self._dev_rows[key]

@@ -116,9 +116,13 @@ class RankingObjective(ObjectiveFunction):
             out = []
             for idx, valid, qids, counts in self._batches:
                 sel = np.flatnonzero(valid.ravel())
+                # tpulint: sync-ok(once per device: cached in _dev_batches)
                 out.append((torch.as_tensor(idx, device=device),
+                            # tpulint: sync-ok(once per device: cached in _dev_batches)
                             torch.as_tensor(valid, device=device),
+                            # tpulint: sync-ok(once per device: cached in _dev_batches)
                             torch.as_tensor(sel, device=device),
+                            # tpulint: sync-ok(once per device: cached in _dev_batches)
                             torch.as_tensor(idx.ravel()[sel], device=device),
                             self._query_consts(qids, device), counts))
             self._dev_batches[key] = out

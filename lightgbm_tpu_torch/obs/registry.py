@@ -52,6 +52,7 @@ LATENCY_BUCKET_EDGES_MS: Tuple[float, ...] = tuple(
     10.0 ** (e / 8.0) for e in range(-24, 41))
 
 
+# tpulint: thread-ok(bucket and min/max updates are GIL-atomic; scrape threads tolerate torn reads)
 class LatencyHistogram:
     """Fixed-bucket log-scale latency distribution (milliseconds).
 
@@ -131,6 +132,7 @@ class LatencyHistogram:
         }
 
 
+# tpulint: thread-ok(single GIL-atomic dict-slot writes; reset() runs between sessions only)
 class MetricsRegistry:
     def __init__(self) -> None:
         self.counters: Dict[str, float] = {}

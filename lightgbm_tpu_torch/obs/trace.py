@@ -73,6 +73,7 @@ _CAT_TID = {
 }
 
 
+# tpulint: thread-ok(deque.append with maxlen is atomic; dropped/events_total are loose tallies)
 class Tracer:
     """Bounded ring buffer of trace events.
 

@@ -268,10 +268,13 @@ def _window_args(start: Window, count: Window, max_count: Optional[int],
             raise ValueError("max_count must bound a device-side count")
         return (start.contiguous().data_ptr(), count.contiguous().data_ptr(),
                 0, 0, min(int(max_count), R))
+    # tpulint: capture-ok(host window: device windows return above)
     sh, ch = int(start), int(count)
+    # tpulint: capture-ok(host window: device windows return above)
     if not 0 <= sh <= sh + ch <= R:
         raise ValueError(f"window [{sh}, {sh + ch}) outside [0, {R})")
     max_count = ch if max_count is None else max_count
+    # tpulint: capture-ok(host window: device windows return above)
     return None, None, sh, ch, min(int(max_count), R)
 
 

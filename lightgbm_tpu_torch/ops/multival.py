@@ -187,9 +187,12 @@ def group_tables(group_num_bins, default_code, device="cpu"):
     inband = b_iota < nb[:, None]
     is_def = inband & (b_iota == d[:, None])
     idx = np.where(inband & ~is_def, off[:, None] + b_iota, 0)
+    # tpulint: sync-ok(once: the host loop caches its multi-value state)
     return (torch.as_tensor(idx, dtype=torch.int64, device=device),
+            # tpulint: sync-ok(once: the host loop caches its multi-value state)
             torch.as_tensor((inband & ~is_def).astype(np.float32),
                             device=device),
+            # tpulint: sync-ok(once: the host loop caches its multi-value state)
             torch.as_tensor(is_def.astype(np.float32), device=device))
 
 

@@ -103,6 +103,7 @@ def partition_leaf(bins_full: torch.Tensor, perm: torch.Tensor, start: int,
     off = start - read_start
     gl = go_left & valid
     gr = (~go_left) & valid
+    # tpulint: sync-ok(data-parallel host loop: per-split counts via the host)
     left_count = int(_device.device_get(gl.sum()))
     rank_l = cumsum_1d(gl.to(torch.int64)) - 1
     rank_r = cumsum_1d(gr.to(torch.int64)) - 1

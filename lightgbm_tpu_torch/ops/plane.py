@@ -141,6 +141,7 @@ def _pack_codes(codes: torch.Tensor, layout: PlaneLayout,
         b = torch.stack([c & 255, (c >> 8) & 255], dim=2).reshape(n, 2 * g)
     width = layout.code_planes * 4
     b = torch.nn.functional.pad(b, (0, width - b.shape[1], 0, lanes - n))
+    # tpulint: tile-ok(packs 4 uint8 codes into each int32 plane word on purpose)
     planes = b.to(torch.uint8).contiguous().view(torch.int32)  # [lanes, C]
     return planes.t().contiguous()
 
@@ -279,6 +280,7 @@ def route_scalars(layout: PlaneLayout, feature: Scalar, threshold: Scalar,
                         t(0 if is_cat is None else is_cat)])
     words = torch.zeros(CAT_WORDS, dtype=torch.int32, device=device)
     if cat_bitset is not None:
+        # tpulint: sync-ok(a device bitset on the fused paths copies nothing)
         cb = torch.as_tensor(cat_bitset).to(device=device, dtype=torch.int32)
         words[:cb.shape[0]] = cb
     return torch.cat([head, words])
@@ -297,6 +299,7 @@ def route_from_col32(col32: torch.Tensor, rs: Sequence[int]) -> torch.Tensor:
     efb_bin = torch.where(inband, dec, torch.full_like(dec, rs[9]))
     binval = efb_bin if rs[6] == 1 else code
     if rs[10] == 1:
+        # tpulint: sync-ok(plain version: runs for CPU tensors only)
         words = torch.tensor([w & 0xFFFFFFFF for w in rs[11:11 + CAT_WORDS]]
                              + [0], dtype=torch.int64, device=col32.device)
         widx = torch.clamp(binval >> 5, max=CAT_WORDS)
@@ -320,8 +323,10 @@ def partition_plain(data: torch.Tensor, layout: PlaneLayout, start,
     ``count=None``). Updates ``data`` in place and returns (data,
     nleft) with nleft a 0-d int32 tensor."""
     if count is None:
+        # tpulint: sync-ok(plain version: runs for CPU tensors only)
         start, count = (int(v) for v in start.tolist())
     start, count = int(start), int(count)
+    # tpulint: sync-ok(plain version: runs for CPU tensors only)
     rs = [int(v) for v in rscal.tolist()]
     win = data[:, start:start + count]
     go_left = route_from_col32(win[rs[0]], rs)

@@ -85,14 +85,16 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     if hess_max is None:
         hess_max = torch.max(hess)
     def scale(vmax, qmax):
+        # tpulint: sync-ok(vmax is a device tensor here: as_tensor copies nothing)
         v = torch.clamp(torch.as_tensor(vmax, dtype=torch.float32,
                                         device=grad.device), min=1e-35)
         if reciprocal:
             return v * f32_reciprocal(qmax)
         # a tensor divisor: torch divides a CUDA tensor by a Python
-        # number as a product with its reciprocal
-        return v / torch.tensor(float(qmax), dtype=torch.float32,
-                                device=v.device)
+        # number as a product with its reciprocal (filled on the card:
+        # no copy from the host)
+        return v / torch.full((), float(qmax), dtype=torch.float32,
+                              device=v.device)
     gscale, hscale = scale(grad_max, qmax_g), scale(hess_max, qmax_h)
     sg = grad / gscale
     sh = hess / hscale

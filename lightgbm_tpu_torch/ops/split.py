@@ -95,6 +95,7 @@ class FeatureMeta:
         allowed)."""
         t = self.__dict__.get("_cat_index")
         if t is None:
+            # tpulint: sync-ok(once: memoized in the metadata's __dict__)
             t = torch.as_tensor(self.cat_idx, dtype=torch.int64,
                                 device=self.num_bin.device)
             self.__dict__["_cat_index"] = t
@@ -315,8 +316,10 @@ def dequantize_hist(hist: torch.Tensor, grad_scale, hess_scale
     the subtraction in exact int32 level sums, and this is the one
     place they meet float arithmetic. hist: [..., 2] int32 (sum qg, sum
     qh); the scales are float32 scalars of the iteration."""
+    # tpulint: sync-ok(device scales on the card paths: as_tensor copies nothing)
     scale = torch.stack([torch.as_tensor(grad_scale, dtype=torch.float32,
                                          device=hist.device),
+                         # tpulint: sync-ok(device scales on the card paths: as_tensor copies nothing)
                          torch.as_tensor(hess_scale, dtype=torch.float32,
                                          device=hist.device)])
     return hist.to(torch.float32) * scale
@@ -364,6 +367,7 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     dev = hist.device
 
     def e2(x):   # leaf scalar [...] -> [..., 1, 1]
+        # tpulint: sync-ok(device scalars on the card paths: as_tensor copies nothing)
         return torch.as_tensor(x, device=dev)[..., None, None]
 
     sum_g2, num2 = e2(sum_g), e2(num_data)
@@ -402,6 +406,7 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     zero_mode = two_scan & (mt == MISSING_ZERO)
     thr_ok = bin_ar <= nb - 2
     if cfg.extra_trees and rand_thresholds is not None:
+        # tpulint: capture-ok(extra_trees runs on the host loop, never captured)
         thr_ok = thr_ok & (bin_ar == rand_thresholds.to(dev)[:, None])
 
     gain_shift = leaf_gain(sum_g2, sh2, num2, cfg, po2)
@@ -464,11 +469,15 @@ def numerical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     default_left = is_rev & ~((meta.missing_type == MISSING_NAN)
                               & (meta.num_bin <= 2))
     found = torch.isfinite(best_gain)
+    # tpulint: sync-ok(device sums on the card paths: as_tensor copies nothing)
     sum_g1 = torch.as_tensor(sum_g, device=dev)[..., None]
+    # tpulint: sync-ok(device sums on the card paths: as_tensor copies nothing)
     sum_h1 = torch.as_tensor(sum_h, device=dev)[..., None]
+    # tpulint: sync-ok(device counts on the card paths: as_tensor copies nothing)
     num1 = torch.as_tensor(num_data, device=dev)[..., None]
     right_g, right_h = sum_g1 - lg, sum_h1 + K_EPSILON - lh
     if sum_levels is not None:
+        # tpulint: sync-ok(root scan: device levels)  # tpulint: capture-ok(root scan only)
         lg_tot, g_scale, lh_tot, h_scale = (torch.as_tensor(
             v, device=dev)[..., None] for v in sum_levels)
         right_g = fma_f32(g_scale, lg_tot, -lg)
@@ -551,6 +560,7 @@ def categorical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     dev = hist.device
 
     def e1(x):   # leaf scalar [...] -> [..., 1]
+        # tpulint: sync-ok(device scalars on the card paths: as_tensor copies nothing)
         return torch.as_tensor(x, device=dev)[..., None]
 
     def e2(x):
@@ -599,6 +609,7 @@ def categorical_split_scan(hist: torch.Tensor, meta: FeatureMeta,
     # reused modulo the categorical bounds (reference USE_RAND)
     rand = cfg.extra_trees and rand_thresholds is not None
     if rand:
+        # tpulint: capture-ok(extra_trees runs on the host loop, never captured)
         rt = rand_thresholds.to(dev)[:, None]
         oh_rand_ok = bin_ar == 1 + torch.remainder(
             rt, torch.clamp(nb - 1, min=1))
@@ -707,6 +718,7 @@ def merge_categorical(num: dict, hist, meta: FeatureMeta, cfg, sum_g, sum_h,
     ``cat_used_bin`` (zeros on numerical columns)."""
     f_total = hist.shape[-3]
     ci = meta.cat_idx
+    # tpulint: capture-ok(cat_index is memoized on the card: .to() copies nothing)
     idx = meta.cat_index().to(hist.device)
     every = len(ci) == f_total
     if every:

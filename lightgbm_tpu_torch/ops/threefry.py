@@ -42,6 +42,7 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
     """The Threefry-2x32 hash of the counter pairs (x0, x1) under
     ``key`` — jax/_src/prng.py ``_threefry2x32_lowering``: five groups
     of four rounds, a key injection after each."""
+    # tpulint: sync-ok(threefry keys are CPU tensors: no card read)
     k0, k1 = int(key[0]), int(key[1])
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     a = _u32(x0.to(torch.int64) + ks[0])

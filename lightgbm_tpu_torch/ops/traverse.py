@@ -164,5 +164,6 @@ def traverse_raw(x: torch.Tensor, split_feature: torch.Tensor,
 def words_tensor(words: Sequence[int], device) -> torch.Tensor:
     """A bitset pool as int64 (unsigned 32-bit word values), never
     empty."""
+    # tpulint: sync-ok(DART's drop traverses host trees, as the JAX package)
     return torch.as_tensor(np.asarray(list(words) or [0], dtype=np.int64)
                            & 0xFFFFFFFF, device=device)

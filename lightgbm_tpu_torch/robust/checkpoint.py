@@ -124,6 +124,7 @@ def _default_barrier() -> None:
     """A barrier over the default group when it has more than one rank."""
     if _group_ranks()[1] > 1:
         import torch.distributed as dist
+        # tpulint: mesh-ok(checkpoint commit barrier: every rank saves at the same step)
         dist.barrier()
 
 

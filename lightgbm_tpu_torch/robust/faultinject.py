@@ -92,7 +92,7 @@ class FaultSpec:
             return False
         if self.seam in _INDEXED_SEAMS and index is not None:
             return self.trigger is None or index == self.trigger
-        self.hits += 1
+        self.hits += 1  # tpulint: thread-ok(test-only trigger tally; a race shifts the firing hit)
         return self.trigger is None or self.hits == self.trigger
 
     def __repr__(self) -> str:
@@ -138,7 +138,7 @@ class FaultPlan:
 
     # -- firing --------------------------------------------------------
     def _fire(self, spec: FaultSpec, index: Optional[int]) -> None:
-        self.fired.append(repr(spec))
+        self.fired.append(repr(spec))  # tpulint: thread-ok(test-only log; list.append is atomic)
         from .. import obs
         obs.inc("fault.fired")
         obs.inc(f"fault.{spec.seam}")

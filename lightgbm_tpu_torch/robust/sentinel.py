@@ -89,6 +89,7 @@ class NumericSentinel:
     def _limit_on(self, device) -> torch.Tensor:
         key = str(device)
         if key not in self._limits:
+            # tpulint: sync-ok(once per device: cached in _limits)
             self._limits[key] = torch.tensor(self.overflow_limit,
                                              dtype=torch.float32,
                                              device=device)
@@ -222,6 +223,7 @@ def read_verdicts(pending: List[Tuple[int, Any]], extra=None):
     n_extra = sum(int(p.numel()) for p in extra)
     dev = [i for i, (_, v) in enumerate(pending) if torch.is_tensor(v)]
     parts = extra + [pending[i][1].to(torch.float64) for i in dev]
+    # tpulint: sync-ok(sentinel verdicts ride the evaluation read)
     host = (_device.device_get(torch.cat([p.to(parts[0].device)
                                           for p in parts]))
             if parts else None)

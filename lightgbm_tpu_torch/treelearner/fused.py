@@ -479,6 +479,7 @@ class FusedSerialGrower:
         on the CPU. ``start``/``count`` may be device scalars, bounded by
         ``max_count``."""
         Ly = self.layout
+        # tpulint: capture-ok(captured steps pass max_count, a host int)
         if (count if max_count is None else max_count) == 0:
             # a window no rank row reaches (a data-parallel rank without
             # rows of the leaf): no launch
@@ -649,6 +650,7 @@ class FusedSerialGrower:
         if self._part_bufs is None:
             self._part_bufs = plane.PartitionBuffers(
                 self.layout.num_planes, self.actual_rows, self.device)
+        # tpulint: graph-ok(made once before the first capture, never rebound)
         return self._part_bufs
 
     def _split_step(self, st, data: torch.Tensor, feature_mask, qscales,
@@ -1031,6 +1033,7 @@ class FusedSerialGrower:
             return []
         flats = [self._tree_flat(ta) for ta in tas]
         with obs.span("fused/trees (read)", phase="fetch"):
+            # tpulint: sync-ok(one read of every pending tree when a consumer asks)
             host = np.asarray(self._read(torch.stack(flats)),
                               dtype=np.float64)
         return [self.tree_to_host(h) for h in host]
@@ -1294,6 +1297,7 @@ class FusedSerialGrower:
         planes (``mv_planes``): every unbagged per-tree state starts
         from them (the persistent state drops them once built)."""
         if self._codes_planes is None:
+            # tpulint: sync-ok(once: cached in _codes_planes)
             codes = torch.as_tensor(np.ascontiguousarray(self.dataset.bins),
                                     device=self.device)
             self._codes_planes = plane.build_codes_planes(codes, self.layout)
@@ -1304,6 +1308,7 @@ class FusedSerialGrower:
         """[K, n] int32 slot-major multi-value codes of the training rows
         on the device (None without the multi-value layout), cached."""
         if self._mv_dev is None and self._mv_codes is not None:
+            # tpulint: sync-ok(once: cached in _mv_dev)
             self._mv_dev = torch.as_tensor(
                 np.ascontiguousarray(self._mv_codes.T), device=self.device)
         return self._mv_dev
@@ -1401,6 +1406,7 @@ class FusedSerialGrower:
         def up(a):
             if a is None or torch.is_tensor(a):
                 return None if a is None else a.to(dev, torch.float32)
+            # tpulint: sync-ok(once: the persistent state is built at the first iteration)
             return torch.as_tensor(np.asarray(a, np.float32), device=dev)
         data = plane.build_data(self.layout, cp, zeros, zeros,
                                 label=up(aux_label),
@@ -1586,7 +1592,7 @@ class FusedSerialGrower:
                         self.num_features, dtype=torch.bool,
                         device=self.device)
                 return self._mask_ones
-            return torch.as_tensor(self._tree_mask_np(), device=self.device)
+            return _device.upload(self._tree_mask_np(), self.device)
         tm = self._tree_mask_np()
         idx = np.flatnonzero(tm)
         k = max(1, int(np.ceil(frac * len(idx))))
@@ -1594,7 +1600,7 @@ class FusedSerialGrower:
         masks = np.zeros((E, self.num_features), dtype=bool)
         for e in range(E):
             masks[e, self._col_rng.choice(idx, size=k, replace=False)] = True
-        return torch.as_tensor(masks, device=self.device)
+        return _device.upload(masks, self.device)
 
     def materialize_tree(self, ta: Dict) -> Tree:
         """Host tree arrays -> Tree (real feature ids, real thresholds,
@@ -1733,6 +1739,7 @@ class PendingTree:
         on the device."""
         if self._tree is not None:
             t = self._tree
+            # tpulint: sync-ok(materialized host trees only: pending trees stay on the card)
             return torch.as_tensor(
                 t.leaf_value[:max(t.num_leaves, 1)].astype(np.float32),
                 device=self.grower.device)

@@ -161,6 +161,7 @@ class FusedDataParallelGrower(FusedSerialGrower):
             sr, lo, nv = self.shard_rows, self._lo, self.n_valid
             mv = np.full((self._mv_codes.shape[1], sr), -1, np.int32)
             mv[:, :nv] = self._mv_codes[lo:lo + nv].T
+            # tpulint: sync-ok(once: cached in _mv_dev)
             self._mv_dev = torch.as_tensor(mv, device=self.device)
         return self._mv_dev
 
@@ -174,6 +175,7 @@ class FusedDataParallelGrower(FusedSerialGrower):
         n, lo, nv = self.global_rows, self._lo, self.n_valid
         aux_label, aux_weight = self.objective.persistent_aux()
         cp = plane.build_codes_planes(
+            # tpulint: sync-ok(once: the persistent state is built at the first iteration)
             torch.as_tensor(self._local_bins(edge=False), device=dev), Ly)
 
         def shard(a):
@@ -237,6 +239,7 @@ class FusedDataParallelGrower(FusedSerialGrower):
         """This rank's [sr, G] bin rows on the device (the short last
         shard padded with its last row), cached."""
         if self._bins_sh is None:
+            # tpulint: sync-ok(once: cached in _bins_sh)
             self._bins_sh = torch.as_tensor(self._local_bins(edge=True),
                                             device=self.device)
         return self._bins_sh
@@ -254,12 +257,13 @@ class FusedDataParallelGrower(FusedSerialGrower):
             perm_l = np.arange(sr, dtype=np.int64)
             cnt = self.n_valid
         else:
+            # tpulint: sync-ok(data-parallel bagging: one bag per bagging round)
             p = (perm[:bag_cnt].cpu().numpy() if torch.is_tensor(perm)
                  else np.asarray(perm[:bag_cnt]))
             perm_np, counts = shard_bag_permutation(p, bag_cnt, D, sr)
             perm_l, cnt = perm_np[self.rank], int(counts[self.rank])
         self._bag_key, self._bag_ref = key, perm
-        self._bag_val = (torch.as_tensor(perm_l, device=self.device), cnt)
+        self._bag_val = (_device.upload(perm_l, self.device), cnt)
         return self._bag_val
 
     def grow_device(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -440,6 +444,7 @@ class DataParallelTreeGrower(SerialTreeGrower):
             grad = torch.where(mask, grad, 0.0)
             hess = torch.where(mask, hess, 0.0)
             perm_np, counts0 = shard_bag_permutation(
+                # tpulint: sync-ok(data-parallel host loop: the bag's rows for sharding)
                 p.cpu().numpy(), num_data, d, rps)
             perm_l = perm_np[r]
         self._qscales = None
@@ -459,6 +464,7 @@ class DataParallelTreeGrower(SerialTreeGrower):
                     grad, hess, cfg.num_grad_quant_bins, key,
                     cfg.stochastic_rounding)
                 self._qscales = (gs, hs)
+                # tpulint: sync-ok(data-parallel host loop: quantization scales per tree)
                 self._qscales_host = tuple(self._read(torch.stack(
                     [gs.to(torch.float64), hs.to(torch.float64)])))
             if cfg.quant_train_renew_leaf:
@@ -466,7 +472,7 @@ class DataParallelTreeGrower(SerialTreeGrower):
             g_l, h_l = qg[lo:lo + rps], qh[lo:lo + rps]
         else:
             g_l, h_l = grad[lo:lo + rps], hess[lo:lo + rps]
-        perm_t = torch.as_tensor(perm_l, device=dev)
+        perm_t = _device.upload(perm_l, dev)
         self._cur_perm, self._cur_grad, self._cur_hess = perm_t, g_l, h_l
 
         tree = Tree(cfg.num_leaves,
@@ -477,6 +483,7 @@ class DataParallelTreeGrower(SerialTreeGrower):
         hist, sums = self._hist_call(int(counts0.sum()), perm_t, 0,
                                      int(counts0[r]), g_l, h_l, sums=True)
         with obs.span("data_parallel/root sums (read)", phase="hist"):
+            # tpulint: sync-ok(data-parallel host loop: the root sums, one per tree)
             sg, sh = self._read(sums.to(torch.float64))
         if self._qscales is not None:
             # level sums -> dequantized leaf totals, in float64
@@ -522,12 +529,15 @@ class DataParallelTreeGrower(SerialTreeGrower):
         counts = np.asarray([lf.count for _, lf in items])     # [L, D]
         ends = starts + counts - 1
         los = starts - 1
+        # tpulint: sync-ok(data-parallel host loop: refit indices, one per tree)
         e_idx = torch.as_tensor(np.maximum(ends[:, r], 0), device=dev)
+        # tpulint: sync-ok(data-parallel host loop: refit indices, one per tree)
         lo_idx = torch.as_tensor(np.maximum(los[:, r], 0), device=dev)
         mine = torch.cat([cs[:, e_idx], cs[:, lo_idx]])        # [4, L]
         with obs.span("data_parallel/renew leaf values (read)",
                       phase="renew"):
             self.syncs += 1
+            # tpulint: sync-ok(data-parallel host loop: refit sums, one read per tree)
             g4 = _device.device_get(network.all_gather(mine))  # [D, 4, L]
         ge, he, gl, hl = (np.ascontiguousarray(g4[:, i].T)
                           for i in range(4))                   # [L, D]
@@ -564,6 +574,7 @@ class DataParallelTreeGrower(SerialTreeGrower):
                 int(leaf.count[r]), fi, thr, dl, mb, is_cat,
                 cat_bitset=bitset, efb=self._efb_dev)
         self.syncs += 1          # the left counts steer the host loop
+        # tpulint: sync-ok(data-parallel host loop: per-split counts via the host)
         lc = _device.device_get(network.all_gather(torch.tensor(
             [lc_mine], dtype=torch.int64,
             device=network.comm_device())))[:, 0]
@@ -611,6 +622,7 @@ class DataParallelTreeGrower(SerialTreeGrower):
                 best["left_sum_hessian"], best["right_sum_hessian"],
                 best["gain"], mapper.missing_type)
             thr, dl, mb = 0, False, -1
+            # tpulint: sync-ok(data-parallel host loop: a categorical split's bitset)
             bitset = torch.as_tensor(words, device=self.device)
         else:
             right_leaf = tree.split(

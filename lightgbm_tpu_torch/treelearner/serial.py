@@ -201,6 +201,7 @@ class SerialTreeGrower:
                                    np.int32))
             codes, lay = MV.build_rowwise_codes(ds.bins, gnb,
                                                 occ.default_code)
+            # tpulint: sync-ok(once: cached in _mv_state)
             self._mv_state = (torch.as_tensor(codes, device=self.device),
                               lay.total_bins,
                               MV.group_tables(gnb, occ.default_code,
@@ -316,8 +317,8 @@ class SerialTreeGrower:
                 delta[i] += coupled[real]
             if lazy and real < len(lazy):
                 delta[i] += lazy[real] * leaf.count
-        return torch.as_tensor((delta * cfg.cegb_tradeoff)
-                               .astype(np.float32), device=self.device)
+        return _device.upload((delta * cfg.cegb_tradeoff).astype(np.float32),
+                              self.device)
 
     def _rand_thresholds(self) -> Optional[torch.Tensor]:
         """extra_trees: one random threshold bin per feature and tree,
@@ -328,7 +329,7 @@ class SerialTreeGrower:
         nb = np.asarray([m.num_bin for m in self.dataset.bin_mappers])
         hi = np.maximum(nb - 2, 1)
         r = self._extra_rng.randint(0, 1 << 30, size=self.num_features) % hi
-        return torch.as_tensor(r.astype(np.int32), device=self.device)
+        return _device.upload(r.astype(np.int32), self.device)
 
     # ------------------------------------------------------------------
     def _quant_key(self, idx: int) -> torch.Tensor:
@@ -394,12 +395,14 @@ class SerialTreeGrower:
         # way, the same bits on the card and the CPU
         with obs.span("serial/root sums (read)", phase="hist"):
             if self._quant:
+                # tpulint: sync-ok(host loop: the root sums, one read per tree)
                 gsh, hsh, sg, sh = self._read(torch.stack(
                     [gs.to(torch.float64), hs.to(torch.float64),
                      *root.hist[0].sum(dim=0).to(torch.float64)]))
                 self._qscales_host = (gsh, hsh)
                 root.sum_g, root.sum_h = sg * gsh, sh * hsh
             else:
+                # tpulint: sync-ok(host loop: the root sums, one read per tree)
                 root.sum_g, root.sum_h = self._read(
                     S.xla_sum(root.hist[0].t()))
         leaves: Dict[int, _Leaf] = {0: root}
@@ -445,12 +448,15 @@ class SerialTreeGrower:
             return
         dev = self.device
         cs = S._prefix_sum(torch.stack([grad[perm], hess[perm]]))
+        # tpulint: sync-ok(host loop refit: leaf windows, one per tree)
         ends = torch.as_tensor([lf.start + lf.count - 1 for _, lf in items],
                                dtype=torch.int64, device=dev)
         los = np.asarray([lf.start - 1 for _, lf in items])
+        # tpulint: sync-ok(host loop refit: leaf windows, one per tree)
         lo_idx = torch.as_tensor(np.maximum(los, 0), dtype=torch.int64,
                                  device=dev)
         with obs.span("serial/renew leaf values (read)", phase="renew"):
+            # tpulint: sync-ok(host loop refit: one read per tree)
             host = np.asarray(self._read(torch.cat(
                 [cs[:, ends], cs[:, lo_idx]], dim=1).to(torch.float64)))
         m = len(items)
@@ -490,12 +496,11 @@ class SerialTreeGrower:
         scale = None
         if self.use_monotone and cfg.monotone_penalty > 0:
             fac = monotone_penalty_factor(leaf.depth, cfg.monotone_penalty)
-            scale = torch.as_tensor(
+            scale = _device.upload(
                 np.where(self._monotone_np != 0, fac, 1.0)
-                .astype(np.float32), device=dev)
+                .astype(np.float32), dev)
 
-        v = self._scan_leaf(leaf, torch.as_tensor(mask, device=dev),
-                            rand_thr, scale)
+        v = self._scan_leaf(leaf, _device.upload(mask, dev), rand_thr, scale)
         if drop_after:
             leaf.hist = None
         if not v[11] or not np.isfinite(v[0]) or v[0] <= 0.0:
@@ -522,6 +527,7 @@ class SerialTreeGrower:
         hist = leaf.hist
         if self._qscales is not None:
             hist = S.dequantize_hist(hist, *self._qscales)
+        # tpulint: sync-ok(host loop: one read per leaf scan, as the JAX host loop)
         return self._read(self._best_record(
             hist, self.meta, leaf, mask, rand_thr, self._cegb_delta(leaf),
             scale))
@@ -540,9 +546,11 @@ class SerialTreeGrower:
         dev = self.device
 
         def f32(x):
+            # tpulint: sync-ok(host loop: the leaf's scalars, one per leaf scan)
             return torch.tensor(x, dtype=torch.float32, device=dev)
         res = S.best_split(
             hist, meta, self.split_cfg, f32(leaf.sum_g), f32(leaf.sum_h),
+            # tpulint: sync-ok(host loop: the leaf's count, one per leaf scan)
             torch.tensor(leaf.count, dtype=torch.int32, device=dev),
             f32(leaf.output), f32(leaf.cmin), f32(leaf.cmax),
             feature_mask=mask, rand_thresholds=rand_thr,
@@ -605,6 +613,7 @@ class SerialTreeGrower:
                 best["left_count"], best["right_count"],
                 best["left_sum_hessian"], best["right_sum_hessian"],
                 best["gain"], mapper.missing_type)
+            # tpulint: sync-ok(host loop: a categorical split's bitset)
             route = (0, False, -1, torch.as_tensor(words, device=self.device))
         else:
             right_leaf = tree.split(
@@ -723,6 +732,7 @@ class SerialTreeGrower:
                                             grad, hess)
             with obs.span("serial/forced split (read)", phase="split"):
                 hist = np.asarray(
+                    # tpulint: sync-ok(host loop: a forced split reads its leaf histogram)
                     self._read(leaf.hist[inner].to(torch.float64)),
                     dtype=np.float64)                            # [B, 2]
             if self._quant:

@@ -14,9 +14,12 @@ stream sync). ``start_read`` begins a copy without waiting (the
 pipelined loop's evaluation scalars: a non-blocking copy into pinned
 host memory and a CUDA event behind it); ``device_get`` of the returned
 ``PendingRead`` waits on that event, so the trailing read is counted
-and traced like any other. Callers reach both through this module's attributes
-(``device.device_get(t)``), so ``obs/trace.py install_sync_tracing``
-can patch them to time and attribute every such block.
+and traced like any other. Callers reach both through this module's
+attributes (``device.device_get(t)``), so ``obs/trace.py
+install_sync_tracing`` can patch them to time and attribute every such
+block. ``upload`` is the other direction without a wait: host data into
+pinned memory, then a non-blocking copy to the card (the per-round bag,
+the per-tree feature masks).
 """
 from __future__ import annotations
 
@@ -89,3 +92,16 @@ def block_until_ready(device: Any) -> None:
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def upload(arr: Any, device: Any, dtype: Any = None) -> torch.Tensor:
+    """``arr`` (numpy or a CPU tensor) as a tensor on ``device`` without
+    waiting for the card: on CUDA one copy into pinned host memory and a
+    non-blocking copy on the current stream (the caching host allocator
+    keeps the pinned block until that copy has run), so the stream's
+    queued work is not drained; on the CPU ``torch.as_tensor``."""
+    t = torch.as_tensor(arr, dtype=dtype)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -1356,3 +1356,23 @@ def test_pos_neg_bagging_captures_once():
     assert len(set(counts)) > 1, counts
     assert manager.snapshot().get("graph_captures", 0) - n0 == 1
     assert fl.syncs == r0
+
+
+@pytest.mark.cuda
+def test_upload_waits_for_nothing():
+    """utils/device.py upload: the per-round bag and the per-tree masks
+    reach the card through pinned memory and a non-blocking copy, so
+    sync debug mode "error" sees no wait; the values arrive intact."""
+    _need_card()
+    from lightgbm_tpu_torch.utils import device
+    arr = np.random.RandomState(0).permutation(1 << 20)
+    mask = np.arange(64) % 3 == 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = device.upload(arr, "cuda", dtype=torch.int64)
+        got_mask = device.upload(mask, "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert np.array_equal(got.cpu().numpy(), arr)
+    assert np.array_equal(got_mask.cpu().numpy(), mask)

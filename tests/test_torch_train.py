@@ -202,7 +202,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "compile/signature.py", "utils/device.py",
                 "obs/__init__.py", "obs/registry.py", "obs/sink.py",
                 "obs/trace.py", "obs/spans.py", "obs/report.py",
-                "obs/aggregate.py", "obs/flight.py", "obs/httpd.py"):
+                "obs/aggregate.py", "obs/flight.py", "obs/httpd.py",
+                *(f"analysis/{m}.py" for m in (
+                    "__init__", "__main__", "core", "locks", "threads",
+                    "sync_points", "trace_safety", "recompile",
+                    "mesh_inventory", "collective_axis", "kernel_contract",
+                    "dtype_flow", "lifetime", "runtime_check"))):
         assert os.path.join("lightgbm_tpu_torch", mod) in names, mod
     for path in files:
         tree = ast.parse(open(path).read(), path)
